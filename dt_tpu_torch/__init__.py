@@ -1,0 +1,25 @@
+"""dt_tpu_torch — the PyTorch/CUDA port of ``dt_tpu`` for an NVIDIA H100.
+
+The port sits beside the JAX package, keeps its module names, and is held
+against it by the tests.  It imports neither JAX nor ``dt_tpu``.  This slice
+serves ResNets (``models``) from ``dt_tpu`` checkpoints
+(``training.checkpoint``) through the bucketed ``predictor.Predictor``; every
+BatchNorm runs the hand-written CUDA kernel in ``csrc/bn_act.cu``
+(``ops.kernels``).
+
+Importing the package imports and builds nothing: submodules load on first
+attribute access, and kernels are built on their first launch.
+"""
+
+import importlib
+
+__version__ = "0.1.0"
+
+_SUBMODULES = ("config", "interchange", "models", "ops", "predictor",
+               "training", "utils")
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
