@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,16 +11,31 @@ JAX.  Phases, each fatal on failure:
    (``nvcc``, one process per source, all started together);
 2. kernels: every distinct BatchNorm shape of ResNet-50 v1 at 224x224,
    batch 32, plus ragged and misaligned cases, in float32 and bfloat16 with
-   ReLU on and off: the CUDA kernel against its plain PyTorch version on the
-   same inputs (max abs difference must be 0), and the times of the kernel,
-   the plain version and ``F.batch_norm`` (a yardstick the port never calls)
-   against the bytes bound;
-3. serve: ResNet-50 v1 at full width (224x224x3, 1000 classes) from seeded
+   ReLU on and off: the BN-inference kernel against its plain PyTorch
+   version on the same inputs (max abs difference must be 0), and the times
+   of the kernel, the plain version and ``F.batch_norm`` (a yardstick the
+   port never calls) against the bytes bound;
+3. training kernels: the BN-train pass 1 at the same shapes, held against
+   its plain version (mean and var within 1e-5 of the largest E[x^2], two
+   launches bit-identical, y bit-equal to the plain pass 2 on the kernel's
+   stats), and the 2-bit quantize/dequantize pair at ResNet-50's parameter
+   count and at 0, 1, 15, 17 and 1000 elements with values at +-t, +-0,
+   +-inf and NaN, bit for bit; each timed beside its bound, its plain
+   version and, for BN, ``F.batch_norm(training=True)``;
+4. serve: ResNet-50 v1 at full width (224x224x3, 1000 classes) from seeded
    weights carried in through ``load_jax_variables``, served through
    ``Predictor`` (buckets up to 64) in float32 and bfloat16: requests of 1,
    3, 32 and 130 rows, 53 kernel launches per chunk forward, float32 logits
    against the port on the CPU, bfloat16 against float32, and per-bucket
-   latency and throughput.
+   latency and throughput;
+5. train: ResNet-50 v1 at full width, batch 32, the same seeded weights,
+   SGD (momentum 0.9, lr 0.1, wd 1e-4) through ``grad_step``/``apply_step``
+   in three modes (bfloat16 compute on float32 params, float32, bfloat16
+   with the 2-bit compressed leg): ten steps on one batch (loss finite and
+   falling; 53 + 53 BN-train launches a step, 1 + 1 codec launches a
+   compressed step), step time queued and synced, images/s, a profile of
+   one step, model FLOPs; and one float32 step at batch 2 against the port
+   on the CPU.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels; the last line is
@@ -46,6 +61,27 @@ BUCKET_MAX = 64
 REQUESTS = (1, 3, 32, 130)  # 130 splits into 64 + 64 + 2
 TOL_F32 = 1e-3  # card f32 (no TF32) against the CPU: summation order
 TOL_BF16 = 1.5e-2  # of the largest |logit|: bf16 keeps 8 mantissa bits
+# BN-train pass 1 against its plain version: f32 sums in another order, so
+# mean and var may differ by a few ulps of E[x^2] (1e-5 of the largest)
+TOL_STATS = 1e-5
+BATCH = 32
+IMAGE = 224  # ImageNet resolution of ResNet-50 v1
+TRAIN_STEPS = 10  # steps on one batch in each mode: the loss must fall
+TIME_STEPS = 5  # steps timed queued, and again synced
+SGD = dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-4)
+# The 2-bit leg's threshold ({'type': '2bit', 'threshold': ...}).  At the
+# codec's default of 0.5 a step of this batch sends no element at all (the
+# largest |g| is ~0.33, so the loss cannot fall in ten steps); at 0.005 it
+# sends ~4 % of them (printed for 0.5 ... 0.0005 after the compressed run).
+THRESHOLD_2BIT = 0.005
+# one f32 step at batch 2, card against the port on the CPU, from the same
+# state: the loss and new BN stats (forward only) tight; the gradient, the
+# momentum and the params to 5e-2 of their norm, since a ReLU mask flips
+# where the two devices' rounding puts a pre-activation on the other side
+# of 0, and that moves every gradient below it (tests/test_torch_train.py)
+TOL_STEP = dict(loss=1e-4, stats=1e-4, dense=1e-3, flat_g=5e-2, mom=5e-2,
+                params=5e-2)
+BF16_TFLOPS = 989.0  # H100 SXM dense bf16 peak, NVIDIA's data sheet
 
 
 def gpu_line() -> str:
@@ -242,7 +278,6 @@ def serve(name, dtype, variables, dev, images, gpu):
     import torch
     from dt_tpu_torch import models
     from dt_tpu_torch.interchange import load_jax_variables
-    from dt_tpu_torch.ops import kernels
     from dt_tpu_torch.predictor import Predictor
 
     model = load_jax_variables(models.create(name, device=dev, dtype=dtype),
@@ -251,7 +286,7 @@ def serve(name, dtype, variables, dev, images, gpu):
                              max_batch=BUCKET_MAX, device=dev)
     pred.warmup(images.shape[1:])
     torch.cuda.synchronize()
-    kernels.bn_act.launches = 0  # the main path's run starts here
+    reset_counts()  # the main path's run starts here
     chunks = 0
     first4 = None
     for n in REQUESTS:
@@ -266,7 +301,11 @@ def serve(name, dtype, variables, dev, images, gpu):
             first4 = out[:4]
         print(f"serve {dtype} request rows={n} ms={ms:.3f} gpu={gpu}",
               flush=True)
-    launches = kernels.bn_act.launches  # ... and ends here
+    counts = read_counts()  # ... and ends here
+    launches = counts["bn_act"]
+    if counts["bn_stats"] or counts["quantize_2bit"] or \
+            counts["dequantize_2bit"]:
+        raise AssertionError(f"serving launched training kernels: {counts}")
     for b in pred.batch_buckets:
         reps = 10
         t0 = time.perf_counter()
@@ -276,17 +315,20 @@ def serve(name, dtype, variables, dev, images, gpu):
         print(f"serve {dtype} bucket={b} ms_per_request={ms:.3f} "
               f"img_per_s={b / ms * 1e3:.1f} gpu={gpu}", flush=True)
         if b in (1, BUCKET_MAX):
-            profile_request(pred, images[:b], ms, f"{dtype} bucket={b}")
+            profile_fn(lambda: pred.predict(images[:b]), ms,
+                       f"{dtype} bucket={b}")
     return launches, chunks, first4
 
 
-def profile_request(pred, x, wall_ms: float, tag: str) -> None:
-    """Device time of one request by kernel, from ``torch.profiler``, and
-    the device's idle share against the request's unprofiled host time."""
+def profile_fn(fn, wall_ms: float, tag: str) -> dict:
+    """Device time of one call of ``fn`` by kernel, from ``torch.profiler``,
+    and the device's idle share against the call's unprofiled host time."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pred.predict(x)
+        fn()
+        torch.cuda.synchronize()
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
@@ -294,12 +336,335 @@ def profile_request(pred, x, wall_ms: float, tag: str) -> None:
     if busy == 0:
         print(f"profile {tag}: device time not measured (the profiler saw "
               "no device events)", flush=True)
-        return
+        return {}
+    idle = max(0.0, 1 - busy / wall_ms)
     print(f"profile {tag} wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
-          f"device_idle_share={max(0.0, 1 - busy / wall_ms):.3f}", flush=True)
-    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:8]:
+          f"device_idle_share={idle:.3f}", flush=True)
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:10]:
         print(f"profile {tag} device_ms={ms:.3f} share={ms / busy:.3f} "
               f"calls={count} {key[:90]}", flush=True)
+    return {"busy_ms": busy, "idle_share": idle}
+
+
+def counted():
+    """The launch counters of every kernel wrapper, by kernel."""
+    from dt_tpu_torch.ops import kernels
+    return {"bn_act": kernels.bn_act, "bn_stats": kernels.bn_stats,
+            "quantize_2bit": kernels.quantize_2bit,
+            "dequantize_2bit": kernels.dequantize_2bit}
+
+
+def reset_counts() -> None:
+    for wrapper in counted().values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: w.launches for k, w in counted().items()}
+
+
+def bn_train_phase(shapes, dev):
+    """Hold the BN-train pass 1 against its plain version at every shape of
+    a batch-32 forward (and ragged and misaligned ones), check that two
+    launches agree bit for bit and that y is the plain pass 2 on the
+    kernel's stats, and time pass 1 + pass 2.  Returns one summary per
+    dtype, times summed over the BatchNorm calls of one forward."""
+    import torch
+    import torch.nn.functional as F
+    from dt_tpu_torch.ops import kernels
+    extra = [((37, 3), False), ((1001, 17), True), ((1001, 64), True)]
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(3)
+        tot = {"ms": 0.0, "pass1_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "pass1_bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
+        runs = [(k[:4], k[4], m) for k, m in shapes.items()] + \
+            [(sh, r, 0) for sh, r in extra]
+        for shape, relu, per_fwd in runs:
+            for offset in [False, True] if shape == (1001, 64) else [False]:
+                numel = int(np.prod(shape))
+                flat = (torch.randn(numel + 1, generator=g, device=dev)
+                        + 0.5).to(dtype)
+                if len(shape) == 4:
+                    n, c, h, w = shape
+                    x = flat[:numel].view(n, h, w, c).permute(0, 3, 1, 2)
+                else:
+                    c = shape[1]
+                    x = (flat[1:] if offset else flat[:numel]).view(shape)
+                gamma = torch.rand(c, generator=g, device=dev) + 0.5
+                beta = torch.randn(c, generator=g, device=dev)
+                x2 = kernels.rows_view(x)
+                mean, var = kernels.bn_stats(x)
+                mean2, var2 = kernels.bn_stats(x)
+                pm, pv = kernels.bn_stats_plain(x2)
+                ex2 = float((x2.float() ** 2).mean(0).max())
+                err = max(float((mean - pm).abs().max()),
+                          float((var - pv).abs().max()))
+                rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+                with torch.no_grad():
+                    y, _, _ = kernels.fused_bn_train(x, gamma, beta, rm, rv,
+                                                     relu=relu)
+                scale, bias = kernels.bn_scale_bias(gamma, beta, mean, var,
+                                                    1e-5, dtype)
+                want = kernels.bn_act_plain(x2, scale, bias, relu)
+                torch.cuda.synchronize()
+                tag = (f"{dtype} shape={tuple(shape)} relu={relu} "
+                       f"misaligned={offset}")
+                if not (torch.equal(mean, mean2) and torch.equal(var, var2)):
+                    raise AssertionError(f"bn_stats {tag}: two launches "
+                                         "differ")
+                if err > TOL_STATS * ex2:
+                    raise AssertionError(f"bn_stats {tag}: max abs err "
+                                         f"{err} > {TOL_STATS} * {ex2}")
+                if not torch.equal(kernels.rows_view(y), want):
+                    raise AssertionError(f"fused_bn_train {tag}: y differs "
+                                         "from the plain pass 2")
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                nbytes = x2.numel() * x.element_size()
+                b1 = (nbytes + 2 * c * 4) / H100_BYTES_PER_S * 1e3
+                b2 = (2 * nbytes + 2 * c * x.element_size()) \
+                    / H100_BYTES_PER_S * 1e3
+                xs = [x] + [x.clone()
+                            for _ in range(min(L2_BYTES // nbytes, 63))]
+
+                def library(a):
+                    out = F.batch_norm(a, rm, rv, gamma, beta, training=True,
+                                       momentum=0.1, eps=1e-5)
+                    return torch.relu_(out) if relu else out
+
+                p1 = cuda_ms(kernels.bn_stats, xs)
+                p2 = cuda_ms(lambda a: kernels.bn_act(a, scale, bias, relu),
+                             xs)
+                pl1 = cuda_ms(lambda a: kernels.bn_stats_plain(
+                    kernels.rows_view(a)), xs)
+                pl2 = cuda_ms(lambda a: kernels.bn_act_plain(
+                    kernels.rows_view(a), scale, bias, relu), xs)
+                lib = cuda_ms(library, xs) if len(shape) == 4 else None
+                del xs
+                print(f"kernel bn_train {tag} stats_max_abs_err={err:.3e} "
+                      f"ex2={ex2:.3f} pass1_ms={p1:.5f} "
+                      f"pass1_bound_ms={b1:.5f} pass1_plain_ms={pl1:.5f} "
+                      f"pass2_ms={p2:.5f} pass2_bound_ms={b2:.5f} "
+                      f"fwd_ms={p1 + p2:.5f} fwd_plain_ms={pl1 + pl2:.5f} "
+                      f"library_ms={lib and round(lib, 5)} "
+                      f"per_forward={per_fwd}", flush=True)
+                if per_fwd:
+                    tot["ms"] += per_fwd * (p1 + p2)
+                    tot["pass1_ms"] += per_fwd * p1
+                    tot["plain_ms"] += per_fwd * (pl1 + pl2)
+                    tot["bound_ms"] += per_fwd * (b1 + b2)
+                    tot["pass1_bound_ms"] += per_fwd * b1
+                    tot["library_ms"] += per_fwd * lib
+        print(f"kernel bn_train {dtype} per forward: " + " ".join(
+            f"{k}={v:.5f}" for k, v in tot.items()), flush=True)
+        summary[dtype] = tot
+    return summary
+
+
+def codec_phase(n_params: int, dev):
+    """Hold the 2-bit quantize/dequantize kernels against their plain
+    versions bit for bit at ``n_params`` (ResNet-50's gradient) and at small
+    and ragged sizes with values at +-t, +-0, +-inf and NaN; time both at
+    ``n_params``.  Returns ``{"quantize_2bit": {...}, "dequantize_2bit":
+    {...}}``."""
+    import torch
+    from dt_tpu_torch.ops import kernels
+    t = 0.5
+    special = torch.tensor([t, -t, 0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), t], device=dev)
+    special_r = torch.tensor([0.0, 0.0, 0.0, -0.0, 1.0, 1.0, 0.0, -1e-8],
+                             device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(n):
+        grad = torch.randn(n, generator=g, device=dev) * 0.6
+        resid = torch.randn(n, generator=g, device=dev) * 0.2
+        if n >= 16:
+            grad[:8], resid[:8] = special, special_r
+        return grad, resid
+
+    for n in (0, 1, 15, 16, 17, 1000, n_params):
+        grad, resid = inputs(n)
+        words, res = kernels.quantize_2bit(grad, resid, t)
+        pw, pr = kernels.quantize_2bit_plain(grad, resid, t)
+        out = kernels.dequantize_2bit(words, n, t)
+        pout = kernels.dequantize_2bit_plain(words, n, t)
+        torch.cuda.synchronize()
+        same = (torch.equal(words, pw)
+                and torch.equal(res.view(torch.int32), pr.view(torch.int32))
+                and torch.equal(out.view(torch.int32),
+                                pout.view(torch.int32)))
+        print(f"kernel quant2 n={n} words={words.numel()} bitwise={same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"2-bit codec n={n}: kernel and plain "
+                                 "version differ")
+    n = n_params
+    pairs = [inputs(n) for _ in range(2)]  # 2 x 204 MB: past the L2
+    words = [kernels.quantize_2bit(*pr, t)[0] for pr in pairs]
+    q_ms = cuda_ms(lambda a: kernels.quantize_2bit(*a, t), pairs, iters=10)
+    qp_ms = cuda_ms(lambda a: kernels.quantize_2bit_plain(*a, t), pairs,
+                    iters=4)
+    d_ms = cuda_ms(lambda w: kernels.dequantize_2bit(w, n, t), words,
+                   iters=10)
+    dp_ms = cuda_ms(lambda w: kernels.dequantize_2bit_plain(w, n, t), words,
+                    iters=4)
+    nwords = -(-n // kernels.CODES_PER_WORD)
+    out = {"quantize_2bit": {
+        "ms": q_ms, "plain_ms": qp_ms, "max_abs_err": 0.0,
+        "bound_ms": (12 * n + 4 * nwords) / H100_BYTES_PER_S * 1e3},
+        "dequantize_2bit": {
+        "ms": d_ms, "plain_ms": dp_ms, "max_abs_err": 0.0,
+        "bound_ms": (4 * n + 4 * nwords) / H100_BYTES_PER_S * 1e3}}
+    for name, r in out.items():
+        print(f"kernel {name} n={n} kernel_ms={r['ms']:.5f} "
+              f"plain_ms={r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f}",
+              flush=True)
+    return out
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def train_phase(variables, dev, gpu):
+    """ResNet-50 training through ``train_step`` in three modes (the main
+    path: counts are reset just before each mode's ten steps and read just
+    after).  Returns ``{mode: {"launches": {...}, ...}}``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from dt_tpu_torch import models, optim
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.parallel.compression import GradientCompression
+    from dt_tpu_torch.ops import kernels
+    from dt_tpu_torch.training.step import grad_step, train_step
+    from dt_tpu_torch.training.train_state import TrainState
+    rng = np.random.RandomState(2)
+    images = rng.uniform(-1, 1, (BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    labels = torch.from_numpy(rng.randint(0, 1000, BATCH)).to(dev)
+    results = {}
+    for mode, dtype, compressed in (("bf16", torch.bfloat16, False),
+                                    ("f32", torch.float32, False),
+                                    ("bf16_2bit", torch.bfloat16, True)):
+        model = load_jax_variables(models.create("resnet50", device=dev,
+                                                 dtype=dtype), variables)
+        state = TrainState.create(model, optim.create("sgd", **SGD))
+        gc = GradientCompression(THRESHOLD_2BIT) if compressed else None
+        x = torch.from_numpy(images).to(dev).permute(0, 3, 1, 2).to(dtype)
+
+        def step():
+            return train_step(state, x, labels, compression=gc)[1]
+
+        step()  # warm up: cuDNN plans, the allocator's pool
+        torch.cuda.synchronize()
+        reset_counts()  # the main path's run starts here
+        losses = [float(step()) for _ in range(TRAIN_STEPS)]
+        counts = read_counts()  # ... and ends here
+        want = {"bn_stats": BN_PER_FORWARD * TRAIN_STEPS,
+                "bn_act": BN_PER_FORWARD * TRAIN_STEPS,
+                "quantize_2bit": TRAIN_STEPS if compressed else 0,
+                "dequantize_2bit": TRAIN_STEPS if compressed else 0}
+        print(f"train {mode} losses={[round(v, 5) for v in losses]}",
+              flush=True)
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        print(f"train {mode} launches={json.dumps(counts)} "
+              f"per_step={json.dumps(per_step)} "
+              f"expected={json.dumps(want)}", flush=True)
+        if counts != want:
+            raise AssertionError(f"train {mode}: launches {counts}, "
+                                 f"expected {want}")
+        # falling: the mean of the last three steps below the first (lr 0.1
+        # on one batch overshoots now and then)
+        if not (np.isfinite(losses).all()
+                and np.mean(losses[-3:]) < losses[0]):
+            raise AssertionError(f"train {mode}: loss not finite and "
+                                 f"falling: {losses}")
+        t0 = time.perf_counter()
+        for _ in range(TIME_STEPS):
+            step()
+        torch.cuda.synchronize()
+        queued = (time.perf_counter() - t0) / TIME_STEPS
+        t0 = time.perf_counter()
+        for _ in range(TIME_STEPS):
+            step()
+            torch.cuda.synchronize()
+        synced = (time.perf_counter() - t0) / TIME_STEPS
+        step_s = min(queued, synced)
+        res = {"launches": counts, "losses": losses,
+               "step_ms": step_s * 1e3, "step_ms_queued": queued * 1e3,
+               "step_ms_synced": synced * 1e3,
+               "sync_agreement": min(queued, synced) / max(queued, synced),
+               "imgs_per_s": BATCH / step_s}
+        if mode == "bf16":
+            with FlopCounterMode(display=False) as fc:
+                step()
+            flops = fc.get_total_flops()
+            res["model_tflops_per_s"] = flops / step_s / 1e12
+            res["share_of_bf16_peak"] = res["model_tflops_per_s"] \
+                / BF16_TFLOPS
+            res["step_gflop"] = flops / 1e9
+        print(f"train {mode} " + " ".join(
+            f"{k}={round(v, 4) if isinstance(v, float) else v}"
+            for k, v in res.items() if k not in ("launches", "losses"))
+            + f" gpu={gpu}", flush=True)
+        res.update(profile_fn(step, step_s * 1e3, f"train {mode} step"))
+        if compressed:
+            # the share of one step's gradient that a fresh codec sends
+            # (code != 0) at each threshold, from the same gradient
+            flat_g = grad_step(state, x, labels)[0]
+            for t in (0.5, 0.05, 0.005, 0.0005):
+                words = GradientCompression(t).compress_on_device(flat_g)
+                sent = float((kernels.dequantize_2bit(
+                    words, flat_g.numel(), t) != 0).float().mean())
+                print(f"train {mode} threshold={t} sent_share={sent:.5f} "
+                      f"grad_abs_max={float(flat_g.abs().max()):.4g}",
+                      flush=True)
+        results[mode] = res
+        del model, state, x, gc
+        torch.cuda.empty_cache()
+    return results
+
+
+def step_card_vs_cpu(variables, dev) -> None:
+    """One f32 step of ResNet-50 at batch 2 on the card and on the CPU from
+    the same state, compared within ``TOL_STEP``."""
+    import torch
+    from dt_tpu_torch import models, optim
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.training.step import apply_step, grad_step
+    from dt_tpu_torch.training.train_state import TrainState
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, IMAGE, IMAGE, 3))
+                         .astype(np.float32)).permute(0, 3, 1, 2)
+    y = torch.from_numpy(rng.randint(0, 1000, 2))
+    got = {}
+    for where in ("cuda", "cpu"):
+        model = load_jax_variables(models.create("resnet50", device=where),
+                                   variables)
+        state = TrainState.create(model, optim.create("sgd", **SGD))
+        t0 = time.perf_counter()
+        flat_g, flat_s, loss, _ = grad_step(state, x.to(where), y.to(where))
+        apply_step(state, flat_g, flat_s)
+        lay = state.layout
+        got[where] = {k: v.cpu() for k, v in {
+            "loss": loss, "flat_g": flat_g, "stats": flat_s,
+            "params": lay.params.ravel(state.params),
+            "mom": lay.params.ravel(state.opt_state["mom"])}.items()}
+        print(f"step card-vs-cpu {where} seconds="
+              f"{time.perf_counter() - t0:.2f}", flush=True)
+    dense = slice(*lay.params.span("Dense_0.weight"))
+    card, cpu = got["cuda"], got["cpu"]
+    card["dense"], cpu["dense"] = card["flat_g"][dense], cpu["flat_g"][dense]
+    errs = {"loss": abs(float(card["loss"]) - float(cpu["loss"]))
+            / abs(float(cpu["loss"]))}
+    errs.update({k: _rel(card[k], cpu[k])
+                 for k in ("stats", "dense", "flat_g", "mom", "params")})
+    print("step card-vs-cpu f32 batch=2 " + " ".join(
+        f"{k}_err={v:.3e} (tol {TOL_STEP[k]})" for k, v in errs.items()),
+        flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= TOL_STEP[k]}
+    if bad:
+        raise AssertionError(f"f32 step, card against CPU: {bad}")
 
 
 def main() -> int:
@@ -340,7 +705,16 @@ def main() -> int:
         raise AssertionError(f"{sum(shapes.values())} BatchNorms in one "
                              f"forward, expected {BN_PER_FORWARD}")
     summary = kernel_phase(shapes, dev)
+    print(f"phase kernels done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # --- training kernels -----------------------------------------------
+    n_params = sum(p.numel() for p in model.parameters())
     del model, x32
+    train_kernels = bn_train_phase(shapes, dev)
+    codec = codec_phase(n_params, dev)
+    print(f"phase training kernels done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # --- serve ----------------------------------------------------------
     rng = np.random.RandomState(1)
@@ -378,6 +752,12 @@ def main() -> int:
           flush=True)
     if err > tol or not agree[clear].all():
         raise AssertionError("bf16 logits disagree with f32")
+    print(f"phase serve done at {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- train ----------------------------------------------------------
+    trained = train_phase(variables, dev, gpu)
+    step_card_vs_cpu(variables, dev)
+    print(f"phase train done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for dtype, tot in summary.items():
@@ -391,6 +771,35 @@ def main() -> int:
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": "bytes",
             "library_ms": tot["library_ms"]})
+    train_launches = {
+        torch.float32: trained["f32"]["launches"]["bn_stats"],
+        torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
+        + trained["bf16_2bit"]["launches"]["bn_stats"]}
+    for dtype, tot in train_kernels.items():
+        # one fused_bn_train call = pass 1 (bn_train.cu) + pass 2
+        # (bn_act.cu); times, bound and plain are the two passes' sums
+        kernels.append({
+            "name": f"fused_bn_train[{str(dtype).split('.')[-1]}]",
+            "route": "cuda",
+            "source": "dt_tpu_torch/csrc/bn_train.cu",
+            "replaces": "dt_tpu/ops/pallas/kernels.py:101",
+            "launches": train_launches[dtype],
+            "max_abs_err": tot["max_abs_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+            "library_ms": tot["library_ms"],
+            "pass1_ms": tot["pass1_ms"],
+            "pass1_bound_ms": tot["pass1_bound_ms"]})
+    for name, line in (("quantize_2bit", 233), ("dequantize_2bit", 284)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dt_tpu_torch/csrc/quant2.cu",
+            "replaces": f"dt_tpu/ops/pallas/kernels.py:{line}",
+            "launches": trained["bf16_2bit"]["launches"][name],
+            "max_abs_err": codec[name]["max_abs_err"],
+            "ms": codec[name]["ms"], "plain_ms": codec[name]["plain_ms"],
+            "bound_ms": codec[name]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """dt_tpu_torch — the PyTorch/CUDA port of ``dt_tpu`` for an NVIDIA H100.
 
 The port sits beside the JAX package, keeps its module names, and is held
-against it by the tests.  It imports neither JAX nor ``dt_tpu``.  This slice
-serves ResNets (``models``) from ``dt_tpu`` checkpoints
-(``training.checkpoint``) through the bucketed ``predictor.Predictor``; every
-BatchNorm runs the hand-written CUDA kernel in ``csrc/bn_act.cu``
-(``ops.kernels``).
+against it by the tests.  It imports neither JAX nor ``dt_tpu``.  It serves
+ResNets (``models``) from ``dt_tpu`` checkpoints (``training.checkpoint``)
+through the bucketed ``predictor.Predictor``, and trains them one device at
+a time (``training.step``: ``grad_step``/``apply_step`` on a
+``training.train_state.TrainState``, SGD from ``optim``, the 2-bit gradient
+codec of ``parallel.compression``).  Its BatchNorms and the codec run the
+hand-written CUDA kernels of ``csrc/`` (``ops.kernels``).
 
 Importing the package imports and builds nothing: submodules load on first
 attribute access, and kernels are built on their first launch.
@@ -15,8 +17,8 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("config", "interchange", "models", "ops", "predictor",
-               "training", "utils")
+_SUBMODULES = ("config", "interchange", "models", "ops", "optim",
+               "parallel", "predictor", "training", "utils")
 
 
 def __getattr__(name):

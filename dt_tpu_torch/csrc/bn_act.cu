@@ -28,34 +28,14 @@
 // each step is computed in f32 and rounded to bf16 (round to nearest even).
 // ReLU keeps NaN, as jnp.maximum(y, 0) does.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round an f32 result to T's precision and back (identity for f32).
-template <typename T> __device__ __forceinline__ float round_as(float v) {
-  return to_float(from_float<T>(v));
-}
-
-template <typename T, int VEC> struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
+using dt::Pack;
+using dt::from_float;
+using dt::round_as;
+using dt::to_float;
 
 // grid.y * block.x covers the channel vectors, grid.x * block.y the rows.
 template <typename T, int VEC>
@@ -109,9 +89,7 @@ cudaError_t launch(const void* x, const void* scale, const void* bias, void* y,
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+using dt::aligned16;
 
 }  // namespace
 
@@ -140,8 +118,6 @@ int dt_bn_act(const void* x, const void* scale, const void* bias, void* y,
   return (int)cudaErrorInvalidValue;
 }
 
-const char* dt_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"
+
+DT_CUDA_ERROR_STRING

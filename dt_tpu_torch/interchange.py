@@ -13,7 +13,9 @@ models name their submodules as the JAX models are auto-named
   ``BatchNorm_<i>`` (the default) both name the port's ``BatchNorm_<i>``.
 
 A leaf with no port tensor, a port tensor left unfilled, a tensor filled
-twice and a shape mismatch all raise.
+twice and a shape mismatch all raise.  ``load_jax_train_state`` and
+``export_jax_train_state`` carry a whole train state (step, params, BN stats
+and the optimizer's state) the same way.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import torch
 from torch import nn
 
 _FUSED_BN = re.compile(r"^FusedBatchNorm_(\d+)$")
+_BN = re.compile(r"^BatchNorm_(\d+)$")
+BN_NAMES = ("BatchNorm", "FusedBatchNorm")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple, Any]:
@@ -37,6 +41,39 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple, Any]:
         else:
             out[path] = v
     return out
+
+
+def jax_path(name: str, bn_name: str = "BatchNorm") -> Tuple[str, ...]:
+    """The JAX variable path of the port tensor ``name``
+    (``BottleneckV1_3.BatchNorm_0.scale`` -> ``("BottleneckV1_3",
+    "FusedBatchNorm_0", "scale")`` for ``bn_name="FusedBatchNorm"``)."""
+    if bn_name not in BN_NAMES:
+        raise ValueError(f"bn_name must be one of {BN_NAMES}, got "
+                         f"{bn_name!r}")
+    parts = [_BN.sub(bn_name + r"_\1", p) for p in name.split(".")]
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return tuple(parts)
+
+
+def to_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """A weight's view in the JAX layout: a conv OIHW as HWIO, a dense
+    ``(out, in)`` as ``(in, out)``; the 1-D leaves as they are."""
+    if t.dim() == 4:
+        return t.permute(2, 3, 1, 0)
+    if t.dim() == 2:
+        return t.t()
+    return t
+
+
+def from_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_jax_layout` (HWIO -> OIHW, (in, out) ->
+    (out, in))."""
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1)
+    if t.dim() == 2:
+        return t.t()
+    return t
 
 
 def _port_name(path: Tuple[str, ...]) -> str:
@@ -52,12 +89,33 @@ def _to_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(leaf, copy=True))
 
 
-def _port_layout(name: str, t: torch.Tensor) -> torch.Tensor:
-    if name.endswith(".weight") and t.dim() == 4:
-        return t.permute(3, 2, 0, 1)  # HWIO -> OIHW
-    if name.endswith(".weight") and t.dim() == 2:
-        return t.t()  # (in, out) -> (out, in)
-    return t
+def _load_tree(what: str, coll: str, tree: Mapping,
+               targets: Dict[str, torch.Tensor]) -> None:
+    """Copy every leaf of the JAX-side ``tree`` into the port tensor it
+    names, in place; a leaf with no tensor, a tensor filled twice or left
+    unfilled, and a shape mismatch raise."""
+    filled = set()
+    with torch.no_grad():
+        for path, leaf in _flatten(tree).items():
+            name = _port_name(path)
+            where = f"{coll}/{'/'.join(path)}"
+            if name not in targets:
+                raise KeyError(f"{what}: no port tensor for {where} (looked "
+                               f"for {name!r})")
+            if name in filled:
+                raise KeyError(f"{what}: {where} fills {name!r} a second "
+                               "time")
+            src = from_jax_layout(_to_tensor(leaf))
+            if tuple(src.shape) != tuple(targets[name].shape):
+                raise ValueError(
+                    f"{what}: {where} has shape {tuple(src.shape)} in port "
+                    f"layout, {name!r} is {tuple(targets[name].shape)}")
+            targets[name].copy_(src)
+            filled.add(name)
+    missing = [f"{coll}:{n}" for n in targets if n not in filled]
+    if missing:
+        raise KeyError(f"{what}: {len(missing)} port tensors left unfilled, "
+                       f"e.g. {missing[:5]}")
 
 
 def load_jax_variables(module: nn.Module,
@@ -70,34 +128,10 @@ def load_jax_variables(module: nn.Module,
     if extra:
         raise KeyError(f"load_jax_variables: unknown collections "
                        f"{sorted(extra)}")
-    targets = {"params": dict(module.named_parameters()),
-               "batch_stats": dict(module.named_buffers())}
-    filled = set()
-    with torch.no_grad():
-        for coll, tree in variables.items():
-            for path, leaf in _flatten(tree).items():
-                name = _port_name(path)
-                where = f"{coll}/{'/'.join(path)}"
-                if name not in targets[coll]:
-                    raise KeyError(f"load_jax_variables: no port tensor for "
-                                   f"{where} (looked for {name!r})")
-                if (coll, name) in filled:
-                    raise KeyError(f"load_jax_variables: {where} fills "
-                                   f"{name!r} a second time")
-                src = _port_layout(name, _to_tensor(leaf))
-                dst = targets[coll][name]
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise ValueError(
-                        f"load_jax_variables: {where} has shape "
-                        f"{tuple(src.shape)} in port layout, {name!r} is "
-                        f"{tuple(dst.shape)}")
-                dst.copy_(src)
-                filled.add((coll, name))
-    missing = [f"{coll}:{name}" for coll, ts in targets.items()
-               for name in ts if (coll, name) not in filled]
-    if missing:
-        raise KeyError(f"load_jax_variables: {len(missing)} port tensors "
-                       f"left unfilled, e.g. {missing[:5]}")
+    _load_tree("load_jax_variables", "params", variables.get("params", {}),
+               dict(module.named_parameters()))
+    _load_tree("load_jax_variables", "batch_stats",
+               variables.get("batch_stats", {}), dict(module.named_buffers()))
     return module
 
 
@@ -105,17 +139,61 @@ def export_jax_variables(module: nn.Module) -> Dict[str, Dict]:
     """The inverse of :func:`load_jax_variables`: the module's tensors as
     float32 numpy in the JAX package's layout and default names
     (``BatchNorm_<i>``)."""
-    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
-    for coll, named in (("params", module.named_parameters()),
-                        ("batch_stats", module.named_buffers())):
-        for name, t in named:
-            parts = name.split(".")
-            t = t.detach().float().cpu()
-            if parts[-1] == "weight" and t.dim() in (2, 4):
-                parts[-1] = "kernel"
-                t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
-            node = out[coll]
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = t.contiguous().numpy()
+    return {"params": _jax_tree(module.named_parameters()),
+            "batch_stats": _jax_tree(module.named_buffers())}
+
+
+def _jax_tree(named, bn_name: str = "BatchNorm") -> Dict[str, Any]:
+    """Port tensors by name -> a nested dict of float32 numpy in the JAX
+    layout and names."""
+    out: Dict[str, Any] = {}
+    for name, t in named:
+        *parents, leaf = jax_path(name, bn_name)
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        # a copy: a float32 CPU tensor's .numpy() would alias the live one
+        node[leaf] = to_jax_layout(t.detach().float().cpu()) \
+            .contiguous().numpy().copy()
     return out
+
+
+def load_jax_train_state(state, snapshot: Mapping[str, Any]):
+    """Fill a ``training.train_state.TrainState`` from a JAX train-state
+    snapshot, ``{"step", "params", "batch_stats", "opt_state"}`` in the
+    state-dict form the JAX package publishes (``module.py:1235-1251``);
+    ``opt_state`` is ``{"count"}`` or ``{"count", "mom"}``, ``mom`` shaped
+    like ``params``.  Returns ``state``."""
+    extra = set(snapshot) - {"step", "params", "batch_stats", "opt_state"}
+    if extra:
+        raise KeyError(f"load_jax_train_state: unknown keys {sorted(extra)}")
+    load_jax_variables(state.module, {"params": snapshot["params"],
+                                      "batch_stats": snapshot["batch_stats"]})
+    opt = snapshot["opt_state"]
+    if set(opt) != set(state.opt_state):
+        raise KeyError(f"load_jax_train_state: opt_state has "
+                       f"{sorted(opt)}, the optimizer keeps "
+                       f"{sorted(state.opt_state)}")
+    state.step = int(np.asarray(snapshot["step"]))
+    new_opt = {"count": int(np.asarray(opt["count"]))}
+    if "mom" in opt:
+        mom = state.opt_state["mom"]
+        _load_tree("load_jax_train_state", "opt_state/mom", opt["mom"], mom)
+        new_opt["mom"] = mom
+    state.opt_state = new_opt
+    return state
+
+
+def export_jax_train_state(state, bn_name: str = "BatchNorm"
+                           ) -> Dict[str, Any]:
+    """The inverse of :func:`load_jax_train_state`: ``{"step", "params",
+    "batch_stats", "opt_state"}`` as float32 numpy (``step`` and ``count``
+    int32) in the JAX package's layout, its BN modules named ``bn_name``
+    (``"BatchNorm"``, the JAX default, or ``"FusedBatchNorm"``)."""
+    opt = {"count": np.int32(state.opt_state["count"])}
+    if "mom" in state.opt_state:
+        opt["mom"] = _jax_tree(state.opt_state["mom"].items(), bn_name)
+    return {"step": np.int32(state.step),
+            "params": _jax_tree(state.module.named_parameters(), bn_name),
+            "batch_stats": _jax_tree(state.module.named_buffers(), bn_name),
+            "opt_state": opt}

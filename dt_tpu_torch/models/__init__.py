@@ -1,7 +1,7 @@
 """Model zoo of the port (counterpart of ``dt_tpu/models/__init__.py``).
 
-``create(name, **kwargs)`` takes the JAX package's network names.  This slice
-ports the ResNets: resnet18/34/50/101/152[_v2] and the CIFAR resnet20/56/110
+``create(name, **kwargs)`` takes the JAX package's network names.  The port
+has the ResNets: resnet18/34/50/101/152[_v2] and the CIFAR resnet20/56/110
 (also as resnet20_cifar etc.); every other name raises ``NotImplementedError``
 until its slice lands.
 """
@@ -27,8 +27,10 @@ for _d in (20, 56, 110):
 
 def create(name: str, device: Union[str, torch.device] = "cuda", **kwargs):
     """Build a model by name on ``device`` (default ``"cuda"``; raises when
-    there is no GPU unless ``device="cpu"``), in eval mode.  Its weights are
-    zero and its BatchNorms at their initial values (scale 1, variance 1) until
+    there is no GPU unless ``device="cpu"``), in eval mode.  ``dtype`` is the
+    compute dtype; the parameters are float32 and trainable
+    (``forward(x, training=True)``).  Its weights are zero and its
+    BatchNorms at their initial values (scale 1, variance 1) until
     ``dt_tpu_torch.interchange.load_jax_variables`` fills them."""
     dev = resolve_device(device)
     key = name.lower().replace("-", "_")

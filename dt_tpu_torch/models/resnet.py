@@ -1,12 +1,14 @@
-"""ResNet v1/v2 (ImageNet) and CIFAR ResNet, eval forward (counterpart of
-``dt_tpu/models/resnet.py``).
+"""ResNet v1/v2 (ImageNet) and CIFAR ResNet, eval and training forward
+(counterpart of ``dt_tpu/models/resnet.py``).
 
 Submodules are created, and named, in the order the JAX models create them, so
 every name is the JAX variable path of the same layer (the order
 ``dt_tpu/interchange.py:130-181`` spells out).  Inputs are NCHW in
 ``torch.channels_last`` memory format and in the model's compute dtype.  A
-ReLU that follows a BatchNorm is fused into the BN kernel; the ReLU after a
-residual add stays a PyTorch call.
+ReLU that follows a BatchNorm is fused into the BN kernels (in training, the
+BN's backward applies the ReLU's mask); the ReLU after a residual add stays a
+PyTorch call.  ``forward(x, training=True)`` runs training-mode BatchNorm,
+which moves the running stats in place.
 """
 
 from __future__ import annotations
@@ -194,7 +196,10 @@ class CifarResNet(nn.Module):
 
     ``stochastic_depth`` is the death rate of the deepest block, ramping
     linearly over the blocks; in eval an identity-shortcut block's residual
-    branch is scaled by its survival probability (``resnet.py:232-234``)."""
+    branch is scaled by its survival probability (``resnet.py:232-234``).
+    Training with ``stochastic_depth > 0`` samples from JAX's RNG in the
+    reference (``resnet.py:224-231``) and is not ported yet (ROADMAP, Queue
+    1 item 2); with 0 it trains."""
 
     def __init__(self, depth: int = 20, num_classes: int = 10,
                  dtype: torch.dtype = torch.float32, in_channels: int = 3,
@@ -225,10 +230,11 @@ class CifarResNet(nn.Module):
         self.Dense_0 = Dense(in_f, num_classes, dtype)
 
     def forward(self, x, training: bool = False):
-        if training:
-            raise NotImplementedError("CifarResNet training (stochastic "
-                                      "depth sampling) comes with the port's "
-                                      "training slice")
+        if training and self.stochastic_depth > 0:
+            raise NotImplementedError(
+                "CifarResNet training with stochastic_depth > 0 (per-block "
+                "Bernoulli sampling) is not ported yet; see ROADMAP.md, "
+                "Queue 1 item 2")
         x = self.Conv_0(x)
         for name, keep in self.blocks:
             y = getattr(self, name)(x, training)

@@ -1,16 +1,25 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-``fused_bn_inference`` replaces the Pallas TPU kernel of the same name
-(``dt_tpu/ops/pallas/kernels.py:43,52``): inference BatchNorm, with an
-optional ReLU, as one pass ``y = x * scale + bias`` over the ``(rows, C)``
-view of an NHWC activation.  The CUDA source is ``csrc/bn_act.cu``.  It is
-bound by bytes: it reads and writes ``2 * rows * C * itemsize`` bytes, and
-its least time is that over the H100's 3.35 TB/s.
+Each wrapper launches its kernel for a CUDA tensor and uses the plain version
+only for a CPU tensor; there is no fallback from one to the other.  Each
+wrapper counts its launches in its ``launches`` attribute.  All of them are
+bound by bytes; their least time is the bytes they must move over the H100's
+3.35 TB/s.
 
-A kernel's wrapper (``bn_act``) launches the kernel for a CUDA tensor and
-uses the plain version only for a CPU tensor; there is no fallback from one
-to the other.  Each wrapper counts its launches in its ``launches``
-attribute.
+- ``bn_act`` (``csrc/bn_act.cu``) replaces the Pallas TPU kernel
+  ``_bn_act_kernel`` (``dt_tpu/ops/pallas/kernels.py:43``; ``kernels.py:N``
+  below is that file): ``y = x * scale + bias`` (+ReLU) over the ``(rows,
+  C)`` view of an NHWC activation.  It is the whole of
+  ``fused_bn_inference`` and pass 2 of ``fused_bn_train``.
+- ``bn_stats`` (``csrc/bn_train.cu``) replaces ``_bn_partials_kernel`` and
+  the reduction after it (``kernels.py:101,107-140``): per-channel batch mean
+  and ``E[x^2] - mean^2`` variance (clamped at 0), pass 1 of
+  ``fused_bn_train``.  Deterministic: no float atomics.
+- ``quantize_2bit`` and ``dequantize_2bit`` (``csrc/quant2.cu``) replace
+  ``_quant2_kernel`` and ``_dequant2_kernel`` (``kernels.py:233,284``): the
+  2-bit error-feedback gradient codec, 16 codes per 32-bit word, bit-exact
+  against the numpy oracle.  Words are int32 tensors (torch's uint32 support
+  is partial); ``.numpy().view(np.uint32)`` gives the wire's words.
 """
 
 from __future__ import annotations
@@ -22,37 +31,71 @@ import torch
 from dt_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+CODES_PER_WORD = 16  # 2-bit codes in one 32-bit word
+
+_V, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# library -> C function -> argument types (every function returns a
+# cudaError_t as int)
+_SIGNATURES = {
+    "bn_act": {"dt_bn_act": [_V, _V, _V, _V, _I64, _I64, _INT, _INT, _V]},
+    "bn_train": {"dt_bn_stats": [_V, _V, _V, _V, _I64, _I64, _I64, _INT,
+                                 _V]},
+    "quant2": {
+        "dt_quantize_2bit": [_V, _V, _V, _V, _I64, ctypes.c_float, _V],
+        "dt_dequantize_2bit": [_V, _V, _I64, ctypes.c_float, _V]},
+}
 
 
-def _bn_act_lib() -> ctypes.CDLL:
-    lib = _build.library("bn_act")
-    if lib.dt_bn_act.argtypes is None:
-        v = ctypes.c_void_p
-        lib.dt_bn_act.argtypes = [v, v, v, v, ctypes.c_int64, ctypes.c_int64,
-                                  ctypes.c_int, ctypes.c_int, v]
-        lib.dt_bn_act.restype = ctypes.c_int
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.library(name)
+    if lib.dt_cuda_error_string.restype is not ctypes.c_char_p:
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         lib.dt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def rows_view(x: torch.Tensor) -> torch.Tensor:
+def _launch(what: str, name: str, fn: str, device: torch.device,
+            *args) -> None:
+    """Call ``fn`` of library ``name`` on ``device``'s current stream (the
+    stream is appended to ``args``); raise if the launch failed."""
+    lib = _lib(name)
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*args,
+                               torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed: "
+                           + lib.dt_cuda_error_string(err).decode())
+
+
+def _on_cuda(what: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
+
+
+def rows_view(x: torch.Tensor, what: str = "fused_bn_inference"
+              ) -> torch.Tensor:
     """The ``(rows, C)`` view of a channels_last NCHW tensor (the same view
     as the TPU kernel's ``x.reshape(-1, c)`` of NHWC) or of a contiguous 2-D
     tensor.  Raises rather than copy: a copy would hide a layout bug."""
     if x.dim() == 4:
         if not x.is_contiguous(memory_format=torch.channels_last):
             raise ValueError(
-                "fused_bn_inference: a 4-D input must be channels_last "
+                f"{what}: a 4-D input must be channels_last "
                 f"(NHWC in memory), got strides {tuple(x.stride())} for "
                 f"shape {tuple(x.shape)}")
         return x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
     if x.dim() == 2:
         if not x.is_contiguous():
-            raise ValueError("fused_bn_inference: a 2-D input must be "
-                             "contiguous")
+            raise ValueError(f"{what}: a 2-D input must be contiguous")
         return x
-    raise ValueError("fused_bn_inference: input must be 4-D channels_last "
+    raise ValueError(f"{what}: input must be 4-D channels_last "
                      f"NCHW or 2-D (rows, C), got shape {tuple(x.shape)}")
 
 
@@ -103,21 +146,14 @@ def bn_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 f"fused_bn_inference: {name} must be contiguous ({c},) "
                 f"{x.dtype} on {x.device}, got {tuple(t.shape)} {t.dtype} on "
                 f"{t.device}")
-    if x.device.type == "cpu":
+    if not _on_cuda("fused_bn_inference", x):
         return _like_input(bn_act_plain(x2, scale, bias, relu), x)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_bn_inference: unsupported device {x.device}")
     y2 = torch.empty((rows, c), dtype=x.dtype, device=x.device)
     if rows == 0:
         return _like_input(y2, x)
-    lib = _bn_act_lib()
-    with torch.cuda.device(x.device):
-        err = lib.dt_bn_act(x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                            y2.data_ptr(), rows, c, _DTYPE_CODES[x.dtype],
-                            int(relu), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("fused_bn_inference: kernel launch failed: "
-                           + lib.dt_cuda_error_string(err).decode())
+    _launch("fused_bn_inference", "bn_act", "dt_bn_act", x.device,
+            x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), y2.data_ptr(),
+            rows, c, _DTYPE_CODES[x.dtype], int(relu))
     bn_act.launches += 1
     return _like_input(y2, x)
 
@@ -145,3 +181,240 @@ def fused_bn_inference(x: torch.Tensor, gamma: torch.Tensor,
                              f"({c},), got {tuple(t.shape)}")
     scale, bias = bn_scale_bias(gamma, beta, mean, var, eps, x.dtype)
     return bn_act(x, scale, bias, relu)
+
+
+# ---------------------------------------------------------------------------
+# Training BatchNorm: pass 1 (bn_stats) + pass 2 (bn_act), custom backward
+# ---------------------------------------------------------------------------
+
+# Row blocks of pass 1: enough blocks to fill the card (~4 per SM), each
+# covering at least 16 rows, so the (nblk, C) partials stay a small fraction
+# of x.
+_STATS_BLOCKS = 528
+_STATS_MIN_ROWS = 16
+
+
+def stats_blocks(rows: int, c: int) -> int:
+    """Row blocks of pass 1 for a ``(rows, C)`` input (the partials' nblk)."""
+    slices = -(-c // 1024)  # blocks across the channels, roughly
+    return max(1, min(-(-rows // _STATS_MIN_ROWS), _STATS_BLOCKS // slices,
+                      65535))
+
+
+def bn_stats_plain(x2: torch.Tensor):
+    """The plain version of pass 1 on the ``(rows, C)`` view: f32 ``mean =
+    sum(x) / n`` and ``var = max(sum(x*x) / n - mean^2, 0)`` (NaN kept), the
+    TPU kernel's formula (``kernels.py:135-140``)."""
+    x32 = x2.float()
+    n = x2.shape[0]
+    mean = x32.sum(0) / n
+    var = (x32 * x32).sum(0) / n - mean * mean
+    return mean, torch.where(var < 0, torch.zeros_like(var), var)
+
+
+def bn_stats(x: torch.Tensor):
+    """Pass 1's wrapper: per-channel f32 batch ``(mean, var)`` of ``x``
+    (channels_last NCHW or contiguous ``(rows, C)``, float32 or bfloat16).
+    A CUDA tensor launches ``csrc/bn_train.cu`` and counts the launch in
+    ``bn_stats.launches``; a CPU tensor runs :func:`bn_stats_plain`."""
+    x2 = rows_view(x, "fused_bn_train")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError("fused_bn_train: dtype must be float32 or bfloat16, "
+                        f"got {x.dtype}")
+    rows, c = x2.shape
+    if rows == 0 or c == 0:
+        raise ValueError("fused_bn_train: batch statistics of an empty "
+                         f"input {tuple(x.shape)}")
+    if not _on_cuda("fused_bn_train", x):
+        return bn_stats_plain(x2)
+    nblk = stats_blocks(rows, c)
+    scratch = torch.empty((2, nblk, c), dtype=torch.float32, device=x.device)
+    mean = torch.empty(c, dtype=torch.float32, device=x.device)
+    var = torch.empty(c, dtype=torch.float32, device=x.device)
+    _launch("fused_bn_train", "bn_train", "dt_bn_stats", x.device,
+            x2.data_ptr(), scratch.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), rows, c, nblk, _DTYPE_CODES[x.dtype])
+    bn_stats.launches += 1
+    return mean, var
+
+
+bn_stats.launches = 0
+
+
+def bn_train_backward(x, y, gy, gamma, mean, var, eps: float, relu: bool):
+    """The backward of training BN (``_bn_train_bwd``, ``kernels.py:201-219``)
+    in f32, with the ReLU's mask (``y > 0``) applied to ``gy`` first when the
+    ReLU was fused in.  Returns ``(dx in x's dtype and layout, dgamma,
+    dbeta)``."""
+    if gy.dim() == 4:
+        gy = gy.contiguous(memory_format=torch.channels_last)
+    else:
+        gy = gy.contiguous()
+    x2 = rows_view(x, "fused_bn_train")
+    gy32 = rows_view(gy, "fused_bn_train").float()
+    if relu:
+        gy32 = torch.where(rows_view(y, "fused_bn_train") > 0, gy32,
+                           torch.zeros_like(gy32))
+    n = x2.shape[0]
+    inv = torch.rsqrt(var + eps)
+    x_hat = (x2.float() - mean) * inv
+    dbeta = gy32.sum(0)
+    dgamma = (gy32 * x_hat).sum(0)
+    dx = (gamma.float() * inv / n) * (n * gy32 - dbeta - x_hat * dgamma)
+    return _like_input(dx.to(x.dtype), x), dgamma, dbeta
+
+
+class _FusedBNTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, relu):
+        mean, var = bn_stats(x)
+        scale, bias = bn_scale_bias(gamma, beta, mean, var, eps, x.dtype)
+        y = bn_act(x, scale, bias, relu)
+        ctx.save_for_backward(x, gamma, mean, var, y if relu else None)
+        ctx.eps, ctx.relu = eps, relu
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, gamma, mean, var, y = ctx.saved_tensors
+        dx, dgamma, dbeta = bn_train_backward(x, y, gy, gamma, mean, var,
+                                              ctx.eps, ctx.relu)
+        return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None, None
+
+
+def fused_bn_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   running_mean: torch.Tensor, running_var: torch.Tensor, *,
+                   momentum: float = 0.9, eps: float = 1e-5,
+                   relu: bool = False):
+    """Training BatchNorm (+ReLU) over the channel axis: the batch's mean and
+    variance (:func:`bn_stats`), then ``y = x * scale + bias`` (+ReLU) with
+    ``scale``/``bias`` made from them in f32 and cast to ``x``'s dtype
+    (:func:`bn_act`), as the TPU wrapper does (``kernels.py:107-165``).
+
+    ``x`` as for :func:`fused_bn_inference`; ``gamma``/``beta`` f32 ``(C,)``,
+    differentiable (backward: :func:`bn_train_backward`).  The running stats
+    are updated in place, under no_grad, to ``momentum * old + (1 -
+    momentum) * batch`` in f32.  Returns ``(y, running_mean, running_var)``.
+    """
+    c = x.shape[1] if x.dim() == 4 else x.shape[-1]
+    for name, t in (("gamma", gamma), ("beta", beta),
+                    ("running_mean", running_mean),
+                    ("running_var", running_var)):
+        if tuple(t.shape) != (c,):
+            raise ValueError(f"fused_bn_train: {name} must have shape "
+                             f"({c},), got {tuple(t.shape)}")
+    y, mean, var = _FusedBNTrain.apply(x, gamma, beta, eps, relu)
+    with torch.no_grad():
+        running_mean.copy_(running_mean * momentum + mean * (1.0 - momentum))
+        running_var.copy_(running_var * momentum + var * (1.0 - momentum))
+    return y, running_mean, running_var
+
+
+# ---------------------------------------------------------------------------
+# 2-bit gradient compression
+# ---------------------------------------------------------------------------
+
+
+def _words(n: int) -> int:
+    return -(-n // CODES_PER_WORD)
+
+
+def quantize_2bit_plain(grad: torch.Tensor, residual: torch.Tensor,
+                        threshold: float = 0.5):
+    """The plain version of the quantizer: ``x = grad + residual`` (f32),
+    codes ``1 if x >= t, 2 if x <= -t, else 0`` with ``t`` the f32 value of
+    ``threshold``, new residual ``x - decode(code)``, and element ``16w+i``
+    at bits ``2i`` of word ``w`` (int32).  Returns ``(words, residual)``,
+    the residual in ``grad``'s shape."""
+    x = (grad.float() + residual.float()).reshape(-1)
+    t = torch.full((), threshold, dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    pos, neg = x >= t, x <= -t
+    codes = torch.where(pos, 1, torch.where(neg, 2, 0)).to(torch.int64)
+    decoded = torch.where(pos, t, torch.where(neg, -t, zero))
+    new_residual = (x - decoded).reshape(grad.shape)
+    n = x.numel()
+    codes = torch.nn.functional.pad(codes, (0, _words(n) * CODES_PER_WORD - n))
+    shifts = torch.arange(CODES_PER_WORD, device=x.device) * 2
+    # disjoint 2-bit fields: the sum is the bitwise or, below 2**32 in int64
+    words = (codes.view(-1, CODES_PER_WORD) << shifts).sum(1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32), new_residual
+
+
+def quantize_2bit(grad: torch.Tensor, residual: torch.Tensor,
+                  threshold: float = 0.5):
+    """The quantizer's wrapper: contiguous float32 ``grad`` and ``residual``
+    of one shape -> ``(words, new_residual)``, ``ceil(n / 16)`` int32 words.
+    A CUDA tensor launches ``csrc/quant2.cu`` and counts the launch in
+    ``quantize_2bit.launches``; a CPU tensor runs
+    :func:`quantize_2bit_plain`."""
+    _check_flat("quantize_2bit", grad=grad, residual=residual)
+    if residual.shape != grad.shape or residual.device != grad.device:
+        raise ValueError("quantize_2bit: residual must match grad's shape "
+                         f"and device, got {tuple(residual.shape)} on "
+                         f"{residual.device} for {tuple(grad.shape)} on "
+                         f"{grad.device}")
+    if not _on_cuda("quantize_2bit", grad):
+        return quantize_2bit_plain(grad, residual, threshold)
+    n = grad.numel()
+    words = torch.empty(_words(n), dtype=torch.int32, device=grad.device)
+    new_residual = torch.empty_like(grad)
+    if n == 0:
+        return words, new_residual
+    _launch("quantize_2bit", "quant2", "dt_quantize_2bit", grad.device,
+            grad.data_ptr(), residual.data_ptr(), words.data_ptr(),
+            new_residual.data_ptr(), n, float(threshold))
+    quantize_2bit.launches += 1
+    return words, new_residual
+
+
+quantize_2bit.launches = 0
+
+
+def dequantize_2bit_plain(words: torch.Tensor, n: int,
+                          threshold: float = 0.5) -> torch.Tensor:
+    """The plain version of the dequantizer: word ``w``'s code ``i`` ->
+    element ``16w+i``, codes ``1 -> +t``, ``2 -> -t``, ``0, 3 -> 0`` (f32),
+    trimmed to ``n``."""
+    t = torch.full((), threshold, dtype=torch.float32, device=words.device)
+    zero = torch.zeros((), dtype=torch.float32, device=words.device)
+    shifts = torch.arange(CODES_PER_WORD, device=words.device) * 2
+    codes = ((words.to(torch.int64) & 0xFFFFFFFF)[:, None] >> shifts) & 3
+    vals = torch.where(codes == 1, t, torch.where(codes == 2, -t, zero))
+    return vals.reshape(-1)[:n]
+
+
+def dequantize_2bit(words: torch.Tensor, n: int,
+                    threshold: float = 0.5) -> torch.Tensor:
+    """The dequantizer's wrapper: ``ceil(n / 16)`` contiguous int32 words ->
+    ``n`` float32 values.  A CUDA tensor launches ``csrc/quant2.cu`` and
+    counts the launch in ``dequantize_2bit.launches``; a CPU tensor runs
+    :func:`dequantize_2bit_plain`."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"dequantize_2bit: words must be int32, got "
+                        f"{words.dtype}")
+    if words.dim() != 1 or not words.is_contiguous() or \
+            words.numel() != _words(n):
+        raise ValueError(f"dequantize_2bit: need {_words(n)} contiguous "
+                         f"words for n={n}, got shape {tuple(words.shape)}")
+    if not _on_cuda("dequantize_2bit", words):
+        return dequantize_2bit_plain(words, n, threshold)
+    out = torch.empty(n, dtype=torch.float32, device=words.device)
+    if n == 0:
+        return out
+    _launch("dequantize_2bit", "quant2", "dt_dequantize_2bit", words.device,
+            words.data_ptr(), out.data_ptr(), n, float(threshold))
+    dequantize_2bit.launches += 1
+    return out
+
+
+dequantize_2bit.launches = 0
+
+
+def _check_flat(what: str, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous float32, "
+                             f"got {t.dtype} with strides {tuple(t.stride())}")

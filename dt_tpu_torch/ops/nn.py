@@ -1,11 +1,12 @@
-"""The layer ops the serving path needs, as PyTorch calls.
+"""The layer ops the serving and training paths need, as PyTorch calls.
 
 Counterpart of ``dt_tpu/ops/nn.py`` (``conv2d`` :58, ``max_pool2d`` :134,
-``global_avg_pool2d`` :154, ``activation`` :245, ``dense`` :32).  The JAX
-package leaves these to XLA outside any Pallas kernel; the port leaves them to
-PyTorch (cuDNN and cuBLAS on the card).  Activations are NCHW tensors in
-``torch.channels_last`` memory format, so in memory they are NHWC as in the
-JAX package; conv weights are OIHW, also channels_last.
+``global_avg_pool2d`` :154, ``batch_norm`` :164, ``activation`` :245,
+``dense`` :32).  The JAX package leaves these to XLA outside any Pallas
+kernel; the port leaves them to PyTorch (cuDNN and cuBLAS on the card).
+Activations are NCHW tensors in ``torch.channels_last`` memory format, so in
+memory they are NHWC as in the JAX package; conv weights are OIHW, also
+channels_last.
 """
 
 from __future__ import annotations
@@ -85,3 +86,33 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ weight.T + bias`` with ``weight`` as ``(out, in)``."""
     return F.linear(x, weight, bias)
+
+
+def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               moving_mean: torch.Tensor, moving_var: torch.Tensor, *,
+               training: bool, momentum: float = 0.9, eps: float = 1e-5,
+               axis: int = 1) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Functional BatchNorm, plain PyTorch (the models use the kernels of
+    ``ops.kernels`` instead).  ``axis`` is the channel axis, 1 for the
+    port's NCHW tensors (the JAX default -1 is NHWC's).  Training mode takes
+    the batch's f32 mean and biased variance and moves the running stats to
+    ``moving * momentum + batch * (1 - momentum)``; eval mode uses and
+    returns the moving stats.  Returns ``(y, new_mean, new_var)``."""
+    ax = axis % x.dim()
+    reduce_axes = tuple(i for i in range(x.dim()) if i != ax)
+    if training:
+        x32 = x.float()
+        mean = x32.mean(dim=reduce_axes)
+        var = x32.var(dim=reduce_axes, unbiased=False)
+        new_mean = moving_mean * momentum + mean * (1.0 - momentum)
+        new_var = moving_var * momentum + var * (1.0 - momentum)
+    else:
+        mean, var = moving_mean, moving_var
+        new_mean, new_var = moving_mean, moving_var
+    shape = [1] * x.dim()
+    shape[ax] = x.shape[ax]
+    inv = torch.rsqrt(var + eps) * gamma
+    y = (x - mean.reshape(shape).to(x.dtype)) \
+        * inv.reshape(shape).to(x.dtype) + beta.reshape(shape).to(x.dtype)
+    return y, new_mean, new_var

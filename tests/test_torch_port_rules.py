@@ -45,7 +45,12 @@ def test_port_imports_no_jax_and_no_dt_tpu():
                                               "dt_tpu_torch.")}
     assert set(got["imported"]) == want
     assert {"dt_tpu_torch.predictor", "dt_tpu_torch.ops.kernels",
-            "dt_tpu_torch.utils.msgpack"} <= want
+            "dt_tpu_torch.utils.msgpack", "dt_tpu_torch.ops.losses",
+            "dt_tpu_torch.optim", "dt_tpu_torch.optim.optimizers",
+            "dt_tpu_torch.optim.lr_scheduler",
+            "dt_tpu_torch.parallel.compression",
+            "dt_tpu_torch.training.flat", "dt_tpu_torch.training.step",
+            "dt_tpu_torch.training.train_state"} <= want
 
 
 _FORBIDDEN = re.compile(r"import jax|from jax|flax|dt_tpu\.|"
