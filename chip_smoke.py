@@ -35,7 +35,29 @@ JAX.  Phases, each fatal on failure:
    falling; 53 + 53 BN-train launches a step, 1 + 1 codec launches a
    compressed step), step time queued and synced, images/s, a profile of
    one step, model FLOPs; and one float32 step at batch 2 against the port
-   on the CPU.
+   on the CPU;
+6. LM kernels: ``flash_attention`` at the TransformerLM's shape (B=8,
+   S=2048, H=8, D=64, causal; q/k/v strided views of one qkv buffer, as the
+   model hands them) in bfloat16 and float32, out and lse held against
+   ``flash_attention_plain``, two launches bit-identical, timed beside the
+   bound, the plain version and ``F.scaled_dot_product_attention`` (a
+   yardstick the port never calls); ``lstm_pointwise`` at B=32 and H=200
+   (the PTB example's default) and H=650, against its plain version,
+   beside ``torch.ops.aten._thnn_fused_lstm_cell`` (also never called by the
+   port);
+7. train the TransformerLM of ``bench.py:579-598`` at full width (vocab
+   8192, 512 wide, 6 layers, 8 heads, S 2048, batch 8, bfloat16 compute,
+   ``seq_parallel="flash"``, SGD lr 0.1 momentum 0.9) for ten steps on one
+   batch (loss finite and falling; 6 flash launches a forward), step time
+   queued and synced, tokens/s, a profile of one step, model FLOPs; then
+   one float32 step at 2 layers, S 256, batch 2 against the port on the
+   CPU;
+8. train the LSTM LM of ``examples/train_lstm_ptb.py`` with its defaults
+   (vocab 10000, 200/200, 2 layers, bptt 35, batch 32, SGD lr 1.0, clip
+   0.25, dropout 0.2 from a seeded generator) for ten windows with the
+   state carried (loss falling; 70 ``lstm_pointwise`` launches a forward),
+   window time, tokens/s, a profile; then one float32 window at dropout 0
+   against the port on the CPU.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels; the last line is
@@ -82,6 +104,27 @@ THRESHOLD_2BIT = 0.005
 TOL_STEP = dict(loss=1e-4, stats=1e-4, dense=1e-3, flat_g=5e-2, mom=5e-2,
                 params=5e-2)
 BF16_TFLOPS = 989.0  # H100 SXM dense bf16 peak, NVIDIA's data sheet
+FP32_TFLOPS = 67.0  # H100 SXM f32 peak outside the tensor cores, same sheet
+# TransformerLM of bench.py:579-581 and its batch (bench.py:572-574)
+LM = dict(vocab_size=8192, embed_dim=512, num_layers=6, num_heads=8,
+          max_len=2048)
+LM_BATCH, LM_SEQ = 8, 2048
+LM_SGD = dict(learning_rate=0.1, momentum=0.9)
+# the PTB LSTM LM's defaults (examples/train_lstm_ptb.py:30-40)
+PTB = dict(vocab_size=10000, embed_dim=200, hidden=200, num_layers=2,
+           dropout=0.2)
+PTB_BPTT, PTB_BATCH, PTB_LR, PTB_CLIP = 35, 32, 1.0, 0.25
+# kernel against its plain version on the card: f32 sums in another order
+# (flash out 2e-5 absolute in f32; in bf16 one ulp, 2**-7 of the largest
+# |out|, where the f32 result rounds the other way; lse 1e-5 absolute, ~10
+# ulps at log(2048)); the LSTM cell's expf/tanhf against PyTorch's, a few
+# ulps of values in [-1, 1] (1e-6)
+TOL_FLASH = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
+TOL_LSE = 1e-5
+TOL_LSTM = 1e-6
+# one f32 LM step, card against the port on the CPU (no ReLU masks: the
+# loss and gradient agree to f32 summation order)
+TOL_LM_STEP = dict(loss=1e-5, flat_g=1e-4, mom=1e-4, params=1e-4)
 
 
 def gpu_line() -> str:
@@ -302,10 +345,9 @@ def serve(name, dtype, variables, dev, images, gpu):
         print(f"serve {dtype} request rows={n} ms={ms:.3f} gpu={gpu}",
               flush=True)
     counts = read_counts()  # ... and ends here
-    launches = counts["bn_act"]
-    if counts["bn_stats"] or counts["quantize_2bit"] or \
-            counts["dequantize_2bit"]:
-        raise AssertionError(f"serving launched training kernels: {counts}")
+    launches = counts.pop("bn_act")
+    if any(counts.values()):
+        raise AssertionError(f"serving launched other kernels: {counts}")
     for b in pred.batch_buckets:
         reps = 10
         t0 = time.perf_counter()
@@ -348,10 +390,12 @@ def profile_fn(fn, wall_ms: float, tag: str) -> dict:
 
 def counted():
     """The launch counters of every kernel wrapper, by kernel."""
-    from dt_tpu_torch.ops import kernels
+    from dt_tpu_torch.ops import attention, kernels
     return {"bn_act": kernels.bn_act, "bn_stats": kernels.bn_stats,
             "quantize_2bit": kernels.quantize_2bit,
-            "dequantize_2bit": kernels.dequantize_2bit}
+            "dequantize_2bit": kernels.dequantize_2bit,
+            "flash_attention": attention.flash_fwd,
+            "lstm_pointwise": kernels.lstm_point}
 
 
 def reset_counts() -> None:
@@ -560,46 +604,21 @@ def train_phase(variables, dev, gpu):
         reset_counts()  # the main path's run starts here
         losses = [float(step()) for _ in range(TRAIN_STEPS)]
         counts = read_counts()  # ... and ends here
-        want = {"bn_stats": BN_PER_FORWARD * TRAIN_STEPS,
-                "bn_act": BN_PER_FORWARD * TRAIN_STEPS,
-                "quantize_2bit": TRAIN_STEPS if compressed else 0,
-                "dequantize_2bit": TRAIN_STEPS if compressed else 0}
-        print(f"train {mode} losses={[round(v, 5) for v in losses]}",
-              flush=True)
-        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
-        print(f"train {mode} launches={json.dumps(counts)} "
-              f"per_step={json.dumps(per_step)} "
-              f"expected={json.dumps(want)}", flush=True)
-        if counts != want:
-            raise AssertionError(f"train {mode}: launches {counts}, "
-                                 f"expected {want}")
-        # falling: the mean of the last three steps below the first (lr 0.1
-        # on one batch overshoots now and then)
-        if not (np.isfinite(losses).all()
-                and np.mean(losses[-3:]) < losses[0]):
-            raise AssertionError(f"train {mode}: loss not finite and "
-                                 f"falling: {losses}")
-        t0 = time.perf_counter()
-        for _ in range(TIME_STEPS):
-            step()
-        torch.cuda.synchronize()
-        queued = (time.perf_counter() - t0) / TIME_STEPS
-        t0 = time.perf_counter()
-        for _ in range(TIME_STEPS):
-            step()
-            torch.cuda.synchronize()
-        synced = (time.perf_counter() - t0) / TIME_STEPS
-        step_s = min(queued, synced)
-        res = {"launches": counts, "losses": losses,
-               "step_ms": step_s * 1e3, "step_ms_queued": queued * 1e3,
-               "step_ms_synced": synced * 1e3,
-               "sync_agreement": min(queued, synced) / max(queued, synced),
-               "imgs_per_s": BATCH / step_s}
+        want = {k: 0 for k in counts}
+        want.update(bn_stats=BN_PER_FORWARD * TRAIN_STEPS,
+                    bn_act=BN_PER_FORWARD * TRAIN_STEPS)
+        if compressed:
+            want.update(quantize_2bit=TRAIN_STEPS,
+                        dequantize_2bit=TRAIN_STEPS)
+        _falling(f"train {mode}", losses)
+        _check_counts(f"train {mode}", counts, want)
+        res = {"launches": counts, "losses": losses, **_timed_steps(step)}
+        res["imgs_per_s"] = BATCH * 1e3 / res["step_ms"]
         if mode == "bf16":
             with FlopCounterMode(display=False) as fc:
                 step()
             flops = fc.get_total_flops()
-            res["model_tflops_per_s"] = flops / step_s / 1e12
+            res["model_tflops_per_s"] = flops / res["step_ms"] / 1e9
             res["share_of_bf16_peak"] = res["model_tflops_per_s"] \
                 / BF16_TFLOPS
             res["step_gflop"] = flops / 1e9
@@ -607,7 +626,7 @@ def train_phase(variables, dev, gpu):
             f"{k}={round(v, 4) if isinstance(v, float) else v}"
             for k, v in res.items() if k not in ("launches", "losses"))
             + f" gpu={gpu}", flush=True)
-        res.update(profile_fn(step, step_s * 1e3, f"train {mode} step"))
+        res.update(profile_fn(step, res["step_ms"], f"train {mode} step"))
         if compressed:
             # the share of one step's gradient that a fresh codec sends
             # (code != 0) at each threshold, from the same gradient
@@ -665,6 +684,364 @@ def step_card_vs_cpu(variables, dev) -> None:
     bad = {k: v for k, v in errs.items() if not v <= TOL_STEP[k]}
     if bad:
         raise AssertionError(f"f32 step, card against CPU: {bad}")
+
+
+def flash_flops(bh: int, s: int, d: int) -> float:
+    """Multiply-adds x 2 of one causal flash forward: q k^T and p v over the
+    S(S+1)/2 (query, key) pairs the causal mask leaves."""
+    return 4.0 * bh * d * s * (s + 1) / 2
+
+
+def flash_phase(dev):
+    """Hold the flash kernel against its plain version at the
+    TransformerLM's shape, causal, in bf16 (the main path's type) and f32;
+    two launches bit-identical; time kernel, plain version and SDPA.
+    Returns one summary per dtype name."""
+    import torch
+    import torch.nn.functional as F
+    from dt_tpu_torch.ops import attention as TA
+    b, s, h = LM_BATCH, LM_SEQ, LM["num_heads"]
+    d = LM["embed_dim"] // h
+    flops = flash_flops(b * h, s, d)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(6)
+
+        def qkv_views():
+            qkv = torch.randn(b, s, 3 * h * d, generator=g, device=dev) \
+                .to(dtype)
+            return tuple(t.reshape(b, s, h, d)
+                         for t in qkv.split(h * d, dim=-1))
+
+        q, k, v = qkv_views()
+        o1, lse1 = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=True)
+        o2, lse2 = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=True)
+        p3, plse = TA.flash_attention_plain(TA._to3(q), TA._to3(k),
+                                            TA._to3(v), scale=d ** -0.5,
+                                            causal=True)
+        po = TA._from3(p3, b, h)
+        torch.cuda.synchronize()
+        same = torch.equal(o1, o2) and torch.equal(lse1, lse2)
+        err = float((o1.float() - po.float()).abs().max())
+        lse_err = float((lse1 - plse).abs().max())
+        tol = TOL_FLASH[name] * (float(po.float().abs().max())
+                                 if dtype == torch.bfloat16 else 1.0)
+        print(f"kernel flash_attention {name} shape=({b},{s},{h},{d}) "
+              f"causal=True max_abs_err={err:.3e} (tol {tol:.3e}) "
+              f"lse_max_abs_err={lse_err:.3e} (tol {TOL_LSE}) "
+              f"bitwise_repeat={same}", flush=True)
+        if not same or err > tol or lse_err > TOL_LSE:
+            raise AssertionError(f"flash_attention {name}: kernel against "
+                                 "plain version failed")
+        inputs = [(q, k, v), qkv_views()]
+        heads = [tuple(t.transpose(1, 2).contiguous() for t in trio)
+                 for trio in inputs]
+        k_ms = cuda_ms(lambda a: TA.flash_fwd(*a, scale=d ** -0.5,
+                                              causal=True), inputs)
+        p_ms = cuda_ms(lambda a: TA.flash_attention_plain(
+            TA._to3(a[0]), TA._to3(a[1]), TA._to3(a[2]), scale=d ** -0.5,
+            causal=True), inputs, iters=5)
+        lib_ms = cuda_ms(lambda a: F.scaled_dot_product_attention(
+            *a, is_causal=True), heads)
+        item = q.element_size()
+        nbytes = 4 * b * s * h * d * item + b * h * s * 4
+        peak = BF16_TFLOPS if dtype == torch.bfloat16 else FP32_TFLOPS
+        bound = max(nbytes / H100_BYTES_PER_S, flops / (peak * 1e12)) * 1e3
+        out[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                     "bound_ms": bound, "max_abs_err": err,
+                     "lse_max_abs_err": lse_err,
+                     "tflops_per_s": flops / k_ms / 1e9}
+        print(f"kernel flash_attention {name} kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={bound:.5f} gflop={flops / 1e9:.2f} "
+              f"kernel_tflops_per_s={flops / k_ms / 1e9:.2f} "
+              f"bytes={nbytes}", flush=True)
+        del inputs, heads, q, k, v, o1, o2, po, p3
+    return out
+
+
+def lstm_phase(dev):
+    """Hold the LSTM pointwise kernel against its plain version at B=32,
+    H=200 (the PTB default) and H=650, two launches bit-identical; time it
+    beside its bound, the plain version and aten's fused LSTM cell.  Returns
+    one summary per H."""
+    import torch
+    from dt_tpu_torch.ops import kernels
+    out = {}
+    for hidden in (200, 650):
+        b = PTB_BATCH
+        g = torch.Generator(device=dev).manual_seed(hidden)
+        pairs = [(torch.randn(b, 4 * hidden, generator=g, device=dev) * 2,
+                  torch.randn(b, hidden, generator=g, device=dev))
+                 for _ in range(2)]
+        gates, c = pairs[0]
+        h1, c1 = kernels.lstm_point(gates, c)
+        h2, c2 = kernels.lstm_point(gates, c)
+        ph, pc = kernels.lstm_pointwise_plain(gates, c)
+        torch.cuda.synchronize()
+        same = torch.equal(h1, h2) and torch.equal(c1, c2)
+        err = max(float((h1 - ph).abs().max()), float((c1 - pc).abs().max()))
+        print(f"kernel lstm_pointwise B={b} H={hidden} max_abs_err={err:.3e} "
+              f"(tol {TOL_LSTM}) bitwise_repeat={same}", flush=True)
+        if not same or err > TOL_LSTM:
+            raise AssertionError(f"lstm_pointwise H={hidden}: kernel against "
+                                 "plain version failed")
+        k_ms = cuda_ms(lambda a: kernels.lstm_point(*a), pairs, iters=100)
+        p_ms = cuda_ms(lambda a: kernels.lstm_pointwise_plain(*a), pairs,
+                       iters=100)
+        lib_ms = cuda_ms(lambda a: torch.ops.aten._thnn_fused_lstm_cell(
+            a[0], torch.zeros_like(a[0]), a[1]), pairs, iters=100)
+        bound = 28 * b * hidden / H100_BYTES_PER_S * 1e3
+        out[hidden] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                       "bound_ms": bound, "max_abs_err": err}
+        print(f"kernel lstm_pointwise B={b} H={hidden} kernel_ms={k_ms:.5f} "
+              f"plain_ms={p_ms:.5f} library_ms={lib_ms:.5f} "
+              f"bound_ms={bound:.6f}", flush=True)
+    return out
+
+
+def seeded_lm_variables(model, seed: int, head_std: float = 1.0):
+    """Weights for an LM in the JAX layout from numpy with ``seed``:
+    LeCun-normal kernels (the LM head's times ``head_std``), N(0, 1)
+    embeddings, N(0, 0.02) positions, LayerNorm scale 1 + N(0, 0.05), the
+    LSTM's uniform(+-1/sqrt(H)), biases N(0, 0.02)."""
+    from dt_tpu_torch.interchange import export_jax_variables
+    rng = np.random.RandomState(seed)
+
+    def fill(tree, path=()):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = fill(v, path + (k,))
+                continue
+            shape = tuple(v.shape)
+            if k == "kernel":
+                std = 1.0 / np.sqrt(shape[0])
+                if path and path[-1] in ("lm_head", "Dense_0"):
+                    std *= head_std
+                w = rng.normal(0, std, shape)
+            elif k == "embedding":
+                w = rng.normal(0, 1.0, shape)
+            elif k == "pos_embed":
+                w = rng.normal(0, 0.02, shape)
+            elif k == "scale":
+                w = 1.0 + rng.normal(0, 0.05, shape)
+            elif k.endswith(("_wx", "_wh")):
+                lim = 1.0 / np.sqrt(shape[1] // 4)
+                w = rng.uniform(-lim, lim, shape)
+            elif k == "bias" or k.endswith("_b"):
+                w = rng.normal(0, 0.02, shape)
+            else:
+                raise KeyError(f"unexpected leaf {k!r}")
+            out[k] = w.astype(np.float32)
+        return out
+
+    return {"params": fill(export_jax_variables(model)["params"])}
+
+
+def _timed_steps(step) -> dict:
+    """Step time by the host clock, queued and synced (``bench.py:462-486,
+    619-631``), and the smaller of the two."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(TIME_STEPS):
+        step()
+    torch.cuda.synchronize()
+    queued = (time.perf_counter() - t0) / TIME_STEPS
+    t0 = time.perf_counter()
+    for _ in range(TIME_STEPS):
+        step()
+        torch.cuda.synchronize()
+    synced = (time.perf_counter() - t0) / TIME_STEPS
+    return {"step_ms": min(queued, synced) * 1e3,
+            "step_ms_queued": queued * 1e3, "step_ms_synced": synced * 1e3,
+            "sync_agreement": min(queued, synced) / max(queued, synced)}
+
+
+def _check_counts(tag, counts, want):
+    print(f"{tag} launches={json.dumps(counts)} expected={json.dumps(want)}",
+          flush=True)
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+
+
+def _falling(tag, losses):
+    """Finite and falling: the mean of the last three steps below the first
+    (lr 0.1 on one batch overshoots now and then)."""
+    print(f"{tag} losses={[round(v, 5) for v in losses]}", flush=True)
+    if not (np.isfinite(losses).all() and np.mean(losses[-3:]) < losses[0]):
+        raise AssertionError(f"{tag}: loss not finite and falling: {losses}")
+
+
+def lm_train_phase(dev, gpu):
+    """The TransformerLM of ``bench.py:579-598`` trained through
+    ``train_step`` with the next-token loss (the main path: counts reset
+    just before the ten steps and read just after)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from dt_tpu_torch import models, optim
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.training.step import next_token_loss, train_step
+    from dt_tpu_torch.training.train_state import TrainState
+    model = models.create("transformer_lm", device=dev, seq_parallel="flash",
+                          dtype=torch.bfloat16, **LM)
+    load_jax_variables(model, seeded_lm_variables(model, seed=0))
+    state = TrainState.create(model, optim.create("sgd", **LM_SGD))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, LM["vocab_size"], (LM_BATCH, LM_SEQ))).to(dev)
+
+    def step():
+        return train_step(state, tokens, None, loss_fn=next_token_loss)[1]
+
+    step()  # warm up: cuBLAS plans, the allocator's pool
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path's run starts here
+    losses = [float(step()) for _ in range(TRAIN_STEPS)]
+    counts = read_counts()  # ... and ends here
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = LM["num_layers"] * TRAIN_STEPS
+    _check_counts("lm_train bf16", counts, want)
+    _falling("lm_train bf16", losses)
+    res = {"launches": counts, "losses": losses, **_timed_steps(step),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res["tokens_per_s"] = LM_BATCH * LM_SEQ * 1e3 / res["step_ms"]
+    with FlopCounterMode(display=False) as fc:
+        step()
+    # FlopCounterMode sees the PyTorch ops (the matmuls, and the plain
+    # attention backward's five per kv block) but not the ctypes flash
+    # forward: add the causal work it does, once per layer
+    attn = LM["num_layers"] * flash_flops(
+        LM_BATCH * LM["num_heads"], LM_SEQ, LM["embed_dim"] // LM["num_heads"])
+    flops = fc.get_total_flops() + attn
+    res.update(step_gflop=flops / 1e9, flash_fwd_gflop=attn / 1e9,
+               model_tflops_per_s=flops / res["step_ms"] / 1e9,
+               share_of_bf16_peak=flops / res["step_ms"] / 1e9 / BF16_TFLOPS)
+    print("lm_train bf16 " + " ".join(
+        f"{k}={round(v, 4) if isinstance(v, float) else v}"
+        for k, v in res.items() if k not in ("launches", "losses"))
+        + f" gpu={gpu}", flush=True)
+    res.update(profile_fn(step, res["step_ms"], "lm_train bf16 step"))
+    del model, state, tokens
+    torch.cuda.empty_cache()
+    return res
+
+
+def ptb_stream(vocab: int, seed: int = 0):
+    """The PTB example's synthetic stream (``train_lstm_ptb.py:65-69``):
+    200,000 seeded tokens batchified to ``(T_total, B)``."""
+    toks = np.random.RandomState(seed).randint(0, vocab, 200000)
+    nb = len(toks) // PTB_BATCH
+    return toks[:nb * PTB_BATCH].reshape(PTB_BATCH, nb).T
+
+
+def lstm_train_phase(dev, gpu):
+    """The PTB LSTM LM trained through ``train_step`` with the BPTT loss
+    and the clip, window after window with the state carried (the main
+    path: counts reset just before the ten windows and read just
+    after)."""
+    import torch
+    from dt_tpu_torch import models, optim
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.training.step import BPTTLoss, train_step
+    from dt_tpu_torch.training.train_state import TrainState
+    model = models.create("lstm_lm", device=dev, **PTB)
+    # the head at 40x LeCun: the LSTM's outputs are small (|h| ~ 0.03), so
+    # at LeCun scale the logits are near-uniform and the loss starts at the
+    # uniform stream's floor log(10000) = 9.21 with nothing to fall; at 40x
+    # it starts ~1.1 nats above it (10.31 on the CPU at this seed)
+    load_jax_variables(model, seeded_lm_variables(model, seed=1,
+                                                  head_std=40.0))
+    state = TrainState.create(model, optim.create("sgd",
+                                                  learning_rate=PTB_LR))
+    stream = torch.from_numpy(ptb_stream(PTB["vocab_size"])).to(dev)
+    loss_fn = BPTTLoss(generator=torch.Generator(device=dev).manual_seed(2))
+    window = iter(range(0, stream.shape[0] - 1 - PTB_BPTT, PTB_BPTT))
+
+    def step():
+        i = next(window)
+        return train_step(state, stream[i:i + PTB_BPTT],
+                          stream[i + 1:i + 1 + PTB_BPTT], loss_fn=loss_fn,
+                          clip_norm=PTB_CLIP)[1]
+
+    step()  # warm up
+    torch.cuda.synchronize()
+    reset_counts()  # the main path's run starts here
+    losses = [float(step()) for _ in range(TRAIN_STEPS)]
+    counts = read_counts()  # ... and ends here
+    want = {k: 0 for k in counts}
+    want["lstm_pointwise"] = PTB_BPTT * PTB["num_layers"] * TRAIN_STEPS
+    _check_counts("lstm_train f32", counts, want)
+    _falling("lstm_train f32", losses)
+    res = {"launches": counts, "losses": losses, **_timed_steps(step)}
+    res["tokens_per_s"] = PTB_BPTT * PTB_BATCH * 1e3 / res["step_ms"]
+    print("lstm_train f32 " + " ".join(
+        f"{k}={round(v, 4) if isinstance(v, float) else v}"
+        for k, v in res.items() if k not in ("launches", "losses"))
+        + f" gpu={gpu}", flush=True)
+    res.update(profile_fn(step, res["step_ms"], "lstm_train f32 window"))
+    del model, state, stream
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_steps_card_vs_cpu() -> None:
+    """One f32 step of each LM on the card and on the CPU from the same
+    weights, compared within ``TOL_LM_STEP``: the TransformerLM at 2
+    layers, S 256, batch 2 (flash: the kernel on the card, the plain version
+    on the CPU); the LSTM LM's first window at dropout 0."""
+    import torch
+    from dt_tpu_torch import models, optim
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.ops.tensor import clip_global_norm
+    from dt_tpu_torch.training.step import (BPTTLoss, apply_step, grad_step,
+                                            next_token_loss)
+    from dt_tpu_torch.training.train_state import TrainState
+    lm = dict(LM, num_layers=2, max_len=256)
+    stream = ptb_stream(PTB["vocab_size"])
+    cases = {
+        "transformer_lm": (dict(lm, seq_parallel="flash"), LM_SGD,
+                           next_token_loss, None,
+                           np.random.RandomState(7).randint(
+                               0, LM["vocab_size"], (2, 256)), None),
+        "lstm_lm": (dict(PTB, dropout=0.0), dict(learning_rate=PTB_LR),
+                    None, PTB_CLIP, stream[:PTB_BPTT],
+                    stream[1:1 + PTB_BPTT])}
+    for name, (kw, sgd, loss_fn, clip, x, y) in cases.items():
+        variables = seeded_lm_variables(
+            models.create(name, device="cpu", **kw), seed=3)
+        got = {}
+        for where in ("cuda", "cpu"):
+            model = load_jax_variables(models.create(name, device=where,
+                                                     **kw), variables)
+            state = TrainState.create(model, optim.create("sgd", **sgd))
+            xt = torch.from_numpy(x).to(where)
+            yt = None if y is None else torch.from_numpy(y).to(where)
+            t0 = time.perf_counter()
+            flat_g, flat_s, loss, _ = grad_step(state, xt, yt,
+                                                loss_fn or BPTTLoss())
+            if clip is not None:
+                flat_g = clip_global_norm({"g": flat_g}, clip)[0]["g"]
+            apply_step(state, flat_g, flat_s)
+            lay = state.layout
+            got[where] = {"loss": loss.cpu(), "flat_g": flat_g.cpu(),
+                          "params": lay.params.ravel(state.params).cpu()}
+            if "mom" in state.opt_state:
+                got[where]["mom"] = lay.params.ravel(
+                    state.opt_state["mom"]).cpu()
+            print(f"lm step card-vs-cpu {name} {where} seconds="
+                  f"{time.perf_counter() - t0:.2f}", flush=True)
+        card, cpu = got["cuda"], got["cpu"]
+        errs = {"loss": abs(float(card["loss"]) - float(cpu["loss"]))
+                / abs(float(cpu["loss"]))}
+        errs.update({k: _rel(card[k], cpu[k]) for k in card if k != "loss"})
+        print(f"lm step card-vs-cpu {name} f32 " + " ".join(
+            f"{k}_err={v:.3e} (tol {TOL_LM_STEP[k]})"
+            for k, v in errs.items()), flush=True)
+        bad = {k: v for k, v in errs.items() if not v <= TOL_LM_STEP[k]}
+        if bad:
+            raise AssertionError(f"{name} f32 step, card against CPU: {bad}")
 
 
 def main() -> int:
@@ -759,6 +1136,19 @@ def main() -> int:
     step_card_vs_cpu(variables, dev)
     print(f"phase train done at {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- LM kernels -----------------------------------------------------
+    flash = flash_phase(dev)
+    lstm = lstm_phase(dev)
+    print(f"phase LM kernels done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # --- LM training ----------------------------------------------------
+    lm_trained = lm_train_phase(dev, gpu)
+    lstm_trained = lstm_train_phase(dev, gpu)
+    lm_steps_card_vs_cpu()
+    print(f"phase LM train done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     kernels = []
     for dtype, tot in summary.items():
         kernels.append({
@@ -800,6 +1190,26 @@ def main() -> int:
             "ms": codec[name]["ms"], "plain_ms": codec[name]["plain_ms"],
             "bound_ms": codec[name]["bound_ms"], "bound_by": "bytes",
             "library_ms": None})
+    fb = flash["bfloat16"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "dt_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "dt_tpu/ops/pallas/attention.py:40",
+        "launches": lm_trained["launches"]["flash_attention"],
+        "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
+        "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
+        "bound_by": "operations", "library_ms": fb["library_ms"],
+        "dtype": "bfloat16", "float32": flash["float32"]})
+    lp = lstm[200]
+    kernels.append({
+        "name": "lstm_pointwise", "route": "cuda",
+        "source": "dt_tpu_torch/csrc/lstm_point.cu",
+        "replaces": "dt_tpu/ops/pallas/kernels.py:319",
+        "launches": lstm_trained["launches"]["lstm_pointwise"],
+        "max_abs_err": lp["max_abs_err"], "ms": lp["ms"],
+        "plain_ms": lp["plain_ms"], "bound_ms": lp["bound_ms"],
+        "bound_by": "bytes", "library_ms": lp["library_ms"],
+        "shape": [PTB_BATCH, 200], "h650": lstm[650]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,19 @@ models name their submodules as the JAX models are auto-named
 (``BottleneckV1_3/Conv_1/kernel`` is ``BottleneckV1_3.Conv_1.weight``):
 
 - ``params`` go to the module's parameters, ``batch_stats`` to its buffers;
-- a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW, kept channels_last);
-- a dense ``kernel`` ``(in, out)`` becomes ``weight`` ``(out, in)``;
-- BatchNorm ``scale``/``bias``/``mean``/``var`` copy as they are;
+- only a leaf named ``kernel`` changes layout: a conv ``kernel`` (HWIO)
+  becomes ``weight`` (OIHW, kept channels_last), a dense ``kernel`` ``(in,
+  out)`` becomes ``weight`` ``(out, in)``;
+- every other leaf copies as it is, whatever its rank: BatchNorm and
+  LayerNorm ``scale``/``bias``/``mean``/``var``, an ``embedding`` ``(V,
+  D)``, a ``pos_embed`` ``(max_len, D)``, the LSTM's ``l<i>_wx`` ``(I,
+  4H)``, ``l<i>_wh`` ``(H, 4H)`` and ``l<i>_b``;
+- a copy keeps the port tensor's dtype, which is the JAX leaf's: float32,
+  or bfloat16 for a leaf the JAX model makes in its compute dtype (the bf16
+  TransformerLM's ``pos_embed``); a bfloat16 leaf comes in as numpy's
+  ``bfloat16`` (the JAX arrays' own) or as a ``torch.bfloat16`` tensor and
+  goes out as a ``torch.bfloat16`` tensor (numpy has no bfloat16 of its
+  own);
 - ``FusedBatchNorm_<i>`` (the JAX name under ``DT_PALLAS_BN=1``) and
   ``BatchNorm_<i>`` (the default) both name the port's ``BatchNorm_<i>``.
 
@@ -56,9 +66,12 @@ def jax_path(name: str, bn_name: str = "BatchNorm") -> Tuple[str, ...]:
     return tuple(parts)
 
 
-def to_jax_layout(t: torch.Tensor) -> torch.Tensor:
-    """A weight's view in the JAX layout: a conv OIHW as HWIO, a dense
-    ``(out, in)`` as ``(in, out)``; the 1-D leaves as they are."""
+def to_jax_layout(t: torch.Tensor, leaf: str) -> torch.Tensor:
+    """The view in the JAX layout of the port tensor for the JAX leaf named
+    ``leaf``: a ``kernel``'s conv OIHW as HWIO and dense ``(out, in)`` as
+    ``(in, out)``; any other leaf as it is."""
+    if leaf != "kernel":
+        return t
     if t.dim() == 4:
         return t.permute(2, 3, 1, 0)
     if t.dim() == 2:
@@ -66,9 +79,11 @@ def to_jax_layout(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def from_jax_layout(t: torch.Tensor) -> torch.Tensor:
-    """The inverse of :func:`to_jax_layout` (HWIO -> OIHW, (in, out) ->
-    (out, in))."""
+def from_jax_layout(t: torch.Tensor, leaf: str) -> torch.Tensor:
+    """The inverse of :func:`to_jax_layout` (a ``kernel``'s HWIO -> OIHW,
+    (in, out) -> (out, in); any other leaf as it is)."""
+    if leaf != "kernel":
+        return t
     if t.dim() == 4:
         return t.permute(3, 2, 0, 1)
     if t.dim() == 2:
@@ -86,7 +101,10 @@ def _port_name(path: Tuple[str, ...]) -> str:
 def _to_tensor(leaf) -> torch.Tensor:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach()
-    return torch.from_numpy(np.array(leaf, copy=True))
+    arr = np.array(leaf, copy=True)
+    if arr.dtype.name == "bfloat16":  # the JAX arrays' numpy bfloat16
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _load_tree(what: str, coll: str, tree: Mapping,
@@ -105,7 +123,7 @@ def _load_tree(what: str, coll: str, tree: Mapping,
             if name in filled:
                 raise KeyError(f"{what}: {where} fills {name!r} a second "
                                "time")
-            src = from_jax_layout(_to_tensor(leaf))
+            src = from_jax_layout(_to_tensor(leaf), path[-1])
             if tuple(src.shape) != tuple(targets[name].shape):
                 raise ValueError(
                     f"{what}: {where} has shape {tuple(src.shape)} in port "
@@ -137,24 +155,25 @@ def load_jax_variables(module: nn.Module,
 
 def export_jax_variables(module: nn.Module) -> Dict[str, Dict]:
     """The inverse of :func:`load_jax_variables`: the module's tensors as
-    float32 numpy in the JAX package's layout and default names
-    (``BatchNorm_<i>``)."""
+    float32 numpy (bfloat16 ones as ``torch.bfloat16`` tensors) in the JAX
+    package's layout and default names (``BatchNorm_<i>``)."""
     return {"params": _jax_tree(module.named_parameters()),
             "batch_stats": _jax_tree(module.named_buffers())}
 
 
 def _jax_tree(named, bn_name: str = "BatchNorm") -> Dict[str, Any]:
-    """Port tensors by name -> a nested dict of float32 numpy in the JAX
-    layout and names."""
+    """Port tensors by name -> a nested dict in the JAX layout and names:
+    float32 numpy, and bfloat16 tensors as ``torch.bfloat16`` CPU tensors."""
     out: Dict[str, Any] = {}
     for name, t in named:
         *parents, leaf = jax_path(name, bn_name)
         node = out
         for p in parents:
             node = node.setdefault(p, {})
-        # a copy: a float32 CPU tensor's .numpy() would alias the live one
-        node[leaf] = to_jax_layout(t.detach().float().cpu()) \
-            .contiguous().numpy().copy()
+        t = to_jax_layout(t.detach().cpu(), leaf).contiguous()
+        # a copy: a CPU tensor's .numpy() would alias the live one
+        node[leaf] = t.clone() if t.dtype == torch.bfloat16 else \
+            t.float().numpy().copy()
     return out
 
 
@@ -188,7 +207,8 @@ def export_jax_train_state(state, bn_name: str = "BatchNorm"
                            ) -> Dict[str, Any]:
     """The inverse of :func:`load_jax_train_state`: ``{"step", "params",
     "batch_stats", "opt_state"}`` as float32 numpy (``step`` and ``count``
-    int32) in the JAX package's layout, its BN modules named ``bn_name``
+    int32; bfloat16 params as ``torch.bfloat16`` tensors) in the JAX
+    package's layout, its BN modules named ``bn_name``
     (``"BatchNorm"``, the JAX default, or ``"FusedBatchNorm"``)."""
     opt = {"count": np.int32(state.opt_state["count"])}
     if "mom" in state.opt_state:

@@ -8,7 +8,8 @@ by name.  Every parameter is a float32 ``nn.Parameter``, as in the JAX
 models; Conv and Dense cast theirs to the compute ``dtype`` at each call, as
 the JAX models do, so a bfloat16 step updates float32 masters.  BatchNorm
 variables stay float32, and the kernels' scale and bias are computed from
-them in float32 and cast once.
+them in float32 and cast once.  ``LayerNorm`` and ``Embed`` serve the
+language models.
 """
 
 from __future__ import annotations
@@ -86,19 +87,49 @@ class Conv(nn.Module):
 
 class Dense(nn.Module):
     """``linen.Dense``: f32 weight ``(out, in)`` (the JAX ``(in, out)``
-    kernel, transposed by ``interchange``) and bias, cast to ``dtype`` at
-    each call."""
+    kernel, transposed by ``interchange``) and bias (none when ``use_bias``
+    is False), cast to ``dtype`` at each call.  Takes ``(..., in)``."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(features, in_features))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(features)) if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return nn_ops.dense(x, self.weight.to(self.dtype), bias)
+
+
+class LayerNorm(nn.Module):
+    """``linen.LayerNorm`` over the last axis: f32 params ``scale`` (ones)
+    and ``bias``, epsilon 1e-6, statistics in f32, the result in the input's
+    dtype (``ops.nn.layer_norm``)."""
+
+    def __init__(self, features: int, epsilon: float = nn_ops.LN_EPS):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn_ops.dense(x, self.weight.to(self.dtype),
-                            self.bias.to(self.dtype))
+        return nn_ops.layer_norm(x, self.scale, self.bias, self.epsilon)
+
+
+class Embed(nn.Module):
+    """``linen.Embed``: an f32 table ``embedding`` ``(V, D)``, in the JAX
+    layout (not transposed), cast to ``dtype`` at each lookup."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.zeros(num_embeddings, features))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return nn_ops.embedding(tokens, self.embedding, self.dtype)
 
 
 class ConvBN(nn.Module):

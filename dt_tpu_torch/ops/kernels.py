@@ -20,6 +20,13 @@ bound by bytes; their least time is the bytes they must move over the H100's
   2-bit error-feedback gradient codec, 16 codes per 32-bit word, bit-exact
   against the numpy oracle.  Words are int32 tensors (torch's uint32 support
   is partial); ``.numpy().view(np.uint32)`` gives the wire's words.
+- ``lstm_point`` (``csrc/lstm_point.cu``) replaces ``_lstm_point_kernel``
+  (``kernels.py:319``): the pointwise stage of an LSTM cell, the forward of
+  ``lstm_pointwise`` and so of ``lstm_cell_fused``.
+
+``flash_attn`` (``csrc/flash_attn.cu``, the flash-attention forward) is
+bound by operations; its wrapper lives in ``ops.attention`` and its
+signature here.
 """
 
 from __future__ import annotations
@@ -43,6 +50,11 @@ _SIGNATURES = {
     "quant2": {
         "dt_quantize_2bit": [_V, _V, _V, _V, _I64, ctypes.c_float, _V],
         "dt_dequantize_2bit": [_V, _V, _I64, ctypes.c_float, _V]},
+    "lstm_point": {"dt_lstm_point": [_V, _V, _V, _V, _I64, _I64, _INT, _V]},
+    # q, k, v, out, lse; batch, heads, sq, sk, d; (b, s, h) strides of q, k
+    # and v; scale, causal, dtype; stream
+    "flash_attn": {"dt_flash_attn_fwd": [_V] * 5 + [_I64] * 14
+                   + [ctypes.c_float, _INT, _INT, _V]},
 }
 
 
@@ -418,3 +430,112 @@ def _check_flat(what: str, **tensors) -> None:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous float32, "
                              f"got {t.dtype} with strides {tuple(t.stride())}")
+
+
+# ---------------------------------------------------------------------------
+# LSTM cell pointwise stage
+# ---------------------------------------------------------------------------
+
+
+def lstm_pointwise_plain(gates: torch.Tensor, c: torch.Tensor):
+    """The plain version of the pointwise stage (``kernels.py:319-327``):
+    f32 gates ``(B, 4H)`` in order i, f, g, o and ``c`` ``(B, H)`` ->
+    ``(h' f32, c' in c's dtype)`` with ``c' = sigmoid(f) * c + sigmoid(i) *
+    tanh(g)`` and ``h' = sigmoid(o) * tanh(c')``, in f32."""
+    g = gates.float()
+    i, f, gg, o = g.chunk(4, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    gg = torch.tanh(gg)
+    c_new = f * c.float() + i * gg
+    return o * torch.tanh(c_new), c_new.to(c.dtype)
+
+
+def lstm_point(gates: torch.Tensor, c: torch.Tensor):
+    """The kernel's wrapper: contiguous f32 ``gates`` ``(B, 4H)`` and ``c``
+    ``(B, H)`` (float32 or bfloat16) -> ``(h' f32, c' in c's dtype)``.  A
+    CUDA tensor launches ``csrc/lstm_point.cu`` and counts the launch in
+    ``lstm_point.launches``; a CPU tensor runs :func:`lstm_pointwise_plain`.
+    """
+    if gates.dim() != 2 or c.dim() != 2 or gates.shape[1] % 4 or \
+            tuple(c.shape) != (gates.shape[0], gates.shape[1] // 4):
+        raise ValueError(f"lstm_pointwise: need gates (B, 4H) and c (B, H), "
+                         f"got {tuple(gates.shape)} and {tuple(c.shape)}")
+    if gates.dtype != torch.float32 or c.dtype not in _DTYPE_CODES:
+        raise TypeError(f"lstm_pointwise: gates must be float32 and c "
+                        f"float32 or bfloat16, got {gates.dtype}, {c.dtype}")
+    if gates.device != c.device or not (gates.is_contiguous()
+                                        and c.is_contiguous()):
+        raise ValueError("lstm_pointwise: gates and c must be contiguous on "
+                         "one device")
+    if not _on_cuda("lstm_pointwise", gates):
+        return lstm_pointwise_plain(gates, c)
+    rows, hidden = c.shape
+    h_out = torch.empty((rows, hidden), dtype=torch.float32, device=c.device)
+    c_out = torch.empty_like(c)
+    if rows == 0 or hidden == 0:
+        return h_out, c_out
+    _launch("lstm_pointwise", "lstm_point", "dt_lstm_point", c.device,
+            gates.data_ptr(), c.data_ptr(), h_out.data_ptr(),
+            c_out.data_ptr(), rows, hidden, _DTYPE_CODES[c.dtype])
+    lstm_point.launches += 1
+    return h_out, c_out
+
+
+lstm_point.launches = 0
+
+
+def lstm_pointwise_backward(gates, c, gh, gc_out):
+    """The backward of the pointwise stage (``_lstm_pointwise_bwd``,
+    ``kernels.py:381-404``): it recomputes the activations from the saved
+    pre-activations in f32 and returns ``(d_gates in gates' dtype, d_c in
+    c's dtype)``."""
+    c32 = c.float()
+    gh, gc_out = gh.float(), gc_out.float()
+    i, f, g, o = gates.float().chunk(4, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    g = torch.tanh(g)
+    c_new = f * c32 + i * g
+    tc = torch.tanh(c_new)
+    dc_new = gc_out + gh * o * (1.0 - tc * tc)
+    d_i = dc_new * g * i * (1.0 - i)
+    d_f = dc_new * c32 * f * (1.0 - f)
+    d_g = dc_new * i * (1.0 - g * g)
+    d_o = gh * tc * o * (1.0 - o)
+    d_gates = torch.cat([d_i, d_f, d_g, d_o], dim=-1).to(gates.dtype)
+    return d_gates, (dc_new * f).to(c.dtype)
+
+
+class _LSTMPointwise(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gates, c):
+        ctx.save_for_backward(gates, c)  # the primal dtypes, for the grads
+        return lstm_point(gates.float().contiguous(), c.contiguous())
+
+    @staticmethod
+    def backward(ctx, gh, gc_out):
+        gates, c = ctx.saved_tensors
+        if gh is None:
+            gh = torch.zeros(c.shape, dtype=torch.float32, device=c.device)
+        if gc_out is None:
+            gc_out = torch.zeros_like(c)
+        return lstm_pointwise_backward(gates, c, gh, gc_out)
+
+
+def lstm_pointwise(gates: torch.Tensor, c: torch.Tensor):
+    """Fused i/f/g/o activations and state update after the gate matmuls
+    (``kernels.py:330-346``): ``gates`` ``(B, 4H)`` (cast to f32 for the
+    kernel) and ``c`` ``(B, H)`` -> ``(h' f32, c' in c's dtype)``, through
+    :func:`lstm_point`.  Differentiable: the backward recomputes the
+    activations (:func:`lstm_pointwise_backward`)."""
+    return _LSTMPointwise.apply(gates, c)
+
+
+def lstm_cell_fused(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, w):
+    """Drop-in for ``ops.rnn.lstm_cell`` (``kernels.py:410-421``): the gate
+    matmuls as plain ``torch.matmul`` (``gates = (x @ wx + h @ wh).float() +
+    b``), then :func:`lstm_pointwise` on f32 gates and f32 ``c``; both
+    outputs in ``x``'s dtype.  ``w`` has ``wx`` (I, 4H), ``wh`` (H, 4H) and
+    ``b`` (4H,)."""
+    gates = (torch.matmul(x, w.wx) + torch.matmul(h, w.wh)).float() + w.b
+    h_new, c_new = lstm_pointwise(gates, c.float())
+    return h_new.to(x.dtype), c_new.to(x.dtype)

@@ -2,7 +2,8 @@
 
 Counterpart of ``dt_tpu/ops/nn.py`` (``conv2d`` :58, ``max_pool2d`` :134,
 ``global_avg_pool2d`` :154, ``batch_norm`` :164, ``activation`` :245,
-``dense`` :32).  The JAX package leaves these to XLA outside any Pallas
+``dense`` :32, ``dropout`` :284) and of the ``linen.LayerNorm`` and
+``linen.Embed`` the language models use (``layer_norm``, ``embedding``).  The JAX package leaves these to XLA outside any Pallas
 kernel; the port leaves them to PyTorch (cuDNN and cuBLAS on the card).
 Activations are NCHW tensors in ``torch.channels_last`` memory format, so in
 memory they are NHWC as in the JAX package; conv weights are OIHW, also
@@ -116,3 +117,45 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     y = (x - mean.reshape(shape).to(x.dtype)) \
         * inv.reshape(shape).to(x.dtype) + beta.reshape(shape).to(x.dtype)
     return y, new_mean, new_var
+
+
+LN_EPS = 1e-6  # linen.LayerNorm's default epsilon (torch's is 1e-5)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = LN_EPS) -> torch.Tensor:
+    """LayerNorm over the last axis as ``linen.LayerNorm`` computes it: mean
+    and ``var = max(E[x^2] - mean^2, 0)`` in f32 whatever ``x``'s dtype,
+    ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32, then
+    the result in ``x``'s dtype.  ``scale``/``bias`` are f32 ``(D,)``."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    mul = torch.rsqrt(var + eps) * scale.float()
+    return ((x32 - mean) * mul + bias.float()).to(x.dtype)
+
+
+def embedding(tokens: torch.Tensor, table: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Rows of ``table`` (``(V, D)``, f32) for integer ``tokens``, the table
+    cast to the compute ``dtype`` first, as ``linen.Embed`` does."""
+    return F.embedding(tokens, table.to(dtype))
+
+
+def dropout(x: torch.Tensor, rate: float, *, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout (``dt_tpu/ops/nn.py:284-296``): keep each element
+    with probability ``1 - rate`` and scale it by ``1 / (1 - rate)``.  The
+    mask comes from ``generator`` (on ``x``'s device), so its bits are not
+    the JAX package's; only the keep rate and the scale match.  Identity
+    when not training or at rate 0; training at a rate > 0 without a
+    generator raises, as the JAX op does without an rng key."""
+    if rate <= 0.0 or not training:
+        return x
+    if generator is None:
+        raise ValueError("dropout is active (training=True, rate > 0) and "
+                         "requires a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

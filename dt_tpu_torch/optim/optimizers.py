@@ -32,7 +32,8 @@ def _lr_at(lr: ScalarOrSchedule, count: int) -> float:
 class SGD:
     """SGD with momentum, ``mom = momentum*mom - lr*(g + wd*w); w += mom``
     (``optimizers.py:90-118``), after the reference's gradient pipeline
-    rescale -> clip -> ``+ wd*w`` (``:40-48``), all in f32.  Without
+    rescale -> clip -> ``+ wd*w`` (``:40-48``), all in f32; a param that is
+    not f32 gets the update cast to its dtype.  Without
     momentum, ``w += -lr*g``.  Each step is a few multi-tensor (``_foreach``)
     ops over all parameters, rounded op by op as the JAX rule is."""
 
@@ -69,13 +70,22 @@ class SGD:
             torch._foreach_add_(g, torch._foreach_mul(
                 [w.float() for w in ws], self.weight_decay))
         if self.momentum == 0.0:
-            torch._foreach_add_(ws, torch._foreach_mul(g, -lr))
+            torch._foreach_add_(ws, _in_dtypes(torch._foreach_mul(g, -lr),
+                                               ws))
             return {"count": state["count"] + 1}
         mom = [state["mom"][k] for k in names]
         torch._foreach_mul_(mom, self.momentum)
         torch._foreach_sub_(mom, torch._foreach_mul(g, lr))
-        torch._foreach_add_(ws, mom)
+        torch._foreach_add_(ws, _in_dtypes(mom, ws))
         return {"count": state["count"] + 1, "mom": state["mom"]}
+
+
+def _in_dtypes(updates, ws):
+    """The f32 updates, each cast to its param's dtype first where that is
+    not f32 (a bf16 ``pos_embed``), as the JAX rule casts the update to
+    ``w.dtype`` before ``w + u`` (``optimizers.py:107, 113-114``)."""
+    return [u if u.dtype == w.dtype else u.to(w.dtype)
+            for u, w in zip(updates, ws)]
 
 
 def sgd(learning_rate: ScalarOrSchedule = 0.01, momentum: float = 0.0,

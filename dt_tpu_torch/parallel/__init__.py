@@ -1,2 +1,3 @@
 """Parallel and data-plane helpers of the port (counterpart of
-``dt_tpu/parallel``): the 2-bit gradient compression in this slice."""
+``dt_tpu/parallel``): the 2-bit gradient compression and the
+single-device ``full_attention`` so far."""

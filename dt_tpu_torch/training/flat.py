@@ -7,7 +7,10 @@ the JAX package's bit for bit and can share one wire.
   keys at every level: ``BottleneckV1_10`` comes before ``BottleneckV1_2``,
   ``bias`` before ``kernel``, ``mean`` before ``var``.
 - Each leaf is in the JAX layout: a conv weight (OIHW) as HWIO, a dense
-  weight ``(out, in)`` as ``(in, out)``.
+  weight ``(out, in)`` as ``(in, out)`` (the JAX ``kernel``s); every other
+  leaf, an ``embedding`` or an LSTM's ``l<i>_wx`` too, as it is.
+- Every leaf is float32 in the vector, as ``ravel_pytree`` promotes a
+  bfloat16 leaf (a bf16 TransformerLM's ``pos_embed``): exactly.
 - BatchNorm modules are ``BatchNorm_<i>`` in the JAX package by default and
   ``FusedBatchNorm_<i>`` under ``DT_PALLAS_BN=1``; the two sort to different
   places, so the name is a parameter (``bn_name``).
@@ -32,8 +35,9 @@ class Leaves:
     def __init__(self, named: Dict[str, torch.Tensor], bn_name: str):
         order = sorted(named, key=lambda n: jax_path(n, bn_name))
         self.names: List[str] = order
-        self.jax_shapes = [tuple(to_jax_layout(named[n]).shape)
-                           for n in order]
+        self.leaves = [jax_path(n, bn_name)[-1] for n in order]
+        self.jax_shapes = [tuple(to_jax_layout(named[n], leaf).shape)
+                           for n, leaf in zip(order, self.leaves)]
         self.sizes = [named[n].numel() for n in order]
         self.size = sum(self.sizes)
 
@@ -49,8 +53,9 @@ class Leaves:
         out = torch.empty(self.size, dtype=torch.float32,
                           device=ref.device if ref is not None else "cpu")
         o = 0
-        for name, shape, k in zip(self.names, self.jax_shapes, self.sizes):
-            out[o:o + k].view(shape).copy_(to_jax_layout(tensors[name]))
+        for name, leaf, shape, k in zip(self.names, self.leaves,
+                                        self.jax_shapes, self.sizes):
+            out[o:o + k].view(shape).copy_(to_jax_layout(tensors[name], leaf))
             o += k
         return out
 
@@ -59,8 +64,9 @@ class Leaves:
             raise ValueError(f"unravel: expected a flat vector of "
                              f"{self.size} values, got {tuple(flat.shape)}")
         out, o = {}, 0
-        for name, shape, k in zip(self.names, self.jax_shapes, self.sizes):
-            out[name] = from_jax_layout(flat[o:o + k].view(shape))
+        for name, leaf, shape, k in zip(self.names, self.leaves,
+                                        self.jax_shapes, self.sizes):
+            out[name] = from_jax_layout(flat[o:o + k].view(shape), leaf)
             o += k
         return out
 

@@ -186,3 +186,133 @@ def test_train_two_steps_on_card_match_cpu(cuda):
         torch.testing.assert_close(s_card.cpu(), s_cpu, rtol=1e-4, atol=1e-5)
         rel = (g_card.cpu() - g_cpu).norm() / g_cpu.norm()
         assert rel < 5e-2, rel
+
+
+def _qkv_card(dev, b, s, h, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(b, s, h, d, generator=g, device=dev) * 0.5)
+            .to(dtype) for _ in range(3)]
+
+
+def _flash_plain(q, k, v, causal):
+    from dt_tpu_torch.ops import attention as TA
+    b, _, h, d = q.shape
+    out3, lse = TA.flash_attention_plain(TA._to3(q), TA._to3(k), TA._to3(v),
+                                         scale=d ** -0.5, causal=causal)
+    return TA._from3(out3, b, h), lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d", [(3, 128, 2, 32), (1, 384, 3, 64),
+                                     (2, 256, 1, 128), (1, 100, 2, 64)])
+def test_flash_kernel_matches_plain(cuda, b, s, h, d, causal, dtype):
+    """Out and lse against the plain version (f32 sums in another order:
+    out 2e-5 in f32, one bf16 ulp of the largest |out| in bf16; lse 1e-5),
+    two launches bit-identical; S = 100 is a ragged key tile."""
+    from dt_tpu_torch.ops import attention as TA
+    q, k, v = _qkv_card(cuda, b, s, h, d, dtype, seed=s + d)
+    before = TA.flash_fwd.launches
+    out, lse = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=causal)
+    out2, lse2 = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=causal)
+    assert TA.flash_fwd.launches == before + 2
+    want, want_lse = _flash_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert out.dtype == dtype and lse.shape == (b * h, s)
+    tol = 2e-5 if dtype == torch.float32 else \
+        2.0 ** -7 * float(want.float().abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+def test_flash_kernel_reads_strided_heads(cuda):
+    """q, k, v as the transformer hands them: strided views of one qkv
+    buffer, read without a copy."""
+    from dt_tpu_torch.ops import attention as TA
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn(2, 256, 3 * 128, generator=g, device=cuda)
+    q, k, v = (t.reshape(2, 256, 2, 64) for t in qkv.split(128, dim=-1))
+    assert not q.is_contiguous()
+    out, lse = TA.flash_fwd(q, k, v, scale=0.125, causal=True)
+    want, want_lse = _flash_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= 2e-5
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="head dims"):
+        TA.flash_fwd(*(t[..., :48] for t in (q, k, v)), scale=1.0,
+                     causal=True)
+
+
+@pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(32, 200), (33, 650), (1, 7)])
+def test_lstm_kernel_matches_plain(cuda, b, h, c_dtype):
+    """h and c against the plain version within a few ulps (expf/tanhf
+    against PyTorch's own: 1e-6 absolute, one bf16 ulp for a bf16 c), two
+    launches bit-identical; odd B and H."""
+    g = torch.Generator(device=cuda).manual_seed(b * h)
+    gates = torch.randn(b, 4 * h, generator=g, device=cuda) * 2
+    c = torch.randn(b, h, generator=g, device=cuda).to(c_dtype)
+    before = kernels.lstm_point.launches
+    h1, c1 = kernels.lstm_point(gates, c)
+    h2, c2 = kernels.lstm_point(gates, c)
+    assert kernels.lstm_point.launches == before + 2
+    ph, pc = kernels.lstm_pointwise_plain(gates, c)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h2) and torch.equal(c1, c2)
+    assert h1.dtype == torch.float32 and c1.dtype == c_dtype
+    assert float((h1 - ph).abs().max()) <= 1e-6
+    ctol = 1e-6 if c_dtype == torch.float32 else \
+        2.0 ** -7 * float(pc.float().abs().max())
+    assert float((c1.float() - pc.float()).abs().max()) <= ctol
+
+
+def test_lm_steps_on_card_match_cpu(cuda):
+    """One f32 step of each LM on the card against the port on the CPU,
+    from the same weights (TF32 off): loss 1e-5, gradient 1e-4 of its
+    norm; the kernels ran once per layer (flash) and per step and layer
+    (LSTM)."""
+    from dt_tpu_torch import optim
+    from dt_tpu_torch.ops import attention as TA
+    from dt_tpu_torch.training.step import (BPTTLoss, grad_step,
+                                            next_token_loss)
+    from dt_tpu_torch.training.train_state import TrainState
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    cases = [("transformer_lm", dict(vocab_size=64, embed_dim=64,
+                                     num_layers=2, num_heads=2, max_len=256,
+                                     seq_parallel="flash"),
+              lambda: next_token_loss, rng.randint(0, 64, (2, 200)), None,
+              (TA.flash_fwd, 2)),
+             ("lstm_lm", dict(vocab_size=50, embed_dim=16, hidden=24,
+                              num_layers=2, dropout=0.0),
+              BPTTLoss, rng.randint(0, 50, (7, 3)),
+              rng.randint(0, 50, (7, 3)), (kernels.lstm_point, 14))]
+    for name, kw, make_loss, x, y, (wrapper, launches) in cases:
+        cpu = models.create(name, device="cpu", **kw)
+        variables = export_jax_variables(cpu)
+
+        def fill(tree):
+            for key, val in tree.items():
+                if isinstance(val, dict):
+                    fill(val)
+                else:
+                    tree[key] = rng.normal(0, 0.3, tuple(val.shape)) \
+                        .astype(np.float32)
+
+        fill(variables["params"])
+        got = {}
+        for dev in ("cpu", cuda):
+            m = load_jax_variables(models.create(name, device=dev, **kw),
+                                   variables)
+            ts = TrainState.create(m, optim.create("sgd", learning_rate=0.1))
+            xt = torch.from_numpy(x).long().to(dev)
+            yt = None if y is None else torch.from_numpy(y).long().to(dev)
+            before = wrapper.launches
+            flat_g, _, loss, _ = grad_step(ts, xt, yt, make_loss())
+            got[str(dev)] = (float(loss), flat_g.cpu())
+            if str(dev) == "cuda":
+                assert wrapper.launches - before == launches
+        (l_cpu, g_cpu), (l_card, g_card) = got["cpu"], got["cuda"]
+        assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+        assert float((g_card - g_cpu).norm() / g_cpu.norm()) <= 1e-4

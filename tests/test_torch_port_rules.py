@@ -50,7 +50,11 @@ def test_port_imports_no_jax_and_no_dt_tpu():
             "dt_tpu_torch.optim.lr_scheduler",
             "dt_tpu_torch.parallel.compression",
             "dt_tpu_torch.training.flat", "dt_tpu_torch.training.step",
-            "dt_tpu_torch.training.train_state"} <= want
+            "dt_tpu_torch.training.train_state",
+            "dt_tpu_torch.ops.attention", "dt_tpu_torch.ops.rnn",
+            "dt_tpu_torch.ops.tensor", "dt_tpu_torch.parallel.ring_attention",
+            "dt_tpu_torch.models.transformer",
+            "dt_tpu_torch.models.lstm_lm"} <= want
 
 
 _FORBIDDEN = re.compile(r"import jax|from jax|flax|dt_tpu\.|"
