@@ -18,7 +18,8 @@ JAX.  Phases, each fatal on failure:
 3. training kernels: the BN-train pass 1 at the same shapes, held against
    its plain version (mean and var within 1e-5 of the largest E[x^2], two
    launches bit-identical, y bit-equal to the plain pass 2 on the kernel's
-   stats), and the 2-bit quantize/dequantize pair at ResNet-50's parameter
+   stats, one CUDA kernel a call in a ``torch.profiler`` window), and the
+   2-bit quantize/dequantize pair at ResNet-50's parameter
    count and at 0, 1, 15, 17 and 1000 elements with values at +-t, +-0,
    +-inf and NaN, bit for bit; each timed beside its bound, its plain
    version and, for BN, ``F.batch_norm(training=True)``;
@@ -38,10 +39,12 @@ JAX.  Phases, each fatal on failure:
    on the CPU;
 6. LM kernels: ``flash_attention`` at the TransformerLM's shape (B=8,
    S=2048, H=8, D=64, causal; q/k/v strided views of one qkv buffer, as the
-   model hands them) in bfloat16 and float32, out and lse held against
+   model hands them), at D=128 with S=1024 (causal) and at the LM's shape
+   without the mask, each in bfloat16 and float32, out and lse held against
    ``flash_attention_plain``, two launches bit-identical, timed beside the
    bound, the plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick the port never calls); ``lstm_pointwise`` at B=32 and H=200
+   yardstick the port never calls), with TFLOP/s and the share of the
+   bound; ``lstm_pointwise`` at B=32 and H=200
    (the PTB example's default) and H=650, against its plain version,
    beside ``torch.ops.aten._thnn_fused_lstm_cell`` (also never called by the
    port);
@@ -60,7 +63,9 @@ JAX.  Phases, each fatal on failure:
    against the port on the CPU.
 
 The line before the last holds the card's name and power limit, the one
-before it a JSON summary of the kernels; the last line is
+before it a JSON summary of the kernels, every number in it measured in
+this run except the bounds, which it computes (the two kernels redesigned
+for Hopper carry ``redesigned_in``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every phase, timings
 included.
 """
@@ -115,10 +120,10 @@ PTB = dict(vocab_size=10000, embed_dim=200, hidden=200, num_layers=2,
            dropout=0.2)
 PTB_BPTT, PTB_BATCH, PTB_LR, PTB_CLIP = 35, 32, 1.0, 0.25
 # kernel against its plain version on the card: f32 sums in another order
-# (flash out 2e-5 absolute in f32; in bf16 one ulp, 2**-7 of the largest
-# |out|, where the f32 result rounds the other way; lse 1e-5 absolute, ~10
-# ulps at log(2048)); the LSTM cell's expf/tanhf against PyTorch's, a few
-# ulps of values in [-1, 1] (1e-6)
+# (flash out 2e-5 absolute in f32; in bf16 one ulp of each output row,
+# 2**-7 of that row's largest |out|, where the f32 result rounds the other
+# way; lse 1e-5 absolute, ~10 ulps at log(2048)); the LSTM cell's
+# expf/tanhf against PyTorch's, a few ulps of values in [-1, 1] (1e-6)
 TOL_FLASH = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
 TOL_LSE = 1e-5
 TOL_LSTM = 1e-6
@@ -407,6 +412,21 @@ def read_counts() -> dict:
     return {k: w.launches for k, w in counted().items()}
 
 
+def device_kernels(fn) -> list:
+    """Names of the CUDA kernels (and memsets, copies) that one call of
+    ``fn`` puts on the device, from a ``torch.profiler`` window over that
+    call alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def bn_train_phase(shapes, dev):
     """Hold the BN-train pass 1 against its plain version at every shape of
     a batch-32 forward (and ragged and misaligned ones), check that two
@@ -421,7 +441,8 @@ def bn_train_phase(shapes, dev):
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(3)
         tot = {"ms": 0.0, "pass1_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "pass1_bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
+               "pass1_bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
+               "kernels_a_call": 0}
         runs = [(k[:4], k[4], m) for k, m in shapes.items()] + \
             [(sh, r, 0) for sh, r in extra]
         for shape, relu, per_fwd in runs:
@@ -463,6 +484,15 @@ def bn_train_phase(shapes, dev):
                 if not torch.equal(kernels.rows_view(y), want):
                     raise AssertionError(f"fused_bn_train {tag}: y differs "
                                          "from the plain pass 2")
+                launched = device_kernels(lambda: kernels.bn_stats(x))
+                print(f"kernel bn_train {tag} kernels_a_bn_stats_call="
+                      f"{len(launched)} {launched}", flush=True)
+                if len(launched) != 1:
+                    raise AssertionError(f"bn_stats {tag}: one call put "
+                                         f"{launched} on the device, not "
+                                         "one kernel")
+                tot["kernels_a_call"] = max(tot["kernels_a_call"],
+                                            len(launched))
                 tot["max_abs_err"] = max(tot["max_abs_err"], err)
                 nbytes = x2.numel() * x.element_size()
                 b1 = (nbytes + 2 * c * 4) / H100_BYTES_PER_S * 1e3
@@ -686,78 +716,97 @@ def step_card_vs_cpu(variables, dev) -> None:
         raise AssertionError(f"f32 step, card against CPU: {bad}")
 
 
-def flash_flops(bh: int, s: int, d: int) -> float:
-    """Multiply-adds x 2 of one causal flash forward: q k^T and p v over the
-    S(S+1)/2 (query, key) pairs the causal mask leaves."""
-    return 4.0 * bh * d * s * (s + 1) / 2
+def flash_flops(bh: int, s: int, d: int, causal: bool = True) -> float:
+    """Multiply-adds x 2 of one flash forward: q k^T and p v over the
+    (query, key) pairs the mask leaves, S(S+1)/2 of them when causal."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    return 4.0 * bh * d * pairs
 
 
 def flash_phase(dev):
-    """Hold the flash kernel against its plain version at the
-    TransformerLM's shape, causal, in bf16 (the main path's type) and f32;
-    two launches bit-identical; time kernel, plain version and SDPA.
-    Returns one summary per dtype name."""
+    """Hold the flash kernel against its plain version in bf16 (the main
+    path's type) and f32 at the TransformerLM's shape (causal), at D = 128
+    with S = 1024 (causal) and at the LM's shape without the mask; two
+    launches bit-identical; time kernel, plain version and SDPA.  Returns
+    one summary per (shape name, dtype name)."""
     import torch
     import torch.nn.functional as F
     from dt_tpu_torch.ops import attention as TA
-    b, s, h = LM_BATCH, LM_SEQ, LM["num_heads"]
-    d = LM["embed_dim"] // h
-    flops = flash_flops(b * h, s, d)
+    h = LM["num_heads"]
+    cases = {"lm": (LM_BATCH, LM_SEQ, h, LM["embed_dim"] // h, True),
+             "d128": (LM_BATCH, 1024, 4, 128, True),
+             "lm_full": (LM_BATCH, LM_SEQ, h, LM["embed_dim"] // h, False)}
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        g = torch.Generator(device=dev).manual_seed(6)
+    for case, (b, s, h, d, causal) in cases.items():
+        flops = flash_flops(b * h, s, d, causal)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            g = torch.Generator(device=dev).manual_seed(6)
 
-        def qkv_views():
-            qkv = torch.randn(b, s, 3 * h * d, generator=g, device=dev) \
-                .to(dtype)
-            return tuple(t.reshape(b, s, h, d)
-                         for t in qkv.split(h * d, dim=-1))
+            def qkv_views():
+                qkv = torch.randn(b, s, 3 * h * d, generator=g, device=dev) \
+                    .to(dtype)
+                return tuple(t.reshape(b, s, h, d)
+                             for t in qkv.split(h * d, dim=-1))
 
-        q, k, v = qkv_views()
-        o1, lse1 = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=True)
-        o2, lse2 = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=True)
-        p3, plse = TA.flash_attention_plain(TA._to3(q), TA._to3(k),
-                                            TA._to3(v), scale=d ** -0.5,
-                                            causal=True)
-        po = TA._from3(p3, b, h)
-        torch.cuda.synchronize()
-        same = torch.equal(o1, o2) and torch.equal(lse1, lse2)
-        err = float((o1.float() - po.float()).abs().max())
-        lse_err = float((lse1 - plse).abs().max())
-        tol = TOL_FLASH[name] * (float(po.float().abs().max())
-                                 if dtype == torch.bfloat16 else 1.0)
-        print(f"kernel flash_attention {name} shape=({b},{s},{h},{d}) "
-              f"causal=True max_abs_err={err:.3e} (tol {tol:.3e}) "
-              f"lse_max_abs_err={lse_err:.3e} (tol {TOL_LSE}) "
-              f"bitwise_repeat={same}", flush=True)
-        if not same or err > tol or lse_err > TOL_LSE:
-            raise AssertionError(f"flash_attention {name}: kernel against "
-                                 "plain version failed")
-        inputs = [(q, k, v), qkv_views()]
-        heads = [tuple(t.transpose(1, 2).contiguous() for t in trio)
-                 for trio in inputs]
-        k_ms = cuda_ms(lambda a: TA.flash_fwd(*a, scale=d ** -0.5,
-                                              causal=True), inputs)
-        p_ms = cuda_ms(lambda a: TA.flash_attention_plain(
-            TA._to3(a[0]), TA._to3(a[1]), TA._to3(a[2]), scale=d ** -0.5,
-            causal=True), inputs, iters=5)
-        lib_ms = cuda_ms(lambda a: F.scaled_dot_product_attention(
-            *a, is_causal=True), heads)
-        item = q.element_size()
-        nbytes = 4 * b * s * h * d * item + b * h * s * 4
-        peak = BF16_TFLOPS if dtype == torch.bfloat16 else FP32_TFLOPS
-        bound = max(nbytes / H100_BYTES_PER_S, flops / (peak * 1e12)) * 1e3
-        out[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                     "bound_ms": bound, "max_abs_err": err,
-                     "lse_max_abs_err": lse_err,
-                     "tflops_per_s": flops / k_ms / 1e9}
-        print(f"kernel flash_attention {name} kernel_ms={k_ms:.4f} "
-              f"plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} "
-              f"bound_ms={bound:.5f} gflop={flops / 1e9:.2f} "
-              f"kernel_tflops_per_s={flops / k_ms / 1e9:.2f} "
-              f"bytes={nbytes}", flush=True)
-        del inputs, heads, q, k, v, o1, o2, po, p3
+            def kernel(a):
+                return TA.flash_fwd(*a, scale=d ** -0.5, causal=causal)
+
+            q, k, v = qkv_views()
+            o1, lse1 = kernel((q, k, v))
+            o2, lse2 = kernel((q, k, v))
+            p3, plse = TA.flash_attention_plain(
+                TA._to3(q), TA._to3(k), TA._to3(v), scale=d ** -0.5,
+                causal=causal)
+            po = TA._from3(p3, b, h)
+            torch.cuda.synchronize()
+            same = torch.equal(o1, o2) and torch.equal(lse1, lse2)
+            diff = (o1.float() - po.float()).abs()
+            err = float(diff.max())
+            lse_err = float((lse1 - plse).abs().max())
+            # the tolerance of each output row (its D values)
+            tol = TOL_FLASH[name] * (
+                po.float().abs().amax(-1, keepdim=True)
+                if dtype == torch.bfloat16 else torch.ones_like(diff[..., :1]))
+            worst = float((diff / tol).max())  # 1 is the limit
+            tag = f"{name} shape=({b},{s},{h},{d}) causal={causal}"
+            print(f"kernel flash_attention {tag} max_abs_err={err:.3e} "
+                  f"worst_row_err_over_tol={worst:.3f} "
+                  f"lse_max_abs_err={lse_err:.3e} (tol {TOL_LSE}) "
+                  f"bitwise_repeat={same}", flush=True)
+            if not same or not worst <= 1.0 or lse_err > TOL_LSE:
+                raise AssertionError(f"flash_attention {tag}: kernel "
+                                     "against plain version failed")
+            inputs = [(q, k, v), qkv_views()]
+            heads = [tuple(t.transpose(1, 2).contiguous() for t in trio)
+                     for trio in inputs]
+            k_ms = cuda_ms(kernel, inputs)
+            p_ms = cuda_ms(lambda a: TA.flash_attention_plain(
+                TA._to3(a[0]), TA._to3(a[1]), TA._to3(a[2]),
+                scale=d ** -0.5, causal=causal), inputs, iters=5)
+            lib_ms = cuda_ms(lambda a: F.scaled_dot_product_attention(
+                *a, is_causal=causal), heads)
+            item = q.element_size()
+            nbytes = 4 * b * s * h * d * item + b * h * s * 4
+            peak = BF16_TFLOPS if dtype == torch.bfloat16 else FP32_TFLOPS
+            bound = max(nbytes / H100_BYTES_PER_S,
+                        flops / (peak * 1e12)) * 1e3
+            out[case, name] = {
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                "bound_ms": bound, "max_abs_err": err,
+                "worst_row_err_over_tol": worst, "lse_max_abs_err": lse_err,
+                "shape": [b, s, h, d],
+                "causal": causal, "tflops_per_s": flops / k_ms / 1e9,
+                "bound_share": bound / k_ms}
+            print(f"kernel flash_attention {tag} kernel_ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"bound_ms={bound:.5f} gflop={flops / 1e9:.2f} "
+                  f"kernel_tflops_per_s={flops / k_ms / 1e9:.2f} "
+                  f"bound_share={bound / k_ms:.3f} "
+                  f"library_tflops_per_s={flops / lib_ms / 1e9:.2f} "
+                  f"kernel_over_library={k_ms / lib_ms:.3f} bytes={nbytes}",
+                  flush=True)
+            del inputs, heads, q, k, v, o1, o2, po, p3
     return out
 
 
@@ -1168,8 +1217,9 @@ def main() -> int:
     for dtype, tot in train_kernels.items():
         # one fused_bn_train call = pass 1 (bn_train.cu) + pass 2
         # (bn_act.cu); times, bound and plain are the two passes' sums
+        name = str(dtype).split(".")[-1]
         kernels.append({
-            "name": f"fused_bn_train[{str(dtype).split('.')[-1]}]",
+            "name": f"fused_bn_train[{name}]",
             "route": "cuda",
             "source": "dt_tpu_torch/csrc/bn_train.cu",
             "replaces": "dt_tpu/ops/pallas/kernels.py:101",
@@ -1178,8 +1228,9 @@ def main() -> int:
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": "bytes",
             "library_ms": tot["library_ms"],
-            "pass1_ms": tot["pass1_ms"],
-            "pass1_bound_ms": tot["pass1_bound_ms"]})
+            "redesigned_in": 4, "pass1_ms": tot["pass1_ms"],
+            "pass1_bound_ms": tot["pass1_bound_ms"],
+            "pass1_kernels_a_call": tot["kernels_a_call"]})
     for name, line in (("quantize_2bit", 233), ("dequantize_2bit", 284)):
         kernels.append({
             "name": name, "route": "cuda",
@@ -1190,7 +1241,7 @@ def main() -> int:
             "ms": codec[name]["ms"], "plain_ms": codec[name]["plain_ms"],
             "bound_ms": codec[name]["bound_ms"], "bound_by": "bytes",
             "library_ms": None})
-    fb = flash["bfloat16"]
+    fb = flash["lm", "bfloat16"]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "dt_tpu_torch/csrc/flash_attn.cu",
@@ -1199,7 +1250,10 @@ def main() -> int:
         "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
         "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
         "bound_by": "operations", "library_ms": fb["library_ms"],
-        "dtype": "bfloat16", "float32": flash["float32"]})
+        "redesigned_in": 4,
+        "dtype": "bfloat16", "float32": flash["lm", "float32"],
+        "more": {f"{c}[{n}]": r for (c, n), r in flash.items()
+                 if (c, n) != ("lm", "bfloat16")}})
     lp = lstm[200]
     kernels.append({
         "name": "lstm_pointwise", "route": "cuda",

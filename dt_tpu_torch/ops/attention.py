@@ -4,7 +4,8 @@ blockwise backward (counterpart of ``dt_tpu/ops/pallas/attention.py``).
 - :func:`flash_fwd` is the kernel's wrapper: ``(B, S, H, D)`` q/k/v -> the
   output ``(B, S, H, D)`` in q's dtype and the per-row logsumexp ``(B*H,
   S)`` in f32.  A CUDA tensor launches ``csrc/flash_attn.cu`` (replacing the
-  TPU kernel ``_attn_kernel``, ``attention.py:40,100``) and counts the
+  TPU kernel ``_attn_kernel``, ``attention.py:40,100``: bf16 on the tensor
+  cores through ``wgmma`` and TMA, f32 on the CUDA cores) and counts the
   launch in ``flash_fwd.launches``; a CPU tensor runs
   :func:`flash_attention_plain`.
 - :func:`flash_attention_plain` is the plain version on the ``(B*H, S, D)``
@@ -104,6 +105,15 @@ def _check_qkv(q, k, v) -> None:
         raise ValueError("flash_attention: q, k, v must be on one device")
 
 
+def _bsh_strides(t: torch.Tensor):
+    """The (B, S, H) element strides of a ``(B, S, H, D)`` view, an axis of
+    size 1 given the stride of a dense layout (its own is arbitrary and
+    never used, but a TMA map checks it)."""
+    b, s, h, d = t.shape
+    dense = (s * h * d, h * d, d)
+    return [t.stride(i) if t.shape[i] > 1 else dense[i] for i in range(3)]
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float, causal: bool, block_q: int = DEFAULT_BLOCK,
               block_k: int = DEFAULT_BLOCK
@@ -111,9 +121,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The kernel's wrapper: ``(B, S, H, D)`` q/k/v (strided views are
     taken as they are; D's stride must be 1) -> ``(out (B, S, H, D)
     contiguous in q's dtype, lse (B*H, S) f32)``.  A CUDA tensor launches
-    ``csrc/flash_attn.cu`` (D in 32, 64, 128) and counts the launch; a CPU
-    tensor runs :func:`flash_attention_plain` with ``block_q``/``block_k``
-    (the kernel tiles by itself: its result does not depend on them)."""
+    ``csrc/flash_attn.cu`` (D in 32, 64, 128; bf16 on the tensor cores, its
+    starts and strides on 16 bytes for TMA; f32 on the CUDA cores) and
+    counts the launch; a CPU tensor runs :func:`flash_attention_plain` with
+    ``block_q``/``block_k`` (the kernel tiles by itself: its result does not
+    depend on them)."""
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -129,14 +141,21 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: need 1 <= B*H <= 65535 and "
                          f"non-empty sequences, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
+    strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name}'s last axis must be "
                              f"contiguous, got strides {tuple(t.stride())}")
+        st = _bsh_strides(t)
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(s * 2 % 16 for s in st)):
+            raise ValueError(
+                f"flash_attention: the bf16 kernel's TMA loads need {name}'s "
+                "start and (B, S, H) strides on 16 bytes, got address "
+                f"{t.data_ptr():#x} and strides {tuple(t.stride())}")
+        strides += st
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    strides = [st for t in (q, k, v)
-               for st in (t.stride(0), t.stride(1), t.stride(2))]
     _launch("flash_attention", "flash_attn", "dt_flash_attn_fwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, sq, sk, d, *strides, float(scale),

@@ -14,7 +14,8 @@ bound by bytes; their least time is the bytes they must move over the H100's
 - ``bn_stats`` (``csrc/bn_train.cu``) replaces ``_bn_partials_kernel`` and
   the reduction after it (``kernels.py:101,107-140``): per-channel batch mean
   and ``E[x^2] - mean^2`` variance (clamped at 0), pass 1 of
-  ``fused_bn_train``.  Deterministic: no float atomics.
+  ``fused_bn_train``, in one launch whose geometry :func:`stats_geometry`
+  picks.  Deterministic: no float atomics.
 - ``quantize_2bit`` and ``dequantize_2bit`` (``csrc/quant2.cu``) replace
   ``_quant2_kernel`` and ``_dequant2_kernel`` (``kernels.py:233,284``): the
   2-bit error-feedback gradient codec, 16 codes per 32-bit word, bit-exact
@@ -32,6 +33,7 @@ signature here.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -45,8 +47,9 @@ _V, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # cudaError_t as int)
 _SIGNATURES = {
     "bn_act": {"dt_bn_act": [_V, _V, _V, _V, _I64, _I64, _INT, _INT, _V]},
-    "bn_train": {"dt_bn_stats": [_V, _V, _V, _V, _I64, _I64, _I64, _INT,
-                                 _V]},
+    # x, scratch, tickets, mean, var; rows, C; dtype, vec, bx, by, slices,
+    # row blocks; stream
+    "bn_train": {"dt_bn_stats": [_V] * 5 + [_I64] * 2 + [_INT] * 6 + [_V]},
     "quant2": {
         "dt_quantize_2bit": [_V, _V, _V, _V, _I64, ctypes.c_float, _V],
         "dt_dequantize_2bit": [_V, _V, _I64, ctypes.c_float, _V]},
@@ -199,18 +202,82 @@ def fused_bn_inference(x: torch.Tensor, gamma: torch.Tensor,
 # Training BatchNorm: pass 1 (bn_stats) + pass 2 (bn_act), custom backward
 # ---------------------------------------------------------------------------
 
-# Row blocks of pass 1: enough blocks to fill the card (~4 per SM), each
-# covering at least 16 rows, so the (nblk, C) partials stay a small fraction
-# of x.
-_STATS_BLOCKS = 528
-_STATS_MIN_ROWS = 16
+class StatsGeometry(NamedTuple):
+    """The launch of pass 1 for a ``(rows, C)`` input: a grid of
+    ``(slices, row_blocks)`` blocks of ``(bx, by)`` threads, a thread
+    loading ``vec`` channels at once; the threads of the grid take the rows
+    round-robin."""
+    vec: int
+    bx: int
+    by: int
+    slices: int
+    row_blocks: int
+
+    def partial_bytes(self, c: int) -> int:
+        """f32 sums and sums of squares of every row block (none for
+        one)."""
+        return 0 if self.row_blocks == 1 else 8 * c * self.row_blocks
 
 
-def stats_blocks(rows: int, c: int) -> int:
-    """Row blocks of pass 1 for a ``(rows, C)`` input (the partials' nblk)."""
-    slices = -(-c // 1024)  # blocks across the channels, roughly
-    return max(1, min(-(-rows // _STATS_MIN_ROWS), _STATS_BLOCKS // slices,
-                      65535))
+_STATS_THREADS = 256
+_SLICE_CHANNELS = (256, 32)  # widest and narrowest slice, in channels
+_STATS_BLOCKS = 264  # ~2 per SM of the H100's 132: one wave fills it
+_PARTIAL_SHARE = 16  # partials at most 1/16 of x's bytes ...
+_PARTIAL_FLOOR = 64 * 1024  # ... or at most 64 KB
+_PARTIAL_LOADS = 8  # rows of partials a thread of the last block adds
+_MAX_TICKETS = 1 << 16  # ticket counters (one a slice) kept per device
+
+
+def stats_geometry(rows: int, c: int, itemsize: int,
+                   aligned: bool = True) -> StatsGeometry:
+    """Pass 1's launch for a ``(rows, C)`` input of ``itemsize``-byte
+    elements (``aligned``: x starts on 16 bytes).  Threads load 16 bytes of
+    channels where the rows allow it.  Row blocks fill the card (~2 blocks
+    an SM in all) as far as the partials stay within 1/16 of x's bytes (or
+    64 KB) and within ``_PARTIAL_LOADS`` rows a thread of the slice's last
+    block; slices of 256 channels narrow (to 32) while the grid is short of
+    blocks."""
+    vec = 16 // itemsize if aligned and (c * itemsize) % 16 == 0 else 1
+    vecs = c // vec
+    budget = max(rows * c * itemsize // _PARTIAL_SHARE, _PARTIAL_FLOOR)
+    bx = min(vecs, max(1, _SLICE_CHANNELS[0] // vec))
+    while True:
+        by = _STATS_THREADS // bx
+        slices = -(-vecs // bx)
+        row_blocks = max(1, min(-(-_STATS_BLOCKS // slices),
+                                by * _PARTIAL_LOADS, budget // (8 * c),
+                                -(-rows // by), 65535))
+        if (slices * row_blocks >= _STATS_BLOCKS or bx == 1
+                or bx * vec <= _SLICE_CHANNELS[1]):
+            return StatsGeometry(vec, bx, by, slices, row_blocks)
+        bx //= 2
+
+
+_tickets = {}  # device -> pass 1's ticket counters, zeroed once
+_ticket_stream = {}  # device -> the stream of its last pass-1 launch
+
+
+def _stats_tickets(device: torch.device) -> torch.Tensor:
+    """The device's ticket counters, for a launch on the current stream.
+    Every launch on a device shares them, so a launch on another stream
+    than the last one first waits for that stream (outside CUDA graph
+    capture, where the caller orders the streams)."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    t = _tickets.get(device)
+    if t is None:
+        if capturing:
+            raise RuntimeError(
+                "fused_bn_train: the first bn_stats call on a device "
+                "allocates and zeroes its tickets, which a CUDA graph "
+                "capture cannot; call it once before capturing")
+        t = torch.zeros(_MAX_TICKETS, dtype=torch.int32, device=device)
+        _tickets[device] = t
+    stream = torch.cuda.current_stream(device)
+    last = _ticket_stream.get(device)
+    if last is not None and last != stream and not capturing:
+        stream.wait_stream(last)
+    _ticket_stream[device] = stream
+    return t
 
 
 def bn_stats_plain(x2: torch.Tensor):
@@ -227,8 +294,13 @@ def bn_stats_plain(x2: torch.Tensor):
 def bn_stats(x: torch.Tensor):
     """Pass 1's wrapper: per-channel f32 batch ``(mean, var)`` of ``x``
     (channels_last NCHW or contiguous ``(rows, C)``, float32 or bfloat16).
-    A CUDA tensor launches ``csrc/bn_train.cu`` and counts the launch in
-    ``bn_stats.launches``; a CPU tensor runs :func:`bn_stats_plain`."""
+    A CUDA tensor launches ``csrc/bn_train.cu`` once and counts the launch
+    in ``bn_stats.launches``; a CPU tensor runs :func:`bn_stats_plain`.
+
+    The kernel's tickets are shared by every launch on a device, so a call
+    on another stream than the last call's waits for that stream first.
+    Graph-safe once a call has run outside capture on the device; inside a
+    capture the caller orders the streams."""
     x2 = rows_view(x, "fused_bn_train")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError("fused_bn_train: dtype must be float32 or bfloat16, "
@@ -239,13 +311,19 @@ def bn_stats(x: torch.Tensor):
                          f"input {tuple(x.shape)}")
     if not _on_cuda("fused_bn_train", x):
         return bn_stats_plain(x2)
-    nblk = stats_blocks(rows, c)
-    scratch = torch.empty((2, nblk, c), dtype=torch.float32, device=x.device)
+    geo = stats_geometry(rows, c, x.element_size(), x2.data_ptr() % 16 == 0)
+    if geo.slices > _MAX_TICKETS:
+        raise ValueError(f"fused_bn_train: a ({rows}, {c}) input needs "
+                         f"{geo.slices} tickets, more than the "
+                         f"{_MAX_TICKETS} kept")
+    scratch = torch.empty(geo.partial_bytes(c) // 4, dtype=torch.float32,
+                          device=x.device)
     mean = torch.empty(c, dtype=torch.float32, device=x.device)
     var = torch.empty(c, dtype=torch.float32, device=x.device)
     _launch("fused_bn_train", "bn_train", "dt_bn_stats", x.device,
-            x2.data_ptr(), scratch.data_ptr(), mean.data_ptr(),
-            var.data_ptr(), rows, c, nblk, _DTYPE_CODES[x.dtype])
+            x2.data_ptr(), scratch.data_ptr(),
+            _stats_tickets(x.device).data_ptr(), mean.data_ptr(),
+            var.data_ptr(), rows, c, _DTYPE_CODES[x.dtype], *geo)
     bn_stats.launches += 1
     return mean, var
 

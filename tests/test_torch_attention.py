@@ -167,3 +167,14 @@ def test_flash_fwd_checks_its_inputs():
     out, lse = TA.flash_fwd(q, q, q, scale=1.0, causal=False)
     assert out.shape == q.shape and out.is_contiguous()
     assert lse.shape == (2, 128) and lse.dtype == torch.float32
+
+
+@pytest.mark.parametrize("shape,strides,want", [
+    ((2, 256, 4, 64), (256 * 768, 768, 64, 1), [256 * 768, 768, 64]),
+    ((2, 256, 1, 64), (256 * 64, 64, 7, 1), [256 * 64, 64, 64]),
+    ((1, 1, 1, 32), (5, 3, 2, 1), [32, 32, 32])])
+def test_flash_strides_of_size_one_axes(shape, strides, want):
+    """The (B, S, H) strides handed to the flash kernel: an axis of size 1
+    takes a dense stride, so that a TMA map accepts it."""
+    t = torch.empty_strided(shape, strides)
+    assert TA._bsh_strides(t) == want

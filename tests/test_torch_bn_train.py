@@ -19,6 +19,7 @@ from dt_tpu.ops import nn as jnn
 from dt_tpu.ops.pallas import kernels as K
 from dt_tpu_torch.ops import kernels as TK
 from dt_tpu_torch.ops import nn as tnn
+from test_torch_shapes import RESNET50_BN_CHW
 
 # f32: the two sides sum the batch in different orders (the JAX kernel in
 # 256-row blocks), so mean and var differ in the last bits and the
@@ -186,9 +187,49 @@ def test_cpu_tensor_never_launches():
 
 
 @pytest.mark.parametrize("rows,c,want", [
-    (401408, 64, 528), (1568, 2048, 98), (37, 3, 3), (1, 5, 1),
-    (100352, 4096, 132)])
+    (401408, 64, (2, 132)), (1568, 2048, (16, 17)), (37, 3, (1, 1)),
+    (1, 5, (1, 1)), (100352, 4096, (16, 17)), (1568, 64, (2, 25))])
 def test_stats_blocks(rows, c, want):
-    """Pass 1's row blocks: ~4 per SM, at least 16 rows each, fewer when
-    the channels already take several blocks across."""
-    assert TK.stats_blocks(rows, c) == want
+    """Pass 1's (slices, row blocks) in bf16: ~2 blocks per SM in all,
+    slices of 256 channels narrowing while blocks are short, fewer row
+    blocks when the partials would pass 1/16 of x's bytes (or 64 KB), one
+    when the rows fit one block."""
+    g = TK.stats_geometry(rows, c, 2)
+    assert (g.slices, g.row_blocks) == want
+
+
+# every BatchNorm input of ResNet-50 at batch 1, 32 and 256, and ragged ones
+GEOMETRY_SHAPES = sorted(
+    {(n * h * w, c) for n in (1, 32, 256) for c, h, w in RESNET50_BN_CHW}
+    | {(37, 3), (1001, 17), (1001, 64), (1, 5), (105, 1), (3, 70000),
+       (1 << 20, 1), (7, 4096 + 8)})
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_stats_geometry_within_limits(itemsize, aligned):
+    """Partials within 1/16 of x (or 64 KB), the grid within CUDA's limits,
+    at least one block a slice, every row and channel covered once, the
+    16-byte loads only where the rows allow them; ResNet-50's batch-32
+    inputs fill the H100's 132 SMs twice over."""
+    for rows, c in GEOMETRY_SHAPES:
+        g = TK.stats_geometry(rows, c, itemsize, aligned)
+        tag = (rows, c, g)
+        assert g.partial_bytes(c) <= max(rows * c * itemsize // 16,
+                                         64 * 1024), tag
+        assert 1 <= g.row_blocks <= 65535 and 1 <= g.slices <= 65535, tag
+        assert g.slices <= TK._MAX_TICKETS, tag
+        assert 1 <= g.bx * g.by <= 256, tag
+        assert c % g.vec == 0 and g.bx * g.vec * g.slices >= c, tag
+        assert (g.slices - 1) * g.bx * g.vec < c, tag  # no empty slice
+        # the slice's last block adds at most 8 rows of partials a thread
+        assert g.row_blocks <= 8 * g.by, tag
+        assert (g.row_blocks - 1) * g.by < rows, tag  # no empty block
+        if g.vec > 1:
+            assert aligned and g.vec * itemsize == 16, tag
+            assert (c * itemsize) % 16 == 0, tag
+        assert g.bx * g.vec <= 256 or g.vec == 1, tag
+    for c, h, w in RESNET50_BN_CHW:
+        g = TK.stats_geometry(32 * h * w, c, itemsize, aligned)
+        if g.vec > 1:
+            assert 264 <= g.slices * g.row_blocks <= 264 + g.slices, (c, g)

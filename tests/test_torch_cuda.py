@@ -14,6 +14,7 @@ import torch
 from dt_tpu_torch import models
 from dt_tpu_torch.interchange import export_jax_variables, load_jax_variables
 from dt_tpu_torch.ops import kernels
+from test_torch_shapes import RESNET50_BN_CHW
 
 pytestmark = pytest.mark.cuda
 
@@ -86,11 +87,15 @@ def _bn_input(shape, dtype, dev, misaligned=False):
     return (flat[1:] if misaligned else flat[:numel]).view(shape)
 
 
+# every BatchNorm input of ResNet-50 v1 at 224x224, batch 32
+RESNET50_BN = [(32, c, h, w) for c, h, w in RESNET50_BN_CHW]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,misaligned", [
     ((32, 64, 112, 112), False), ((32, 2048, 7, 7), False),
     ((3, 3, 5, 7), False), ((37, 3), False), ((1001, 17), False),
-    ((1001, 64), True)])
+    ((1001, 64), True)] + [(s, False) for s in RESNET50_BN[1:-1]])
 def test_bn_train_kernels_match_plain(cuda, shape, misaligned, dtype):
     """Pass 1 against its plain version (f32 sums in another order: 1e-5 of
     E[x^2]), bit-identical across two launches; pass 2 (y) bit-equal to
@@ -117,6 +122,65 @@ def test_bn_train_kernels_match_plain(cuda, shape, misaligned, dtype):
     torch.cuda.synchronize()
     assert torch.equal(kernels.rows_view(y), want)
     torch.testing.assert_close(rm, 0.1 * mean)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_stats_replays_in_a_cuda_graph(cuda, dtype):
+    """20 calls on different inputs captured in one CUDA graph and replayed
+    twice: every result bit-equal to the eager launch's, so the kernel's
+    tickets reset themselves across launches and replays."""
+    shapes = RESNET50_BN + [(37, 3), (1001, 17), (1001, 64)]
+    xs = [_bn_input(shapes[i % len(shapes)], dtype, cuda) * (1 + i / 20)
+          for i in range(20)]
+    eager = [kernels.bn_stats(x) for x in xs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.bn_stats(xs[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [kernels.bn_stats(x) for x in xs]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for (m, v), (em, ev) in zip(outs, eager):
+            assert torch.equal(m, em) and torch.equal(v, ev)
+
+
+def test_bn_stats_is_one_kernel(cuda):
+    """One ``bn_stats`` call launches one CUDA kernel (its outputs and
+    scratch come from ``torch.empty``, which launches none)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = _bn_input((32, 256, 14, 14), torch.bfloat16, cuda)
+    kernels.bn_stats(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernels.bn_stats(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "bn_stats_kernel" in names[0], names
+
+
+def test_bn_stats_orders_launches_on_two_streams(cuda):
+    """Calls alternating between two streams agree bit for bit with the
+    same calls on one stream: the kernel's tickets are shared on the
+    device, so the wrapper makes a call on another stream wait for the
+    last call's stream."""
+    xs = [_bn_input(s, torch.bfloat16, cuda) * (1 + i / 8)
+          for i, s in enumerate(RESNET50_BN[:8])]
+    want = [kernels.bn_stats(x) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i, x in enumerate(xs):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(kernels.bn_stats(x))
+    torch.cuda.synchronize()
+    for (m, v), (wm, wv) in zip(got, want):
+        assert torch.equal(m, wm) and torch.equal(v, wv)
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, (1 << 20) + 5])
@@ -194,6 +258,19 @@ def _qkv_card(dev, b, s, h, d, dtype, seed):
             .to(dtype) for _ in range(3)]
 
 
+def _assert_out_close(out, want, dtype):
+    """Flash out against the plain version: 2e-5 absolute in f32 (f32 sums
+    in another order); in bf16 one ulp of each output row, 2^-7 of that
+    row's largest |out| (the kernel rounds p to bf16 for the tensor cores,
+    and late causal rows are ~1/sqrt(n) of the first ones)."""
+    diff = (out.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 2e-5
+        return
+    tol = 2.0 ** -7 * want.float().abs().amax(-1, keepdim=True)
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
 def _flash_plain(q, k, v, causal):
     from dt_tpu_torch.ops import attention as TA
     b, _, h, d = q.shape
@@ -205,11 +282,12 @@ def _flash_plain(q, k, v, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("b,s,h,d", [(3, 128, 2, 32), (1, 384, 3, 64),
-                                     (2, 256, 1, 128), (1, 100, 2, 64)])
+                                     (2, 256, 1, 128), (1, 100, 2, 64),
+                                     (1, 512, 2, 128)])
 def test_flash_kernel_matches_plain(cuda, b, s, h, d, causal, dtype):
-    """Out and lse against the plain version (f32 sums in another order:
-    out 2e-5 in f32, one bf16 ulp of the largest |out| in bf16; lse 1e-5),
-    two launches bit-identical; S = 100 is a ragged key tile."""
+    """Out and lse against the plain version (out as ``_assert_out_close``
+    holds it; lse 1e-5), two launches bit-identical; S = 100 is a ragged key
+    tile."""
     from dt_tpu_torch.ops import attention as TA
     q, k, v = _qkv_card(cuda, b, s, h, d, dtype, seed=s + d)
     before = TA.flash_fwd.launches
@@ -220,9 +298,7 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, d, causal, dtype):
     torch.cuda.synchronize()
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     assert out.dtype == dtype and lse.shape == (b * h, s)
-    tol = 2e-5 if dtype == torch.float32 else \
-        2.0 ** -7 * float(want.float().abs().max())
-    assert float((out.float() - want.float()).abs().max()) <= tol
+    _assert_out_close(out, want, dtype)
     assert float((lse - want_lse).abs().max()) <= 1e-5
 
 
@@ -242,6 +318,59 @@ def test_flash_kernel_reads_strided_heads(cuda):
     with pytest.raises(ValueError, match="head dims"):
         TA.flash_fwd(*(t[..., :48] for t in (q, k, v)), scale=1.0,
                      causal=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_at_the_lm_shape(cuda, causal):
+    """The TransformerLM's bf16 call: (8, 2048, 8, 64) q, k, v as strided
+    views of one qkv buffer; out within one bf16 ulp of each row's largest
+    |out|, lse 1e-5, two launches bit-identical."""
+    from dt_tpu_torch.ops import attention as TA
+    g = torch.Generator(device=cuda).manual_seed(8)
+    qkv = torch.randn(8, 2048, 3 * 512, generator=g, device=cuda) \
+        .to(torch.bfloat16)
+    q, k, v = (t.reshape(8, 2048, 8, 64) for t in qkv.split(512, dim=-1))
+    out, lse = TA.flash_fwd(q, k, v, scale=0.125, causal=causal)
+    out2, lse2 = TA.flash_fwd(q, k, v, scale=0.125, causal=causal)
+    want, want_lse = _flash_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    _assert_out_close(out, want, torch.bfloat16)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+def test_flash_bf16_gradients_match_the_plain_forward(cuda, monkeypatch):
+    """``flash_attention`` forward and backward with the kernel, against the
+    same with the plain forward in its place, bf16 at (2, 256, 4, 64): the
+    backward reads the forward's out and lse, so a kernel that shifts
+    either shows here.  dq, dk, dv within 2^-7 of each one's largest
+    magnitude."""
+    from dt_tpu_torch.ops import attention as TA
+    q, k, v = _qkv_card(cuda, 2, 256, 4, 64, torch.bfloat16, seed=11)
+    dout = _qkv_card(cuda, 2, 256, 4, 64, torch.bfloat16, seed=12)[0]
+
+    def grads():
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        TA.flash_attention(*leaves, causal=True).backward(dout)
+        return [t.grad for t in leaves]
+
+    before = TA.flash_fwd.launches
+    got = grads()
+    assert TA.flash_fwd.launches == before + 1
+
+    def plain_fwd(q, k, v, *, scale, causal, block_q, block_k):
+        b, _, h, _ = q.shape
+        out3, lse = TA.flash_attention_plain(
+            TA._to3(q), TA._to3(k), TA._to3(v), scale=scale, causal=causal,
+            block_q=block_q, block_k=block_k)
+        return TA._from3(out3, b, h), lse
+
+    monkeypatch.setattr(TA, "flash_fwd", plain_fwd)
+    want = grads()
+    for name, a, w in zip("qkv", got, want):
+        tol = 2.0 ** -7 * float(w.float().abs().max())
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= tol, (name, err, tol)
 
 
 @pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
