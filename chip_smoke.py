@@ -42,12 +42,17 @@ JAX.  Phases, each fatal on failure:
    model hands them), at D=128 with S=1024 (causal) and at the LM's shape
    without the mask, each in bfloat16 and float32, out and lse held against
    ``flash_attention_plain``, two launches bit-identical, timed beside the
-   bound, the plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick the port never calls), with TFLOP/s and the share of the
-   bound; ``lstm_pointwise`` at B=32 and H=200
-   (the PTB example's default) and H=650, against its plain version,
-   beside ``torch.ops.aten._thnn_fused_lstm_cell`` (also never called by the
-   port);
+   bound (for f32 also the 3xTF32 bound of its tensor-core kernel), the
+   plain version and ``F.scaled_dot_product_attention`` (a yardstick the
+   port never calls), with TFLOP/s and the share of the bound;
+   ``lstm_pointwise`` at B=32 and H=200 (the PTB example's default) and
+   H=650, against its plain version, beside
+   ``torch.ops.aten._thnn_fused_lstm_cell`` (also never called by the
+   port); the LSTM layer kernel over a PTB window (T 35, B 32) at H 200
+   and 650, forward and reverse, against its plain step loop (1e-5, bits
+   repeated), timed alone and with its input product beside the per-step
+   path, the plain loop, cuDNN's one-layer ``torch._VF.lstm`` (never
+   called by the port), its bound and its serial floor;
 7. train the TransformerLM of ``bench.py:579-598`` at full width (vocab
    8192, 512 wide, 6 layers, 8 heads, S 2048, batch 8, bfloat16 compute,
    ``seq_parallel="flash"``, SGD lr 0.1 momentum 0.9) for ten steps on one
@@ -58,9 +63,14 @@ JAX.  Phases, each fatal on failure:
 8. train the LSTM LM of ``examples/train_lstm_ptb.py`` with its defaults
    (vocab 10000, 200/200, 2 layers, bptt 35, batch 32, SGD lr 1.0, clip
    0.25, dropout 0.2 from a seeded generator) for ten windows with the
-   state carried (loss falling; 70 ``lstm_pointwise`` launches a forward),
-   window time, tokens/s, a profile; then one float32 window at dropout 0
-   against the port on the CPU.
+   state carried (loss falling; 2 ``lstm_layer`` launches a forward and
+   no ``lstm_pointwise``), window time, tokens/s, a profile; then one
+   float32 window at dropout 0 against the port on the CPU (2
+   ``lstm_layer`` launches; the TransformerLM's f32 step: 2 f32 flash
+   launches);
+9. the PTB LSTM LM's forward in bfloat16 over one window, the path that
+   steps the fused cell (70 ``lstm_pointwise`` launches), its logits
+   against float32.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -110,6 +120,7 @@ TOL_STEP = dict(loss=1e-4, stats=1e-4, dense=1e-3, flat_g=5e-2, mom=5e-2,
                 params=5e-2)
 BF16_TFLOPS = 989.0  # H100 SXM dense bf16 peak, NVIDIA's data sheet
 FP32_TFLOPS = 67.0  # H100 SXM f32 peak outside the tensor cores, same sheet
+TF32_TFLOPS = 495.0  # H100 SXM dense TF32 tensor-core peak, same sheet
 # TransformerLM of bench.py:579-581 and its batch (bench.py:572-574)
 LM = dict(vocab_size=8192, embed_dim=512, num_layers=6, num_heads=8,
           max_len=2048)
@@ -127,6 +138,12 @@ PTB_BPTT, PTB_BATCH, PTB_LR, PTB_CLIP = 35, 32, 1.0, 0.25
 TOL_FLASH = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
 TOL_LSE = 1e-5
 TOL_LSTM = 1e-6
+# the LSTM layer kernel against its plain step loop: the recurrent product's
+# f32 sums in another order, carried through 35 steps
+TOL_LSTM_LAYER = 1e-5
+# the PTB LM's forward in bf16 against f32, of the largest |logit|: h and c
+# are rounded to bf16 at every one of the 35 steps
+TOL_LSTM_BF16 = 5e-2
 # one f32 LM step, card against the port on the CPU (no ReLU masks: the
 # loss and gradient agree to f32 summation order)
 TOL_LM_STEP = dict(loss=1e-5, flat_g=1e-4, mom=1e-4, params=1e-4)
@@ -400,7 +417,8 @@ def counted():
             "quantize_2bit": kernels.quantize_2bit,
             "dequantize_2bit": kernels.dequantize_2bit,
             "flash_attention": attention.flash_fwd,
-            "lstm_pointwise": kernels.lstm_point}
+            "lstm_pointwise": kernels.lstm_point,
+            "lstm_layer": kernels.lstm_layer}
 
 
 def reset_counts() -> None:
@@ -798,9 +816,17 @@ def flash_phase(dev):
                 "shape": [b, s, h, d],
                 "causal": causal, "tflops_per_s": flops / k_ms / 1e9,
                 "bound_share": bound / k_ms}
+            if dtype == torch.float32:
+                # the f32 kernel runs three TF32 products for each one
+                out[case, name]["bound_3xtf32_ms"] = max(
+                    nbytes / H100_BYTES_PER_S,
+                    3 * flops / (TF32_TFLOPS * 1e12)) * 1e3
             print(f"kernel flash_attention {tag} kernel_ms={k_ms:.4f} "
                   f"plain_ms={p_ms:.4f} library_ms={lib_ms:.4f} "
-                  f"bound_ms={bound:.5f} gflop={flops / 1e9:.2f} "
+                  f"bound_ms={bound:.5f} "
+                  f"bound_3xtf32_ms="
+                  f"{out[case, name].get('bound_3xtf32_ms', float('nan')):.5f} "
+                  f"gflop={flops / 1e9:.2f} "
                   f"kernel_tflops_per_s={flops / k_ms / 1e9:.2f} "
                   f"bound_share={bound / k_ms:.3f} "
                   f"library_tflops_per_s={flops / lib_ms / 1e9:.2f} "
@@ -847,6 +873,123 @@ def lstm_phase(dev):
         print(f"kernel lstm_pointwise B={b} H={hidden} kernel_ms={k_ms:.5f} "
               f"plain_ms={p_ms:.5f} library_ms={lib_ms:.5f} "
               f"bound_ms={bound:.6f}", flush=True)
+    return out
+
+
+def layer_bound_ms(t: int, b: int, hidden: int) -> float:
+    """Least time of one layer window from xw: 2 T B H 4H operations at the
+    f32 peak against xw in, the gates out, h and c out, Wh, h0 and c0 once,
+    in f32."""
+    ops = 2.0 * t * b * hidden * 4 * hidden
+    nbytes = 4.0 * (2 * t * b * 4 * hidden + 2 * t * b * hidden
+                    + 4 * hidden * hidden + 2 * b * hidden)
+    return max(nbytes / H100_BYTES_PER_S, ops / (FP32_TFLOPS * 1e12)) * 1e3
+
+
+def lstm_layer_phase(dev):
+    """Hold the LSTM layer kernel against its plain step loop at the PTB
+    window (T 35, B 32) with H 200 and 650, forward and reverse, two
+    launches bit-identical; time it alone, with its input product, beside
+    the per-step path of the same window (the fused cell, pointwise kernel
+    and all), the plain loop and cuDNN's one-layer LSTM (``torch._VF.lstm``,
+    a yardstick the port never calls); and its serial floor, the same
+    kernel at B 1, H 16.  Returns one summary per H."""
+    import torch
+    from dt_tpu_torch.ops import kernels, rnn
+    t, b = PTB_BPTT, PTB_BATCH
+    out = {}
+    for hidden in (200, 650):
+        g = torch.Generator(device=dev).manual_seed(hidden + 1)
+        lim = hidden ** -0.5
+
+        def draw():
+            x = torch.randn(t, b, hidden, generator=g, device=dev)
+            h0, c0 = (torch.randn(b, hidden, generator=g, device=dev) * 0.3
+                      for _ in range(2))
+            wx, wh = ((torch.rand(hidden, 4 * hidden, generator=g,
+                                  device=dev) * 2 - 1) * lim
+                      for _ in range(2))
+            bias = torch.randn(4 * hidden, generator=g, device=dev) * 0.02
+            xw = (x.reshape(t * b, hidden) @ wx + bias).reshape(t, b, -1)
+            return x, h0, c0, rnn.LSTMWeights(wx, wh, bias), xw
+
+        sets = [draw(), draw()]
+        x, h0, c0, w, xw = sets[0]
+        err, same = 0.0, True
+        for reverse in (False, True):
+            got = kernels.lstm_layer(xw, h0, c0, w.wh, reverse)
+            again = kernels.lstm_layer(xw, h0, c0, w.wh, reverse)
+            want = kernels.lstm_layer_plain(xw, h0, c0, w.wh, reverse)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, a2)
+                                for a, a2 in zip(got, again))
+            err = max([err] + [float((a - p).abs().max())
+                               for a, p in zip(got, want)])
+        print(f"kernel lstm_layer T={t} B={b} H={hidden} "
+              f"geometry={tuple(kernels.layer_geometry(b, hidden))} "
+              f"max_abs_err={err:.3e} (tol {TOL_LSTM_LAYER}) "
+              f"bitwise_repeat={same}", flush=True)
+        if not same or not err <= TOL_LSTM_LAYER:
+            raise AssertionError(f"lstm_layer H={hidden}: kernel against "
+                                 "plain version failed")
+        # cuDNN's layer on the same x and weights (the same function), its
+        # weights in one flat buffer as torch.nn.LSTM keeps them
+        flat = []
+        for a in sets:
+            mod = torch.nn.LSTM(hidden, hidden, 1).to(dev)
+            with torch.no_grad():
+                for name, val in (("weight_ih_l0", a[3].wx.t()),
+                                  ("weight_hh_l0", a[3].wh.t()),
+                                  ("bias_ih_l0", a[3].b),
+                                  ("bias_hh_l0", torch.zeros_like(a[3].b))):
+                    getattr(mod, name).copy_(val)
+            mod.flatten_parameters()
+            flat.append(mod._flat_weights)
+
+        def cudnn(a):
+            return torch._VF.lstm(a[0], (a[1][None], a[2][None]), a[5],
+                                  True, 1, 0.0, False, False, False)
+
+        sets = [(*a, f) for a, f in zip(sets, flat)]
+        y_lib = cudnn(sets[0])[0]
+        lib_err = float((y_lib - kernels.lstm_layer(xw, h0, c0, w.wh)[0])
+                        .abs().max())
+
+        def per_step(a):  # today's path before this kernel: a cell a step
+            hh, cc = a[1], a[2]
+            for s_ in range(t):
+                hh, cc = kernels.lstm_cell_fused(a[0][s_], hh, cc, a[3])
+            return hh
+
+        with torch.no_grad():
+            k_ms = cuda_ms(lambda a: kernels.lstm_layer(a[4], a[1], a[2],
+                                                        a[3].wh), sets)
+            layer_ms = cuda_ms(lambda a: kernels.lstm_layer_fused(
+                a[0], a[1], a[2], a[3]), sets)
+            step_ms = cuda_ms(per_step, sets, iters=5)
+            p_ms = cuda_ms(lambda a: kernels.lstm_layer_plain(
+                a[4], a[1], a[2], a[3].wh), sets, iters=5)
+            lib_ms = cuda_ms(cudnn, sets)
+            tiny = [(torch.randn(t, 1, 64, generator=g, device=dev),
+                     torch.zeros(1, 16, device=dev),
+                     torch.zeros(1, 16, device=dev),
+                     torch.randn(16, 64, generator=g, device=dev) * 0.25)]
+            floor_ms = cuda_ms(lambda a: kernels.lstm_layer(*a), tiny)
+        bound = layer_bound_ms(t, b, hidden)
+        out[hidden] = {"ms": k_ms, "layer_ms": layer_ms,
+                       "per_step_ms": step_ms, "plain_ms": p_ms,
+                       "library_ms": lib_ms, "bound_ms": bound,
+                       "serial_floor_ms": floor_ms, "max_abs_err": err,
+                       "library_max_abs_diff": lib_err,
+                       "shape": [t, b, hidden]}
+        print(f"kernel lstm_layer T={t} B={b} H={hidden} kernel_ms={k_ms:.5f} "
+              f"layer_ms={layer_ms:.5f} per_step_ms={step_ms:.5f} "
+              f"plain_ms={p_ms:.5f} library_ms={lib_ms:.5f} "
+              f"bound_ms={bound:.5f} serial_floor_ms={floor_ms:.5f} "
+              f"kernel_over_library={k_ms / lib_ms:.3f} "
+              f"layer_over_library={layer_ms / lib_ms:.3f} "
+              f"library_max_abs_diff={lib_err:.3e}", flush=True)
+        del sets, x, h0, c0, w, xw
     return out
 
 
@@ -1020,7 +1163,7 @@ def lstm_train_phase(dev, gpu):
     losses = [float(step()) for _ in range(TRAIN_STEPS)]
     counts = read_counts()  # ... and ends here
     want = {k: 0 for k in counts}
-    want["lstm_pointwise"] = PTB_BPTT * PTB["num_layers"] * TRAIN_STEPS
+    want["lstm_layer"] = PTB["num_layers"] * TRAIN_STEPS
     _check_counts("lstm_train f32", counts, want)
     _falling("lstm_train f32", losses)
     res = {"launches": counts, "losses": losses, **_timed_steps(step)}
@@ -1035,11 +1178,54 @@ def lstm_train_phase(dev, gpu):
     return res
 
 
-def lm_steps_card_vs_cpu() -> None:
+def lstm_bf16_forward(dev):
+    """The PTB LSTM LM's forward in bf16 over one window (the path that
+    steps the fused cell: a bf16 layer runs ``lstm_cell_fused`` a step, and
+    so the pointwise kernel; counts reset just before and read just after),
+    its logits against the same model in f32 within ``TOL_LSTM_BF16`` of
+    the largest |logit|."""
+    import torch
+    from dt_tpu_torch import models
+    from dt_tpu_torch.interchange import load_jax_variables
+    cfg = dict(PTB, dropout=0.0)
+    variables = seeded_lm_variables(models.create("lstm_lm", device="cpu",
+                                                  **cfg), seed=1,
+                                    head_std=40.0)
+    tokens = torch.from_numpy(ptb_stream(PTB["vocab_size"])[:PTB_BPTT]) \
+        .to(dev)
+    logits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = load_jax_variables(models.create("lstm_lm", device=dev,
+                                                 dtype=dtype, **cfg),
+                                   variables)
+        with torch.no_grad():
+            model(tokens, training=False)  # warm up
+            torch.cuda.synchronize()
+            reset_counts()  # the path's run starts here
+            logits[dtype] = model(tokens, training=False)[0].float()
+            counts = read_counts()  # ... and ends here
+        if dtype == torch.bfloat16:
+            want = {k: 0 for k in counts}
+            want["lstm_pointwise"] = PTB_BPTT * PTB["num_layers"]
+            _check_counts("lstm_forward bf16", counts, want)
+    f32, bf = logits[torch.float32], logits[torch.bfloat16]
+    scale = float(f32.abs().max())
+    err = float((bf - f32).abs().max())
+    print(f"lstm_forward bf16 vs f32 max_abs_err={err:.3e} "
+          f"max_abs_logit={scale:.3f} tol={TOL_LSTM_BF16 * scale:.3e} "
+          f"finite={bool(torch.isfinite(bf).all())}", flush=True)
+    if not (torch.isfinite(bf).all() and err <= TOL_LSTM_BF16 * scale):
+        raise AssertionError("bf16 LSTM LM forward disagrees with f32")
+    return {"launches": counts, "max_abs_err": err}
+
+
+def lm_steps_card_vs_cpu() -> dict:
     """One f32 step of each LM on the card and on the CPU from the same
     weights, compared within ``TOL_LM_STEP``: the TransformerLM at 2
-    layers, S 256, batch 2 (flash: the kernel on the card, the plain version
-    on the CPU); the LSTM LM's first window at dropout 0."""
+    layers, S 256, batch 2 (flash: the f32 kernel on the card, the plain
+    version on the CPU); the LSTM LM's first window at dropout 0 (the layer
+    kernel).  Each card step is a path of its own: counts reset just before
+    it and read just after.  Returns the counts by model."""
     import torch
     from dt_tpu_torch import models, optim
     from dt_tpu_torch.interchange import load_jax_variables
@@ -1057,6 +1243,9 @@ def lm_steps_card_vs_cpu() -> None:
         "lstm_lm": (dict(PTB, dropout=0.0), dict(learning_rate=PTB_LR),
                     None, PTB_CLIP, stream[:PTB_BPTT],
                     stream[1:1 + PTB_BPTT])}
+    expected = {"transformer_lm": ("flash_attention", lm["num_layers"]),
+                "lstm_lm": ("lstm_layer", PTB["num_layers"])}
+    launched = {}
     for name, (kw, sgd, loss_fn, clip, x, y) in cases.items():
         variables = seeded_lm_variables(
             models.create(name, device="cpu", **kw), seed=3)
@@ -1068,8 +1257,14 @@ def lm_steps_card_vs_cpu() -> None:
             xt = torch.from_numpy(x).to(where)
             yt = None if y is None else torch.from_numpy(y).to(where)
             t0 = time.perf_counter()
+            reset_counts()  # the card step's run starts here
             flat_g, flat_s, loss, _ = grad_step(state, xt, yt,
                                                 loss_fn or BPTTLoss())
+            if where == "cuda":
+                launched[name] = read_counts()  # ... and ends here
+                want = {k: 0 for k in launched[name]}
+                want[expected[name][0]] = expected[name][1]
+                _check_counts(f"lm step f32 {name}", launched[name], want)
             if clip is not None:
                 flat_g = clip_global_norm({"g": flat_g}, clip)[0]["g"]
             apply_step(state, flat_g, flat_s)
@@ -1091,6 +1286,7 @@ def lm_steps_card_vs_cpu() -> None:
         bad = {k: v for k, v in errs.items() if not v <= TOL_LM_STEP[k]}
         if bad:
             raise AssertionError(f"{name} f32 step, card against CPU: {bad}")
+    return launched
 
 
 def main() -> int:
@@ -1188,13 +1384,15 @@ def main() -> int:
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
     lstm = lstm_phase(dev)
+    layer = lstm_layer_phase(dev)
     print(f"phase LM kernels done at {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # --- LM training ----------------------------------------------------
     lm_trained = lm_train_phase(dev, gpu)
     lstm_trained = lstm_train_phase(dev, gpu)
-    lm_steps_card_vs_cpu()
+    lm_steps = lm_steps_card_vs_cpu()
+    lstm_bf16 = lstm_bf16_forward(dev)
     print(f"phase LM train done at {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -1243,27 +1441,54 @@ def main() -> int:
             "library_ms": None})
     fb = flash["lm", "bfloat16"]
     kernels.append({
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention[bfloat16]", "route": "cuda",
         "source": "dt_tpu_torch/csrc/flash_attn.cu",
         "replaces": "dt_tpu/ops/pallas/attention.py:40",
         "launches": lm_trained["launches"]["flash_attention"],
         "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
         "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
         "bound_by": "operations", "library_ms": fb["library_ms"],
-        "redesigned_in": 4,
-        "dtype": "bfloat16", "float32": flash["lm", "float32"],
-        "more": {f"{c}[{n}]": r for (c, n), r in flash.items()
-                 if (c, n) != ("lm", "bfloat16")}})
+        "redesigned_in": 4, "path": "lm_train bf16",
+        "more": {c: r for (c, n), r in flash.items()
+                 if n == "bfloat16" and c != "lm"}})
+    ff = flash["lm", "float32"]
+    kernels.append({
+        "name": "flash_attention[float32]", "route": "cuda",
+        "source": "dt_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "dt_tpu/ops/pallas/attention.py:40",
+        "launches": lm_steps["transformer_lm"]["flash_attention"],
+        "max_abs_err": ff["max_abs_err"], "ms": ff["ms"],
+        "plain_ms": ff["plain_ms"], "bound_ms": ff["bound_ms"],
+        "bound_by": "operations", "library_ms": ff["library_ms"],
+        "bound_3xtf32_ms": ff["bound_3xtf32_ms"], "redesigned_in": 5,
+        "path": "lm step f32 transformer_lm",
+        "more": {c: r for (c, n), r in flash.items()
+                 if n == "float32" and c != "lm"}})
     lp = lstm[200]
     kernels.append({
         "name": "lstm_pointwise", "route": "cuda",
         "source": "dt_tpu_torch/csrc/lstm_point.cu",
         "replaces": "dt_tpu/ops/pallas/kernels.py:319",
-        "launches": lstm_trained["launches"]["lstm_pointwise"],
+        "launches": lstm_bf16["launches"]["lstm_pointwise"],
         "max_abs_err": lp["max_abs_err"], "ms": lp["ms"],
         "plain_ms": lp["plain_ms"], "bound_ms": lp["bound_ms"],
         "bound_by": "bytes", "library_ms": lp["library_ms"],
+        "path": "lstm_forward bf16",
+        "main_path_launches": lstm_trained["launches"]["lstm_pointwise"],
         "shape": [PTB_BATCH, 200], "h650": lstm[650]})
+    ll = layer[200]
+    kernels.append({
+        "name": "lstm_layer", "route": "cuda",
+        "source": "dt_tpu_torch/csrc/lstm_layer.cu",
+        "replaces": "dt_tpu/ops/pallas/kernels.py:319",
+        "launches": lstm_trained["launches"]["lstm_layer"],
+        "max_abs_err": ll["max_abs_err"], "ms": ll["ms"],
+        "plain_ms": ll["plain_ms"], "bound_ms": ll["bound_ms"],
+        "bound_by": "operations", "library_ms": ll["library_ms"],
+        "redesigned_in": 5, "path": "lstm_train f32",
+        "layer_ms": ll["layer_ms"], "per_step_ms": ll["per_step_ms"],
+        "serial_floor_ms": ll["serial_floor_ms"],
+        "shape": ll["shape"], "h650": layer[650]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,39 +21,55 @@
 // causal) a call does 4 * B*H * D * S(S+1)/2 = 34.4 GFLOP against 67 MB of
 // q, k, v and out in bf16, far above the H100's ~295 operations per byte, so
 // its least time is those operations at the tensor cores' 989 TFLOP/s (bf16)
-// or the CUDA cores' 67 TFLOP/s (f32 without TF32).  Two kernels, by dtype:
-//
-// bfloat16 (`tc::flash_fwd_tc`, the main path): Hopper's tensor cores.
-//   - A block holds 128 query rows: two consumer warpgroups of 64 rows and
-//     one producer warp; an SM holds two blocks at D <= 64.  The producer's
-//     TMA loads bring the Q tile once and K/V tiles of 64 keys into a
-//     two-stage shared-memory ring, with mbarriers for full and empty
+// or, for f32, at the CUDA cores' 67 TFLOP/s (0.513 ms; done as 3xTF32 on
+// the tensor cores it is 3 x 34.4 GFLOP at 495 TFLOP/s, 0.208 ms).  Both
+// dtypes share one pipeline on Hopper's tensor cores:
+//   - A block holds 64 query rows a consumer warpgroup and one producer
+//     warp.  The producer's TMA loads bring the Q tile once and K/V tiles
+//     into a two-stage shared-memory ring, with mbarriers for full and empty
 //     stages, so the next tile's load overlaps this tile's products.  TMA
 //     reads the (B, S, H, D) views through 4-D tensor maps over (D, H, S,
-//     B) with the caller's strides, writes the 128-byte swizzle wgmma
-//     reads, and fills rows past S with 0.
+//     B) with the caller's strides (starts and strides on 16 bytes, which
+//     the wrapper checks), writes the 128-byte swizzle wgmma reads (64 at
+//     bf16 D = 32), and fills rows past S with 0.
+//   - The softmax runs on the f32 accumulators in log2 units (s * scale *
+//     log2(e), one ex2 a score, the hardware's approximate exp2, 2 ulp); l
+//     sums the f32 p.  Only tiles on the diagonal (or ragged past sk) are
+//     masked; heavy q-blocks launch first (blockIdx.y counts down), so the
+//     short ones fill the tail.
+//
+// bfloat16 (`tc::flash_fwd_tc`, the main path): two consumer warpgroups
+//   (128 rows), 64-key tiles, two blocks an SM at D <= 64.
 //   - S = Q K^T is a bf16 wgmma (m64nBKk16, both operands from shared
 //     memory) into f32 registers: a bf16 product is exact in f32, so only
 //     the order of the sums differs from the TPU kernel's upcast-then-dot.
-//   - The softmax runs on those f32 registers in log2 units (s * scale *
-//     log2(e), one ex2 per score); l sums the f32 p.  Then p is rounded to
-//     bf16, in registers, as the A operand of O += P V (wgmma m64nDk16, V
-//     from shared memory, transposed): the one place where the result
-//     departs from the TPU kernel's f32 p, by at most 2^-8 max|v|.
-//   - Only tiles on the diagonal (or ragged past sk) are masked; heavy
-//     q-blocks launch first (blockIdx.y counts down), so the short ones
-//     fill the tail.
-// float32 (`flash_fwd_kernel`): f32 FMAs on the CUDA cores, far from the f32
-// bound but exact to f32 summation order (tensor cores would mean TF32).
-//   - One block owns BQ = 64 query rows and loops over 32-key K/V tiles
-//     staged in shared memory, read back as float4 broadcasts (four FMAs a
-//     shared-memory load); D / 32 neighbouring threads share a row, each
-//     holding 32 of its dims, and close each dot product with an xor
-//     butterfly whose sums every lane forms in the same order.
+//   - p is rounded to bf16, in registers, as the A operand of O += P V
+//     (wgmma m64nDk16, V from shared memory, transposed): the one place
+//     where the result departs from the TPU kernel's f32 p, by at most 2^-8
+//     max|v|.
+// float32 (`tc::flash_fwd_3xtf32`): 3xTF32.  Each f32 operand x is split
+//   into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and each product is
+//   lo.hi + hi.lo + hi.hi into the f32 accumulators (wgmma m64nNk8 tf32):
+//   what is dropped, lo.lo and the rounding of lo, is ~2^-22 of |x y|, so
+//   the result keeps about f32 accuracy at a third of the TF32 rate.
+//   - 32-bit wgmma operands must be K-major (no transpose bit).  Q and K
+//     have D contiguous, so S = Q K^T reads them as TMA wrote them, split
+//     in place (hi) and beside (lo) by the consumers.  V (keys x D) is not:
+//     each tile is transposed by the consumers into V^T (D x keys) hi and lo
+//     tiles before O += P V.
+//   - P comes from registers: the accumulator gives a thread keys 2t, 2t +
+//     1 of each group of 8, where a tf32 A fragment wants columns t and t +
+//     4; V^T stores each group of 8 keys in the order 0 2 4 6 1 3 5 7, so
+//     the fragment is the accumulator's registers as they are (route: V^T
+//     permuted while it is transposed).
+//   - Shared memory fits one block an SM (Cfg32: 176 KB at D 64 and 128),
+//     two consumer warpgroups and 64-key tiles at D <= 64, one warpgroup
+//     and 32-key tiles at D 128.  Each tile: the consumers split K and
+//     transpose V, meet at a barrier, run S, the softmax and P V, and meet
+//     again before the next tile's split.
 //
-// expf/logf and the divisions are the correctly rounded (non fast-math)
-// versions: nvcc is run without --use_fast_math.  The bf16 kernel's ex2 is
-// the hardware's approximate exp2 (2 ulp).
+// logf and the divisions are the correctly rounded (non fast-math)
+// versions: nvcc is run without --use_fast_math.
 
 #include <cuda.h>  // CUtensorMap and its enums; nothing new is linked
 
@@ -61,182 +77,14 @@
 
 namespace {
 
-using dt::from_float;
-using dt::to_float;
-
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 32;  // keys per shared-memory tile
-constexpr int DPT = 32; // dims of a row per thread (8 float4 groups)
-constexpr int G = DPT / 4;
 
 struct Strides {  // element strides of a (B, S, H, D) tensor, D's is 1
   int64_t b, s, h;
 };
 
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p) {
-  return make_float4(to_float(p[0]), to_float(p[1]), to_float(p[2]),
-                     to_float(p[3]));
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float p, float4 v, float4& acc) {
-  acc.x = fmaf(p, v.x, acc.x);
-  acc.y = fmaf(p, v.y, acc.y);
-  acc.z = fmaf(p, v.z, acc.z);
-  acc.w = fmaf(p, v.w, acc.w);
-}
-
-// grid (ceil(sq / BQ), batch * heads); block BQ * (D / 32) threads.
-template <typename T, int D>
-__global__ void __launch_bounds__(BQ * (D / DPT))
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int heads, int sq, int sk,
-                     Strides qs, Strides ks, Strides vs, float scale,
-                     bool causal) {
-  constexpr int TPR = D / DPT;  // threads per query row
-  constexpr int D4 = D / 4;
-  __shared__ float4 k_tile[BK][D4];
-  __shared__ float4 v_tile[BK][D4];
-
-  const int tid = threadIdx.x;
-  const int t = tid % TPR;  // this thread's share of the row's dims
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int q0 = blockIdx.x * BQ;
-  const int qi = q0 + tid / TPR;
-  const bool live = qi < sq;
-
-  float4 qr[G], acc[G];
-  const T* qrow = q + b * qs.b + h * qs.h + (int64_t)qi * qs.s;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    qr[g] = live ? load4(qrow + 4 * (t + TPR * g)) : make_float4(0, 0, 0, 0);
-    acc[g] = make_float4(0, 0, 0, 0);
-  }
-  float m = NEG_INF, l = 0.0f;
-
-  const int n_kt = (sk + BK - 1) / BK;
-  const int kt_end = causal ? min(n_kt, (q0 + BQ - 1) / BK + 1) : n_kt;
-  const T* kbase = k + b * ks.b + h * ks.h;
-  const T* vbase = v + b * vs.b + h * vs.h;
-
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < BK * D4; idx += blockDim.x) {
-      const int j = idx / D4, c = idx % D4;
-      const int key = k0 + j;
-      float4 kv = make_float4(0, 0, 0, 0), vv = make_float4(0, 0, 0, 0);
-      if (key < sk) {
-        kv = load4(kbase + (int64_t)key * ks.s + 4 * c);
-        vv = load4(vbase + (int64_t)key * vs.s + 4 * c);
-      }
-      k_tile[j][c] = kv;
-      v_tile[j][c] = vv;
-    }
-    __syncthreads();
-
-    float s[BK];
-    float m_cur = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.0f;
-#pragma unroll
-      for (int g = 0; g < G; ++g) part = dot4(qr[g], k_tile[j][t + TPR * g],
-                                              part);
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      const int key = k0 + j;
-      float sc = part * scale;
-      if (key >= sk || (causal && key > qi)) sc = NEG_INF;
-      s[j] = sc;
-      m_cur = fmaxf(m_cur, sc);
-    }
-    const float m_new = fmaxf(m, m_cur);
-    const float corr = expf(m - m_new);
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] = expf(s[j] - m_new);
-      psum += s[j];
-    }
-    l = l * corr + psum;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      acc[g].x *= corr;
-      acc[g].y *= corr;
-      acc[g].z *= corr;
-      acc[g].w *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) axpy4(s[j], v_tile[j][t + TPR * g], acc[g]);
-    }
-    m = m_new;
-  }
-
-  if (!live) return;
-  const float lc = fmaxf(l, 1e-30f);
-  T* orow = out + (((int64_t)b * sq + qi) * heads + h) * D;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    T* o = orow + 4 * (t + TPR * g);
-    o[0] = from_float<T>(acc[g].x / lc);
-    o[1] = from_float<T>(acc[g].y / lc);
-    o[2] = from_float<T>(acc[g].z / lc);
-    o[3] = from_float<T>(acc[g].w / lc);
-  }
-  if (t == 0) lse[(int64_t)bh * sq + qi] = m + logf(lc);
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int64_t batch, int64_t heads, int64_t sq,
-                   int64_t sk, Strides qs, Strides ks, Strides vs, float scale,
-                   bool causal, cudaStream_t stream) {
-  const dim3 grid((unsigned)((sq + BQ - 1) / BQ), (unsigned)(batch * heads));
-  flash_fwd_kernel<T, D><<<grid, BQ * (D / DPT), 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), (int)heads, (int)sq, (int)sk, qs, ks, vs,
-      scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int64_t d, const void* q, const void* k, const void* v,
-                     void* out, void* lse, int64_t batch, int64_t heads,
-                     int64_t sq, int64_t sk, Strides qs, Strides ks,
-                     Strides vs, float scale, bool causal,
-                     cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, lse, batch, heads, sq, sk, qs, ks,
-                           vs, scale, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, lse, batch, heads, sq, sk, qs, ks,
-                           vs, scale, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, lse, batch, heads, sq, sk, qs, ks,
-                            vs, scale, causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (wgmma), TMA loads, one producer warp
+// tensor cores (wgmma), TMA loads, one producer warp; bfloat16 first
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -522,6 +370,128 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
   else wgmma_rs_n128(d, a, db);
 }
 
+// m64nNk8, tf32 in, f32 accumulators (3xTF32 kernel).  ss: A and B from
+// shared memory, both K-major (32-bit operands take no transpose); rs: A
+// from registers, B from shared memory, K-major.
+__device__ __forceinline__ void tf32_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void tf32_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void tf32_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void tf32_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void tf32_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
 // grid (batch * heads, ceil(sq / BQ)); THREADS threads; Cfg<D>::SMEM bytes
 // of dynamic shared memory.  Warps 0-7 are two consumer warpgroups (query
 // rows q0 + 64 * wg ...), warp 8 the producer.
@@ -733,26 +703,37 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 4-D map over (D, heads, S, batch) of a bf16 (B, S, H, D) view with
-// element strides st, boxes of (PW, 1, rows, 1); rows past S read as 0.
+// A 4-D map over (D, heads, S, batch) of a (B, S, H, D) view with element
+// strides st and `esize`-byte elements, boxes of (pw, 1, rows, 1); rows
+// past S read as 0.
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                int d, int pw, CUtensorMapSwizzle swizzle, const void* ptr,
+                int64_t batch, int64_t heads, int64_t s, const Strides& st,
+                int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(st.h * esize),
+                                 (cuuint64_t)(st.s * esize),
+                                 (cuuint64_t)(st.b * esize)};
+  const cuuint32_t box[4] = {(cuuint32_t)pw, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const EncodeTiled fn = encoder();
+  return fn != nullptr &&
+         fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 kernel's map: panels of Cfg<D>::PW columns.
 template <int D>
 bool encode(CUtensorMap* map, const void* ptr, int64_t batch, int64_t heads,
             int64_t s, const Strides& st, int rows) {
   using C = Cfg<D>;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)s,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::PW, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const EncodeTiled fn = encoder();
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            C::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                          : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, C::PW,
+                    C::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_64B,
+                    ptr, batch, heads, s, st, rows);
 }
 
 template <int D>
@@ -785,6 +766,368 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores (wgmma), the same TMA pipeline
+// ---------------------------------------------------------------------------
+
+// Round to TF32 (10 mantissa bits, to nearest, ties away from zero): the
+// bits a tf32 wgmma operand keeps.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Barrier 1 over the consumer threads (the producer warp keeps running).
+__device__ __forceinline__ void consumers_sync(int count) {
+  asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");
+}
+
+// Geometry for head dim D.  Tiles are f32 panels of 32 columns (128-byte
+// rows, 128-byte swizzle) written by TMA or by the split pass.  Shared
+// memory a block, D 64: Q and Q_lo 2 x 32 KB, two stages of raw K and V 2 x
+// 32 KB, K_lo, V^T and V^T_lo 3 x 16 KB: 176 KB, one block an SM.  D 128:
+// one warpgroup of 64 rows and 32-key tiles keep the same 176 KB (128 rows
+// and 64 keys would need 352 KB); D 32: 89 KB.
+template <int D> struct Cfg32 {
+  static constexpr int WG = D <= 64 ? 2 : 1;    // consumer warpgroups
+  static constexpr int BQ = 64 * WG;            // query rows a block
+  static constexpr int BK = D <= 64 ? 64 : 32;  // keys a tile
+  static constexpr int CONSUMERS = 128 * WG;
+  static constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
+  static constexpr int PW = 32;                   // f32 columns a panel
+  static constexpr int ROW = 128;                 // bytes of a panel row
+  static constexpr int NP = D / PW;               // panels of Q, K, V rows
+  static constexpr int Q_BYTES = BQ * D * 4;
+  static constexpr int KV_BYTES = BK * D * 4;  // one K, V or V^T tile
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 3 * KV_BYTES + 64;
+};
+
+// x -> (hi, lo) in place over `n` floats: hi = tf32(x) where x was, lo =
+// tf32(x - hi) at the same offset of `lo` (the split is elementwise, so
+// the swizzled layout carries over).
+__device__ __forceinline__ void split_tile(float* x, float* lo, int n,
+                                           int tid, int threads) {
+  float4* x4 = reinterpret_cast<float4*>(x);
+  float4* lo4 = reinterpret_cast<float4*>(lo);
+  for (int i = tid; i < n / 4; i += threads) {
+    const float4 v = x4[i];
+    float4 h, l;
+    h.x = tf32_rna(v.x);
+    h.y = tf32_rna(v.y);
+    h.z = tf32_rna(v.z);
+    h.w = tf32_rna(v.w);
+    l.x = tf32_rna(v.x - h.x);
+    l.y = tf32_rna(v.y - h.y);
+    l.z = tf32_rna(v.z - h.z);
+    l.w = tf32_rna(v.w - h.w);
+    x4[i] = h;
+    lo4[i] = l;
+  }
+}
+
+// Byte offset of element (row, col) in a tile of 128-byte panel rows with
+// the 128-byte swizzle, `rows` rows a panel (the layout TMA writes and a
+// K-major wgmma operand reads).
+__device__ __forceinline__ int swz(int row, int col, int rows) {
+  return (col / 32) * rows * 128 + row * 128 +
+         ((((col % 32) / 4) ^ (row % 8)) * 16) + (col % 4) * 4;
+}
+
+// V (BK keys x D, from TMA) -> V^T (D x BK, keys contiguous: the K-major B
+// operand of O += P V) split into hi and lo.  Within each group of 8 keys
+// V^T holds them in the order 0 2 4 6 1 3 5 7: the P fragment that the
+// accumulator layout gives a thread (keys 2t and 2t + 1 of a group) then
+// sits where a tf32 A fragment wants its columns t and t + 4.
+template <int D, int BK>
+__device__ __forceinline__ void transpose_split(const uint8_t* v,
+                                                uint8_t* vt_hi,
+                                                uint8_t* vt_lo, int tid,
+                                                int threads) {
+  for (int q = tid; q < BK * D / 4; q += threads) {
+    const int key = q % BK, dc = q / BK;  // lanes: neighbouring keys
+    const float4 x = *reinterpret_cast<const float4*>(v + swz(key, 4 * dc,
+                                                              BK));
+    const int kk = key % 8;
+    const int pos = key - kk + (kk % 2 ? 4 + kk / 2 : kk / 2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float val = e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+      const float hi = tf32_rna(val);
+      const int off = swz(4 * dc + e, pos, D);
+      *reinterpret_cast<float*>(vt_hi + off) = hi;
+      *reinterpret_cast<float*>(vt_lo + off) = tf32_rna(val - hi);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void mma32_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 32) tf32_ss_n32(d, da, db, accumulate);
+  else tf32_ss_n64(d, da, db, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void mma32_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 32) tf32_rs_n32(d, a, db);
+  else if constexpr (N == 64) tf32_rs_n64(d, a, db);
+  else tf32_rs_n128(d, a, db);
+}
+
+// grid (batch * heads, ceil(sq / BQ)); THREADS threads; Cfg32<D>::SMEM
+// bytes of dynamic shared memory.  Warps 0 .. 4 WG - 1 are the consumer
+// warpgroups (query rows q0 + 64 * wg ...), the last warp the producer.
+template <int D>
+__global__ void __launch_bounds__(Cfg32<D>::THREADS, 1)
+    flash_fwd_3xtf32(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     float* __restrict__ out, float* __restrict__ lse,
+                     int heads, int sq, int sk, float scale_log2,
+                     int causal) {
+  using C = Cfg32<D>;
+  constexpr int BK = C::BK, BQ = C::BQ, NC = C::CONSUMERS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);  // swizzle
+  uint8_t* q_s = base;                                            // atoms
+  uint8_t* q_lo = q_s + C::Q_BYTES;
+  uint8_t* k_s = q_lo + C::Q_BYTES;
+  uint8_t* v_s = k_s + STAGES * C::KV_BYTES;
+  uint8_t* k_lo = v_s + STAGES * C::KV_BYTES;
+  uint8_t* vt_hi = k_lo + C::KV_BYTES;
+  uint8_t* vt_lo = vt_hi + C::KV_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vt_lo + C::KV_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heavy q-blocks first
+  const int n_kt = (sk + BK - 1) / BK;
+  const int n_tiles = causal ? min(n_kt, (q0 + BQ - 1) / BK + 1) : n_kt;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == NC / 32) {
+    // producer: Q once, then raw K and V tile by tile into the ring
+    if (lane == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+#pragma unroll
+      for (int p = 0; p < C::NP; ++p)
+        tma_load(q_s + p * BQ * C::ROW, &tq, q_full, p * C::PW, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], (t / STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < C::NP; ++p) {
+          tma_load(k_s + s * C::KV_BYTES + p * BK * C::ROW, &tk, &full[s],
+                   p * C::PW, h, t * BK, b);
+          tma_load(v_s + s * C::KV_BYTES + p * BK * C::ROW, &tv, &full[s],
+                   p * C::PW, h, t * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [q0 + 64 wg, q0 + 64 wg + 64); this
+  // thread the rows r and r + 8 of its warp's 16, columns 2 (lane % 4) + j
+  // of every 8-column chunk (the wgmma accumulator layout)
+  const int tid = threadIdx.x;
+  const int wg = warp / 4;
+  const int row_lo = q0 + 64 * wg;
+  const int r = row_lo + 16 * (warp % 4) + lane / 4;
+  const int col = 2 * (lane % 4);
+  const int my_tiles = causal ? min(n_kt, (row_lo + 63) / BK + 1) : n_kt;
+  constexpr uint32_t SBO = 8 * C::ROW / 16;  // 8-row core-matrix groups
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max of s * scale * log2(e)
+  float l[2] = {0.0f, 0.0f};        // this thread's share of the row sums
+  const uint32_t q_hi_addr = smem_u32(q_s) + 64 * wg * C::ROW;
+  const uint32_t q_lo_addr = smem_u32(q_lo) + 64 * wg * C::ROW;
+
+  mbar_wait(q_full, 0);
+  split_tile(reinterpret_cast<float*>(q_s), reinterpret_cast<float*>(q_lo),
+             BQ * D, tid, NC);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % STAGES;
+    uint8_t* k_tile = k_s + s * C::KV_BYTES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    // every consumer splits a share of K (in place) and transposes V
+    split_tile(reinterpret_cast<float*>(k_tile),
+               reinterpret_cast<float*>(k_lo), BK * D, tid, NC);
+    transpose_split<D, BK>(v_s + s * C::KV_BYTES, vt_hi, vt_lo, tid, NC);
+    fence_async_smem();  // the split tiles are read by wgmma
+    consumers_sync(NC);
+
+    float sc[BK / 2];
+    if (t < my_tiles) {  // uniform over the warpgroup
+      // S = Q K^T as lo.hi + hi.lo + hi.hi, D / 8 steps of 8 dims
+      const uint32_t k_hi_addr = smem_u32(k_tile), k_lo_addr = smem_u32(k_lo);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const uint32_t at = c / 4 * BQ * C::ROW + c % 4 * 32;  // A: panel, row
+        const uint32_t bt = c / 4 * BK * C::ROW + c % 4 * 32;  // B
+        mma32_ss<BK>(sc, desc(q_lo_addr + at, 1, SBO, 1),
+                     desc(k_hi_addr + bt, 1, SBO, 1), c > 0);
+        mma32_ss<BK>(sc, desc(q_hi_addr + at, 1, SBO, 1),
+                     desc(k_lo_addr + bt, 1, SBO, 1), 1);
+        mma32_ss<BK>(sc, desc(q_hi_addr + at, 1, SBO, 1),
+                     desc(k_hi_addr + bt, 1, SBO, 1), 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+    }
+    mbar_arrive(&empty[s]);  // K (hi, in place) and V of stage s are done
+
+    if (t < my_tiles) {
+      // scale into log2 units, mask the diagonal and ragged tiles
+      const int k0 = t * BK;
+      const bool mask = (causal && k0 + BK - 1 > row_lo) || k0 + BK > sk;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int half = (i / 2) % 2;  // row r or r + 8
+        float v = sc[i] * scale_log2;
+        if (mask) {
+          const int key = k0 + 8 * (i / 4) + col + i % 2;
+          if (key >= sk || (causal && key > r + 8 * half)) v = NEG_INF;
+        }
+        sc[i] = v;
+        mx[half] = fmaxf(mx[half], v);
+      }
+      float corr[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+        corr[half] = ex2(m[half] - mx[half]);
+        m[half] = mx[half];
+      }
+      // p = exp(s - m_new) in f32; l sums it; P goes to the tensor cores
+      // as hi (in sc) and lo, the A operand of O += P V
+      float ps[2] = {0.0f, 0.0f};
+      float lo[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const float p = ex2(sc[i] - m[(i / 2) % 2]);
+        ps[(i / 2) % 2] += p;
+        sc[i] = tf32_rna(p);
+        lo[i] = tf32_rna(p - sc[i]);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) l[half] = l[half] * corr[half] +
+                                                     ps[half];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
+
+      // O += P V as lo.hi + hi.lo + hi.hi, BK / 8 steps of 8 keys; the
+      // fragment of a step: rows r, r + 8 at positions t (key 2t) and t + 4
+      // (key 2t + 1), as V^T's key order has them
+      const uint32_t vt_hi_addr = smem_u32(vt_hi);
+      const uint32_t vt_lo_addr = smem_u32(vt_lo);
+      pin(o);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < BK / 8; ++c) {
+        const uint32_t a_hi[4] = {
+            __float_as_uint(sc[4 * c]), __float_as_uint(sc[4 * c + 2]),
+            __float_as_uint(sc[4 * c + 1]), __float_as_uint(sc[4 * c + 3])};
+        const uint32_t a_lo[4] = {
+            __float_as_uint(lo[4 * c]), __float_as_uint(lo[4 * c + 2]),
+            __float_as_uint(lo[4 * c + 1]), __float_as_uint(lo[4 * c + 3])};
+        const uint32_t bt = c / 4 * D * C::ROW + c % 4 * 32;
+        mma32_rs<D>(o, a_lo, desc(vt_hi_addr + bt, 1, SBO, 1));
+        mma32_rs<D>(o, a_hi, desc(vt_lo_addr + bt, 1, SBO, 1));
+        mma32_rs<D>(o, a_hi, desc(vt_hi_addr + bt, 1, SBO, 1));
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(o);
+    }
+    consumers_sync(NC);  // K_lo, V^T and V^T_lo are free for the next tile
+  }
+
+  // out = acc / max(l, 1e-30), lse = m + log(l); rows past sq are not stored
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float lt = l[half];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float lc = fmaxf(lt, 1e-30f);
+    const int row = r + 8 * half;
+    if (row >= sq) continue;
+    float* orow = out + (((int64_t)b * sq + row) * heads + h) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float* a = &o[4 * n + 2 * half];
+      *reinterpret_cast<float2*>(orow + 8 * n + col) =
+          make_float2(a[0] / lc, a[1] / lc);
+    }
+    if (lane % 4 == 0) lse[(int64_t)bh * sq + row] = m[half] * LN2 + logf(lc);
+  }
+}
+
+template <int D>
+cudaError_t launch32(const void* q, const void* k, const void* v, void* out,
+                     void* lse, int64_t batch, int64_t heads, int64_t sq,
+                     int64_t sk, Strides qs, Strides ks, Strides vs,
+                     float scale, bool causal, cudaStream_t stream) {
+  using C = Cfg32<D>;
+  CUtensorMap tq, tk, tv;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle swz = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!encode_map(&tq, f32, 4, D, C::PW, swz, q, batch, heads, sq, qs,
+                  C::BQ) ||
+      !encode_map(&tk, f32, 4, D, C::PW, swz, k, batch, heads, sk, ks,
+                  C::BK) ||
+      !encode_map(&tv, f32, 4, D, C::PW, swz, v, batch, heads, sk, vs, C::BK))
+    return cudaErrorInvalidValue;
+  static unsigned sized = 0;  // devices whose shared-memory limit is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32) return cudaErrorInvalidDevice;
+  if (!(sized >> dev & 1u)) {
+    err = cudaFuncSetAttribute(flash_fwd_3xtf32<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+    if (err != cudaSuccess) return err;
+    sized |= 1u << dev;
+  }
+  const dim3 grid((unsigned)(batch * heads),
+                  (unsigned)((sq + C::BQ - 1) / C::BQ));
+  flash_fwd_3xtf32<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<float*>(out), static_cast<float*>(lse),
+      (int)heads, (int)sq, (int)sk, scale * LOG2E, causal ? 1 : 0);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace
@@ -792,7 +1135,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // q, k, v: (batch, sq|sk, heads, d) with element strides (b, s, h) each and
-// stride 1 along d; out: contiguous (batch, sq, heads, d) of their dtype;
+// stride 1 along d, starts and strides on 16 bytes (TMA); out: contiguous
+// (batch, sq, heads, d) of their dtype;
 // lse: contiguous f32 (batch * heads, sq).  dtype: 0 = float32, 1 =
 // bfloat16; d is 32, 64 or 128; batch * heads <= 65535; sq, sk >= 1.
 // Launches on `stream` and returns the launch's cudaError_t (0 on success).
@@ -807,9 +1151,21 @@ int dt_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
       sq > 0x7fffffff || sk > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  if (dtype == 0)
-    return dispatch<float>(d, q, k, v, out, lse, batch, heads, sq, sk, qs,
-                           ks, vs, scale, causal != 0, s);
+  if (dtype == 0) {
+    switch (d) {
+      case 32:
+        return tc::launch32<32>(q, k, v, out, lse, batch, heads, sq, sk, qs,
+                                ks, vs, scale, causal != 0, s);
+      case 64:
+        return tc::launch32<64>(q, k, v, out, lse, batch, heads, sq, sk, qs,
+                                ks, vs, scale, causal != 0, s);
+      case 128:
+        return tc::launch32<128>(q, k, v, out, lse, batch, heads, sq, sk, qs,
+                                 ks, vs, scale, causal != 0, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 32:

@@ -16,8 +16,9 @@
 // step and layer, so its time is the launch floor, not its bytes; the design
 // only reads each byte once, coalesced: neighbouring threads take
 // neighbouring j, so each of the four gate columns j, H+j, 2H+j, 3H+j and c
-// is read by a warp as one run of consecutive words.  A persistent cell over
-// the time steps is later work.
+// is read by a warp as one run of consecutive words.  The multi-layer LSTM
+// runs a float32 layer's whole window as csrc/lstm_layer.cu instead; this
+// kernel is the single step of `lstm_cell_fused` (and of a bf16 layer).
 //
 // Rounding follows the plain PyTorch version op by op: sigmoid is
 // 1 / (1 + exp(-x)) and tanh is tanhf, both the correctly rounded (non

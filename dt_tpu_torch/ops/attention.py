@@ -4,9 +4,9 @@ blockwise backward (counterpart of ``dt_tpu/ops/pallas/attention.py``).
 - :func:`flash_fwd` is the kernel's wrapper: ``(B, S, H, D)`` q/k/v -> the
   output ``(B, S, H, D)`` in q's dtype and the per-row logsumexp ``(B*H,
   S)`` in f32.  A CUDA tensor launches ``csrc/flash_attn.cu`` (replacing the
-  TPU kernel ``_attn_kernel``, ``attention.py:40,100``: bf16 on the tensor
-  cores through ``wgmma`` and TMA, f32 on the CUDA cores) and counts the
-  launch in ``flash_fwd.launches``; a CPU tensor runs
+  TPU kernel ``_attn_kernel``, ``attention.py:40,100``: on the tensor cores
+  through ``wgmma`` and TMA, bf16 directly and f32 as 3xTF32) and counts
+  the launch in ``flash_fwd.launches``; a CPU tensor runs
   :func:`flash_attention_plain`.
 - :func:`flash_attention_plain` is the plain version on the ``(B*H, S, D)``
   form: the TPU kernel's online softmax over kv blocks, with its skip of
@@ -121,11 +121,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The kernel's wrapper: ``(B, S, H, D)`` q/k/v (strided views are
     taken as they are; D's stride must be 1) -> ``(out (B, S, H, D)
     contiguous in q's dtype, lse (B*H, S) f32)``.  A CUDA tensor launches
-    ``csrc/flash_attn.cu`` (D in 32, 64, 128; bf16 on the tensor cores, its
-    starts and strides on 16 bytes for TMA; f32 on the CUDA cores) and
-    counts the launch; a CPU tensor runs :func:`flash_attention_plain` with
-    ``block_q``/``block_k`` (the kernel tiles by itself: its result does not
-    depend on them)."""
+    ``csrc/flash_attn.cu`` (D in 32, 64, 128; on the tensor cores, bf16
+    directly and f32 as 3xTF32; q, k and v start and stride on 16 bytes
+    for its TMA loads, else ``ValueError``) and counts the launch; a CPU
+    tensor runs :func:`flash_attention_plain` with ``block_q``/``block_k``
+    (the kernel tiles by itself: its result does not depend on them)."""
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -147,12 +147,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: {name}'s last axis must be "
                              f"contiguous, got strides {tuple(t.stride())}")
         st = _bsh_strides(t)
-        if t.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16 or any(s * 2 % 16 for s in st)):
+        if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in st):
             raise ValueError(
-                f"flash_attention: the bf16 kernel's TMA loads need {name}'s "
+                f"flash_attention: the kernel's TMA loads need {name}'s "
                 "start and (B, S, H) strides on 16 bytes, got address "
-                f"{t.data_ptr():#x} and strides {tuple(t.stride())}")
+                f"{t.data_ptr():#x} and strides {tuple(t.stride())} of "
+                f"{t.element_size()}-byte elements")
         strides += st
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)

@@ -23,7 +23,13 @@ bound by bytes; their least time is the bytes they must move over the H100's
   is partial); ``.numpy().view(np.uint32)`` gives the wire's words.
 - ``lstm_point`` (``csrc/lstm_point.cu``) replaces ``_lstm_point_kernel``
   (``kernels.py:319``): the pointwise stage of an LSTM cell, the forward of
-  ``lstm_pointwise`` and so of ``lstm_cell_fused``.
+  ``lstm_pointwise`` and so of ``lstm_cell_fused``, one step at a time.
+- ``lstm_layer`` (``csrc/lstm_layer.cu``) replaces the same kernel on the
+  path of the multi-layer LSTM (``dt_tpu/ops/rnn.py:84-114``): a whole
+  layer window, every step's recurrent product and pointwise stage, in one
+  thread-block-cluster launch.  Bound by operations (67 TFLOP/s f32) and,
+  in practice, by its serial chain of steps; :func:`lstm_layer_fused` is
+  its differentiable form, with an explicit BPTT backward in PyTorch.
 
 ``flash_attn`` (``csrc/flash_attn.cu``, the flash-attention forward) is
 bound by operations; its wrapper lives in ``ops.attention`` and its
@@ -54,6 +60,9 @@ _SIGNATURES = {
         "dt_quantize_2bit": [_V, _V, _V, _V, _I64, ctypes.c_float, _V],
         "dt_dequantize_2bit": [_V, _V, _I64, ctypes.c_float, _V]},
     "lstm_point": {"dt_lstm_point": [_V, _V, _V, _V, _I64, _I64, _INT, _V]},
+    # xw, h0, c0, wh, hs, cs, gates; T, B, H, n, rows, ks, clusters, wsm,
+    # reverse; shared-memory bytes; stream
+    "lstm_layer": {"dt_lstm_layer": [_V] * 7 + [_INT] * 9 + [_I64, _V]},
     # q, k, v, out, lse; batch, heads, sq, sk, d; (b, s, h) strides of q, k
     # and v; scale, causal, dtype; stream
     "flash_attn": {"dt_flash_attn_fwd": [_V] * 5 + [_I64] * 14
@@ -617,3 +626,197 @@ def lstm_cell_fused(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, w):
     gates = (torch.matmul(x, w.wx) + torch.matmul(h, w.wh)).float() + w.b
     h_new, c_new = lstm_pointwise(gates, c.float())
     return h_new.to(x.dtype), c_new.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# LSTM layer: the whole window in one launch
+# ---------------------------------------------------------------------------
+
+_LAYER_THREADS = 512  # csrc/lstm_layer.cu NT
+_LAYER_PAIRS = 4  # (row, unit) pairs a thread at most (PMAX)
+_LAYER_KS_MAX = 8  # slices of the inputs at most (KS_MAX)
+_LAYER_SMEM = 232448  # shared memory a block can use on the H100 (227 KB)
+_LAYER_CLUSTER = 16  # blocks a cluster (a non-portable size above 8)
+_LAYER_ROWS = 8  # batch rows a cluster the geometry aims at ...
+_LAYER_CLUSTERS = 4  # ... over at most this many clusters (64 SMs)
+
+
+class LayerGeometry(NamedTuple):
+    """The launch of one layer window: ``clusters`` clusters of ``n``
+    blocks, each cluster ``rows`` batch rows; ``ks`` slices of the H inputs
+    a gate product; ``wsm``: Wh's columns in shared memory (else read from
+    L2 every step); ``smem`` bytes of shared memory a block."""
+    n: int
+    rows: int
+    clusters: int
+    ks: int
+    wsm: bool
+    smem: int
+
+
+def _layer_floats(hidden: int, n: int, rows: int, ks: int, wsm: bool):
+    """(shared-memory floats a block, tiles of the gate product, pairs a
+    block at most), as ``make_geo`` in ``csrc/lstm_layer.cu`` lays them
+    out: two h buffers (rows x (H4 + 4)), Wh's columns (H4 x C4) when
+    ``wsm``, ``ks`` partial tiles (rows x C4) and c (rows x units)."""
+    per = -(-hidden // n)
+    c4 = -(-4 * per // 4) * 4
+    h4 = -(-hidden // 4) * 4
+    r4 = -(-rows // 4) * 4
+    floats = 2 * r4 * (h4 + 4) + (h4 * c4 if wsm else 0) + ks * r4 * c4 \
+        + rows * per
+    return floats, (r4 // 4) * (c4 // 4), rows * per
+
+
+def layer_geometry(batch: int, hidden: int) -> LayerGeometry:
+    """The layer kernel's launch for ``batch`` rows of ``hidden`` units.
+    A cluster of ``min(16, H)`` blocks walks the steps for a share of the
+    batch rows: ~8 rows a cluster over at most 4 clusters (64 of the H100's
+    132 SMs, all resident at once), fewer rows where the h buffers, the
+    partial tiles and c would not fit 227 KB of shared memory or the tiles
+    and pairs the threads; Wh's columns go into shared memory where they
+    fit too.  Raises ``ValueError`` where one row does not fit."""
+    if batch < 1 or hidden < 1:
+        raise ValueError(f"lstm_layer: need B, H >= 1, got {batch}, "
+                         f"{hidden}")
+    n = min(_LAYER_CLUSTER, hidden)
+
+    def ks_for(rows):
+        tiles = _layer_floats(hidden, n, rows, 1, False)[1]
+        return max(1, min(_LAYER_KS_MAX, _LAYER_THREADS // tiles))
+
+    def fits(rows):
+        floats, tiles, pairs = _layer_floats(hidden, n, rows, ks_for(rows),
+                                             False)
+        return (floats * 4 <= _LAYER_SMEM and tiles <= _LAYER_THREADS
+                and pairs <= _LAYER_PAIRS * _LAYER_THREADS)
+
+    rows = -(-batch // min(_LAYER_CLUSTERS, -(-batch // _LAYER_ROWS)))
+    while rows > 1 and not fits(rows):
+        rows -= 1
+    if not fits(rows):
+        raise ValueError(f"lstm_layer: H = {hidden} is too wide for the "
+                         "kernel's shared memory")
+    clusters = -(-batch // rows)
+    rows = -(-batch // clusters)  # the same clusters, rows evened out
+    ks = ks_for(rows)
+    wsm = _layer_floats(hidden, n, rows, ks, True)[0] * 4 <= _LAYER_SMEM
+    return LayerGeometry(n, rows, clusters, ks, wsm,
+                         _layer_floats(hidden, n, rows, ks, wsm)[0] * 4)
+
+
+def lstm_layer_plain(xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                     wh: torch.Tensor, reverse: bool = False):
+    """The plain version of the layer kernel, a loop over the steps:
+    ``gates_t = xw_t + h_{t-1} @ wh`` and :func:`lstm_pointwise_plain`.
+    ``xw`` (T, B, 4H), ``h0``/``c0`` (B, H), ``wh`` (H, 4H), all f32 ->
+    ``(hs, cs)`` (T, B, H) and ``gates`` (T, B, 4H)."""
+    steps = range(xw.shape[0] - 1, -1, -1) if reverse \
+        else range(xw.shape[0])
+    hs, cs, gates = [None] * xw.shape[0], [None] * xw.shape[0], \
+        [None] * xw.shape[0]
+    h, c = h0, c0
+    for t in steps:
+        gates[t] = xw[t] + torch.matmul(h, wh)
+        h, c = lstm_pointwise_plain(gates[t], c)
+        hs[t], cs[t] = h, c
+    return torch.stack(hs), torch.stack(cs), torch.stack(gates)
+
+
+def lstm_layer(xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+               wh: torch.Tensor, reverse: bool = False):
+    """The layer kernel's wrapper: contiguous f32 ``xw`` (T, B, 4H) (the
+    input product with the bias), ``h0``/``c0`` (B, H) and ``wh`` (H, 4H)
+    -> ``(hs, cs, gates)``, h and c after every step (T, B, H) and the gate
+    pre-activations (T, B, 4H), in time order also under ``reverse``.  A
+    CUDA tensor launches ``csrc/lstm_layer.cu`` once (geometry from
+    :func:`layer_geometry`) and counts the launch in
+    ``lstm_layer.launches``; a CPU tensor runs :func:`lstm_layer_plain`."""
+    if xw.dim() != 3 or xw.shape[2] % 4 or xw.shape[0] < 1:
+        raise ValueError(f"lstm_layer: need xw (T >= 1, B, 4H), got "
+                         f"{tuple(xw.shape)}")
+    t, b, four_h = xw.shape
+    hidden = four_h // 4
+    if tuple(h0.shape) != (b, hidden) or tuple(c0.shape) != (b, hidden) \
+            or tuple(wh.shape) != (hidden, four_h):
+        raise ValueError(f"lstm_layer: h0, c0 (B, H) and wh (H, 4H) do not "
+                         f"fit xw {tuple(xw.shape)}: {tuple(h0.shape)}, "
+                         f"{tuple(c0.shape)}, {tuple(wh.shape)}")
+    if not (xw.device == h0.device == c0.device == wh.device):
+        raise ValueError("lstm_layer: xw, h0, c0, wh must be on one device")
+    _check_flat("lstm_layer", xw=xw, h0=h0, c0=c0, wh=wh)
+    if not _on_cuda("lstm_layer", xw):
+        return lstm_layer_plain(xw, h0, c0, wh, reverse)
+    geo = layer_geometry(b, hidden)
+    hs = torch.empty((t, b, hidden), dtype=torch.float32, device=xw.device)
+    cs = torch.empty_like(hs)
+    gates = torch.empty_like(xw)
+    _launch("lstm_layer", "lstm_layer", "dt_lstm_layer", xw.device,
+            xw.data_ptr(), h0.data_ptr(), c0.data_ptr(), wh.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, b, hidden,
+            geo.n, geo.rows, geo.ks, geo.clusters, int(geo.wsm),
+            int(reverse), geo.smem)
+    lstm_layer.launches += 1
+    return hs, cs, gates
+
+
+lstm_layer.launches = 0
+
+
+def lstm_layer_backward(x, h0, c0, wx, wh, hs, cs, gates, dhs, dcs,
+                        reverse: bool):
+    """Explicit BPTT through one layer window from the saved ``hs``, ``cs``
+    and ``gates``: from the last step processed to the first,
+    :func:`lstm_pointwise_backward` gives the step's gate gradient and
+    ``dc_{t-1} = dc * f``, and ``dh_{t-1} = dG_t @ wh^T``; then one matmul
+    each gives ``dWh``, ``dWx`` and ``dx``, and a sum ``db``.  ``dhs`` and
+    ``dcs`` (T, B, H) are the gradients reaching h_t and c_t from outside.
+    Returns ``(dx, dh0, dc0, dwx, dwh, db)``."""
+    steps = x.shape[0]
+    dgates = torch.empty_like(gates)
+    dh = torch.zeros_like(h0)
+    dc = torch.zeros_like(c0)
+    whT = wh.t()
+    for s in range(steps - 1, -1, -1):
+        t = steps - 1 - s if reverse else s
+        c_prev = c0 if s == 0 else cs[t + 1 if reverse else t - 1]
+        dgates[t], dc = lstm_pointwise_backward(gates[t], c_prev,
+                                                dhs[t] + dh, dcs[t] + dc)
+        dh = torch.matmul(dgates[t], whT)
+    h_prev = torch.cat([hs[1:], h0[None]]) if reverse \
+        else torch.cat([h0[None], hs[:-1]])
+    dg2 = dgates.reshape(-1, dgates.shape[-1])
+    dwh = torch.matmul(h_prev.reshape(-1, h0.shape[-1]).t(), dg2)
+    dwx = torch.matmul(x.reshape(-1, x.shape[-1]).t(), dg2)
+    dx = torch.matmul(dg2, wx.t()).reshape(x.shape)
+    return dx, dh, dc, dwx, dwh, dg2.sum(0)
+
+
+class _LSTMLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, h0, c0, wx, wh, b, reverse):
+        t, bsz, inp = x.shape
+        xw = (torch.matmul(x.reshape(t * bsz, inp), wx) + b) \
+            .reshape(t, bsz, -1)
+        hs, cs, gates = lstm_layer(xw, h0.contiguous(), c0.contiguous(),
+                                   wh.contiguous(), reverse)
+        ctx.save_for_backward(x, h0, c0, wx, wh, hs, cs, gates)
+        ctx.reverse = reverse
+        return hs, cs
+
+    @staticmethod
+    def backward(ctx, dhs, dcs):
+        return (*lstm_layer_backward(*ctx.saved_tensors, dhs, dcs,
+                                     ctx.reverse), None)
+
+
+def lstm_layer_fused(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                     w, reverse: bool = False):
+    """One layer of the fused LSTM over a window (the JAX package's
+    ``lax.scan`` of ``lstm_cell_fused``, ``dt_tpu/ops/rnn.py:84-114``),
+    differentiable: f32 ``x`` (T, B, I), ``h0``/``c0`` (B, H) and ``w``
+    (``wx`` (I, 4H), ``wh`` (H, 4H), ``b`` (4H,)) -> ``(hs, cs)`` (T, B,
+    H), h and c after every step in time order.  The input product ``x @
+    wx + b`` is one ``torch.matmul``; the steps are :func:`lstm_layer`.
+    The backward is :func:`lstm_layer_backward`."""
+    return _LSTMLayer.apply(x, h0, c0, w.wx, w.wh, w.b, bool(reverse))

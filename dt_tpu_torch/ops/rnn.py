@@ -2,8 +2,9 @@
 ``dt_tpu/ops/rnn.py:33-114``).
 
 Gate order i, f, g, o, as the JAX package and the reference's cuDNN
-convention have it.  The time loop, a ``lax.scan`` in the JAX package, is a
-Python loop here: one cell a time step and layer.  ``gru``,
+convention have it.  The time loop, a ``lax.scan`` in the JAX package, is
+one launch a layer on the card (``ops.kernels.lstm_layer_fused``, the fused
+cell's whole window) and a Python loop over the steps otherwise.  ``gru``,
 ``bidirectional_lstm`` and ``init_lstm_weights`` (which uses JAX's RNG) are
 for a later slice.
 """
@@ -14,7 +15,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from dt_tpu_torch.ops.kernels import lstm_cell_fused
+from dt_tpu_torch.ops.kernels import lstm_cell_fused, lstm_layer_fused
 
 
 class LSTMWeights(NamedTuple):
@@ -47,16 +48,26 @@ def lstm(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     ``x``: (T, B, I); ``h0``/``c0``: (L, B, H).  Returns (outputs (T, B, H),
     hT (L, B, H), cT (L, B, H)).  ``reverse`` runs each layer from the last
     step to the first.  ``fused`` picks the cell: ``None`` (the default) and
-    ``True`` run :func:`dt_tpu_torch.ops.kernels.lstm_cell_fused`, whose
-    pointwise stage is the CUDA kernel on the card; ``False`` runs the
-    plain :func:`lstm_cell`.  The port reads no environment variable for
-    this (the JAX package's default follows ``DT_PALLAS_RNN``).
+    ``True`` run the fused cell, a float32 layer as
+    :func:`dt_tpu_torch.ops.kernels.lstm_layer_fused` (one CUDA launch a
+    layer window on the card, its plain step loop on the CPU; BPTT
+    backward) and any other dtype step by step through
+    :func:`dt_tpu_torch.ops.kernels.lstm_cell_fused`; ``False`` runs the
+    plain :func:`lstm_cell` step by step.  The port reads no environment
+    variable for this (the JAX package's default follows
+    ``DT_PALLAS_RNN``).
     """
-    cell = lstm_cell if fused is False else lstm_cell_fused
     outs = x
     hs, cs = [], []
+    last = 0 if reverse else x.shape[0] - 1
     for layer, w in enumerate(weights):
         h, c = h0[layer], c0[layer]
+        if fused is not False and outs.dtype == torch.float32:
+            outs, c_all = lstm_layer_fused(outs, h, c, w, reverse)
+            hs.append(outs[last])
+            cs.append(c_all[last])
+            continue
+        cell = lstm_cell if fused is False else lstm_cell_fused
         steps = range(outs.shape[0] - 1, -1, -1) if reverse \
             else range(outs.shape[0])
         ys = [None] * outs.shape[0]

@@ -178,3 +178,88 @@ def test_flash_strides_of_size_one_axes(shape, strides, want):
     takes a dense stride, so that a TMA map accepts it."""
     t = torch.empty_strided(shape, strides)
     assert TA._bsh_strides(t) == want
+
+
+# --- the f32 kernel's 3xTF32 arithmetic, emulated on the CPU -------------
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def _tf32(x):
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does (10 mantissa bits,
+    to nearest, ties away from zero), by bit masks on the int32 view."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm3(a, b):
+    """a @ b from TF32 parts as the kernel issues them: lo.hi + hi.lo +
+    hi.hi (the products are exact in f32; the sums are f32)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _flash_3xtf32(q3, k3, v3, scale, causal, terms=3):
+    """The f32 kernel's arithmetic on ``(B*H, S, D)`` f32: key tiles of 64
+    (32 at D 128), scores in log2 units, exp2, P and V split like Q and K;
+    ``terms=1`` keeps hi.hi alone (plain TF32)."""
+    mm = _mm3 if terms == 3 else (lambda a, b: _tf32(a) @ _tf32(b))
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    bk = 64 if d <= 64 else 32
+    scale_log2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, bk):
+        s = mm(q3, k3[:, k0:k0 + bk].transpose(1, 2)) * scale_log2
+        if causal:
+            keys = torch.arange(k0, min(k0 + bk, sk))[None, :]
+            s = torch.where(keys <= rows, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + mm(p, v3[:, k0:k0 + bk])
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return acc / l, (m * LN2 + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(256, 32), (256, 64), (200, 64),
+                                 (128, 128)])
+def test_3xtf32_emulation_holds_the_f32_tolerances(s, d, causal):
+    """The 3xTF32 split (TF32 rounding by bit masks) against the plain
+    version at unit-normal q, k, v (as ``chip_smoke.py`` draws them): out
+    within 2e-5 and lse within 1e-5, the f32 kernel's tolerances; plain
+    TF32 (hi.hi alone) misses the out tolerance by far, which is why the
+    kernel issues three products."""
+    rng = np.random.RandomState(s + d)
+    q3, k3, v3 = (torch.from_numpy(rng.randn(2, s, d).astype(np.float32))
+                  for _ in range(3))
+    scale = d ** -0.5
+    want, want_lse = TA.flash_attention_plain(q3, k3, v3, scale=scale,
+                                              causal=causal)
+    out, lse = _flash_3xtf32(q3, k3, v3, scale, causal)
+    assert float((out - want).abs().max()) <= 2e-5
+    assert float((lse - want_lse).abs().max()) <= LSE
+    tf32_out, _ = _flash_3xtf32(q3, k3, v3, scale, causal, terms=1)
+    assert float((tf32_out - want).abs().max()) > 10 * 2e-5
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e-39])
+    got = _tf32(x).tolist()
+    assert got[:4] == [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                       -(1.0 + 2.0 ** -10), 1.0]
+    hi, lo = _split(torch.tensor([0.1]))
+    assert float(hi + lo) == pytest.approx(0.1, rel=2.0 ** -21)

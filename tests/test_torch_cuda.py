@@ -259,8 +259,9 @@ def _qkv_card(dev, b, s, h, d, dtype, seed):
 
 
 def _assert_out_close(out, want, dtype):
-    """Flash out against the plain version: 2e-5 absolute in f32 (f32 sums
-    in another order); in bf16 one ulp of each output row, 2^-7 of that
+    """Flash out against the plain version: 2e-5 absolute in f32 (3xTF32
+    products and f32 sums in another order: ~1e-6 in the CPU emulation of
+    ``tests/test_torch_attention.py``); in bf16 one ulp of each output row, 2^-7 of that
     row's largest |out| (the kernel rounds p to bf16 for the tensor cores,
     and late causal rows are ~1/sqrt(n) of the first ones)."""
     diff = (out.float() - want.float()).abs()
@@ -373,6 +374,45 @@ def test_flash_bf16_gradients_match_the_plain_forward(cuda, monkeypatch):
         assert err <= tol, (name, err, tol)
 
 
+@pytest.mark.parametrize("case", ["lm", "lm_full", "d128"])
+def test_flash_f32_kernel_at_the_lm_shapes(cuda, case):
+    """The f32 (3xTF32) kernel at the TransformerLM's shape, causal and
+    not, from strided views of one qkv buffer, and at D 128 with S 1024:
+    out 2e-5, lse 1e-5 against the plain version, two launches
+    bit-identical."""
+    from dt_tpu_torch.ops import attention as TA
+    b, s, h, d, causal = {"lm": (8, 2048, 8, 64, True),
+                          "lm_full": (8, 2048, 8, 64, False),
+                          "d128": (8, 1024, 4, 128, True)}[case]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    out, lse = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=causal)
+    out2, lse2 = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=causal)
+    want, want_lse = _flash_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    _assert_out_close(out, want, torch.float32)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_refuses_misaligned_views(cuda, dtype):
+    """TMA needs 16-byte starts and strides: a view one element into its
+    buffer, or with a row stride off 16 bytes, raises ``ValueError`` in
+    either dtype (and launches nothing)."""
+    from dt_tpu_torch.ops import attention as TA
+    flat = torch.zeros(2 * 128 * 2 * 64 + 8, device=cuda, dtype=dtype)
+    shifted = flat[1:1 + 2 * 128 * 2 * 64].view(2, 128, 2, 64)
+    odd = torch.zeros(2, 128, 2 * 64 + 2, device=cuda, dtype=dtype)[
+        ..., :128].unflatten(-1, (2, 64))  # rows 130 elements apart
+    before = TA.flash_fwd.launches
+    for bad in (shifted, odd):
+        with pytest.raises(ValueError, match="16 bytes"):
+            TA.flash_fwd(bad, bad, bad, scale=0.125, causal=True)
+    assert TA.flash_fwd.launches == before
+
+
 @pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h", [(32, 200), (33, 650), (1, 7)])
 def test_lstm_kernel_matches_plain(cuda, b, h, c_dtype):
@@ -396,11 +436,93 @@ def test_lstm_kernel_matches_plain(cuda, b, h, c_dtype):
     assert float((c1.float() - pc.float()).abs().max()) <= ctol
 
 
+def _layer_inputs(dev, t, b, i, h, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lim = h ** -0.5
+    x = torch.randn(t, b, i, generator=g, device=dev)
+    h0, c0 = (torch.randn(b, h, generator=g, device=dev) * 0.3
+              for _ in range(2))
+    wx, wh = ((torch.rand(n, 4 * h, generator=g, device=dev) * 2 - 1) * lim
+              for n in (i, h))
+    bias = torch.randn(4 * h, generator=g, device=dev) * 0.02
+    return x, h0, c0, wx, wh, bias
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t,b,h", [(35, 32, 200), (35, 32, 650),
+                                   (9, 33, 200), (5, 3, 7)])
+def test_lstm_layer_kernel_matches_plain(cuda, t, b, h, reverse):
+    """The layer kernel against its plain step loop on the same xw: h, c
+    and the gates within 1e-5 (f32 sums of the recurrent product in another
+    order, carried through the steps), two launches bit-identical, one
+    launch a call; the PTB shapes (B 32, H 200 and 650), a batch over
+    several clusters, and H below the cluster's 16 blocks."""
+    x, h0, c0, wx, wh, bias = _layer_inputs(cuda, t, b, h, h, seed=t + h)
+    xw = (x.reshape(t * b, h) @ wx + bias).reshape(t, b, 4 * h)
+    before = kernels.lstm_layer.launches
+    got = kernels.lstm_layer(xw, h0, c0, wh, reverse)
+    again = kernels.lstm_layer(xw, h0, c0, wh, reverse)
+    assert kernels.lstm_layer.launches == before + 2
+    want = kernels.lstm_layer_plain(xw, h0, c0, wh, reverse)
+    torch.cuda.synchronize()
+    for a, a2, w in zip(got, again, want):
+        assert torch.equal(a, a2)
+        assert float((a - w).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_layer_gradients_match_the_step_path(cuda, reverse):
+    """``ops.rnn.lstm`` through the layer kernel (BPTT backward) against
+    the per-step path (the fused cell, autograd), two layers at the PTB
+    width: outputs, final states and the gradients of x, h0, c0 and every
+    weight within 1e-5 of each one's largest magnitude (f32 sums in
+    another order)."""
+    from dt_tpu_torch.ops import rnn
+    t, b, h = 35, 32, 200
+    x, h0, c0, wx, wh, bias = _layer_inputs(cuda, t, b, h, h, seed=3)
+    ws = [rnn.LSTMWeights(wx, wh, bias),
+          rnn.LSTMWeights(wx.flip(0), wh.flip(0), bias.flip(0))]
+    h0s, c0s = torch.stack([h0, h0.flip(0)]), torch.stack([c0, c0.flip(0)])
+    cots = [torch.randn(s, generator=torch.Generator(device=cuda)
+                        .manual_seed(i), device=cuda)
+            for i, s in enumerate([(t, b, h), (2, b, h), (2, b, h)])]
+
+    def run(layer):
+        leaves = [a.clone().requires_grad_() for a in
+                  (x, h0s, c0s, *[p for w in ws for p in w])]
+        lw = [rnn.LSTMWeights(*leaves[3:6]), rnn.LSTMWeights(*leaves[6:9])]
+        if layer:
+            out = rnn.lstm(leaves[0], leaves[1], leaves[2], lw, reverse)
+        else:  # the per-step path: the fused cell a step
+            outs, hs, cs = leaves[0], [], []
+            for i, w in enumerate(lw):
+                hh, cc = leaves[1][i], leaves[2][i]
+                ys = [None] * t
+                for s in (range(t - 1, -1, -1) if reverse else range(t)):
+                    hh, cc = kernels.lstm_cell_fused(outs[s], hh, cc, w)
+                    ys[s] = hh
+                outs = torch.stack(ys)
+                hs.append(hh)
+                cs.append(cc)
+            out = (outs, torch.stack(hs), torch.stack(cs))
+        loss = sum((o * c).sum() for o, c in zip(out, cots))
+        return list(out) + list(torch.autograd.grad(loss, leaves))
+
+    before = kernels.lstm_layer.launches, kernels.lstm_point.launches
+    got = run(True)
+    assert (kernels.lstm_layer.launches - before[0],
+            kernels.lstm_point.launches - before[1]) == (2, 0)
+    want = run(False)
+    for a, w in zip(got, want):
+        tol = 1e-5 * max(1.0, float(w.detach().abs().max()))
+        assert float((a - w).detach().abs().max()) <= tol
+
+
 def test_lm_steps_on_card_match_cpu(cuda):
     """One f32 step of each LM on the card against the port on the CPU,
     from the same weights (TF32 off): loss 1e-5, gradient 1e-4 of its
-    norm; the kernels ran once per layer (flash) and per step and layer
-    (LSTM)."""
+    norm; the kernels ran once per layer (flash, and the LSTM's layer
+    kernel)."""
     from dt_tpu_torch import optim
     from dt_tpu_torch.ops import attention as TA
     from dt_tpu_torch.training.step import (BPTTLoss, grad_step,
@@ -416,7 +538,7 @@ def test_lm_steps_on_card_match_cpu(cuda):
              ("lstm_lm", dict(vocab_size=50, embed_dim=16, hidden=24,
                               num_layers=2, dropout=0.0),
               BPTTLoss, rng.randint(0, 50, (7, 3)),
-              rng.randint(0, 50, (7, 3)), (kernels.lstm_point, 14))]
+              rng.randint(0, 50, (7, 3)), (kernels.lstm_layer, 2))]
     for name, kw, make_loss, x, y, (wrapper, launches) in cases:
         cpu = models.create(name, device="cpu", **kw)
         variables = export_jax_variables(cpu)

@@ -107,7 +107,7 @@ def test_cpu_tensor_never_launches():
 
 def test_build_key_follows_sources_and_flags(monkeypatch):
     assert _build.sources() == ["bn_act", "bn_train", "flash_attn",
-                                "lstm_point", "quant2"]
+                                "lstm_layer", "lstm_point", "quant2"]
     path = _build.library_path("bn_act")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-G"])

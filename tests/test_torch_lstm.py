@@ -144,6 +144,145 @@ def test_multilayer_lstm_matches_jax(reverse):
                                    **MATMUL)
 
 
+def _layer_case(seed, t=5, b=3, i=6, h=16, layers=2):
+    """Seeded inputs, states, weights and output cotangents of a
+    ``layers``-layer LSTM."""
+    rng = np.random.RandomState(seed)
+    arrays = dict(
+        x=rng.normal(0, 1, (t, b, i)).astype(np.float32),
+        h0=rng.normal(0, 0.3, (layers, b, h)).astype(np.float32),
+        c0=rng.normal(0, 0.3, (layers, b, h)).astype(np.float32))
+    ws = _weights(rng, layers, i, h)
+    cot = [rng.normal(0, 1, shape).astype(np.float32)
+           for shape in ((t, b, h), (layers, b, h), (layers, b, h))]
+    return arrays, ws, cot
+
+
+def _lstm_grads(arrays, ws, cot, run):
+    """Outputs of ``run(x, h0, c0, weights)`` (an LSTM over the seeded
+    inputs) and the gradients of sum(out * cot) for x, h0, c0 and every
+    layer's wx, wh, b."""
+    leaves = {k: torch.from_numpy(v).requires_grad_()
+              for k, v in arrays.items()}
+    tw = [trnn.LSTMWeights(*(torch.from_numpy(a).requires_grad_()
+                             for a in w)) for w in ws]
+    out = run(leaves["x"], leaves["h0"], leaves["c0"], tw)
+    loss = sum((o * torch.from_numpy(g)).sum() for o, g in zip(out, cot))
+    params = list(leaves.values()) + [a for w in tw for a in w]
+    grads = torch.autograd.grad(loss, params)
+    return [o.detach().numpy() for o in out], [g.numpy() for g in grads]
+
+
+def _step_loop(cell, reverse):
+    """A multi-layer LSTM as a loop of ``cell`` over the steps, with
+    autograd's own backward."""
+    def run(x, h0, c0, weights):
+        outs, hs, cs = x, [], []
+        for layer, w in enumerate(weights):
+            h, c = h0[layer], c0[layer]
+            ys = [None] * outs.shape[0]
+            for t in (range(outs.shape[0])[::-1] if reverse
+                      else range(outs.shape[0])):
+                h, c = cell(outs[t], h, c, w)
+                ys[t] = h
+            outs = torch.stack(ys)
+            hs.append(h)
+            cs.append(c)
+        return outs, torch.stack(hs), torch.stack(cs)
+    return run
+
+
+def _layer_lstm(reverse):
+    return lambda x, h0, c0, w: trnn.lstm(x, h0, c0, w, reverse=reverse)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_layer_function_matches_jax(reverse):
+    """The layer Function (on the CPU: the plain step loop forward, the
+    explicit BPTT backward), two layers, T 5, B 3, H 16, against the JAX
+    ``rnn.lstm(fused=True)`` with the Pallas cell in interpret mode:
+    outputs, hT and cT, and ``jax.grad`` for x, h0, c0, wx, wh and b
+    (1e-5: f32 through matmuls)."""
+    arrays, ws, cot = _layer_case(5)
+
+    def jloss(x, h0, c0, jws):
+        out = jrnn.lstm(x, h0, c0, [jrnn.LSTMWeights(*w) for w in jws],
+                        reverse=reverse, fused=True)
+        return sum((o * jnp.asarray(g)).sum() for o, g in zip(out, cot)), \
+            out
+
+    jargs = [jnp.asarray(arrays[k]) for k in ("x", "h0", "c0")] + \
+        [[tuple(jnp.asarray(a) for a in w) for w in ws]]
+    (_, want), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
+                                       has_aux=True)(*jargs)
+    want_grads = list(jg[:3]) + [a for w in jg[3] for a in w]
+    before = TK.lstm_layer.launches
+    got, grads = _lstm_grads(arrays, ws, cot, _layer_lstm(reverse))
+    assert TK.lstm_layer.launches == before  # CPU: the plain version
+    for a, b_ in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b_), **MATMUL)
+    assert len(grads) == len(want_grads) == 9
+    for a, b_ in zip(grads, want_grads):
+        np.testing.assert_allclose(a, np.asarray(b_), **MATMUL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_layer_backward_matches_autograd_of_the_step_loop(reverse):
+    """The explicit BPTT backward against autograd through the per-step
+    loops (the fused cell, and the plain ``lstm_cell``): the same outputs
+    and gradients (1e-5)."""
+    arrays, ws, cot = _layer_case(6, t=7, b=4, i=5, h=12)
+    got, grads = _lstm_grads(arrays, ws, cot, _layer_lstm(reverse))
+    for cell in (TK.lstm_cell_fused, trnn.lstm_cell):
+        want, want_grads = _lstm_grads(arrays, ws, cot,
+                                       _step_loop(cell, reverse))
+        for a, b_ in zip(got + grads, want + want_grads):
+            np.testing.assert_allclose(a, b_, **MATMUL)
+
+
+def test_lstm_layer_plain_and_wrapper_check_inputs():
+    """The wrapper on the CPU is its plain version; hs, cs and gates in
+    time order also under ``reverse``; shapes and dtypes are checked."""
+    rng = np.random.RandomState(7)
+    xw = _t(rng.normal(0, 1, (4, 2, 12)))
+    h0, c0 = _t(rng.normal(0, 1, (2, 3))), _t(rng.normal(0, 1, (2, 3)))
+    wh = _t(rng.normal(0, 0.5, (3, 12)))
+    hs, cs, gates = TK.lstm_layer(xw, h0, c0, wh, reverse=True)
+    h, c = h0, c0
+    for t in (3, 2, 1, 0):
+        g = xw[t] + h @ wh
+        h, c = TK.lstm_pointwise_plain(g, c)
+        assert torch.equal(gates[t], g)
+        assert torch.equal(hs[t], h) and torch.equal(cs[t], c)
+    with pytest.raises(ValueError, match="fit"):
+        TK.lstm_layer(xw, h0, c0, wh[:, :8])
+    with pytest.raises(ValueError, match="float32"):
+        TK.lstm_layer(xw.double(), h0, c0, wh)
+    with pytest.raises(ValueError, match="T >= 1"):
+        TK.lstm_layer(xw[:0], h0, c0, wh)
+
+
+@pytest.mark.parametrize("batch,hidden,want", [
+    (32, 200, (16, 8, 4, 8, True)), (32, 650, (16, 8, 4, 6, False)),
+    (3, 16, (16, 3, 1, 8, True)), (33, 650, (16, 9, 4, 4, False)),
+    (1, 7, (7, 1, 1, 8, True)), (512, 200, (16, 103, 5, 1, False))])
+def test_layer_geometry(batch, hidden, want):
+    """The layer kernel's launch: (cluster size, rows a cluster, clusters,
+    input slices, Wh in shared memory) at the PTB shapes, small and ragged
+    batches; the layout fits 227 KB and the threads, and the clusters
+    cover the batch."""
+    geo = TK.layer_geometry(batch, hidden)
+    assert (geo.n, geo.rows, geo.clusters, geo.ks, geo.wsm) == want
+    floats, tiles, pairs = TK._layer_floats(hidden, geo.n, geo.rows, geo.ks,
+                                            geo.wsm)
+    assert geo.smem == 4 * floats <= TK._LAYER_SMEM
+    assert tiles * geo.ks <= TK._LAYER_THREADS
+    assert pairs <= TK._LAYER_PAIRS * TK._LAYER_THREADS
+    assert geo.clusters * geo.rows >= batch > (geo.clusters - 1) * geo.rows
+    with pytest.raises(ValueError, match="too wide"):
+        TK.layer_geometry(4, 40000)
+
+
 def _fill(shapes, seed):
     """Seeded weights for an LSTM LM tree by leaf name."""
     rng = np.random.RandomState(seed)
