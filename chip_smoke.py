@@ -70,7 +70,21 @@ JAX.  Phases, each fatal on failure:
    launches);
 9. the PTB LSTM LM's forward in bfloat16 over one window, the path that
    steps the fused cell (70 ``lstm_pointwise`` launches), its logits
-   against float32.
+   against float32;
+10. ``Module.fit`` (run after the train phase, before the LM phases):
+   ResNet-50 v1 in bfloat16 at full width from the port's own
+   ``init_params(seed=0)``, SGD lr 0.0125 (0.1 scaled to batch 32),
+   momentum 0.9, wd 1e-4, 4 epochs of a shuffled
+   seeded 64-image ``NDArrayIter`` (batch 32) behind a
+   ``DevicePrefetchIter``, with ``eval_data`` (32 images), metrics ce and
+   acc, a ``Speedometer`` and ``do_checkpoint``: 53 ``bn_stats`` launches a
+   step and 53 ``bn_act`` a step plus 53 an eval forward, train loss finite
+   and falling, the last checkpoint reloaded into a bf16 ``Predictor``
+   against ``Module.predict``; fit's step time and a profile of one epoch
+   beside phase 5's bare step; then a small f32 ``fit`` (resnet20, 8x8x3)
+   on the card against the CPU, per-epoch loss within 1e-4 relative.  The
+   flash kernels of phase 6 are also held and timed at D 16 and D 8 (the
+   heads of the repo's small flash models).
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -147,6 +161,18 @@ TOL_LSTM_BF16 = 5e-2
 # one f32 LM step, card against the port on the CPU (no ReLU masks: the
 # loss and gradient agree to f32 summation order)
 TOL_LM_STEP = dict(loss=1e-5, flat_g=1e-4, mom=1e-4, params=1e-4)
+# Module.fit: epochs of the bf16 ResNet-50 run (2 steps each), and the
+# per-epoch train loss of the small f32 fit, card against CPU (relative)
+FIT_EPOCHS = 4
+FIT_ROUNDS = 3  # alternating rounds of bare steps and fit epochs, timed
+TOL_FIT = 1e-4
+# Module.fit's SGD: bench.py's momentum and weight decay, with lr 0.1 taken
+# as the rate for a batch of 256 and scaled linearly to the batch of 32
+# (Goyal et al.).  bench.py's own lr 0.1 at batch 32 is a timing setting:
+# from linen's default init (BN scale 1) it sends ResNet-50's logits to
+# ~1e15 within the 8 steps, so the loss check would pass or fail by chance.
+FIT_SGD = dict(learning_rate=0.1 * BATCH / 256, momentum=0.9,
+               weight_decay=1e-4)
 
 
 def gpu_line() -> str:
@@ -753,7 +779,11 @@ def flash_phase(dev):
     h = LM["num_heads"]
     cases = {"lm": (LM_BATCH, LM_SEQ, h, LM["embed_dim"] // h, True),
              "d128": (LM_BATCH, 1024, 4, 128, True),
-             "lm_full": (LM_BATCH, LM_SEQ, h, LM["embed_dim"] // h, False)}
+             "lm_full": (LM_BATCH, LM_SEQ, h, LM["embed_dim"] // h, False),
+             # the small heads of the repo's own flash models (embed 64 or
+             # 32 over 4 heads), at the LM's batch and length
+             "d16": (LM_BATCH, LM_SEQ, 4, 16, True),
+             "d8": (LM_BATCH, LM_SEQ, 4, 8, True)}
     out = {}
     for case, (b, s, h, d, causal) in cases.items():
         flops = flash_flops(b * h, s, d, causal)
@@ -1289,6 +1319,242 @@ def lm_steps_card_vs_cpu() -> dict:
     return launched
 
 
+def fit_phase(dev, gpu, train_bf16) -> dict:
+    """``Module.fit`` on the card, the slice's main path: ResNet-50 v1 in
+    bfloat16 at full width from the port's own ``init_params(seed=0)``, SGD
+    lr 0.1 momentum 0.9 wd 1e-4, 4 epochs of a shuffled seeded 64-image
+    ``NDArrayIter`` (batch 32, 8 steps) behind a ``DevicePrefetchIter``,
+    ``eval_data`` of 32 images, metrics ce and acc, a ``Speedometer`` and
+    ``do_checkpoint``.  Counts are reset just before ``fit`` and read just
+    after: 53 ``bn_stats`` a step, and ``bn_act`` 53 a step plus 53 an eval
+    forward.  The train cross-entropy is finite each epoch and lower in the
+    last than in the first; the last checkpoint reloads into a bf16
+    ``Predictor`` whose logits match ``Module.predict``'s within
+    ``TOL_BF16`` of the largest |logit|.  Then fit's step time (3 epochs
+    without eval or checkpoint, behind ``DevicePrefetchIter`` and without
+    it) against the bare ``train_step`` on the same module, in alternating
+    rounds, and profiles of a fit epoch and of bare steps."""
+    import tempfile
+    import torch
+    from dt_tpu_torch import models
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.predictor import Predictor
+    from dt_tpu_torch.training import callbacks
+    from dt_tpu_torch.training.module import Module
+    from dt_tpu_torch.training.step import train_step
+    n_train, n_eval, epochs = 2 * BATCH, BATCH, FIT_EPOCHS
+    rng = np.random.RandomState(7)
+    images = rng.uniform(-1, 1, (n_train + n_eval, IMAGE, IMAGE, 3)) \
+        .astype(np.float32)
+    labels = rng.randint(0, 1000, n_train + n_eval).astype(np.int32)
+    mod = Module(models.create("resnet50", device=dev, dtype=torch.bfloat16),
+                 optimizer="sgd", optimizer_params=FIT_SGD, device=dev,
+                 seed=0)
+    mod.init_params()
+
+    spare = Module(models.create("resnet50", device=dev,
+                                 dtype=torch.bfloat16),
+                   optimizer="sgd", optimizer_params=FIT_SGD, device=dev)
+    spare.init_params()
+    before = _fit_rounds(spare, images[:n_train], labels[:n_train], dev, 1,
+                         0)
+    del spare
+
+    def train_iter():
+        return io.DevicePrefetchIter(io.NDArrayIter(
+            images[:n_train], labels[:n_train], batch_size=BATCH,
+            shuffle=True, seed=0), device=dev)
+
+    eval_iter = io.NDArrayIter(images[n_train:], labels[n_train:],
+                               batch_size=BATCH)
+    per_epoch = []
+
+    def record(epoch, state, metric):
+        per_epoch.append(dict(metric.get_name_value()))
+
+    speed = callbacks.Speedometer(BATCH, frequent=1, auto_reset=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "resnet50")
+        torch.cuda.synchronize()
+        reset_counts()  # the main path's run starts here
+        t0 = time.perf_counter()
+        mod.fit(train_iter(), eval_data=eval_iter, eval_metric=["ce", "acc"],
+                num_epoch=epochs, batch_end_callback=speed,
+                epoch_end_callback=[record,
+                                    callbacks.do_checkpoint(prefix)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()  # ... and ends here
+        steps = epochs * n_train // BATCH
+        want = {k: 0 for k in counts}
+        want.update(bn_stats=BN_PER_FORWARD * steps,
+                    bn_act=BN_PER_FORWARD * (steps + epochs))
+        _check_counts("fit bf16", counts, want)
+        ce = [e["cross-entropy"] for e in per_epoch]
+        print(f"fit bf16 epochs={epochs} steps={steps} wall_s={wall:.3f} "
+              f"train_ce={[round(v, 5) for v in ce]} "
+              f"train_acc={[e['accuracy'] for e in per_epoch]} "
+              f"speedometer_samples_per_s="
+              f"{[round(v, 1) for v in speed.speeds]} gpu={gpu}", flush=True)
+        if not (np.isfinite(ce).all() and ce[-1] < ce[0]):
+            raise AssertionError(f"fit: train cross-entropy not finite and "
+                                 f"falling: {ce}")
+        pred = Predictor("resnet50", prefix, epochs - 1, images[:1],
+                         dtype=torch.bfloat16, max_batch=4, device=dev)
+        got = pred.predict(images[:4])
+    want_logits = mod.predict(images[:4])
+    err = float(np.abs(got - want_logits).max())
+    tol = TOL_BF16 * float(np.abs(want_logits).max())
+    print(f"fit checkpoint -> Predictor bf16: max_abs_err={err:.3e} "
+          f"tol={tol:.3e} step={int(np.asarray(pred.step))}", flush=True)
+    if not (np.isfinite(got).all() and err <= tol):
+        raise AssertionError("fit: the reloaded checkpoint's logits disagree "
+                             "with Module.predict")
+
+    # fit's own step time against the bare step on the same module, in
+    # alternating rounds (host clocks drift within a run): medians over
+    # FIT_ROUNDS rounds after the main path, and one round on a fresh
+    # module run before it (does the main path's eval, checkpoints and
+    # Predictor leave the process slower?)
+    times = _fit_rounds(mod, images[:n_train], labels[:n_train], dev,
+                        FIT_ROUNDS, epochs)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    nd = io.NDArrayIter(images[:n_train], labels[:n_train], batch_size=BATCH,
+                        shuffle=True)
+    t0 = time.perf_counter()
+    batches = [nd.next().data for _ in range(2)]
+    nd.reset()
+    batches += [nd.next().data for _ in range(2)]
+    t1 = time.perf_counter()
+    for b in batches:
+        torch.from_numpy(b).pin_memory()
+    t2 = time.perf_counter()
+    step_ms = med["prefetch"]
+    res = {"launches": counts, "train_ce": ce, "wall_s": wall,
+           "step_ms": step_ms, "imgs_per_s": BATCH * 1e3 / step_ms,
+           "bare_step_ms": med["bare"],
+           "bare_imgs_per_s": BATCH * 1e3 / med["bare"],
+           "loop_overhead_ms": step_ms - med["bare"],
+           "step_ms_without_prefetch_iter": med["plain"],
+           "bare_cpu_ms": med["bare_cpu"], "fit_cpu_ms": med["prefetch_cpu"],
+           "rounds_ms": times, "before_main_path_ms": before,
+           "train_phase_step_ms": train_bf16["step_ms"],
+           "host_gather_ms": (t1 - t0) * 1e3 / 4,
+           "host_pin_ms": (t2 - t1) * 1e3 / 4,
+           "checkpoint_max_abs_err": err}
+    print(f"fit bf16 step_ms={step_ms:.3f} imgs_per_s="
+          f"{res['imgs_per_s']:.1f} bare_step_ms={med['bare']:.3f} "
+          f"bare_imgs_per_s={res['bare_imgs_per_s']:.1f} "
+          f"loop_overhead_ms={res['loop_overhead_ms']:.3f} "
+          f"step_ms_without_prefetch_iter={med['plain']:.3f} "
+          f"bare_cpu_ms={med['bare_cpu']:.3f} "
+          f"fit_cpu_ms={med['prefetch_cpu']:.3f} "
+          f"train_phase_step_ms={train_bf16['step_ms']:.3f} "
+          f"host_gather_ms={res['host_gather_ms']:.3f} "
+          f"host_pin_ms={res['host_pin_ms']:.3f} gpu={gpu}", flush=True)
+    for tag, t in (("after", times), ("before", before)):
+        print(f"fit bf16 rounds_ms {tag} the main path " + json.dumps(
+            {k: [round(v, 3) for v in vs] for k, vs in t.items()}),
+            flush=True)
+    it = io.DevicePrefetchIter(nd, device=dev)
+    res.update(profile_fn(
+        lambda: mod.fit(it, num_epoch=1), step_ms * n_train // BATCH,
+        "fit bf16 epoch"))
+    x, y = mod._place(images[:BATCH]), mod._place(labels[:BATCH], label=True)
+    res.update({f"bare_{k}": v for k, v in profile_fn(
+        lambda: [train_step(mod.state, x, y, loss_fn=mod._forward_loss)
+                 for _ in range(2)], med["bare"] * 2,
+        "fit bf16 bare 2 steps").items()})
+    del mod, pred
+    torch.cuda.empty_cache()
+    return res
+
+
+def _fit_rounds(mod, images, labels, dev, rounds: int,
+                first_epoch: int) -> dict:
+    """Rounds of: 6 bare ``train_step``s on ``mod`` (one batch, placed),
+    3 epochs of ``mod.fit`` over ``images`` (2 steps an epoch) behind
+    ``DevicePrefetchIter``, the same without it, 6 bare steps again; each
+    fit after one epoch of warm-up.  ``{name: [ms a step]}`` by the host
+    clock and (``*_cpu``) by the process's CPU time."""
+    import torch
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.training.step import train_step
+    x = mod._place(images[:BATCH])
+    y = mod._place(labels[:BATCH], label=True)
+    first = [first_epoch]  # the next epoch number, so each fit counts on
+    steps = len(images) // BATCH
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        fn()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / n,
+                (time.process_time() - c0) * 1e3 / n)
+
+    def bare():
+        for _ in range(6):
+            train_step(mod.state, x, y, loss_fn=mod._forward_loss)
+
+    def fit(it):
+        mod.fit(it, num_epoch=first[0] + 1, begin_epoch=first[0])  # warm
+        first[0] += 1
+        out = timed(lambda: mod.fit(it, num_epoch=first[0] + 3,
+                                    begin_epoch=first[0]), 3 * steps)
+        first[0] += 3
+        return out
+
+    def nd():
+        return io.NDArrayIter(images, labels, batch_size=BATCH, shuffle=True)
+
+    times = {k: [] for k in ("bare", "prefetch", "plain", "bare_cpu",
+                             "prefetch_cpu", "plain_cpu")}
+    for _ in range(rounds):
+        for name, fn in (("bare", lambda: timed(bare, 6)),
+                         ("prefetch", lambda: fit(io.DevicePrefetchIter(
+                             nd(), device=dev))),
+                         ("plain", lambda: fit(nd())),
+                         ("bare", lambda: timed(bare, 6))):
+            wall, cpu = fn()
+            times[name].append(wall)
+            times[name + "_cpu"].append(cpu)
+    return times
+
+
+def fit_card_vs_cpu() -> dict:
+    """A small f32 ``Module.fit`` (``resnet20``, 2 epochs of 64 seeded 8x8x3
+    images, batch 32, SGD momentum, the port's own init) on the card and
+    on the CPU: per-epoch train cross-entropy within ``TOL_FIT`` relative
+    (f32 sums in another order; TF32 is off)."""
+    from dt_tpu_torch import models
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.training.module import Module
+    rng = np.random.RandomState(8)
+    x = rng.uniform(-1, 1, (64, 8, 8, 3)).astype(np.float32)
+    y = rng.randint(0, 10, 64).astype(np.int32)
+    curves = {}
+    for where in ("cuda", "cpu"):
+        mod = Module(models.create("resnet20", device=where, num_classes=10),
+                     optimizer="sgd", optimizer_params=dict(
+                         learning_rate=0.1, momentum=0.9), device=where,
+                     seed=1)
+        per_epoch = []
+        mod.fit(io.NDArrayIter(x, y, batch_size=32, shuffle=True),
+                eval_metric="ce", num_epoch=2,
+                epoch_end_callback=lambda e, s, m: per_epoch.append(
+                    m.get()[1]))
+        curves[where] = per_epoch
+    rel = max(abs(a - b) / abs(b) for a, b in zip(curves["cuda"],
+                                                    curves["cpu"]))
+    print(f"fit card-vs-cpu f32 resnet20 ce_card={curves['cuda']} "
+          f"ce_cpu={curves['cpu']} max_rel_err={rel:.3e} (tol {TOL_FIT})",
+          flush=True)
+    if not rel <= TOL_FIT:
+        raise AssertionError(f"fit, card against CPU: {curves}")
+    return {"max_rel_err": rel, **curves}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1381,6 +1647,11 @@ def main() -> int:
     step_card_vs_cpu(variables, dev)
     print(f"phase train done at {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- Module.fit -----------------------------------------------------
+    fitted = fit_phase(dev, gpu, trained["bf16"])
+    fit_cmp = fit_card_vs_cpu()
+    print(f"phase fit done at {time.perf_counter() - t0:.1f} s", flush=True)
+
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
     lstm = lstm_phase(dev)
@@ -1397,6 +1668,7 @@ def main() -> int:
           flush=True)
 
     kernels = []
+    fit_counts = fitted["launches"]
     for dtype, tot in summary.items():
         kernels.append({
             "name": f"fused_bn_inference[{str(dtype).split('.')[-1]}]",
@@ -1408,6 +1680,9 @@ def main() -> int:
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": "bytes",
             "library_ms": tot["library_ms"]})
+        if dtype == torch.bfloat16:  # fit's eval forwards (bn_act alone)
+            kernels[-1]["fit_launches"] = (fit_counts["bn_act"]
+                                           - fit_counts["bn_stats"])
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -1429,6 +1704,8 @@ def main() -> int:
             "redesigned_in": 4, "pass1_ms": tot["pass1_ms"],
             "pass1_bound_ms": tot["pass1_bound_ms"],
             "pass1_kernels_a_call": tot["kernels_a_call"]})
+        if dtype == torch.bfloat16:  # every BN of every fit step
+            kernels[-1]["fit_launches"] = fit_counts["bn_stats"]
     for name, line in (("quantize_2bit", 233), ("dequantize_2bit", 284)):
         kernels.append({
             "name": name, "route": "cuda",

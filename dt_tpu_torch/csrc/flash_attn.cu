@@ -30,8 +30,13 @@
 //     stages, so the next tile's load overlaps this tile's products.  TMA
 //     reads the (B, S, H, D) views through 4-D tensor maps over (D, H, S,
 //     B) with the caller's strides (starts and strides on 16 bytes, which
-//     the wrapper checks), writes the 128-byte swizzle wgmma reads (64 at
-//     bf16 D = 32), and fills rows past S with 0.
+//     the wrapper checks), writes the 128-byte swizzle wgmma reads (64 or
+//     32 bytes where a tile's rows are that narrow: bf16 D = 32 and 16, f32
+//     D = 16 and 8), and fills rows past S with 0.
+//   - Head dims 8, 16, 32, 64 and 128.  A bf16 wgmma's K is 16, so at bf16
+//     D = 8 the Q, K and V boxes are 16 wide over the 8 columns and TMA
+//     fills the other 8 with 0: the products see zeros there and the store
+//     writes D columns.  The f32 K step is 8, so f32 D = 8 needs no pad.
 //   - The softmax runs on the f32 accumulators in log2 units (s * scale *
 //     log2(e), one ex2 a score, the hardware's approximate exp2, 2 ulp); l
 //     sums the f32 p.  Only tiles on the diagonal (or ragged past sk) are
@@ -46,7 +51,8 @@
 //   - p is rounded to bf16, in registers, as the A operand of O += P V
 //     (wgmma m64nDk16, V from shared memory, transposed): the one place
 //     where the result departs from the TPU kernel's f32 p, by at most 2^-8
-//     max|v|.
+//     max|v|.  At D 8 and 16 p is split into two bf16 terms and P V is two
+//     products, since one ulp of a row of so few columns is a tighter bound.
 // float32 (`tc::flash_fwd_3xtf32`): 3xTF32.  Each f32 operand x is split
 //   into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and each product is
 //   lo.hi + hi.lo + hi.hi into the f32 accumulators (wgmma m64nNk8 tf32):
@@ -95,21 +101,37 @@ constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Shared-memory geometry for head dim D.  A tile is stored as panels of PW
-// columns, each row of a panel one swizzle row (128 bytes, or 64 at D = 32),
-// as TMA writes a box of (PW, rows) with that swizzle.
+// wgmma descriptor swizzle mode of a tile whose rows are `row` bytes: 1 =
+// 128B, 2 = 64B, 3 = 32B (TMA writes the same pattern, `tma_swizzle`).
+constexpr int swizzle_mode(int row) {
+  return row == 128 ? 1 : row == 64 ? 2 : 3;
+}
+
+// Shared-memory geometry for head dim D.  The tiles are DP columns wide: D,
+// or 16 at D = 8, since a bf16 wgmma's K is 16; the box of a D = 8 tensor is
+// then 16 wide and TMA fills its columns past D with 0, so Q K^T and P V
+// see zeros there and only D columns are stored.  A tile is stored as panels
+// of PW columns, each row of a panel one swizzle row (128 bytes, or 64 at D =
+// 32, 32 at D = 8 and 16), as TMA writes a box of (PW, rows) with that
+// swizzle.
 template <int D> struct Cfg {
-  static constexpr int PW = D < 64 ? D : 64;
-  static constexpr int NP = D / PW;
+  static constexpr int DP = D < 16 ? 16 : D;
+  static constexpr int PW = DP < 64 ? DP : 64;
+  static constexpr int NP = DP / PW;
   static constexpr int ROW = PW * 2;                // bytes of a panel row
   static constexpr int BK = 64;                    // keys per tile
   // blocks an SM holds: two at D <= 64 (~94 registers a thread), so that
   // four consumer warpgroups share its tensor cores and exp units; one at
   // D = 128, whose 64 f32 accumulators a thread would spill at two
   static constexpr int BLOCKS_PER_SM = D <= 64 ? 2 : 1;
-  static constexpr int SWZ = ROW == 128 ? 1 : 2;    // wgmma: 1 = 128B, 2 = 64B
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;       // one K or V tile
+  static constexpr int SWZ = swizzle_mode(ROW);
+  // At D <= 16 p goes to the tensor cores as two bf16 terms, bf16(p) and
+  // bf16(p - bf16(p)), two P V products: with so few columns a row, one
+  // rounding of p (2^-9 of max |v|) can exceed one ulp of the row's
+  // largest |out|, the bf16 kernel's bound; the second term leaves 2^-17.
+  static constexpr bool SPLIT_P = D <= 16;
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;      // one K or V tile
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 64;
 };
 
@@ -216,6 +238,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The two bf16 halves of a pack_bf16 word, as floats.
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
 // m64nNk16, bf16 in, f32 accumulators.  ss: A and B from shared memory
 // (both K-major); rs: A from registers, B from shared memory, B transposed
 // (its N axis contiguous, as V's rows hold the head dims).
@@ -275,6 +305,21 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -365,7 +410,8 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
@@ -411,6 +457,33 @@ __device__ __forceinline__ void tf32_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void tf32_rs_n8(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void tf32_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void tf32_rs_n32(float (&d)[16],
@@ -503,7 +576,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<D>::BLOCKS_PER_SM)
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  int heads, int sq, int sk, float scale_log2, int causal) {
   using C = Cfg<D>;
-  constexpr int BK = C::BK;
+  constexpr int BK = C::BK, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);  // swizzle
@@ -564,9 +637,9 @@ __global__ void __launch_bounds__(THREADS, Cfg<D>::BLOCKS_PER_SM)
   const int col = 2 * (lane % 4);
   const int my_tiles = causal ? min(n_kt, (row_lo + 63) / BK + 1) : n_kt;
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
   float m[2] = {NEG_INF, NEG_INF};  // running max of s * scale * log2(e)
   float l[2] = {0.0f, 0.0f};        // this thread's share of the row sums
   const uint32_t q_addr = smem_u32(q_s) + 64 * wg * C::ROW;
@@ -577,12 +650,12 @@ __global__ void __launch_bounds__(THREADS, Cfg<D>::BLOCKS_PER_SM)
     const int s = t % STAGES;
     mbar_wait(&full[s], (t / STAGES) & 1);
     if (t < my_tiles) {  // uniform over the warpgroup
-      // S = Q K^T: D / 16 steps of 16 dims
+      // S = Q K^T: DP / 16 steps of 16 dims
       float sc[BK / 2];
       const uint32_t k_addr = smem_u32(k_s + s * C::KV_BYTES);
       wg_fence();
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
+      for (int c = 0; c < DP / 16; ++c) {
         const int p = c * 16 / C::PW;                // panel
         const uint32_t in_row = c * 16 % C::PW * 2;  // bytes into its rows
         mma_ss<BK>(sc, desc(q_addr + p * BQ * C::ROW + in_row, 1, SBO, C::SWZ),
@@ -620,6 +693,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<D>::BLOCKS_PER_SM)
       // cores rounded to bf16, in the A-operand layout of the P V product
       float ps[2] = {0.0f, 0.0f};
       uint32_t pa[BK / 16][4];
+      uint32_t pl[C::SPLIT_P ? BK / 16 : 1][4];  // p - bf16(p), split only
 #pragma unroll
       for (int c = 0; c < BK / 16; ++c) {
         float p[8];
@@ -633,22 +707,30 @@ __global__ void __launch_bounds__(THREADS, Cfg<D>::BLOCKS_PER_SM)
         pa[c][1] = pack_bf16(p[2], p[3]);  // row r + 8, keys 16c + col
         pa[c][2] = pack_bf16(p[4], p[5]);  // row r,     keys 16c + 8 + col
         pa[c][3] = pack_bf16(p[6], p[7]);  // row r + 8, keys 16c + 8 + col
+        if constexpr (C::SPLIT_P) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            pl[c][j] = pack_bf16(p[2 * j] - bf16_lo(pa[c][j]),
+                                 p[2 * j + 1] - bf16_hi(pa[c][j]));
+        }
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) l[half] = l[half] * corr[half] +
                                                      ps[half];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];
+      for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i / 2) % 2];
 
       // O += P V: BK / 16 steps of 16 keys
       const uint32_t v_addr = smem_u32(v_s + s * C::KV_BYTES);
       pin(o);
       wg_fence();
 #pragma unroll
-      for (int c = 0; c < BK / 16; ++c)
-        mma_rs<D>(o, pa[c],
-                  desc(v_addr + c * 16 * C::ROW, BK * C::ROW / 16, SBO,
-                       C::SWZ));
+      for (int c = 0; c < BK / 16; ++c) {
+        const uint64_t dv = desc(v_addr + c * 16 * C::ROW, BK * C::ROW / 16,
+                                 SBO, C::SWZ);
+        mma_rs<DP>(o, pa[c], dv);
+        if constexpr (C::SPLIT_P) mma_rs<DP>(o, pl[c], dv);
+      }
       wg_commit();
       wg_wait_all();
       pin(o);
@@ -656,7 +738,8 @@ __global__ void __launch_bounds__(THREADS, Cfg<D>::BLOCKS_PER_SM)
     mbar_arrive(&empty[s]);  // this thread is done with stage s
   }
 
-  // out = acc / max(l, 1e-30), lse = m + log(l); rows past sq are not stored
+  // out = acc / max(l, 1e-30), lse = m + log(l); rows past sq and columns
+  // past D (the zero padding at D = 8) are not stored
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float lt = l[half];
@@ -705,7 +788,7 @@ EncodeTiled encoder() {
 
 // A 4-D map over (D, heads, S, batch) of a (B, S, H, D) view with element
 // strides st and `esize`-byte elements, boxes of (pw, 1, rows, 1); rows
-// past S read as 0.
+// past S, and columns past D where pw > d, read as 0.
 bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
                 int d, int pw, CUtensorMapSwizzle swizzle, const void* ptr,
                 int64_t batch, int64_t heads, int64_t s, const Strides& st,
@@ -725,15 +808,22 @@ bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The bf16 kernel's map: panels of Cfg<D>::PW columns.
+// TMA's swizzle for tiles of `row`-byte rows (the pattern swizzle_mode
+// names to wgmma).
+CUtensorMapSwizzle tma_swizzle(int row) {
+  return row == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                     : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// The bf16 kernel's map: panels of Cfg<D>::PW columns over the tensor's D
+// (a D = 8 box is 16 wide: its columns past D read as 0).
 template <int D>
 bool encode(CUtensorMap* map, const void* ptr, int64_t batch, int64_t heads,
             int64_t s, const Strides& st, int rows) {
   using C = Cfg<D>;
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, C::PW,
-                    C::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                  : CU_TENSOR_MAP_SWIZZLE_64B,
-                    ptr, batch, heads, s, st, rows);
+                    tma_swizzle(C::ROW), ptr, batch, heads, s, st, rows);
 }
 
 template <int D>
@@ -787,20 +877,25 @@ __device__ __forceinline__ void consumers_sync(int count) {
   asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");
 }
 
-// Geometry for head dim D.  Tiles are f32 panels of 32 columns (128-byte
-// rows, 128-byte swizzle) written by TMA or by the split pass.  Shared
-// memory a block, D 64: Q and Q_lo 2 x 32 KB, two stages of raw K and V 2 x
-// 32 KB, K_lo, V^T and V^T_lo 3 x 16 KB: 176 KB, one block an SM.  D 128:
-// one warpgroup of 64 rows and 32-key tiles keep the same 176 KB (128 rows
-// and 64 keys would need 352 KB); D 32: 89 KB.
+// Geometry for head dim D.  Q, K and V tiles are f32 panels of 32 columns
+// (128-byte rows, 128-byte swizzle) written by TMA or by the split pass; at
+// D 16 and 8 one panel of D columns, its rows 64 or 32 bytes with the
+// swizzle of that width (one K step of 8 tf32 is 32 bytes, so no padding).
+// V^T tiles are 128-byte panels of 32 keys at every D.  Shared memory a
+// block, D 64: Q and Q_lo 2 x 32 KB, two stages of raw K and V 2 x 32 KB,
+// K_lo, V^T and V^T_lo 3 x 16 KB: 176 KB, one block an SM.  D 128: one
+// warpgroup of 64 rows and 32-key tiles keep the same 176 KB (128 rows and
+// 64 keys would need 352 KB); D 32: 89 KB; D 16: 45 KB; D 8: 23 KB.
 template <int D> struct Cfg32 {
   static constexpr int WG = D <= 64 ? 2 : 1;    // consumer warpgroups
   static constexpr int BQ = 64 * WG;            // query rows a block
   static constexpr int BK = D <= 64 ? 64 : 32;  // keys a tile
   static constexpr int CONSUMERS = 128 * WG;
   static constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
-  static constexpr int PW = 32;                   // f32 columns a panel
-  static constexpr int ROW = 128;                 // bytes of a panel row
+  static constexpr int PW = D < 32 ? D : 32;      // f32 columns a panel
+  static constexpr int ROW = PW * 4;              // bytes of a panel row
+  static constexpr int SWZ = swizzle_mode(ROW);
+  static constexpr int KPR = ROW / 32;            // K steps of 8 in a row
   static constexpr int NP = D / PW;               // panels of Q, K, V rows
   static constexpr int Q_BYTES = BQ * D * 4;
   static constexpr int KV_BYTES = BK * D * 4;  // one K, V or V^T tile
@@ -831,28 +926,34 @@ __device__ __forceinline__ void split_tile(float* x, float* lo, int n,
   }
 }
 
-// Byte offset of element (row, col) in a tile of 128-byte panel rows with
-// the 128-byte swizzle, `rows` rows a panel (the layout TMA writes and a
-// K-major wgmma operand reads).
+// Byte offset of f32 element (row, col) in a tile of ROW-byte panel rows
+// with the swizzle of that width, `rows` rows a panel (the layout TMA writes
+// and a K-major wgmma operand reads): the 16-byte chunk of a row is XORed
+// with bits 7 and up of the row's offset (row % 8 at 128 bytes, row / 2 % 4
+// at 64, row / 4 % 2 at 32), the tile starting on 1024 bytes.
+template <int ROW = 128>
 __device__ __forceinline__ int swz(int row, int col, int rows) {
-  return (col / 32) * rows * 128 + row * 128 +
-         ((((col % 32) / 4) ^ (row % 8)) * 16) + (col % 4) * 4;
+  constexpr int PWF = ROW / 4, CHUNKS = ROW / 16;
+  return (col / PWF) * rows * ROW + row * ROW +
+         ((((col % PWF) / 4) ^ (row * ROW / 128 % CHUNKS)) * 16) +
+         (col % 4) * 4;
 }
 
-// V (BK keys x D, from TMA) -> V^T (D x BK, keys contiguous: the K-major B
-// operand of O += P V) split into hi and lo.  Within each group of 8 keys
-// V^T holds them in the order 0 2 4 6 1 3 5 7: the P fragment that the
-// accumulator layout gives a thread (keys 2t and 2t + 1 of a group) then
-// sits where a tf32 A fragment wants its columns t and t + 4.
-template <int D, int BK>
+// V (BK keys x D, from TMA, ROW-byte panel rows) -> V^T (D x BK, keys
+// contiguous: the K-major B operand of O += P V, 128-byte panels) split into
+// hi and lo.  Within each group of 8 keys V^T holds them in the order 0 2 4
+// 6 1 3 5 7: the P fragment that the accumulator layout gives a thread
+// (keys 2t and 2t + 1 of a group) then sits where a tf32 A fragment wants
+// its columns t and t + 4.
+template <int D, int BK, int ROW>
 __device__ __forceinline__ void transpose_split(const uint8_t* v,
                                                 uint8_t* vt_hi,
                                                 uint8_t* vt_lo, int tid,
                                                 int threads) {
   for (int q = tid; q < BK * D / 4; q += threads) {
     const int key = q % BK, dc = q / BK;  // lanes: neighbouring keys
-    const float4 x = *reinterpret_cast<const float4*>(v + swz(key, 4 * dc,
-                                                              BK));
+    const float4 x = *reinterpret_cast<const float4*>(
+        v + swz<ROW>(key, 4 * dc, BK));
     const int kk = key % 8;
     const int pos = key - kk + (kk % 2 ? 4 + kk / 2 : kk / 2);
 #pragma unroll
@@ -877,7 +978,9 @@ template <int N>
 __device__ __forceinline__ void mma32_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (N == 32) tf32_rs_n32(d, a, db);
+  if constexpr (N == 8) tf32_rs_n8(d, a, db);
+  else if constexpr (N == 16) tf32_rs_n16(d, a, db);
+  else if constexpr (N == 32) tf32_rs_n32(d, a, db);
   else if constexpr (N == 64) tf32_rs_n64(d, a, db);
   else tf32_rs_n128(d, a, db);
 }
@@ -960,6 +1063,7 @@ __global__ void __launch_bounds__(Cfg32<D>::THREADS, 1)
   const int col = 2 * (lane % 4);
   const int my_tiles = causal ? min(n_kt, (row_lo + 63) / BK + 1) : n_kt;
   constexpr uint32_t SBO = 8 * C::ROW / 16;  // 8-row core-matrix groups
+  constexpr uint32_t SBO_T = 8 * 128 / 16;   // the same in V^T's panels
 
   float o[D / 2];
 #pragma unroll
@@ -979,7 +1083,8 @@ __global__ void __launch_bounds__(Cfg32<D>::THREADS, 1)
     // every consumer splits a share of K (in place) and transposes V
     split_tile(reinterpret_cast<float*>(k_tile),
                reinterpret_cast<float*>(k_lo), BK * D, tid, NC);
-    transpose_split<D, BK>(v_s + s * C::KV_BYTES, vt_hi, vt_lo, tid, NC);
+    transpose_split<D, BK, C::ROW>(v_s + s * C::KV_BYTES, vt_hi, vt_lo, tid,
+                                   NC);
     fence_async_smem();  // the split tiles are read by wgmma
     consumers_sync(NC);
 
@@ -990,14 +1095,15 @@ __global__ void __launch_bounds__(Cfg32<D>::THREADS, 1)
       wg_fence();
 #pragma unroll
       for (int c = 0; c < D / 8; ++c) {
-        const uint32_t at = c / 4 * BQ * C::ROW + c % 4 * 32;  // A: panel, row
-        const uint32_t bt = c / 4 * BK * C::ROW + c % 4 * 32;  // B
-        mma32_ss<BK>(sc, desc(q_lo_addr + at, 1, SBO, 1),
-                     desc(k_hi_addr + bt, 1, SBO, 1), c > 0);
-        mma32_ss<BK>(sc, desc(q_hi_addr + at, 1, SBO, 1),
-                     desc(k_lo_addr + bt, 1, SBO, 1), 1);
-        mma32_ss<BK>(sc, desc(q_hi_addr + at, 1, SBO, 1),
-                     desc(k_hi_addr + bt, 1, SBO, 1), 1);
+        constexpr int KPR = C::KPR, SW = C::SWZ;
+        const uint32_t at = c / KPR * BQ * C::ROW + c % KPR * 32;  // A: panel
+        const uint32_t bt = c / KPR * BK * C::ROW + c % KPR * 32;  // B
+        mma32_ss<BK>(sc, desc(q_lo_addr + at, 1, SBO, SW),
+                     desc(k_hi_addr + bt, 1, SBO, SW), c > 0);
+        mma32_ss<BK>(sc, desc(q_hi_addr + at, 1, SBO, SW),
+                     desc(k_lo_addr + bt, 1, SBO, SW), 1);
+        mma32_ss<BK>(sc, desc(q_hi_addr + at, 1, SBO, SW),
+                     desc(k_hi_addr + bt, 1, SBO, SW), 1);
       }
       wg_commit();
       wg_wait_all();
@@ -1061,10 +1167,10 @@ __global__ void __launch_bounds__(Cfg32<D>::THREADS, 1)
         const uint32_t a_lo[4] = {
             __float_as_uint(lo[4 * c]), __float_as_uint(lo[4 * c + 2]),
             __float_as_uint(lo[4 * c + 1]), __float_as_uint(lo[4 * c + 3])};
-        const uint32_t bt = c / 4 * D * C::ROW + c % 4 * 32;
-        mma32_rs<D>(o, a_lo, desc(vt_hi_addr + bt, 1, SBO, 1));
-        mma32_rs<D>(o, a_hi, desc(vt_lo_addr + bt, 1, SBO, 1));
-        mma32_rs<D>(o, a_hi, desc(vt_hi_addr + bt, 1, SBO, 1));
+        const uint32_t bt = c / 4 * D * 128 + c % 4 * 32;
+        mma32_rs<D>(o, a_lo, desc(vt_hi_addr + bt, 1, SBO_T, 1));
+        mma32_rs<D>(o, a_hi, desc(vt_lo_addr + bt, 1, SBO_T, 1));
+        mma32_rs<D>(o, a_hi, desc(vt_hi_addr + bt, 1, SBO_T, 1));
       }
       wg_commit();
       wg_wait_all();
@@ -1101,7 +1207,7 @@ cudaError_t launch32(const void* q, const void* k, const void* v, void* out,
   using C = Cfg32<D>;
   CUtensorMap tq, tk, tv;
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  const CUtensorMapSwizzle swz = CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapSwizzle swz = tma_swizzle(C::ROW);
   if (!encode_map(&tq, f32, 4, D, C::PW, swz, q, batch, heads, sq, qs,
                   C::BQ) ||
       !encode_map(&tk, f32, 4, D, C::PW, swz, k, batch, heads, sk, ks,
@@ -1138,7 +1244,7 @@ extern "C" {
 // stride 1 along d, starts and strides on 16 bytes (TMA); out: contiguous
 // (batch, sq, heads, d) of their dtype;
 // lse: contiguous f32 (batch * heads, sq).  dtype: 0 = float32, 1 =
-// bfloat16; d is 32, 64 or 128; batch * heads <= 65535; sq, sk >= 1.
+// bfloat16; d is 8, 16, 32, 64 or 128; batch * heads <= 65535; sq, sk >= 1.
 // Launches on `stream` and returns the launch's cudaError_t (0 on success).
 int dt_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
                       void* lse, int64_t batch, int64_t heads, int64_t sq,
@@ -1153,6 +1259,12 @@ int dt_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   if (dtype == 0) {
     switch (d) {
+      case 8:
+        return tc::launch32<8>(q, k, v, out, lse, batch, heads, sq, sk, qs,
+                               ks, vs, scale, causal != 0, s);
+      case 16:
+        return tc::launch32<16>(q, k, v, out, lse, batch, heads, sq, sk, qs,
+                                ks, vs, scale, causal != 0, s);
       case 32:
         return tc::launch32<32>(q, k, v, out, lse, batch, heads, sq, sk, qs,
                                 ks, vs, scale, causal != 0, s);
@@ -1168,6 +1280,12 @@ int dt_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   switch (d) {
+    case 8:
+      return tc::launch<8>(q, k, v, out, lse, batch, heads, sq, sk, qs, ks, vs,
+                           scale, causal != 0, s);
+    case 16:
+      return tc::launch<16>(q, k, v, out, lse, batch, heads, sq, sk, qs, ks,
+                            vs, scale, causal != 0, s);
     case 32:
       return tc::launch<32>(q, k, v, out, lse, batch, heads, sq, sk, qs, ks,
                             vs, scale, causal != 0, s);

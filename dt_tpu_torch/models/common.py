@@ -63,15 +63,17 @@ def bn(features: int, relu: bool = False) -> FusedBatchNorm:
 
 
 class Conv(nn.Module):
-    """``linen.Conv`` as the models use it (no bias): f32 OIHW weight in
-    channels_last (the JAX HWIO kernel, carried over by ``interchange``),
-    cast to ``dtype`` at each call; TF padding."""
+    """``linen.Conv``: f32 OIHW weight in channels_last (the JAX HWIO
+    kernel, carried over by ``interchange``) and, with ``use_bias`` (LeNet;
+    the ResNets have none), an f32 bias, cast to ``dtype`` at each call; TF
+    padding ("SAME", linen's default, by ``ops.nn.same_padding``)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Tuple[int, int],
                  strides: Tuple[int, int] = (1, 1),
                  padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
-                 groups: int = 1, dtype: torch.dtype = torch.float32):
+                 groups: int = 1, dtype: torch.dtype = torch.float32,
+                 use_bias: bool = False):
         super().__init__()
         self.strides = tuple(strides)
         self.padding = padding
@@ -79,9 +81,12 @@ class Conv(nn.Module):
         self.dtype = dtype
         w = torch.zeros(features, in_features // groups, *kernel)
         self.weight = nn.Parameter(w.to(memory_format=torch.channels_last))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(features)) if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn_ops.conv2d(x, self.weight.to(self.dtype), None,
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return nn_ops.conv2d(x, self.weight.to(self.dtype), bias,
                              self.strides, self.padding, self.groups)
 
 

@@ -199,7 +199,7 @@ class CifarResNet(nn.Module):
     branch is scaled by its survival probability (``resnet.py:232-234``).
     Training with ``stochastic_depth > 0`` samples from JAX's RNG in the
     reference (``resnet.py:224-231``) and is not ported yet (ROADMAP, Queue
-    1 item 2); with 0 it trains."""
+    1 item 8); with 0 it trains."""
 
     def __init__(self, depth: int = 20, num_classes: int = 10,
                  dtype: torch.dtype = torch.float32, in_channels: int = 3,
@@ -234,7 +234,7 @@ class CifarResNet(nn.Module):
             raise NotImplementedError(
                 "CifarResNet training with stochastic_depth > 0 (per-block "
                 "Bernoulli sampling) is not ported yet; see ROADMAP.md, "
-                "Queue 1 item 2")
+                "Queue 1 item 8")
         x = self.Conv_0(x)
         for name, keep in self.blocks:
             y = getattr(self, name)(x, training)

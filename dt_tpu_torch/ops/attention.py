@@ -29,7 +29,7 @@ from dt_tpu_torch.ops.kernels import _DTYPE_CODES, _launch, _on_cuda
 
 NEG_INF = -1e30
 DEFAULT_BLOCK = 128  # callers that pad (TransformerLM) key off this
-HEAD_DIMS = (32, 64, 128)  # the kernel's template widths
+HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernel's template widths
 
 
 def _to3(x: torch.Tensor) -> torch.Tensor:
@@ -121,11 +121,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The kernel's wrapper: ``(B, S, H, D)`` q/k/v (strided views are
     taken as they are; D's stride must be 1) -> ``(out (B, S, H, D)
     contiguous in q's dtype, lse (B*H, S) f32)``.  A CUDA tensor launches
-    ``csrc/flash_attn.cu`` (D in 32, 64, 128; on the tensor cores, bf16
-    directly and f32 as 3xTF32; q, k and v start and stride on 16 bytes
-    for its TMA loads, else ``ValueError``) and counts the launch; a CPU
-    tensor runs :func:`flash_attention_plain` with ``block_q``/``block_k``
-    (the kernel tiles by itself: its result does not depend on them)."""
+    ``csrc/flash_attn.cu`` (on the tensor cores, bf16 directly and f32 as
+    3xTF32) and counts the launch; a CPU tensor runs
+    :func:`flash_attention_plain` with ``block_q``/``block_k`` (the kernel
+    tiles by itself: its result does not depend on them).
+
+    The kernel's domain, outside which a CUDA tensor raises ``ValueError``:
+    D in ``HEAD_DIMS`` (8, 16, 32, 64, 128); q, k and v starting on 16
+    bytes with their (B, S, H) strides multiples of 16 bytes (its TMA
+    loads); 1 <= B*H <= 65535; non-empty sequences."""
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -228,7 +232,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     oracle), differentiable through :func:`flash_attention_backward`.
     ``scale`` defaults to ``D**-0.5``.  Sequence lengths must be multiples
     of the blocks (pad upstream, as ``TransformerLM`` does); else
-    ``ValueError``, as in the JAX package."""
+    ``ValueError``, as in the JAX package.  On the card the forward is the
+    kernel of :func:`flash_fwd`, whose domain is D in 8, 16, 32, 64 or 128,
+    q/k/v starts and (B, S, H) strides on 16 bytes, and B*H <= 65535
+    (``ValueError`` otherwise)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     s, sk = q.shape[1], k.shape[1]

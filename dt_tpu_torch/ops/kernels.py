@@ -668,6 +668,32 @@ def _layer_floats(hidden: int, n: int, rows: int, ks: int, wsm: bool):
     return floats, (r4 // 4) * (c4 // 4), rows * per
 
 
+def _layer_ks(hidden: int, n: int, rows: int) -> int:
+    """Slices of the H inputs a gate product: as many as the threads left
+    over by the tiles allow, 1 to 8."""
+    tiles = _layer_floats(hidden, n, rows, 1, False)[1]
+    return max(1, min(_LAYER_KS_MAX, _LAYER_THREADS // tiles))
+
+
+def _layer_rows_fit(hidden: int, n: int, rows: int) -> bool:
+    """Whether a cluster of ``n`` blocks takes ``rows`` batch rows: the h
+    buffers, partial tiles and c in 227 KB, the tiles and pairs in the
+    threads."""
+    floats, tiles, pairs = _layer_floats(hidden, n, rows,
+                                         _layer_ks(hidden, n, rows), False)
+    return (floats * 4 <= _LAYER_SMEM and tiles <= _LAYER_THREADS
+            and pairs <= _LAYER_PAIRS * _LAYER_THREADS)
+
+
+def layer_fits(batch: int, hidden: int) -> bool:
+    """Whether the layer kernel takes ``batch`` rows of ``hidden`` units,
+    that is whether one batch row fits a cluster (it does up to H = 6404):
+    the shape test ``ops.rnn.lstm`` makes, before any launch, to choose
+    between the layer kernel and stepping the fused cell."""
+    return batch >= 1 and hidden >= 1 and _layer_rows_fit(
+        hidden, min(_LAYER_CLUSTER, hidden), 1)
+
+
 def layer_geometry(batch: int, hidden: int) -> LayerGeometry:
     """The layer kernel's launch for ``batch`` rows of ``hidden`` units.
     A cluster of ``min(16, H)`` blocks walks the steps for a share of the
@@ -675,31 +701,21 @@ def layer_geometry(batch: int, hidden: int) -> LayerGeometry:
     132 SMs, all resident at once), fewer rows where the h buffers, the
     partial tiles and c would not fit 227 KB of shared memory or the tiles
     and pairs the threads; Wh's columns go into shared memory where they
-    fit too.  Raises ``ValueError`` where one row does not fit."""
+    fit too.  Raises ``ValueError`` where one row does not fit (where
+    :func:`layer_fits` is False)."""
     if batch < 1 or hidden < 1:
         raise ValueError(f"lstm_layer: need B, H >= 1, got {batch}, "
                          f"{hidden}")
-    n = min(_LAYER_CLUSTER, hidden)
-
-    def ks_for(rows):
-        tiles = _layer_floats(hidden, n, rows, 1, False)[1]
-        return max(1, min(_LAYER_KS_MAX, _LAYER_THREADS // tiles))
-
-    def fits(rows):
-        floats, tiles, pairs = _layer_floats(hidden, n, rows, ks_for(rows),
-                                             False)
-        return (floats * 4 <= _LAYER_SMEM and tiles <= _LAYER_THREADS
-                and pairs <= _LAYER_PAIRS * _LAYER_THREADS)
-
-    rows = -(-batch // min(_LAYER_CLUSTERS, -(-batch // _LAYER_ROWS)))
-    while rows > 1 and not fits(rows):
-        rows -= 1
-    if not fits(rows):
+    if not layer_fits(batch, hidden):
         raise ValueError(f"lstm_layer: H = {hidden} is too wide for the "
                          "kernel's shared memory")
+    n = min(_LAYER_CLUSTER, hidden)
+    rows = -(-batch // min(_LAYER_CLUSTERS, -(-batch // _LAYER_ROWS)))
+    while rows > 1 and not _layer_rows_fit(hidden, n, rows):
+        rows -= 1
     clusters = -(-batch // rows)
     rows = -(-batch // clusters)  # the same clusters, rows evened out
-    ks = ks_for(rows)
+    ks = _layer_ks(hidden, n, rows)
     wsm = _layer_floats(hidden, n, rows, ks, True)[0] * 4 <= _LAYER_SMEM
     return LayerGeometry(n, rows, clusters, ks, wsm,
                          _layer_floats(hidden, n, rows, ks, wsm)[0] * 4)

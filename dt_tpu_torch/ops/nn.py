@@ -61,6 +61,14 @@ def max_pool2d(x: torch.Tensor, kernel: int, stride: Optional[int] = None,
                         padding)
 
 
+def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """``ops.flatten`` of the JAX package (``dt_tpu/ops/nn.py:304``), which
+    flattens NHWC: the NCHW tensor's rows in (H, W, C) order, so that a JAX
+    Dense kernel after it loads unchanged (a view for a channels_last
+    tensor)."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
 def global_avg_pool2d(x: torch.Tensor) -> torch.Tensor:
     """Mean over the spatial axes, ``(N, C, H, W) -> (N, C)``."""
     return x.mean(dim=(2, 3))

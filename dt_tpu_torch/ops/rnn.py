@@ -15,7 +15,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from dt_tpu_torch.ops.kernels import lstm_cell_fused, lstm_layer_fused
+from dt_tpu_torch.ops.kernels import (layer_fits, lstm_cell_fused,
+                                      lstm_layer_fused)
 
 
 class LSTMWeights(NamedTuple):
@@ -51,18 +52,22 @@ def lstm(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     ``True`` run the fused cell, a float32 layer as
     :func:`dt_tpu_torch.ops.kernels.lstm_layer_fused` (one CUDA launch a
     layer window on the card, its plain step loop on the CPU; BPTT
-    backward) and any other dtype step by step through
-    :func:`dt_tpu_torch.ops.kernels.lstm_cell_fused`; ``False`` runs the
-    plain :func:`lstm_cell` step by step.  The port reads no environment
-    variable for this (the JAX package's default follows
-    ``DT_PALLAS_RNN``).
+    backward) where the layer kernel takes the shape
+    (:func:`dt_tpu_torch.ops.kernels.layer_fits`: H up to 6404), and any
+    other dtype or a wider f32 layer step by step through
+    :func:`dt_tpu_torch.ops.kernels.lstm_cell_fused` (the pointwise kernel,
+    which takes any H); ``False`` runs the plain :func:`lstm_cell` step by
+    step.  Both are hand kernels, chosen from the shape before any launch.
+    The port reads no environment variable for this (the JAX package's
+    default follows ``DT_PALLAS_RNN``).
     """
     outs = x
     hs, cs = [], []
     last = 0 if reverse else x.shape[0] - 1
     for layer, w in enumerate(weights):
         h, c = h0[layer], c0[layer]
-        if fused is not False and outs.dtype == torch.float32:
+        if fused is not False and outs.dtype == torch.float32 \
+                and layer_fits(outs.shape[1], h.shape[-1]):
             outs, c_all = lstm_layer_fused(outs, h, c, w, reverse)
             hs.append(outs[last])
             cs.append(c_all[last])

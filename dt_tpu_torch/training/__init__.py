@@ -1,1 +1,2 @@
-"""Training-side modules of the port; this slice has the checkpoint reader."""
+"""Training-side modules of the port: the step, the train state, the
+flat layout, checkpoints, metrics, callbacks, ``Module`` and ``Trainer``."""

@@ -1,15 +1,19 @@
-"""A pure-Python msgpack decoder for the JAX package's checkpoint format.
+"""A pure-Python msgpack codec for the JAX package's checkpoint format.
 
 ``dt_tpu`` writes checkpoints as msgpack with extension types for arrays;
-the port reads them without the ``msgpack`` package.  Decoded as the JAX
-package's own reader decodes them, with arrays as numpy except bfloat16,
-which numpy lacks: those come back as ``torch.bfloat16`` tensors (the buffer
-read as uint16 and viewed).
+the port reads and writes them without the ``msgpack`` package.
+:func:`restore` decodes as the JAX package's own reader decodes, with arrays
+as numpy except bfloat16, which numpy lacks: those come back as
+``torch.bfloat16`` tensors (the buffer read as uint16 and viewed).
+:func:`pack` encodes as the JAX package's writer encodes (the ``msgpack``
+package's formats, doubles for floats, string keys sorted as a JAX pytree
+sorts them), byte for byte, so its reader restores them.
 
 The extension types: code 1 is an ndarray, packed as ``(shape,
 dtype_name, buffer)``; code 3 a numpy scalar, packed the same way; code 2 a
 complex, packed as ``(real, imag)``.  Any other code raises, and so does a
-``__msgpack_chunked_array__`` dict (the writer's split of an array over 1 GiB).
+``__msgpack_chunked_array__`` dict (the writer's split of an array over 1
+GiB); :func:`pack` writes arrays whole at any size.
 """
 
 from __future__ import annotations
@@ -146,3 +150,118 @@ def restore(data: bytes) -> Any:
         raise MsgpackError(f"{len(r.data) - r.pos} trailing bytes after the "
                            "object")
     return out
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+def _pack_int(n: int, out: list) -> None:
+    if 0 <= n < 0x80:
+        out.append(struct.pack(">B", n))
+    elif -32 <= n < 0:
+        out.append(struct.pack(">b", n))
+    elif n >= 0:
+        for code, fmt, top in ((0xcc, ">B", 0x100), (0xcd, ">H", 0x10000),
+                               (0xce, ">I", 0x100000000),
+                               (0xcf, ">Q", 0x10000000000000000)):
+            if n < top:
+                out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+                return
+        raise MsgpackError(f"integer {n} does not fit 64 bits")
+    else:
+        for code, fmt, low in ((0xd0, ">b", -0x80), (0xd1, ">h", -0x8000),
+                               (0xd2, ">i", -0x80000000),
+                               (0xd3, ">q", -0x8000000000000000)):
+            if n >= low:
+                out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+                return
+        raise MsgpackError(f"integer {n} does not fit 64 bits")
+
+
+def _pack_len(n: int, fix: int, fix_max: int, codes, out: list) -> None:
+    """A length header: ``fix | n`` up to ``fix_max``, else the 8/16/32-bit
+    form of ``codes`` (``None`` where a form does not exist)."""
+    if fix is not None and n <= fix_max:
+        out.append(struct.pack(">B", fix | n))
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"),
+                              (0x100, 0x10000, 0x100000000)):
+        if code is not None and n < top:
+            out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+            return
+    raise MsgpackError(f"length {n} does not fit 32 bits")
+
+
+def _ndarray_bytes(arr) -> bytes:
+    """The ext payload of an array: ``(shape, dtype_name, buffer)``."""
+    import torch
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return pack([list(t.shape), "bfloat16",
+                         t.view(torch.int16).numpy().tobytes()])
+        arr = t.numpy()
+    arr = np.asarray(arr)
+    if arr.dtype.hasobject:
+        raise MsgpackError(f"cannot pack an array of {arr.dtype}")
+    return pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def _pack_ext(code: int, data: bytes, out: list) -> None:
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if len(data) in fixed:
+        out.append(struct.pack(">Bb", fixed[len(data)], code))
+    else:
+        _pack_len(len(data), None, 0, (0xc7, 0xc8, 0xc9), out)
+        out.append(struct.pack(">b", code))
+    out.append(data)
+
+
+def _encode(obj: Any, out: list) -> None:
+    import torch
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int) and not isinstance(obj, np.generic):
+        _pack_int(obj, out)
+    elif isinstance(obj, float) and not isinstance(obj, np.generic):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_len(len(raw), 0xa0, 31, (0xd9, 0xda, 0xdb), out)
+        out.append(raw)
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        raw = bytes(obj)
+        _pack_len(len(raw), None, 0, (0xc4, 0xc5, 0xc6), out)
+        out.append(raw)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(len(obj), 0x90, 15, (None, 0xdc, 0xdd), out)
+        for v in obj:
+            _encode(v, out)
+    elif isinstance(obj, dict):
+        _pack_len(len(obj), 0x80, 15, (None, 0xde, 0xdf), out)
+        keys = list(obj)
+        if all(isinstance(k, str) for k in keys):
+            keys.sort()  # the JAX writer's pytree pass sorts string keys
+        for k in keys:
+            _encode(k, out)
+            _encode(obj[k], out)
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        _pack_ext(_EXT_NDARRAY, _ndarray_bytes(obj), out)
+    elif isinstance(obj, np.generic):
+        _pack_ext(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)), out)
+    elif isinstance(obj, complex):
+        _pack_ext(_EXT_COMPLEX, pack([obj.real, obj.imag]), out)
+    else:
+        raise MsgpackError(f"cannot pack {type(obj).__name__}")
+
+
+def pack(obj: Any) -> bytes:
+    """Encode ``obj`` (dicts, lists, str, bytes, numbers, None, numpy
+    arrays and scalars, torch tensors, bfloat16 ones included) as the JAX
+    package's checkpoint writer encodes it."""
+    out: list = []
+    _encode(obj, out)
+    return b"".join(out)

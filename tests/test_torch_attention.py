@@ -69,6 +69,32 @@ def test_plain_matches_pallas_forward(causal, s, block):
                                rtol=0, atol=LSE)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [8, 16])
+def test_plain_matches_pallas_forward_small_heads(causal, d):
+    """D 8 and D 16, the heads of the repo's small flash models (the
+    kernel's newest widths): the plain version against the Pallas kernel
+    in interpret mode, f32 and bf16."""
+    q, k, v = (_to3(t) for t in _qkv(3, s=256, d=d))
+    want_o, want_lse = _flash_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=d ** -0.5,
+        causal=causal, block_q=128, block_k=128, interpret=True)
+    got_o, got_lse = TA.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale=d ** -0.5, causal=causal)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), **F32)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               rtol=0, atol=LSE)
+    jq, jk, jv = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
+    want_o, _ = _flash_fwd_pallas(jq, jk, jv, scale=d ** -0.5,
+                                  causal=causal, block_q=128, block_k=128,
+                                  interpret=True)
+    got_o, _ = TA.flash_attention_plain(
+        *(torch.from_numpy(np.asarray(t, np.float32)).to(torch.bfloat16)
+          for t in (jq, jk, jv)), scale=d ** -0.5, causal=causal)
+    _bf16_close(got_o.float().numpy(), want_o)
+
+
 def test_plain_matches_pallas_forward_bf16():
     q, k, v = (_to3(t) for t in _qkv(1, s=256))
     jq, jk, jv = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
@@ -234,8 +260,8 @@ def _flash_3xtf32(q3, k3, v3, scale, causal, terms=3):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s,d", [(256, 32), (256, 64), (200, 64),
-                                 (128, 128)])
+@pytest.mark.parametrize("s,d", [(256, 8), (256, 16), (256, 32), (256, 64),
+                                 (200, 64), (128, 128)])
 def test_3xtf32_emulation_holds_the_f32_tolerances(s, d, causal):
     """The 3xTF32 split (TF32 rounding by bit masks) against the plain
     version at unit-normal q, k, v (as ``chip_smoke.py`` draws them): out
@@ -263,3 +289,53 @@ def test_tf32_rounding_is_to_nearest_ties_away():
                        -(1.0 + 2.0 ** -10), 1.0]
     hi, lo = _split(torch.tensor([0.1]))
     assert float(hi + lo) == pytest.approx(0.1, rel=2.0 ** -21)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _flash_bf16_p(q3, k3, v3, scale, causal, split):
+    """The bf16 kernel's arithmetic on ``(B*H, S, D)`` bf16 values held in
+    f32: 64-key tiles, f32 scores in log2 units, and p rounded to bf16 for
+    P V (``split``: as two bf16 terms, bf16(p) + bf16(p - bf16(p)), as the
+    kernel does at D 8 and 16); l sums the f32 p; out rounded to bf16."""
+    bh, sq, d = q3.shape
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, k3.shape[1], 64):
+        s = q3 @ k3[:, k0:k0 + 64].transpose(1, 2) * (scale * LOG2E)
+        if causal:
+            keys = torch.arange(k0, k0 + s.shape[-1])[None, :]
+            s = torch.where(keys <= rows, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = _bf16(p)
+        pv = hi @ v3[:, k0:k0 + 64]
+        if split:
+            pv = pv + _bf16(p - hi) @ v3[:, k0:k0 + 64]
+        acc = acc * corr + pv
+        m = m_new
+    return _bf16(acc / torch.clamp(l, min=1e-30))
+
+
+@pytest.mark.parametrize("d", [8, 16])
+def test_split_p_holds_the_bf16_row_bound_at_small_heads(d):
+    """Why the bf16 kernel splits p at D 8 and 16: with so few columns a
+    row, its bound (one ulp of each output row, 2^-7 of the row's largest
+    |out|) leaves no room for p's own bf16 rounding on late causal rows
+    (this emulation without the split sits at the bound; on an H100 the
+    unsplit D 8 kernel went to 1.41 times it); with p as two bf16 terms
+    the emulated kernel holds it, at about half the bound."""
+    q, k, v = (_bf16(torch.from_numpy(_to3(t))) for t in _qkv(4, s=512,
+                                                               d=d))
+    want, _ = TA.flash_attention_plain(q, k, v, scale=d ** -0.5,
+                                       causal=True)
+    want = _bf16(want)
+    got = _flash_bf16_p(q, k, v, d ** -0.5, True, split=True)
+    tol = BF16_ULP * want.abs().amax(-1, keepdim=True)
+    assert bool(((got - want).abs() <= tol).all())

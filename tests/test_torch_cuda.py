@@ -397,6 +397,38 @@ def test_flash_f32_kernel_at_the_lm_shapes(cuda, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,d,strided", [
+    (2, 256, 4, 8, False), (3, 100, 2, 8, False), (2, 128, 4, 8, True),
+    (2, 256, 4, 16, False), (1, 100, 3, 16, False), (2, 128, 4, 16, True)])
+def test_flash_kernel_small_head_dims(cuda, b, s, h, d, strided, causal,
+                                      dtype):
+    """The head dims of the repo's small flash models, D 8 (bf16 padded to
+    16 by TMA's zero fill, f32 native) and D 16, against the plain version
+    at the tolerances of ``test_flash_kernel_matches_plain``; contiguous
+    and as strided views of one qkv buffer (as the transformer hands them);
+    S = 100 is a ragged key tile.  Two launches bit-identical."""
+    from dt_tpu_torch.ops import attention as TA
+    if strided:
+        g = torch.Generator(device=cuda).manual_seed(d)
+        qkv = (torch.randn(b, s, 3 * h * d, generator=g, device=cuda)
+               * 0.5).to(dtype)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    else:
+        q, k, v = _qkv_card(cuda, b, s, h, d, dtype, seed=s + d)
+    before = TA.flash_fwd.launches
+    out, lse = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=causal)
+    out2, lse2 = TA.flash_fwd(q, k, v, scale=d ** -0.5, causal=causal)
+    assert TA.flash_fwd.launches == before + 2
+    want, want_lse = _flash_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert out.shape == (b, s, h, d) and out.dtype == dtype
+    _assert_out_close(out, want, dtype)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_refuses_misaligned_views(cuda, dtype):
     """TMA needs 16-byte starts and strides: a view one element into its
     buffer, or with a row stride off 16 bytes, raises ``ValueError`` in
@@ -468,6 +500,26 @@ def test_lstm_layer_kernel_matches_plain(cuda, t, b, h, reverse):
     for a, a2, w in zip(got, again, want):
         assert torch.equal(a, a2)
         assert float((a - w).abs().max()) <= 1e-5
+
+
+def test_wide_f32_lstm_steps_the_fused_cell(cuda):
+    """An f32 ``ops.rnn.lstm`` too wide for the layer kernel (B 1, H 6656:
+    ``layer_fits`` is False) steps ``lstm_cell_fused``, the pointwise
+    kernel, and matches the plain step loop (``fused=False``) within
+    1e-5; no layer launch."""
+    from dt_tpu_torch.ops import rnn
+    t, b, h = 3, 1, 6656
+    assert not kernels.layer_fits(b, h)
+    x, h0, c0, wx, wh, bias = _layer_inputs(cuda, t, b, 64, h, seed=5)
+    w = [rnn.LSTMWeights(wx, wh, bias)]
+    layer0, point0 = kernels.lstm_layer.launches, kernels.lstm_point.launches
+    got = rnn.lstm(x, h0[None], c0[None], w)
+    assert kernels.lstm_layer.launches == layer0
+    assert kernels.lstm_point.launches == point0 + t
+    want = rnn.lstm(x, h0[None], c0[None], w, fused=False)
+    torch.cuda.synchronize()
+    for a, e in zip(got, want):
+        assert float((a - e).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -567,3 +619,59 @@ def test_lm_steps_on_card_match_cpu(cuda):
         (l_cpu, g_cpu), (l_card, g_card) = got["cpu"], got["cuda"]
         assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
         assert float((g_card - g_cpu).norm() / g_cpu.norm()) <= 1e-4
+
+
+def test_device_prefetch_iter_returns_the_inner_batches(cuda):
+    """``DevicePrefetchIter`` on the card hands back the inner iterator's
+    batches (data, labels, pads), each already on the card, over two
+    epochs with a padded last batch."""
+    from dt_tpu_torch.data import io
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (37, 8, 8, 3)).astype(np.float32)
+    y = rng.randint(0, 10, 37).astype(np.int32)
+    inner = io.NDArrayIter(x, y, batch_size=8, shuffle=True, seed=3)
+    twin = io.NDArrayIter(x, y, batch_size=8, shuffle=True, seed=3)
+    it = io.DevicePrefetchIter(inner, device=cuda)
+    for _ in range(2):
+        got = list(it)
+        want = list(twin)
+        assert len(got) == len(want) == 5
+        for g, w in zip(got, want):
+            assert g.data.device.type == "cuda" and g.pad == w.pad
+            np.testing.assert_array_equal(g.data.cpu().numpy(), w.data)
+            np.testing.assert_array_equal(g.label.cpu().numpy(), w.label)
+
+
+def test_module_fit_on_card_matches_cpu(cuda):
+    """A 2-epoch f32 ``Module.fit`` of ``resnet20`` (the port's own init,
+    SGD momentum, shuffled batches through ``DevicePrefetchIter`` on the
+    card) against the same fit on the CPU: per-epoch train cross-entropy
+    within 1e-4 relative (f32 sums in another order; TF32 off), one
+    ``bn_stats`` launch a BatchNorm a step, and the eval scores alike."""
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.training.module import Module
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(8)
+    x = rng.uniform(-1, 1, (64, 8, 8, 3)).astype(np.float32)
+    y = rng.randint(0, 10, 64).astype(np.int32)
+    curves, scores = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        mod = Module(models.create("resnet20", device=dev, num_classes=10),
+                     optimizer="sgd", optimizer_params=dict(
+                         learning_rate=0.1, momentum=0.9), device=dev,
+                     seed=1)
+        it = io.NDArrayIter(x, y, batch_size=32, shuffle=True)
+        if dev.type == "cuda":
+            it = io.DevicePrefetchIter(it, device=dev)
+        ce = []
+        before = kernels.bn_stats.launches
+        mod.fit(it, eval_metric="ce", num_epoch=2,
+                epoch_end_callback=lambda e, s, m: ce.append(m.get()[1]))
+        if dev.type == "cuda":  # resnet20: 19 BatchNorms, 4 steps
+            assert kernels.bn_stats.launches - before == 19 * 4
+        curves[dev.type] = ce
+        scores[dev.type] = dict(mod.score(io.NDArrayIter(x, y, 32), "ce"))
+    for a, b in zip(curves["cuda"], curves["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b), curves
+    a, b = scores["cuda"]["cross-entropy"], scores["cpu"]["cross-entropy"]
+    assert abs(a - b) <= 1e-4 * abs(b), scores

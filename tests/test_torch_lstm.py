@@ -283,6 +283,50 @@ def test_layer_geometry(batch, hidden, want):
         TK.layer_geometry(4, 40000)
 
 
+@pytest.mark.parametrize("batch", [1, 32, 512])
+def test_layer_fits_is_the_geometry_s_domain(batch):
+    """``layer_fits`` is True exactly where ``layer_geometry`` gives a
+    launch: up to H 6404 at any batch (one row a cluster), not at 6405 or
+    the 6656 that used to fail on the card."""
+    for hidden in (1, 200, 650, 6404, 6405, 6656, 40000):
+        try:
+            TK.layer_geometry(batch, hidden)
+            ok = True
+        except ValueError:
+            ok = False
+        assert TK.layer_fits(batch, hidden) == ok == (hidden <= 6404)
+    assert not TK.layer_fits(0, 200) and not TK.layer_fits(batch, 0)
+
+
+@pytest.mark.parametrize("hidden,want", [(6656, "cell"), (6404, "layer"),
+                                         (200, "layer")])
+def test_lstm_routes_a_wide_f32_layer_to_the_fused_cell(monkeypatch, hidden,
+                                                        want):
+    """``ops.rnn.lstm`` picks the route from the shape before any launch:
+    an f32 layer the layer kernel takes goes to ``lstm_layer_fused``, a
+    wider one (H 6656) steps ``lstm_cell_fused``, as bf16 does (the two
+    kernels stubbed here, so no H 6656 weights are made)."""
+    calls = []
+
+    def layer(x, h0, c0, w, reverse):
+        calls.append("layer")
+        return x.new_zeros(x.shape[0], x.shape[1], hidden), \
+            x.new_zeros(x.shape[0], x.shape[1], hidden)
+
+    def cell(x, h, c, w):
+        calls.append("cell")
+        return h, c
+
+    monkeypatch.setattr(trnn, "lstm_layer_fused", layer)
+    monkeypatch.setattr(trnn, "lstm_cell_fused", cell)
+    x = torch.zeros(3, 1, 4)
+    h0 = torch.zeros(1, 1, hidden)
+    outs, h_t, c_t = trnn.lstm(x, h0, h0, [None])
+    assert set(calls) == {want}
+    assert len(calls) == (3 if want == "cell" else 1)
+    assert outs.shape == (3, 1, hidden) and h_t.shape == (1, 1, hidden)
+
+
 def _fill(shapes, seed):
     """Seeded weights for an LSTM LM tree by leaf name."""
     rng = np.random.RandomState(seed)

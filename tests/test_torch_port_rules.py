@@ -54,7 +54,14 @@ def test_port_imports_no_jax_and_no_dt_tpu():
             "dt_tpu_torch.ops.attention", "dt_tpu_torch.ops.rnn",
             "dt_tpu_torch.ops.tensor", "dt_tpu_torch.parallel.ring_attention",
             "dt_tpu_torch.models.transformer",
-            "dt_tpu_torch.models.lstm_lm"} <= want
+            "dt_tpu_torch.models.lstm_lm",
+            "dt_tpu_torch.data.io", "dt_tpu_torch.training.module",
+            "dt_tpu_torch.training.trainer",
+            "dt_tpu_torch.training.metrics",
+            "dt_tpu_torch.training.callbacks",
+            "dt_tpu_torch.parallel.kvstore", "dt_tpu_torch.initializer",
+            "dt_tpu_torch.policy.rescale", "dt_tpu_torch.models.mlp",
+            "dt_tpu_torch.models.lenet", "dt_tpu_torch.obs.metrics"} <= want
 
 
 _FORBIDDEN = re.compile(r"import jax|from jax|flax|dt_tpu\.|"
