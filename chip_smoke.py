@@ -10,7 +10,8 @@ JAX.  Phases, each fatal on failure:
 1. setup: the card's name and power limit, versions, the kernels' build
    (``nvcc``, one process per source, all started together);
 2. kernels: every distinct BatchNorm shape of ResNet-50 v1 at 224x224,
-   batch 32, plus ragged and misaligned cases, in float32 and bfloat16 with
+   batch 32 and batch 21 (the elastic job's three workers), plus ragged
+   and misaligned cases, in float32 and bfloat16 with
    ReLU on and off: the BN-inference kernel against its plain PyTorch
    version on the same inputs (max abs difference must be 0), and the times
    of the kernel, the plain version and ``F.batch_norm`` (a yardstick the
@@ -84,7 +85,25 @@ JAX.  Phases, each fatal on failure:
    beside phase 5's bare step; then a small f32 ``fit`` (resnet20, 8x8x3)
    on the card against the CPU, per-epoch loss within 1e-4 relative.  The
    flash kernels of phase 6 are also held and timed at D 16 and D 8 (the
-   heads of the repo's small flash models).
+   heads of the repo's small flash models);
+11. the elastic host-sync job (after ``fit``): the port's ``Scheduler`` in
+   this process and ``tests/torch_elastic_worker.py`` processes on the
+   card: ResNet-50 v1 at full width in bf16 on f32 params, global batch
+   64, SGD lr 0.025 momentum 0.9 wd 1e-4, 2-bit at 0.005, the overlapped
+   step, 3 epochs of 8 steps, 64 images scored after every epoch; ``w2``
+   added at the epoch-1 boundary (bootstrapping from the snapshot) and
+   removed at the epoch-2 one; the live workers' sha256 equal at every
+   epoch end, 53 + 53 BN-train and 1 codec launch a step, 53 BN-inference
+   launches a scored batch, 6,389,260 bytes of packed words a step; each
+   epoch's steps after its first timed as a window on worker 0's clock
+   (2, 3, 2 workers), the step's parts from worker 0's spans beside the
+   bare step; then 2-worker f32 resnet20 jobs (8x8x3 and 32x32x3) on the
+   card, each step recorded and replayed on the CPU from the card's state
+   (``tests/torch_elastic_drift.py``: loss, stats, update and, where no
+   ReLU mask flipped, gradient within 1e-4; the applied average exact;
+   per-epoch loss within 1e-4 of the replay and of the same job on the
+   CPU up to the first flipped mask), and with ``DT_AR_OVERLAP=0`` (the
+   same sha256 as the overlapped job).
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -173,6 +192,25 @@ TOL_FIT = 1e-4
 # ~1e15 within the 8 steps, so the loss check would pass or fail by chance.
 FIT_SGD = dict(learning_rate=0.1 * BATCH / 256, momentum=0.9,
                weight_decay=1e-4)
+# The elastic phase: ResNet-50 v1 workers of tests/torch_elastic_worker.py
+# against the port's Scheduler, global batch 64 (2 x 32, 3 x 21), SGD lr
+# 0.025 (0.1 scaled to 64 of 256), momentum 0.9, wd 1e-4, 2-bit at 0.005,
+# the overlapped step, 3 epochs of ELASTIC_STEPS steps cycling over 128
+# seeded images (each epoch's steps after its first are its timed window),
+# and 64 seeded images scored after every epoch (batch 32).
+ELASTIC_STEPS = 8
+ELASTIC_ARGS = ["--model", "resnet50", "--dtype", "bfloat16",
+                "--global-batch", "64", "--images", "128", "--lr", "0.025",
+                "--wd", "1e-4", "--compress", "0.005", "--num-epoch", "3",
+                "--epoch-steps", str(ELASTIC_STEPS), "--val-images", "64"]
+ELASTIC_VAL_FORWARDS = 2  # 64 images in batches of 32
+RESNET50_PARAMS = 25_557_032
+PACKED_BYTES = 4 * -(-RESNET50_PARAMS // 16)  # 6,389,260 a step a worker
+ELASTIC_TIMEOUT = 420  # s, the whole job
+# the small jobs: f32 resnet20 (8x8x3 and CIFAR's 32x32x3), 2 workers, 2
+# epochs of 2 steps over 128 seeded images (tests/torch_elastic_drift.py)
+SMALL_SIZES = (8, 32)
+TOL_ELASTIC_LOSS = 1e-4  # card against CPU, relative
 
 
 def gpu_line() -> str:
@@ -273,10 +311,11 @@ def bn_shapes(model, x):
     return seen
 
 
-def kernel_phase(shapes, dev):
+def kernel_phase(shapes, dev, also=()):
     """Hold the kernel against its plain version at every shape, bit for
-    bit, and time it.  Returns one summary per dtype, with times summed over
-    the BatchNorm calls of one batch-32 forward."""
+    bit, and time it; the shapes of ``also`` (``bn_shapes`` keys of another
+    batch) too, both ways of ReLU.  Returns one summary per dtype, with
+    times summed over the BatchNorm calls of one batch-32 forward."""
     import torch
     import torch.nn.functional as F
     from dt_tpu_torch.ops import kernels
@@ -293,6 +332,7 @@ def kernel_phase(shapes, dev):
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "library_ms": 0.0, "max_abs_err": 0.0}
         runs = [(k[:4], k[4], m) for k, m in cases.items()] + \
+            [(k[:4], r, 0) for k in also for r in (False, True)] + \
             [(s, r, 0) for s, r in extra]
         for shape, relu, per_fwd in runs:
             # a 2-D view one element into its storage is not 16-byte
@@ -471,9 +511,10 @@ def device_kernels(fn) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def bn_train_phase(shapes, dev):
+def bn_train_phase(shapes, dev, also=()):
     """Hold the BN-train pass 1 against its plain version at every shape of
-    a batch-32 forward (and ragged and misaligned ones), check that two
+    a batch-32 forward, of ``also`` (``bn_shapes`` keys of another batch),
+    and ragged and misaligned ones, check that two
     launches agree bit for bit and that y is the plain pass 2 on the
     kernel's stats, and time pass 1 + pass 2.  Returns one summary per
     dtype, times summed over the BatchNorm calls of one forward."""
@@ -488,6 +529,7 @@ def bn_train_phase(shapes, dev):
                "pass1_bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
                "kernels_a_call": 0}
         runs = [(k[:4], k[4], m) for k, m in shapes.items()] + \
+            [(k[:4], k[4], 0) for k in also] + \
             [(sh, r, 0) for sh, r in extra]
         for shape, relu, per_fwd in runs:
             for offset in [False, True] if shape == (1001, 64) else [False]:
@@ -1555,6 +1597,250 @@ def fit_card_vs_cpu() -> dict:
     return {"max_rel_err": rel, **curves}
 
 
+def elastic_phase(gpu) -> dict:
+    """The main path of the elastic slice at full width: the port's
+    ``Scheduler`` in this process with a host_worker file, two ResNet-50
+    workers on ``cuda:0`` (bf16 on f32 params, 2-bit, overlapped step);
+    the operator adds ``w2`` at the epoch-1 boundary (started beforehand,
+    released by the launch callback; it bootstraps from rank 0's
+    snapshot) and removes it at the epoch-2 boundary.  Gates: every
+    process exits 0, the live workers' sha256 of params, stats and
+    optimizer state agree at every epoch end, ``w2`` bootstraps after
+    epoch 0 (at step ``ELASTIC_STEPS``), the audit log reads ADDED then
+    REMOVED w2, finite losses, per step and worker 53 ``bn_stats``, 53
+    ``bn_act``, 1 ``quantize_2bit``, 0 ``dequantize_2bit`` and
+    ``PACKED_BYTES`` of packed words, and per epoch and worker a score of
+    the validation images through ``fused_bn_inference`` (53 ``bn_act``
+    a forward, no ``bn_stats``).  Prints, for each epoch's window (its
+    steps after the first) on worker 0's clock, the wall time, ms a step
+    and the fleet's images/s, the step's parts from worker 0's spans, the
+    bare step, and MB on the wire a step (two or three processes share
+    the card)."""
+    import os
+    import tempfile
+
+    import torch_elastic_drift as drift
+    from torch_elastic_job import write_hosts
+
+    from dt_tpu_torch.elastic.scheduler import Scheduler
+    tmp = tempfile.mkdtemp(prefix="dt_elastic_")
+    hw = os.path.join(tmp, "host_worker")
+    write_hosts(hw, ["w0", "w1"])
+    go = os.path.join(tmp, "go_w2")
+    stems = {h: os.path.join(tmp, h) for h in ("w0", "w1", "w2")}
+    launched = []
+
+    def operator(epoch):
+        if epoch == 1:
+            write_hosts(hw, ["w0", "w1", "w2"])
+        elif epoch == 2:
+            write_hosts(hw, ["w0", "w1"])
+
+    def launch(host, epoch):
+        launched.append((host, epoch))
+        open(go, "w").close()
+
+    sched = Scheduler(host_worker_file=hw, launch_callback=launch,
+                      pre_change_hook=operator)
+    procs = {}
+    t0 = time.monotonic()
+    try:
+        env = {"DT_OBS": "1", "DT_OBS_RING": "65536"}
+        for h in ("w0", "w1"):
+            procs[h] = drift.spawn(
+                sched.port, h, stems[h],
+                ELASTIC_ARGS + ["--bare-steps", "6", "--profile-epoch", "2"],
+                env)
+        procs["w2"] = drift.spawn(  # no bare steps: w0, w1 still train
+            sched.port, "w2", stems["w2"], ELASTIC_ARGS,
+            dict(env, NEW_WORKER="1", EPOCH_BEGIN="1", DT_WAIT_FILE=go))
+        drift.wait_all(procs, stems, t0 + ELASTIC_TIMEOUT)
+    finally:
+        sched.close()
+    wall = time.monotonic() - t0
+    r = {h: json.load(open(stems[h] + ".json")) for h in stems}
+    audit = [ln.split()[1:3] for ln in open(hw + "_log")]
+    print(f"elastic audit={audit} launched={launched} wall_s={wall:.1f}",
+          flush=True)
+    if audit != [["ADDED", "w2"], ["REMOVED", "w2"]] or \
+            launched != [("w2", 1)]:
+        raise AssertionError(f"elastic audit log {audit}, launched "
+                             f"{launched}")
+    if r["w2"]["bootstrap_step"] != ELASTIC_STEPS:
+        raise AssertionError(f"w2 bootstrapped at step "
+                             f"{r['w2']['bootstrap_step']}, expected "
+                             f"{ELASTIC_STEPS}")
+    by_epoch = {}
+    for h, res in r.items():
+        for e in res["epochs"]:
+            by_epoch.setdefault(e["epoch"], {})[h] = e
+    want_live = {0: {"w0", "w1"}, 1: {"w0", "w1", "w2"}, 2: {"w0", "w1"}}
+    launches = {"bn_stats": 0, "bn_act": 0, "quantize_2bit": 0,
+                "dequantize_2bit": 0, "score_bn_act": 0}
+    score_want = {"bn_stats": 0, "bn_act": BN_PER_FORWARD *
+                  ELASTIC_VAL_FORWARDS}
+    for epoch, live in want_live.items():
+        got = by_epoch.get(epoch, {})
+        shas = {h: got[h]["sha256"][:16] for h in got}
+        losses = {h: got[h]["loss"] for h in got}
+        print(f"elastic epoch {epoch} workers={sorted(got)} sha256={shas} "
+              f"train_ce={losses}", flush=True)
+        if set(got) != live or len(set(shas.values())) != 1:
+            raise AssertionError(f"epoch {epoch}: live {sorted(got)}, "
+                                 f"digests {shas}")
+        for h, e in got.items():
+            n = e["steps"]
+            la = e["launches"]
+            want = {"bn_stats": BN_PER_FORWARD * n,
+                    "bn_act": BN_PER_FORWARD * n, "quantize_2bit": n,
+                    "dequantize_2bit": 0, "grad_bytes": PACKED_BYTES * n}
+            got_la = {k: la[k] for k in want}
+            if n != ELASTIC_STEPS or got_la != want or \
+                    e["score_launches"] != score_want or \
+                    not np.isfinite(e["loss"]):
+                raise AssertionError(f"epoch {epoch} {h}: steps {n}, "
+                                     f"launches {got_la} want {want}, "
+                                     f"score {e['score_launches']} want "
+                                     f"{score_want}, loss {e['loss']}")
+            for k in want:
+                if k in launches:
+                    launches[k] += la[k]
+            launches["score_bn_act"] += e["score_launches"]["bn_act"]
+    w0 = r["w0"]
+    spans = w0["spans"]
+    k = ELASTIC_STEPS
+    buckets = len(spans["pipeline.d2h"]) // max(len(spans["step"]), 1)
+    if len(spans["step"]) != 3 * k or \
+            len(spans["pipeline.d2h"]) != 3 * k * buckets:
+        raise AssertionError(f"worker 0 recorded {len(spans['step'])} "
+                             f"steps, {len(spans['pipeline.d2h'])} bucket "
+                             f"copies; expected {3 * k} steps")
+    windows = []
+    for epoch, live in want_live.items():
+        # the epoch's steps after its first (which carries the warm-up,
+        # a joiner's first step or the first step after a removal)
+        lo, hi = epoch * k + 1, epoch * k + k
+        span = spans["step_start"][hi - 1] + spans["step"][hi - 1] - \
+            spans["step_start"][lo]
+        windows.append({"epoch": epoch, "workers": len(live),
+                        "steps": hi - lo, "wall_ms": span,
+                        "ms_a_step": span / (hi - lo),
+                        "images_s": 64 * (hi - lo) / span * 1e3,
+                        "step_ms": spans["step"][lo:hi]})
+    # the parts, over epoch 0's window (two workers, not profiled)
+    parts = {}
+    for name in ("step.grad", "step.apply"):
+        parts[name] = float(np.median(spans[name][1:k]))
+    for name in ("pipeline.d2h", "pipeline.wire", "pipeline.h2d"):
+        parts[name] = float(np.median(spans[name][buckets:k * buckets]))
+    bare = float(np.median(w0["bare_step_ms"][1:]))
+    last = w0["epochs"][-1]  # epoch 2, under torch.profiler
+    busy, idle = last.get("device_busy_ms"), last.get("idle_share")
+    # rank 1 publishes no snapshot: its frames are the step's own (the
+    # packed words, the stats, barriers and heartbeats), up and down
+    w1 = r["w1"]["epochs"]
+    wire_mb = sum(e["launches"]["wire_bytes"] for e in w1) / \
+        sum(e["steps"] for e in w1) / 1e6
+    recv_mb = sum(e["launches"]["wire_recv_bytes"] for e in w1) / \
+        sum(e["steps"] for e in w1) / 1e6
+    out = {"step_ms": windows[0]["ms_a_step"], "windows": windows,
+           "parts_ms": parts, "buckets_a_step": buckets,
+           "bare_step_ms": bare, "wire_mb_a_step": wire_mb,
+           "wire_recv_mb_a_step": recv_mb,
+           "packed_mb_a_step": PACKED_BYTES / 1e6,
+           "dense_mb_a_step": 4 * RESNET50_PARAMS / 1e6,
+           "launches": launches, "wall_s": wall,
+           "epoch2_device_busy_ms": busy, "epoch2_idle_share": idle,
+           "epoch2_wall_ms": last["seconds"] * 1e3}
+    for w in windows:
+        print(f"elastic resnet50 bf16 2-bit overlap window: epoch "
+              f"{w['epoch']} workers={w['workers']} steps={w['steps']} "
+              f"wall_ms={w['wall_ms']:.3f} ms_a_step={w['ms_a_step']:.3f} "
+              f"fleet_images_s={w['images_s']:.2f} step_ms="
+              f"{json.dumps([round(t, 3) for t in w['step_ms']])} (worker "
+              f"0's clock; {w['workers']} processes share one card"
+              f"{', profiled' if w['epoch'] == 2 else ''}); gpu={gpu}",
+              flush=True)
+    print(f"elastic resnet50 bf16 2-bit overlap: parts_ms (epoch 0 window, "
+          f"median each; d2h/wire/h2d per bucket, {buckets} buckets a "
+          f"step)={json.dumps(parts)} bare_train_step_ms={bare:.3f} "
+          f"w1_wire_mb_a_step sent={wire_mb:.3f} received={recv_mb:.3f} "
+          f"packed_mb_a_step="
+          f"{PACKED_BYTES / 1e6:.3f} (dense {4 * RESNET50_PARAMS / 1e6:.3f}) "
+          f"launches={json.dumps(launches)} epoch2 (profiled, worker 0): "
+          f"wall_ms={last['seconds'] * 1e3:.1f} device_busy_ms={busy} "
+          f"idle_share={idle}; gpu={gpu}", flush=True)
+    return out
+
+
+def elastic_small_jobs(gpu) -> dict:
+    """2-worker f32 resnet20 jobs (2 epochs of 2 steps) at 8x8 and at
+    32x32 images, each against its own port ``Scheduler``, all at once:
+    on the card with the overlapped step, its workers recording every step
+    (``tests/torch_elastic_drift.py``); on the card with
+    ``DT_AR_OVERLAP=0`` (serial); on the CPU.  Gates: every step of the
+    card job replayed on the CPU from its recorded state within
+    ``TOL_ELASTIC_LOSS`` (loss, stats, update, and the gradient where no
+    ReLU mask flipped), the applied gradient and stats the workers' f32
+    average bit for bit, the per-epoch loss within ``TOL_ELASTIC_LOSS`` of
+    the replay's and of the CPU job's up to the first flipped step, and
+    overlap against serial (cuDNN deterministic in both): the same sha256
+    of params, stats and optimizer state at every epoch end."""
+    import os
+    import tempfile
+
+    import torch_elastic_drift as drift
+    from dt_tpu_torch.elastic.scheduler import Scheduler
+    tmp = tempfile.mkdtemp(prefix="dt_elastic_small_")
+    jobs = {"card": (["--deterministic"], {}),
+            "serial": (["--deterministic"], {"DT_AR_OVERLAP": "0"}),
+            "cpu": (["--device", "cpu"], {})}
+    scheds, procs, stems = {}, {}, {}
+    t0 = time.monotonic()
+    try:
+        for size in SMALL_SIZES:
+            for tag, (extra, env) in jobs.items():
+                sc = scheds[size, tag] = Scheduler(
+                    initial_workers=["w0", "w1"])
+                for h in ("w0", "w1"):
+                    key = (size, tag, h)
+                    stems[key] = os.path.join(tmp, f"{size}_{tag}_{h}")
+                    procs[key] = drift.spawn(
+                        sc.port, h, stems[key],
+                        drift.job_args(size, 128, 64) + extra, env,
+                        dump=tag == "card")
+        drift.wait_all(procs, stems, t0 + 300)
+    finally:
+        for sc in scheds.values():
+            sc.close()
+    out = {}
+    for size in SMALL_SIZES:
+        r = {tag: {h: drift.load(stems[size, tag, h], dump=tag == "card")
+                   for h in ("w0", "w1")} for tag in jobs}
+        summary, failures = drift.hold_card_job(r["card"], r["cpu"],
+                                                TOL_ELASTIC_LOSS)
+        shas = {tag: [e["sha256"] for e in r[tag]["w0"][0]["epochs"]]
+                for tag in ("card", "serial")}
+        same = shas["card"] == shas["serial"] == \
+            [e["sha256"] for e in r["card"]["w1"][0]["epochs"]]
+        for e in summary["epochs"]:
+            print(f"elastic card-vs-cpu f32 resnet20 {size}x{size} "
+                  f"{json.dumps(e)}", flush=True)
+        print(f"elastic card-vs-cpu f32 resnet20 {size}x{size}: replay worst "
+              f"(rel) {json.dumps(summary['replay_worst'])} applied_is_mean="
+              f"{summary['applied_is_mean']} relu_flipped_steps="
+              f"{summary['flipped_steps']} (tol {TOL_ELASTIC_LOSS}); overlap "
+              f"vs serial on the card bit-identical={same} wall_s="
+              f"{time.monotonic() - t0:.1f} gpu={gpu}", flush=True)
+        if failures:
+            raise AssertionError(f"elastic job {size}x{size}, card against "
+                                 f"CPU: {failures}")
+        if not same:
+            raise AssertionError(f"overlap against serial: {shas}")
+        out[size] = dict(summary, overlap_bit_identical=same)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1566,6 +1852,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))  # the elastic job's helpers
     from dt_tpu_torch import models
     from dt_tpu_torch.interchange import load_jax_variables
     from dt_tpu_torch.ops import _build
@@ -1589,17 +1876,22 @@ def main() -> int:
     load_jax_variables(model, variables)
     x32 = torch.zeros(32, 224, 224, 3, device=dev).permute(0, 3, 1, 2)
     shapes = bn_shapes(model, x32)
-    if sum(shapes.values()) != BN_PER_FORWARD:
-        raise AssertionError(f"{sum(shapes.values())} BatchNorms in one "
+    # the elastic phase's three workers train at a per-worker batch of 21
+    shapes21 = bn_shapes(model, torch.zeros(21, 224, 224, 3, device=dev)
+                         .permute(0, 3, 1, 2))
+    if sum(shapes.values()) != BN_PER_FORWARD or \
+            sum(shapes21.values()) != BN_PER_FORWARD:
+        raise AssertionError(f"{sum(shapes.values())}, "
+                             f"{sum(shapes21.values())} BatchNorms in one "
                              f"forward, expected {BN_PER_FORWARD}")
-    summary = kernel_phase(shapes, dev)
+    summary = kernel_phase(shapes, dev, also=list(shapes21))
     print(f"phase kernels done at {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # --- training kernels -----------------------------------------------
     n_params = sum(p.numel() for p in model.parameters())
     del model, x32
-    train_kernels = bn_train_phase(shapes, dev)
+    train_kernels = bn_train_phase(shapes, dev, also=list(shapes21))
     codec = codec_phase(n_params, dev)
     print(f"phase training kernels done at {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1652,6 +1944,13 @@ def main() -> int:
     fit_cmp = fit_card_vs_cpu()
     print(f"phase fit done at {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # --- the elastic host-sync job --------------------------------------
+    torch.cuda.empty_cache()  # the workers are other processes on the card
+    elastic = elastic_phase(gpu)
+    elastic_small_jobs(gpu)
+    print(f"phase elastic done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
     lstm = lstm_phase(dev)
@@ -1683,6 +1982,9 @@ def main() -> int:
         if dtype == torch.bfloat16:  # fit's eval forwards (bn_act alone)
             kernels[-1]["fit_launches"] = (fit_counts["bn_act"]
                                            - fit_counts["bn_stats"])
+            # the elastic job's scores (every live worker, every epoch)
+            kernels[-1]["elastic_launches"] = \
+                elastic["launches"]["score_bn_act"]
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -1706,6 +2008,8 @@ def main() -> int:
             "pass1_kernels_a_call": tot["kernels_a_call"]})
         if dtype == torch.bfloat16:  # every BN of every fit step
             kernels[-1]["fit_launches"] = fit_counts["bn_stats"]
+            kernels[-1]["elastic_launches"] = \
+                elastic["launches"]["bn_stats"]
     for name, line in (("quantize_2bit", 233), ("dequantize_2bit", 284)):
         kernels.append({
             "name": name, "route": "cuda",
@@ -1715,7 +2019,8 @@ def main() -> int:
             "max_abs_err": codec[name]["max_abs_err"],
             "ms": codec[name]["ms"], "plain_ms": codec[name]["plain_ms"],
             "bound_ms": codec[name]["bound_ms"], "bound_by": "bytes",
-            "library_ms": None})
+            "library_ms": None,
+            "elastic_launches": elastic["launches"][name]})
     fb = flash["lm", "bfloat16"]
     kernels.append({
         "name": "flash_attention[bfloat16]", "route": "cuda",

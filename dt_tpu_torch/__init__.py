@@ -9,7 +9,10 @@ at a time: ``training.module.Module.fit`` over the iterators of
 the initializers of ``initializer`` and the imperative
 ``training.trainer.Trainer``, all on the step of ``training.step``
 (``grad_step``/``apply_step`` on a ``training.train_state.TrainState``, SGD
-from ``optim``, the 2-bit gradient codec of ``parallel.compression``).  Its
+from ``optim``, the 2-bit gradient codec of ``parallel.compression``).
+Worker processes train one elastic job through ``Module.fit(sync_mode=
+"host")`` over ``elastic`` (the worker client, the scheduler's host-sync
+core, the wire) and ``training.overlap``, beside JAX workers.  Its
 BatchNorms, attention, LSTM cells and the codec run the hand-written CUDA
 kernels of ``csrc/`` (``ops.kernels``, ``ops.attention``).
 
@@ -21,9 +24,9 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("config", "data", "initializer", "interchange", "models",
-               "obs", "ops", "optim", "parallel", "policy", "predictor",
-               "training", "utils")
+_SUBMODULES = ("config", "data", "elastic", "initializer", "interchange",
+               "models", "obs", "ops", "optim", "parallel", "policy",
+               "predictor", "training", "utils")
 
 
 def __getattr__(name):

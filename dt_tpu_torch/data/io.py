@@ -601,10 +601,12 @@ class ElasticDataIterator:
     set ``fixed_per_worker_batch=True`` for the alternative policy shipped in
     ``fit.py:28-44``.
 
-    The JAX package's share-aware path (``dt_tpu/policy``: per-worker
-    batches from the policy shares an elastic controller carries) comes
-    with the elastic slice (ROADMAP Queue 1 item 3): a controller with
-    policy shares raises ``NotImplementedError`` here.  A factory that
+    Under an elastic controller the shards follow ``kv.num_workers`` and
+    ``kv.rank``.  The JAX package's share-aware path (``dt_tpu/policy``:
+    per-worker batches from the policy shares an elastic controller
+    carries) is ROADMAP Queue 1 item 3d: a controller with policy shares
+    raises ``NotImplementedError`` here (neither scheduler sends shares
+    with the policy engine off).  A factory that
     takes a 4th ``weights`` argument is recognised as the JAX package
     recognises it (:meth:`_factory_takes_weights`).
     """
@@ -653,6 +655,7 @@ class ElasticDataIterator:
             raise NotImplementedError(
                 "share-weighted re-sharding (policy shares on an elastic "
                 "controller) is not ported yet; see ROADMAP.md, Queue 1 "
-                "item 3 (the elastic host-sync step)")
+                "item 3d (the policy engine and share-weighted "
+                "re-sharding)")
         bs = self.per_worker_batch(kv.num_workers)
         return self.factory(kv.num_workers, kv.rank, bs)

@@ -5,21 +5,22 @@ Reference: ``include/mxnet/kvstore.h`` + ``python/mxnet/kvstore.py``.  The
 JAX store keeps identity (``rank``, ``num_workers``), the epoch-boundary
 membership barrier (delegated to an elastic controller), the optimizer
 hand-off, gradient compression and a host-side ``push``/``pull`` kept for
-the reference's user code (not the training hot path).  This slice ports
-the single-process stores, ``local`` and ``device`` (rank 0 of 1 worker);
-the distributed ones (``tpu_sync`` and its aliases, ``dist_async``) and an
-elastic controller come with the elastic slice, ROADMAP Queue 1 item 3, and
-raise ``NotImplementedError`` until then.
+the reference's user code (not the training hot path).  The port has the
+single-process stores, ``local`` and ``device`` (rank 0 of 1 worker), and
+``tpu_sync`` (with its aliases ``dist_sync``, ``dist_device_sync``,
+``dist``), whose identity comes from an elastic controller
+(``elastic.client.WorkerClient``).  ``dist_async`` raises
+``NotImplementedError`` (ROADMAP Queue 1 item 3a).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
-_ELASTIC = ("is not ported yet; see ROADMAP.md, Queue 1 item 3 (the "
-            "elastic host-sync step)")
+_ASYNC = ("is not ported yet; see ROADMAP.md, Queue 1 item 3a (dist_async "
+          "and the scheduler-side optimizer)")
 
 
 class KVStore:
@@ -27,7 +28,7 @@ class KVStore:
 
     def __init__(self):
         self._store: Dict[str, np.ndarray] = {}
-        self._controller = None  # an elastic controller: not ported
+        self._controller = None  # an elastic controller (set_controller)
         self._gradient_compression = None
         self._optimizer = None
 
@@ -72,14 +73,29 @@ class KVStore:
         pass
 
     def set_controller(self, controller):
-        raise NotImplementedError(f"an elastic controller {_ELASTIC}")
+        """Attach an elastic controller (the worker's client of the
+        scheduler)."""
+        self._controller = controller
+
+    def _membership_change_barrier(self, info: Optional[dict] = None
+                                   ) -> None:
+        """Reference ``kvstore.py:617-624``: block until the scheduler
+        applied any membership change for this epoch; ``rank`` and
+        ``num_workers`` may change."""
+        if self._controller is not None:
+            self._controller.membership_change_barrier(info or {})
+
+    def get_num_dead_node(self, timeout_s: float = 60.0) -> int:
+        """Reference ``kv.get_num_dead_node`` (``kvstore_dist.h:134-143``)."""
+        if self._controller is not None:
+            return self._controller.num_dead_nodes(timeout_s)
+        return 0
 
     # -- gradient compression ---------------------------------------------
     def set_gradient_compression(self, compression_params: Dict):
         """Reference ``kv.set_gradient_compression({'type': '2bit',
-        'threshold': t})``.  Recorded for the host-sync data plane, which a
-        single process does not run (as in the JAX package, the one-device
-        step does not compress)."""
+        'threshold': t})``.  Applies to the host-sync data plane (as in the
+        JAX package, the one-device step does not compress)."""
         if "type" not in compression_params:
             raise ValueError("compression_params must include 'type' "
                              "(none|2bit)")
@@ -100,13 +116,38 @@ class KVStore:
         self._optimizer = optimizer
 
 
+class TPUSyncKVStore(KVStore):
+    """The synchronous store (``tpu_sync``, ``dist_sync``): under an
+    elastic controller ``rank`` and ``num_workers`` follow the live
+    membership the scheduler keeps (ranks shift on removal, as the
+    reference's ordered live set, ``van.cc:519-539``); without one it is
+    rank 0 of 1 (the port runs one process a card)."""
+
+    @property
+    def type(self) -> str:
+        return "tpu_sync"
+
+    @property
+    def rank(self) -> int:
+        if self._controller is not None:
+            return self._controller.rank
+        return 0
+
+    @property
+    def num_workers(self) -> int:
+        if self._controller is not None:
+            return self._controller.num_workers
+        return 1
+
+
 def create(name: str = "local") -> KVStore:
     """Reference ``mx.kv.create`` type-string dispatch
     (``src/kvstore/kvstore.cc:40-77``)."""
     key = name.lower()
     if key in ("local", "device"):
         return KVStore()
-    if key in ("tpu_sync", "dist_sync", "dist_device_sync", "dist",
-               "dist_async"):
-        raise NotImplementedError(f"kvstore {name!r} {_ELASTIC}")
+    if key in ("tpu_sync", "dist_sync", "dist_device_sync", "dist"):
+        return TPUSyncKVStore()
+    if key == "dist_async":
+        raise NotImplementedError(f"kvstore {name!r} {_ASYNC}")
     raise ValueError(f"unknown kvstore type {name!r}")

@@ -19,29 +19,40 @@ and one ``apply_step`` on the port's ``TrainState``, with
 - the next batch placed on the device right after a step is launched
   (``_prefetch_batch``), so its copy overlaps the step.
 
-What the slice does not port raises ``NotImplementedError`` naming its
-ROADMAP item: the elastic paths (an elastic controller, the elastic
-environment, ``elastic_data_iterator`` over several workers,
-``sync_mode="host"``, the distributed kvstores: Queue 1 item 3), a
-``mesh_manager`` (item 4) and ``remat=True`` (item 6).
-``shard_opt_state``/``shard_params`` shard nothing on one device, as in the
-JAX package, so they are accepted and ``sharding_report`` stays empty.
+The elastic host-sync step (``sync_mode="host"`` over a ``tpu_sync``
+kvstore with an elastic controller, ``module.py:612-1251``) runs as the
+JAX package's: the env contract (``NEW_WORKER``, ``EPOCH_BEGIN``,
+``ELASTIC_TRAINING_ENABLED``), the recovery re-entry through
+``wait_rejoin``, the membership barrier at each epoch with re-sharding
+through ``elastic_data_iterator``, the flat gradient and BN stats averaged
+across workers (bucketed and overlapped by ``training.overlap``, or
+serial; 2-bit words on the wire under ``set_gradient_compression``), the
+graceful drain after a step and rank 0's snapshot at each epoch end, from
+which joiners bootstrap (``init_params(initialize_from_kvstore=True)``).
+
+What the port does not have raises ``NotImplementedError`` naming its
+ROADMAP item: a ``mesh_manager`` and the mesh sync mode across processes
+(Queue 1 item 4), ``dist_async`` (item 3a), policy batch shares (item 3d)
+and ``remat=True`` (item 6).  ``shard_opt_state``/``shard_params`` shard
+nothing on one device, as in the JAX package, so they are accepted and
+``sharding_report`` stays empty.
 """
 
 from __future__ import annotations
 
 import inspect
 import logging
-import os
 import time
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
+from dt_tpu_torch import config as config_lib
 from dt_tpu_torch import models as models_lib
 from dt_tpu_torch.config import resolve_device
 from dt_tpu_torch.obs import metrics as obs_metrics
+from dt_tpu_torch.obs import trace as obs_trace
 from dt_tpu_torch.ops.losses import softmax_cross_entropy
 from dt_tpu_torch.parallel import kvstore as kvstore_lib
 from dt_tpu_torch.training import callbacks as callbacks_lib
@@ -51,9 +62,7 @@ from dt_tpu_torch.training.train_state import TrainState
 
 logger = logging.getLogger("dt_tpu_torch")
 
-# the elastic environment of the reference's fit (base_module.py:503-506)
-ELASTIC_ENV = ("NEW_WORKER", "ELASTIC_TRAINING_ENABLED", "EPOCH_BEGIN")
-_ELASTIC = "see ROADMAP.md, Queue 1 item 3 (the elastic host-sync step)"
+_ITEM = "is not ported yet; see ROADMAP.md, Queue 1 "
 
 
 def softmax_ce_loss(logits, labels):
@@ -108,6 +117,17 @@ class _HostCopy:
             self.event.synchronize()
         h = self.host
         return (h.float() if h.is_floating_point() else h).numpy()
+
+
+def _tensor_leaves(tree, path=()):
+    """The paths of a nested dict's ``torch.Tensor`` leaves."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _tensor_leaves(v, path + (k,))
+        elif isinstance(v, torch.Tensor):
+            out.append("/".join(path + (k,)))
+    return out
 
 
 def _host_labels(label):
@@ -184,9 +204,11 @@ class Module:
         self.state: Optional[TrainState] = None
         # ZeRO/FSDP coverage; nothing is sharded on one device
         self.sharding_report: dict = {}
-        # "mesh": the step on this device; "host" (the elastic host-sync
-        # allreduce) is not ported
+        # "mesh": the step on this device; "host": the gradient and BN
+        # stats averaged across worker processes through the elastic
+        # controller (the two-phase step of module.py:916-991)
         self.sync_mode = "mesh"
+        self._overlap = None  # training.overlap.GradSyncEngine, lazy
         self._sentinel = False
         self._halt = False
         self.health_halted = False
@@ -206,13 +228,22 @@ class Module:
         """Draw the model's initial parameters (``models.init_params`` with
         this Module's seed: linen's defaults, from a seeded generator) and
         make the train state.  ``sample_data`` is accepted for the JAX
-        signature; the port's models know their shapes.  Bootstrapping from
-        a kvstore snapshot (a joining worker's path) is not ported."""
-        if initialize_from_kvstore:
-            raise NotImplementedError(
-                f"bootstrapping params from a kvstore snapshot; {_ELASTIC}")
+        signature; the port's models know their shapes.  With
+        ``initialize_from_kvstore`` a joining worker then loads the
+        snapshot its kvstore's controller serves, when there is one
+        (``module.py:240-262``): ``{step, params, batch_stats,
+        opt_state}`` in the JAX package's names and layout, from either
+        package's workers."""
         models_lib.init_params(self.model, self.seed)
         self.state = TrainState.create(self.model, self.tx)
+        if initialize_from_kvstore:
+            ctrl = getattr(self.kv, "_controller", None)
+            snap = ctrl.fetch_snapshot() if ctrl is not None else None
+            if snap is not None:
+                from dt_tpu_torch.interchange import load_jax_train_state
+                load_jax_train_state(self.state, snap)
+                logger.info("bootstrapped params from kvstore snapshot "
+                            "(step %d)", self.state.step)
         return self.state
 
     # ------------------------------------------------------------------
@@ -225,49 +256,127 @@ class Module:
         logits = out[0] if isinstance(out, tuple) else out
         return self.loss_fn(logits, y), logits
 
+    def _stats_snapshot(self):
+        """The BN stats before a step, when the halt gate may have to put
+        them back (the forward moves them in place); else ``None``."""
+        st = self.state
+        if self._halt and st.layout.stats.size:
+            return st.layout.stats.ravel(st.batch_stats)
+        return None
+
+    def _restore_stats(self, stats0) -> None:
+        if stats0 is not None:
+            with torch.no_grad():
+                for name, t in self.state.layout.stats.unravel(
+                        stats0).items():
+                    self.state.batch_stats[name].copy_(t)
+
+    def _grads(self, data: torch.Tensor, labels: torch.Tensor):
+        """``(flat_g, flat_s, loss, logits)`` of one batch: one
+        ``grad_step``, or ``grad_accum`` microbatches in sequence with
+        their gradients averaged and the BN stats chained."""
+        st = self.state
+        accum = self.grad_accum
+        if accum <= 1:
+            return grad_step(st, data, labels, self._forward_loss)
+        n = data.shape[0]
+        if n % accum:
+            raise ValueError(f"grad_accum={accum} must divide the batch "
+                             f"({n})")
+        m = n // accum
+        flat_g, losses, parts = None, [], []
+        for i in range(accum):
+            g, flat_s, loss_i, lg = grad_step(
+                st, data[i * m:(i + 1) * m], labels[i * m:(i + 1) * m],
+                self._forward_loss)
+            flat_g = g if flat_g is None else flat_g.add_(g)
+            losses.append(loss_i)
+            parts.append(lg)
+        return (flat_g / accum, flat_s, torch.stack(losses).mean(),
+                torch.cat(parts))
+
     def _step(self, data: torch.Tensor, labels: torch.Tensor):
         """One update from one batch: ``(loss, logits, health)``; health is
         ``None`` unless the sentinels are armed.  Under the halt gate a
         non-finite gradient leaves params, optimizer state, step and BN
         stats as they were."""
+        stats0 = self._stats_snapshot()
+        flat_g, flat_s, loss, logits = self._grads(data, labels)
+        return loss, logits, self._apply_synced(flat_g, flat_s, loss,
+                                                stats0)
+
+    def _apply_synced(self, flat_g, flat_s, loss, stats0):
+        """Apply one (averaged) update; returns the health vector, or
+        ``None`` with the sentinels off.  On the host-sync path the
+        sentinel checks the averaged gradient, so one worker's poisoned
+        contribution halts the whole fleet on the same step."""
         st = self.state
-        stats0 = None
-        if self._halt and st.layout.stats.size:
-            stats0 = st.layout.stats.ravel(st.batch_stats)
-        accum = self.grad_accum
-        if accum <= 1:
-            flat_g, flat_s, loss, logits = grad_step(st, data, labels,
-                                                     self._forward_loss)
-        else:
-            n = data.shape[0]
-            if n % accum:
-                raise ValueError(f"grad_accum={accum} must divide the batch "
-                                 f"({n})")
-            m = n // accum
-            flat_g, losses, parts = None, [], []
-            for i in range(accum):
-                g, flat_s, loss_i, lg = grad_step(
-                    st, data[i * m:(i + 1) * m], labels[i * m:(i + 1) * m],
-                    self._forward_loss)
-                flat_g = g if flat_g is None else flat_g.add_(g)
-                losses.append(loss_i)
-                parts.append(lg)
-            flat_g = flat_g / accum
-            loss = torch.stack(losses).mean()
-            logits = torch.cat(parts)
         health = None
         if self._sentinel:
             health = sentinel_health_vec(
                 flat_g, st.layout.params.ravel(st.params), loss)
             if self._halt and float(health[0]) > 0:  # the halt's host read
-                if stats0 is not None:  # the forward moved them in place
-                    with torch.no_grad():
-                        for name, t in st.layout.stats.unravel(
-                                stats0).items():
-                            st.batch_stats[name].copy_(t)
-                return loss, logits, health
+                self._restore_stats(stats0)
+                return health
         apply_step(st, flat_g, flat_s)
-        return loss, logits, health
+        return health
+
+    def _overlap_engine(self):
+        if self._overlap is None:
+            from dt_tpu_torch.training import overlap as overlap_lib
+            self._overlap = overlap_lib.GradSyncEngine(self.device)
+        return self._overlap
+
+    def _host_sync_step(self, ctrl, data, labels, train_data, epoch):
+        """The host-sync step (``module.py:916-991``): local gradient and
+        stats, the next batch placed, then the average across workers
+        (overlapped or serial, the gradient as 2-bit words under
+        compression), then the update.  Returns ``(loss, logits, health,
+        prefetched)``."""
+        from dt_tpu_torch.elastic import faults as faults_lib
+        tr = obs_trace.tracer()
+        stats0 = self._stats_snapshot()
+        t0 = tr.now()
+        flat_g, flat_s, loss, logits = self._grads(data, labels)
+        prefetched = self._prefetch_batch(train_data)
+        if faults_lib.nan_point("worker.grad", host=getattr(ctrl, "host",
+                                                            None)):
+            flat_g[0] = float("nan")  # the seeded poison (chaos --plan nan)
+        if t0 is not None and flat_g.is_cuda:  # the span ends with the work
+            torch.cuda.current_stream(flat_g.device).synchronize()
+        tr.complete_span("step.grad", t0, {"epoch": epoch})
+        gc = self.kv._gradient_compression
+        # 2-bit quantization launders NaN (it fails both threshold tests
+        # and lodges in the residual), so with the sentinels on a
+        # non-finite step ships raw and trips every worker's check
+        if gc is not None and self._sentinel and \
+                not bool(torch.isfinite(flat_g).all()):
+            gc = None
+        has_stats = self.state.layout.stats.size > 0
+        from dt_tpu_torch.training import overlap as overlap_lib
+        if overlap_lib.enabled(ctrl):
+            avg_g, avg_s = self._overlap_engine().sync(
+                ctrl, gc, flat_g, flat_s if has_stats else None)
+        else:
+            if gc is not None:
+                words = gc.compress_on_device(flat_g)
+                payload = {"packed": words.cpu().numpy().view(np.uint32),
+                           "n": int(flat_g.numel()),
+                           "threshold": gc.threshold}
+            else:
+                payload = flat_g.cpu().numpy()
+            avg_g = torch.from_numpy(
+                np.asarray(ctrl.allreduce("grads", payload))).to(
+                    self.device)
+            avg_s = ctrl.allreduce("stats", flat_s.cpu().numpy()) \
+                if has_stats else None
+        avg_s = torch.from_numpy(np.asarray(avg_s, np.float32)).to(
+            self.device) if avg_s is not None else \
+            torch.zeros(0, device=self.device)
+        ta = tr.now()
+        health = self._apply_synced(avg_g, avg_s, torch.zeros(()), stats0)
+        tr.complete_span("step.apply", ta, {"epoch": epoch})
+        return loss, logits, health, prefetched
 
     # ------------------------------------------------------------------
     # Placement
@@ -312,24 +421,44 @@ class Module:
     # fit
     # ------------------------------------------------------------------
 
-    def _check_ported(self, elastic_data_iterator) -> None:
-        set_env = [k for k in ELASTIC_ENV
-                   if os.environ.get(k, "").strip() not in ("", "0", "false",
-                                                           "False")]
-        if set_env:
+    def _check_ported(self) -> None:
+        if self.kv.type == "dist_async":
             raise NotImplementedError(
-                f"the elastic environment ({', '.join(set_env)}) is not "
-                f"ported yet; {_ELASTIC}")
-        if getattr(self.kv, "_controller", None) is not None:
+                f"fit over dist_async {_ITEM}item 3a (dist_async and the "
+                "scheduler-side optimizer)")
+        if self.sync_mode not in ("mesh", "host"):
+            raise ValueError(f"sync_mode must be 'mesh' or 'host', got "
+                             f"{self.sync_mode!r}")
+        if self.sync_mode == "mesh" and self.kv.num_workers > 1:
             raise NotImplementedError(
-                f"a kvstore with an elastic controller; {_ELASTIC}")
-        if self.sync_mode != "mesh":
+                f"the mesh sync mode across {self.kv.num_workers} worker "
+                f"processes {_ITEM}item 4 (elastic mesh and survivability); "
+                "use sync_mode='host'")
+
+    def _membership_sig(self):
+        """What re-shards the data: the member list, this worker's rank
+        and the policy decision's seq (a count alone misses an eviction
+        and a re-admission at one barrier)."""
+        ctrl = getattr(self.kv, "_controller", None)
+        pol = getattr(ctrl, "policy_seq", 0) if ctrl is not None else 0
+        members = getattr(ctrl, "workers", None)
+        if members is not None:
+            return (tuple(members), ctrl.rank, pol)
+        return (self.kv.num_workers, self.kv.rank, pol)
+
+    def _refuse_policy_shares(self, elastic_data_iterator) -> None:
+        """The share-aware gradient weight of ``module.py:1188-1218`` is
+        exactly 1.0 (no multiply) without policy shares, which is always
+        with the policy engine off; shares would weigh it and raise here
+        (ROADMAP Queue 1 item 3d)."""
+        ctrl = getattr(self.kv, "_controller", None)
+        if getattr(ctrl, "policy_shares", None) and \
+                elastic_data_iterator is not None and \
+                self.sync_mode == "host" and not getattr(
+                    elastic_data_iterator, "fixed_per_worker_batch", False):
             raise NotImplementedError(
-                f"sync_mode={self.sync_mode!r}; {_ELASTIC}")
-        if elastic_data_iterator is not None and self.kv.num_workers > 1:
-            raise NotImplementedError(
-                f"elastic_data_iterator over {self.kv.num_workers} workers; "
-                f"{_ELASTIC}")
+                f"share-weighted gradients {_ITEM}item 3d (the policy "
+                "engine and share-weighted re-sharding)")
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             num_epoch: int = 1, begin_epoch: int = 0,
@@ -337,14 +466,38 @@ class Module:
             eval_end_callback=None, elastic_data_iterator=None,
             validation_metric=None):
         """Train from ``begin_epoch`` to ``num_epoch`` (reference
-        ``BaseModule.fit``, ``base_module.py:497-623``).  Each epoch resets
-        ``train_data``, runs one step a batch (the metric one step behind,
-        the rows a batch pads excluded), calls the batch-end callbacks with
-        a ``callbacks.BatchEndParam``, logs the train metric, calls the
-        epoch-end callbacks with ``(epoch, state, metric)``, and scores
-        ``eval_data`` with ``validation_metric`` (default: the train
-        metric) before the eval-end callback.  Returns the train metric."""
-        self._check_ported(elastic_data_iterator)
+        ``BaseModule.fit``, ``base_module.py:497-623``, with the elastic
+        contract of ``:503-552``).  Each epoch passes the membership
+        barrier (under an elastic controller or
+        ``ELASTIC_TRAINING_ENABLED``; a removed worker returns), rebuilds
+        the iterators through ``elastic_data_iterator`` when the members
+        changed, resets ``train_data``, runs one step a batch (the metric
+        one step behind, the rows a batch pads excluded; under
+        ``sync_mode="host"`` with more than one worker the host-sync
+        step), calls the batch-end callbacks with a
+        ``callbacks.BatchEndParam``, logs the train metric, publishes the
+        snapshot (rank 0), calls the epoch-end callbacks with ``(epoch,
+        state, metric)``, and scores ``eval_data`` with
+        ``validation_metric`` (default: the train metric) before the
+        eval-end callback.  Returns the train metric."""
+        from dt_tpu_torch.elastic import drain as drain_lib
+        from dt_tpu_torch.elastic import faults as faults_lib
+        # the elastic env contract (base_module.py:503-506)
+        is_new_worker = config_lib.env_flag(config_lib.ENV_NEW_WORKER)
+        elastic_enabled = config_lib.env_flag(config_lib.ENV_ELASTIC_ENABLED)
+        env_begin_epoch = config_lib.env_int(config_lib.ENV_EPOCH_BEGIN, -1)
+        if is_new_worker and env_begin_epoch >= 0:
+            begin_epoch = env_begin_epoch
+        self._check_ported()
+        ctrl = getattr(self.kv, "_controller", None)
+        host = getattr(ctrl, "host", None)
+        if ctrl is not None and getattr(ctrl, "recovery_pending", False):
+            # crash re-entry under the old name (van.cc:187-218): park
+            # until a barrier re-admits us, then take the survivors' state
+            begin_epoch = ctrl.wait_rejoin()
+            self.init_params(initialize_from_kvstore=True)
+            logger.info("recovered worker re-admitted; resuming at "
+                        "epoch %d", begin_epoch)
         if batch_end_callback is not None and not isinstance(
                 batch_end_callback, (list, tuple)):
             batch_end_callback = [batch_end_callback]
@@ -355,11 +508,48 @@ class Module:
         validation_metric = metrics_lib.create(validation_metric) \
             if validation_metric is not None else eval_metric
         if self.state is None:
-            self.init_params()
+            self.init_params(initialize_from_kvstore=is_new_worker)
         self._sentinel = obs_metrics.sentinels_enabled()
         self._halt = obs_metrics.halt_enabled()
+        members = self._membership_sig()
+        self._refuse_policy_shares(elastic_data_iterator)
+        tr = obs_trace.tracer()
+        drain_lib.install(host)
 
         for epoch in range(begin_epoch, num_epoch):
+            t_epoch = tr.begin("epoch")
+            # a crash rule pinned to this epoch dies here, the boundary
+            # the recovery path must survive
+            faults_lib.crash_point("module.epoch_begin", host=host,
+                                   epoch=epoch)
+            if elastic_enabled or ctrl is not None:
+                from dt_tpu_torch.elastic.client import WorkerRemoved
+                try:
+                    self.kv._membership_change_barrier(
+                        {"EPOCH_BEGIN": epoch})
+                except WorkerRemoved:
+                    # the reference terminates removed instances
+                    # (launch.py:196-199): leave the fit cleanly
+                    logger.info("Epoch[%d] this worker was removed from "
+                                "the job; stopping", epoch)
+                    tr.abandon(t_epoch)
+                    return eval_metric
+                sig = self._membership_sig()
+                if sig != members:
+                    logger.info("Epoch[%d] membership changed: %s -> %s",
+                                epoch, members, sig)
+                    members = sig
+                    if elastic_data_iterator is not None:
+                        train_data, new_eval = \
+                            elastic_data_iterator.get_data_iterator(self.kv)
+                        if new_eval is not None:
+                            eval_data = new_eval
+                    self._refuse_policy_shares(elastic_data_iterator)
+            host_sync = self.sync_mode == "host" and self.kv.num_workers > 1
+            if host_sync and ctrl is None:
+                raise RuntimeError(
+                    "sync_mode='host' needs an elastic controller "
+                    "(kv.set_controller) to carry the allreduce")
             tic = time.time()
             eval_metric.reset()
             nbatch = 0
@@ -370,6 +560,7 @@ class Module:
             # () nothing prefetched yet, None the epoch is done, else the
             # next batch already placed
             prefetched = ()
+            drained = False
             while True:
                 if prefetched:
                     batch, data, labels = prefetched
@@ -382,17 +573,40 @@ class Module:
                         break
                     data = self._place(batch.data)
                     labels = self._place(batch.label, label=True)
-                loss, logits, health = self._step(data, labels)
+                faults_lib.stall_point("worker.step", host=host)
+                t_step = tr.now()
+                if host_sync:
+                    loss, logits, health, prefetched = self._host_sync_step(
+                        ctrl, data, labels, train_data, epoch)
+                else:
+                    loss, logits, health = self._step(data, labels)
+                    prefetched = self._prefetch_batch(train_data)
+                tr.complete_span("step", t_step, {"epoch": epoch})
                 fetched = (_host_labels(batch.label), batch.data.shape[0]
                            - batch.pad, _HostCopy(logits))
-                prefetched = self._prefetch_batch(train_data)
                 if health is not None and self._health_step(health, loss,
                                                             epoch):
+                    break
+                if drain_lib.requested():
+                    # SIGTERM: this step is applied; leave through the
+                    # membership machinery, no collective error
+                    drain_lib.announce(host)
+                    if ctrl is not None:
+                        try:
+                            ctrl.drain()
+                        except Exception as e:  # noqa: BLE001
+                            logger.warning("drain rpc failed: %s", e)
+                    logger.info("Epoch[%d] graceful drain after step %d; "
+                                "leaving the job", epoch, self.state.step)
+                    drained = True
                     break
                 if pending is not None:
                     nbatch = self._flush_metric(pending, eval_metric, epoch,
                                                 nbatch, batch_end_callback)
                 pending = fetched
+            if drained:
+                tr.abandon(t_epoch)
+                return eval_metric
             if pending is not None:  # the last step's metric and callback
                 nbatch = self._flush_metric(pending, eval_metric, epoch,
                                             nbatch, batch_end_callback)
@@ -400,11 +614,18 @@ class Module:
                 logger.warning(
                     "Epoch[%d] training halted by the health sentinel "
                     "(non-finite gradient; update not applied)", epoch)
+                tr.complete_span("epoch", t_epoch,
+                                 {"epoch": epoch, "halted": True})
                 break
             if eval_metric.num_inst > 0:  # empty after a Speedometer reset
                 for name, val in eval_metric.get_name_value():
                     logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            tr.complete_span("epoch", t_epoch,
+                             {"epoch": epoch, "nbatch": nbatch})
             logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
+            # the epoch-end snapshot joiners bootstrap from
+            # (store_aux_params analog, base_module.py:601-605)
+            self._publish_snapshot()
             if epoch_end_callback is not None:
                 for cb in epoch_end_callback:
                     cb(epoch, self.state, eval_metric)
@@ -416,6 +637,28 @@ class Module:
                 if eval_end_callback is not None:
                     eval_end_callback(epoch, validation_metric)
         return eval_metric
+
+    def _publish_snapshot(self) -> None:
+        """Rank 0 pushes the train state to the controller, the copy
+        joiners bootstrap from (``module.py:1235-1251``): ``{step, params,
+        batch_stats, opt_state}`` as numpy in the JAX package's names and
+        layout (HWIO kernels), so a JAX joiner restores it too.  Nothing of
+        it is a ``torch.Tensor``."""
+        ctrl = getattr(self.kv, "_controller", None)
+        if ctrl is None or not hasattr(ctrl, "publish_snapshot") or \
+                self.kv.rank != 0:
+            return
+        from dt_tpu_torch.interchange import export_jax_train_state
+        snap = export_jax_train_state(self.state)
+        snap["step"] = np.asarray(snap["step"], np.int32)
+        snap["opt_state"]["count"] = np.asarray(snap["opt_state"]["count"],
+                                                np.int32)
+        bad = _tensor_leaves(snap)
+        if bad:
+            raise NotImplementedError(
+                f"a snapshot with bfloat16 master params ({bad[:3]}) "
+                f"{_ITEM}item 8 (with_multi_precision)")
+        ctrl.publish_snapshot(snap)
 
     def _health_step(self, health, loss, epoch) -> bool:
         """Account one step's health vector (one host read): a non-finite

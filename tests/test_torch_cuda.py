@@ -675,3 +675,120 @@ def test_module_fit_on_card_matches_cpu(cuda):
         assert abs(a - b) <= 1e-4 * abs(b), curves
     a, b = scores["cuda"]["cross-entropy"], scores["cpu"]["cross-entropy"]
     assert abs(a - b) <= 1e-4 * abs(b), scores
+
+
+def _two_clients_sync(dev, compress):
+    """Two port clients in threads against the port's scheduler: three
+    steps each of the serial allreduce and of ``GradSyncEngine.sync`` on
+    tensors on ``dev``; returns both workers' (serial, engine) averages."""
+    import threading
+
+    from dt_tpu_torch.elastic.client import WorkerClient
+    from dt_tpu_torch.elastic.scheduler import Scheduler
+    from dt_tpu_torch.parallel.compression import GradientCompression
+    from dt_tpu_torch.training.overlap import GradSyncEngine
+    n = 1_000_003
+    sched = Scheduler(initial_workers=["a", "b"])
+    clients, out = {}, {}
+    try:
+        for h in ("a", "b"):
+            clients[h] = WorkerClient("127.0.0.1", sched.port, host=h,
+                                      heartbeat_interval_s=5.0)
+
+        def worker(rank, h):
+            c = clients[h]
+            gcs = [GradientCompression(compress) if compress else None
+                   for _ in range(2)]
+            eng = GradSyncEngine(dev)
+            res = []
+            for step in range(3):
+                rng = np.random.RandomState(10 * rank + step)
+                g = torch.from_numpy(rng.normal(0, 0.01, n).astype(
+                    np.float32)).to(dev)
+                s = torch.from_numpy(rng.normal(size=211).astype(
+                    np.float32)).to(dev)
+                if gcs[0] is not None:
+                    words = gcs[0].compress_on_device(g).cpu().numpy()
+                    payload = {"packed": words.view(np.uint32), "n": n,
+                               "threshold": compress}
+                else:
+                    payload = g.cpu().numpy()
+                serial = (c.allreduce("grads", payload),
+                          c.allreduce("stats", s.cpu().numpy()))
+                avg, avg_s = eng.sync(c, gcs[1], g, s)
+                res.append((serial, (avg.cpu().numpy(), avg_s)))
+            out[h] = (res, eng.staging.outstanding)
+
+        ts = [threading.Thread(target=worker, args=(i, h))
+              for i, h in enumerate(("a", "b"))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        for c in clients.values():
+            c.close()
+        sched.close()
+    return out
+
+
+@pytest.mark.parametrize("compress", [None, 0.005])
+def test_overlap_engine_on_card_is_bit_identical_to_serial(cuda, monkeypatch,
+                                                          compress):
+    """The bucketed D2H (side stream, pinned buffers, events), wire and
+    H2D of ``GradSyncEngine`` on the card give the serial allreduce's bits
+    (1 M elements in 64 KiB buckets)."""
+    monkeypatch.setenv("DT_AR_BUCKET_BYTES", str(64 << 10))
+    before = kernels.quantize_2bit.launches
+    out = _two_clients_sync(cuda, compress)
+    if compress:
+        assert kernels.quantize_2bit.launches == before + 2 * 2 * 3
+    for h, (res, outstanding) in out.items():
+        assert outstanding == 0
+        for (sg, ss), (og, os_) in res:
+            assert og.tobytes() == np.asarray(sg).tobytes()
+            assert os_.tobytes() == np.asarray(ss).tobytes()
+
+
+@pytest.mark.parametrize("size", [8, 32])
+def test_elastic_job_on_card_matches_cpu_and_serial(cuda, tmp_path, size):
+    """A 2-worker f32 resnet20 job (``size``x``size``x3, 2 epochs of 2
+    steps) against the port's scheduler on the card, its workers recording
+    every step, held against the port on the CPU by
+    ``torch_elastic_drift.hold_card_job`` (each step replayed from the
+    card's state within 1e-4, the applied gradient the workers' average bit
+    for bit, the per-epoch loss within 1e-4 of the replay's and of the same
+    job on the CPU up to the first flipped ReLU mask); on the card with
+    ``DT_AR_OVERLAP=0`` the same sha256 of params, stats and optimizer
+    state at every epoch end."""
+    import time
+
+    import torch_elastic_drift as drift
+    from dt_tpu_torch.elastic.scheduler import Scheduler
+    runs = {"card": (["--deterministic"], {}),
+            "serial": (["--deterministic"], {"DT_AR_OVERLAP": "0"}),
+            "cpu": (["--device", "cpu"], {})}
+    scheds, procs, stems = {}, {}, {}
+    try:
+        for tag, (extra, env) in runs.items():
+            scheds[tag] = Scheduler(initial_workers=["w0", "w1"])
+            for h in ("w0", "w1"):
+                stems[tag, h] = str(tmp_path / f"{tag}_{h}")
+                procs[tag, h] = drift.spawn(
+                    scheds[tag].port, h, stems[tag, h],
+                    drift.job_args(size, 128, 64) + extra, env,
+                    dump=tag == "card")
+        drift.wait_all(procs, stems, time.monotonic() + 120)
+    finally:
+        for sc in scheds.values():
+            sc.close()
+    r = {tag: {h: drift.load(stems[tag, h], dump=tag == "card")
+               for h in ("w0", "w1")} for tag in runs}
+    summary, failures = drift.hold_card_job(r["card"], r["cpu"], 1e-4)
+    assert not failures, (failures, summary)
+    for h in ("w0", "w1"):
+        assert [e["sha256"] for e in r["card"][h][0]["epochs"]] == \
+            [e["sha256"] for e in r["serial"][h][0]["epochs"]]
+    assert r["card"]["w0"][0]["epochs"][-1]["sha256"] == \
+        r["card"]["w1"][0]["epochs"][-1]["sha256"]

@@ -226,8 +226,10 @@ def test_fit_callbacks_checkpoint_and_begin_epoch(tmp_path):
 
 
 def test_unported_features_raise(monkeypatch):
-    """What the slice does not port raises ``NotImplementedError`` naming
-    its ROADMAP item; ZeRO/FSDP flags are no-ops on one device."""
+    """What the port does not have raises ``NotImplementedError`` naming
+    its ROADMAP item; the elastic contract (the distributed kvstores, a
+    controller, the env variables, ``sync_mode="host"`` alone) runs;
+    ZeRO/FSDP flags are no-ops on one device."""
     model = tmodels.create("mlp", device="cpu", in_shape=(4, 4, 1))
     x, y = _nan_dataset(poison_from=32)
     it = tio.NDArrayIter(x, y, batch_size=16)
@@ -237,38 +239,45 @@ def test_unported_features_raise(monkeypatch):
         TModule(model, device="cpu", mesh_manager=object())
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         TModule(model, device="cpu", mesh=object())
-    for name in ("tpu_sync", "dist_sync", "dist_device_sync", "dist",
-                 "dist_async"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            TModule(model, device="cpu", kvstore=name)
+    for name in ("tpu_sync", "dist_sync", "dist_device_sync", "dist"):
+        kv = tkv.create(name)
+        assert (kv.type, kv.rank, kv.num_workers) == ("tpu_sync", 0, 1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3a"):
+        TModule(model, device="cpu", kvstore="dist_async")
     with pytest.raises(ValueError, match="unknown kvstore"):
         tkv.create("nccl")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tkv.create("local").set_controller(object())
     for var in ("NEW_WORKER", "ELASTIC_TRAINING_ENABLED", "EPOCH_BEGIN"):
         with monkeypatch.context() as m:
             m.setenv(var, "1")
-            with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-                TModule(model, device="cpu").fit(it)
+            mod = TModule(model, device="cpu")
+            mod.fit(it, num_epoch=2)
+            assert mod.state.step == 4  # EPOCH_BEGIN counts with NEW_WORKER
     mod = TModule(model, device="cpu")
-    mod.sync_mode = "host"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        mod.fit(it)
+    mod.sync_mode = "host"  # one worker: the plain step
+    mod.fit(it)
+    assert mod.state.step == 2
 
     class TwoWorkers(tkv.KVStore):
         num_workers = 2
 
-    class WithController(tkv.KVStore):
-        def __init__(self):
-            super().__init__()
-            self._controller = object()
+    class Ctrl:
+        policy_shares = {"w0": 6000, "w1": 4000}
+        workers = ["w0", "w1"]
+        rank = 0
+        host = "w0"
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TModule(model, device="cpu", kvstore=TwoWorkers()).fit(
-            it, elastic_data_iterator=tio.ElasticDataIterator(
-                lambda p, i, b: (it, None), 16))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TModule(model, device="cpu", kvstore=WithController()).fit(it)
+        def membership_change_barrier(self, info):
+            pass
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        TModule(model, device="cpu", kvstore=TwoWorkers()).fit(it)
+    kv = tkv.create("tpu_sync")
+    kv.set_controller(Ctrl())
+    mod = TModule(model, device="cpu", kvstore=kv)
+    mod.sync_mode = "host"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
+        mod.fit(it, elastic_data_iterator=tio.ElasticDataIterator(
+            lambda p, i, b: (it, None), 16))
     mod = TModule(model, device="cpu", shard_opt_state=True,
                   shard_params=True)
     mod.fit(it, num_epoch=1, elastic_data_iterator=tio.ElasticDataIterator(

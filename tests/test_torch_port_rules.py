@@ -1,4 +1,7 @@
-"""Rules of the port package: it imports neither JAX nor ``dt_tpu``.
+"""Rules of the port package: it imports neither JAX nor ``dt_tpu``, and
+neither do the port's elastic worker harness (``tests/
+torch_elastic_worker.py``), its job helpers, its step recorder and replay
+(``tests/torch_elastic_drift.py``) and ``chip_smoke.py``.
 
 ``tests/conftest.py`` imports jax into every test process, so the import
 check runs in a fresh interpreter.
@@ -24,6 +27,12 @@ names = ["dt_tpu_torch"]
 for m in pkgutil.walk_packages(dt_tpu_torch.__path__, "dt_tpu_torch."):
     importlib.import_module(m.name)
     names.append(m.name)
+import importlib.util
+for name in ("torch_elastic_worker", "torch_elastic_job",
+             "torch_elastic_drift"):
+    spec = importlib.util.spec_from_file_location(name, f"tests/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(name)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax",
                                             "msgpack"))
@@ -43,7 +52,9 @@ def test_port_imports_no_jax_and_no_dt_tpu():
     want = {"dt_tpu_torch"} | {
         m.name for m in pkgutil.walk_packages(dt_tpu_torch.__path__,
                                               "dt_tpu_torch.")}
-    assert set(got["imported"]) == want
+    assert set(got["imported"]) == want | {"torch_elastic_worker",
+                                           "torch_elastic_job",
+                                           "torch_elastic_drift"}
     assert {"dt_tpu_torch.predictor", "dt_tpu_torch.ops.kernels",
             "dt_tpu_torch.utils.msgpack", "dt_tpu_torch.ops.losses",
             "dt_tpu_torch.optim", "dt_tpu_torch.optim.optimizers",
@@ -61,7 +72,16 @@ def test_port_imports_no_jax_and_no_dt_tpu():
             "dt_tpu_torch.training.callbacks",
             "dt_tpu_torch.parallel.kvstore", "dt_tpu_torch.initializer",
             "dt_tpu_torch.policy.rescale", "dt_tpu_torch.models.mlp",
-            "dt_tpu_torch.models.lenet", "dt_tpu_torch.obs.metrics"} <= want
+            "dt_tpu_torch.models.lenet", "dt_tpu_torch.obs.metrics",
+            "dt_tpu_torch.config", "dt_tpu_torch.obs.trace",
+            "dt_tpu_torch.elastic", "dt_tpu_torch.elastic.faults",
+            "dt_tpu_torch.elastic.protocol",
+            "dt_tpu_torch.elastic.dataplane",
+            "dt_tpu_torch.elastic.journal",
+            "dt_tpu_torch.elastic.scheduler",
+            "dt_tpu_torch.elastic.scheduler_main",
+            "dt_tpu_torch.elastic.client", "dt_tpu_torch.elastic.drain",
+            "dt_tpu_torch.training.overlap"} <= want
 
 
 _FORBIDDEN = re.compile(r"import jax|from jax|flax|dt_tpu\.|"
@@ -69,7 +89,10 @@ _FORBIDDEN = re.compile(r"import jax|from jax|flax|dt_tpu\.|"
 
 
 def test_port_sources_name_no_jax_and_no_dt_tpu_module():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_elastic_worker.py",
+        ROOT / "tests" / "torch_elastic_job.py",
+        ROOT / "tests" / "torch_elastic_drift.py"]
     assert len(files) > 10
     hits = []
     for f in files:
