@@ -103,14 +103,39 @@ JAX.  Phases, each fatal on failure:
    ReLU mask flipped, gradient within 1e-4; the applied average exact;
    per-epoch loss within 1e-4 of the replay and of the same job on the
    CPU up to the first flipped mask), and with ``DT_AR_OVERLAP=0`` (the
-   same sha256 as the overlapped job).
+   same sha256 as the overlapped job);
+12. sharded: the elastic job of phase 11 again with its data plane on 2
+   port ``RangeServer`` processes (dense and 2-bit chunks round-robin
+   across them); every worker's sha256 at every epoch end equal to phase
+   11's (both run cuDNN's deterministic algorithms), its windows and
+   ``pipeline.wire`` beside the funnel's;
+13. async: ResNet-50 v1 bf16 through ``Module.fit(kvstore="dist_async")``,
+   two workers at 32 images then a joiner at epoch 1 (2 epochs of 8
+   steps), the port's ``Scheduler`` with the server-side sgd (lr 0.025,
+   momentum 0.9, wd 1e-4) logging every applied push: applied pushes =
+   steps taken, the first 8 replayed in the logged order by the port's
+   ``NpUpdater`` on the CPU from the seeded master bit for bit, every
+   worker's first params = the master it was served, 53 + 53 BN-train
+   launches a step, no codec launch, and 53 BN-inference a scored batch;
+   steps 2 and 10 of each worker (the joiner's step 2) replayed on the CPU
+   in bf16 from the weights the worker adopted, held to bf16 limits beside
+   a control (another step's gradient); step ms split into grad,
+   push-and-adopt and H2D, the server's update ms in the job and alone,
+   staleness, MB a push;
+14. sparse: ``examples/train_sparse_embedding.py``'s defaults (vocab
+   50,000, dim 64, batch 256, window 8, adagrad lr 0.1), 2 workers and 2
+   range servers, 50 steps of ``allreduce_sparse`` on the card with
+   ``ops.sparse`` and ``optim.sparse``, the sparse table within 1e-3 of
+   the dense path's (the example's ``--dense`` check).
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
 this run except the bounds, which it computes (the two kernels redesigned
 for Hopper carry ``redesigned_in``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every phase, timings
-included.
+included.  The kernels line carries, beside each kernel's own launches,
+its launches on ``fit`` and on the elastic, sharded and async jobs
+(``*_launches``).
 """
 
 from __future__ import annotations
@@ -202,11 +227,40 @@ ELASTIC_STEPS = 8
 ELASTIC_ARGS = ["--model", "resnet50", "--dtype", "bfloat16",
                 "--global-batch", "64", "--images", "128", "--lr", "0.025",
                 "--wd", "1e-4", "--compress", "0.005", "--num-epoch", "3",
-                "--epoch-steps", str(ELASTIC_STEPS), "--val-images", "64"]
+                "--epoch-steps", str(ELASTIC_STEPS), "--val-images", "64",
+                "--deterministic"]
 ELASTIC_VAL_FORWARDS = 2  # 64 images in batches of 32
 RESNET50_PARAMS = 25_557_032
 PACKED_BYTES = 4 * -(-RESNET50_PARAMS // 16)  # 6,389,260 a step a worker
 ELASTIC_TIMEOUT = 420  # s, the whole job
+# the sharded phase: the elastic job with its data plane on two range
+# server processes
+SHARDED_SERVERS = 2
+# the async phase: ResNet-50 v1 bf16 through Module.fit over dist_async, 32
+# images a worker, 2 epochs of ELASTIC_STEPS steps, w2 joining at epoch 1;
+# the scheduler's sgd at lr 0.025 (0.1 scaled to 64 of 256), momentum 0.9,
+# wd 1e-4; its first ASYNC_KEEP pushes replayed on the CPU
+ASYNC_SGD = {"name": "sgd", "learning_rate": 0.025, "momentum": 0.9,
+             "weight_decay": 1e-4}
+ASYNC_ARGS = ["--model", "resnet50", "--dtype", "bfloat16", "--kvstore",
+              "dist_async", "--fixed-batch", "--global-batch", "32",
+              "--images", "128", "--lr", "0.025", "--wd", "1e-4",
+              "--num-epoch", "2", "--epoch-steps", str(ELASTIC_STEPS),
+              "--val-images", "64"]
+ASYNC_KEEP = 8
+# the 0-based steps each async worker records, replayed on the CPU in bf16
+# (the joiner has no step 9)
+ASYNC_RECORD = (1, 9)
+# one bf16 ResNet-50 step, card against the port on the CPU from the same
+# adopted weights and batch, relative to the largest |value|, whether or
+# not a ReLU mask flipped (first readings, NVIDIA H100 80GB HBM3, 700.00 W:
+# loss <= 8.3e-4, stats <= 7.0e-3, grad 0.016-0.023 where bf16 is within
+# 0.08 of f32; a gradient from another step misses by >= 0.96, its loss
+# by >= 2.2e-2; see _async_replay for the steps bf16 leaves undetermined)
+TOL_ASYNC_BF16 = {"loss": 5e-3, "stats": 2e-2, "grad": 0.1}
+# the sparse phase: examples/train_sparse_embedding.py's defaults, 50 steps
+SPARSE = {"vocab": 50_000, "dim": 64, "batch": 256, "window": 8,
+          "steps": 50, "lr": 0.1}
 # the small jobs: f32 resnet20 (8x8x3 and CIFAR's 32x32x3), 2 workers, 2
 # epochs of 2 steps over 128 seeded images (tests/torch_elastic_drift.py)
 SMALL_SIZES = (8, 32)
@@ -1597,25 +1651,51 @@ def fit_card_vs_cpu() -> dict:
     return {"max_rel_err": rel, **curves}
 
 
-def elastic_phase(gpu) -> dict:
-    """The main path of the elastic slice at full width: the port's
-    ``Scheduler`` in this process with a host_worker file, two ResNet-50
-    workers on ``cuda:0`` (bf16 on f32 params, 2-bit, overlapped step);
-    the operator adds ``w2`` at the epoch-1 boundary (started beforehand,
-    released by the launch callback; it bootstraps from rank 0's
-    snapshot) and removes it at the epoch-2 boundary.  Gates: every
-    process exits 0, the live workers' sha256 of params, stats and
-    optimizer state agree at every epoch end, ``w2`` bootstraps after
-    epoch 0 (at step ``ELASTIC_STEPS``), the audit log reads ADDED then
-    REMOVED w2, finite losses, per step and worker 53 ``bn_stats``, 53
-    ``bn_act``, 1 ``quantize_2bit``, 0 ``dequantize_2bit`` and
-    ``PACKED_BYTES`` of packed words, and per epoch and worker a score of
-    the validation images through ``fused_bn_inference`` (53 ``bn_act``
-    a forward, no ``bn_stats``).  Prints, for each epoch's window (its
-    steps after the first) on worker 0's clock, the wall time, ms a step
-    and the fleet's images/s, the step's parts from worker 0's spans, the
-    bare step, and MB on the wire a step (two or three processes share
-    the card)."""
+def _range_servers(port: int, n: int, tmp: str, sched, deadline_s=60):
+    """``n`` port ``RangeServer`` processes registered with the scheduler
+    at ``port`` (``python -m dt_tpu_torch.elastic.range_server``); fails
+    when one does not come up by the deadline."""
+    import os
+    procs = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for i in range(n):
+        log = open(os.path.join(tmp, f"rs{i}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dt_tpu_torch.elastic.range_server",
+             "--scheduler-host", "127.0.0.1", "--scheduler-port", str(port),
+             "--index", str(i), "--advertise-host", "127.0.0.1"],
+            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT))
+    t_end = time.monotonic() + deadline_s
+    while len(sched._server_list()) < n:
+        dead = [i for i, p in enumerate(procs) if p.poll() is not None]
+        if dead or time.monotonic() > t_end:
+            _stop_procs(procs)
+            raise AssertionError(
+                f"range servers {dead or 'timed out'}: " + " | ".join(
+                    open(os.path.join(tmp, f"rs{i}.log")).read()[-800:]
+                    for i in range(n)))
+        time.sleep(0.05)
+    return procs
+
+
+def _stop_procs(procs) -> None:
+    """SIGTERM, then kill what is left after 10 s."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def _elastic_job(servers: int = 0):
+    """The elastic ResNet-50 job (see :func:`elastic_phase`) against the
+    port's ``Scheduler`` in this process, with ``servers`` port
+    ``RangeServer`` processes carrying the data plane (0: the scheduler's
+    own).  Returns ``(results by host, audit, launched, wall_s)``."""
     import os
     import tempfile
 
@@ -1642,9 +1722,11 @@ def elastic_phase(gpu) -> dict:
 
     sched = Scheduler(host_worker_file=hw, launch_callback=launch,
                       pre_change_hook=operator)
-    procs = {}
+    procs, rs = {}, []
     t0 = time.monotonic()
     try:
+        if servers:
+            rs = _range_servers(sched.port, servers, tmp, sched)
         env = {"DT_OBS": "1", "DT_OBS_RING": "65536"}
         for h in ("w0", "w1"):
             procs[h] = drift.spawn(
@@ -1656,18 +1738,25 @@ def elastic_phase(gpu) -> dict:
             dict(env, NEW_WORKER="1", EPOCH_BEGIN="1", DT_WAIT_FILE=go))
         drift.wait_all(procs, stems, t0 + ELASTIC_TIMEOUT)
     finally:
+        _stop_procs(rs)
         sched.close()
     wall = time.monotonic() - t0
     r = {h: json.load(open(stems[h] + ".json")) for h in stems}
     audit = [ln.split()[1:3] for ln in open(hw + "_log")]
-    print(f"elastic audit={audit} launched={launched} wall_s={wall:.1f}",
-          flush=True)
+    return r, audit, launched, wall
+
+
+def _elastic_gates(tag, r, audit, launched, wall, gpu):
+    """The gates of the elastic job (see :func:`elastic_phase`); returns
+    ``(per-epoch {host: sha256}, launches)``."""
+    print(f"{tag} audit={audit} launched={launched} wall_s={wall:.1f} "
+          f"gpu={gpu}", flush=True)
     if audit != [["ADDED", "w2"], ["REMOVED", "w2"]] or \
             launched != [("w2", 1)]:
-        raise AssertionError(f"elastic audit log {audit}, launched "
+        raise AssertionError(f"{tag} audit log {audit}, launched "
                              f"{launched}")
     if r["w2"]["bootstrap_step"] != ELASTIC_STEPS:
-        raise AssertionError(f"w2 bootstrapped at step "
+        raise AssertionError(f"{tag}: w2 bootstrapped at step "
                              f"{r['w2']['bootstrap_step']}, expected "
                              f"{ELASTIC_STEPS}")
     by_epoch = {}
@@ -1679,15 +1768,17 @@ def elastic_phase(gpu) -> dict:
                 "dequantize_2bit": 0, "score_bn_act": 0}
     score_want = {"bn_stats": 0, "bn_act": BN_PER_FORWARD *
                   ELASTIC_VAL_FORWARDS}
+    shas = {}
     for epoch, live in want_live.items():
         got = by_epoch.get(epoch, {})
-        shas = {h: got[h]["sha256"][:16] for h in got}
+        shas[epoch] = {h: got[h]["sha256"] for h in got}
+        short = {h: v[:16] for h, v in shas[epoch].items()}
         losses = {h: got[h]["loss"] for h in got}
-        print(f"elastic epoch {epoch} workers={sorted(got)} sha256={shas} "
+        print(f"{tag} epoch {epoch} workers={sorted(got)} sha256={short} "
               f"train_ce={losses}", flush=True)
-        if set(got) != live or len(set(shas.values())) != 1:
-            raise AssertionError(f"epoch {epoch}: live {sorted(got)}, "
-                                 f"digests {shas}")
+        if set(got) != live or len(set(short.values())) != 1:
+            raise AssertionError(f"{tag} epoch {epoch}: live {sorted(got)}, "
+                                 f"digests {short}")
         for h, e in got.items():
             n = e["steps"]
             la = e["launches"]
@@ -1698,7 +1789,7 @@ def elastic_phase(gpu) -> dict:
             if n != ELASTIC_STEPS or got_la != want or \
                     e["score_launches"] != score_want or \
                     not np.isfinite(e["loss"]):
-                raise AssertionError(f"epoch {epoch} {h}: steps {n}, "
+                raise AssertionError(f"{tag} epoch {epoch} {h}: steps {n}, "
                                      f"launches {got_la} want {want}, "
                                      f"score {e['score_launches']} want "
                                      f"{score_want}, loss {e['loss']}")
@@ -1706,6 +1797,41 @@ def elastic_phase(gpu) -> dict:
                 if k in launches:
                     launches[k] += la[k]
             launches["score_bn_act"] += e["score_launches"]["bn_act"]
+    return shas, launches
+
+
+def elastic_phase(gpu) -> dict:
+    """The main path of the elastic slice at full width: the port's
+    ``Scheduler`` in this process with a host_worker file, two ResNet-50
+    workers on ``cuda:0`` (bf16 on f32 params, 2-bit, overlapped step,
+    cuDNN's deterministic algorithms, so the ``sharded`` phase can be
+    held to it bit for bit);
+    the operator adds ``w2`` at the epoch-1 boundary (started beforehand,
+    released by the launch callback; it bootstraps from rank 0's
+    snapshot) and removes it at the epoch-2 boundary.  Gates: every
+    process exits 0, the live workers' sha256 of params, stats and
+    optimizer state agree at every epoch end, ``w2`` bootstraps after
+    epoch 0 (at step ``ELASTIC_STEPS``), the audit log reads ADDED then
+    REMOVED w2, finite losses, per step and worker 53 ``bn_stats``, 53
+    ``bn_act``, 1 ``quantize_2bit``, 0 ``dequantize_2bit`` and
+    ``PACKED_BYTES`` of packed words, and per epoch and worker a score of
+    the validation images through ``fused_bn_inference`` (53 ``bn_act``
+    a forward, no ``bn_stats``).  Prints, for each epoch's window (its
+    steps after the first) on worker 0's clock, the wall time, ms a step
+    and the fleet's images/s, the step's parts from worker 0's spans, the
+    bare step, and MB on the wire a step (two or three processes share
+    the card)."""
+    r, audit, launched, wall = _elastic_job()
+    shas, launches = _elastic_gates("elastic", r, audit, launched, wall,
+                                    gpu)
+    out = _elastic_report("elastic", r, gpu)
+    out.update(launches=launches, wall_s=wall, shas=shas)
+    return out
+
+
+def _elastic_report(tag, r, gpu) -> dict:
+    """Worker 0's windows and the step's parts of one elastic job."""
+    want_live = {0: {"w0", "w1"}, 1: {"w0", "w1", "w2"}, 2: {"w0", "w1"}}
     w0 = r["w0"]
     spans = w0["spans"]
     k = ELASTIC_STEPS
@@ -1749,11 +1875,10 @@ def elastic_phase(gpu) -> dict:
            "wire_recv_mb_a_step": recv_mb,
            "packed_mb_a_step": PACKED_BYTES / 1e6,
            "dense_mb_a_step": 4 * RESNET50_PARAMS / 1e6,
-           "launches": launches, "wall_s": wall,
            "epoch2_device_busy_ms": busy, "epoch2_idle_share": idle,
            "epoch2_wall_ms": last["seconds"] * 1e3}
     for w in windows:
-        print(f"elastic resnet50 bf16 2-bit overlap window: epoch "
+        print(f"{tag} resnet50 bf16 2-bit overlap window: epoch "
               f"{w['epoch']} workers={w['workers']} steps={w['steps']} "
               f"wall_ms={w['wall_ms']:.3f} ms_a_step={w['ms_a_step']:.3f} "
               f"fleet_images_s={w['images_s']:.2f} step_ms="
@@ -1761,16 +1886,595 @@ def elastic_phase(gpu) -> dict:
               f"0's clock; {w['workers']} processes share one card"
               f"{', profiled' if w['epoch'] == 2 else ''}); gpu={gpu}",
               flush=True)
-    print(f"elastic resnet50 bf16 2-bit overlap: parts_ms (epoch 0 window, "
+    print(f"{tag} resnet50 bf16 2-bit overlap: parts_ms (epoch 0 window, "
           f"median each; d2h/wire/h2d per bucket, {buckets} buckets a "
           f"step)={json.dumps(parts)} bare_train_step_ms={bare:.3f} "
           f"w1_wire_mb_a_step sent={wire_mb:.3f} received={recv_mb:.3f} "
           f"packed_mb_a_step="
           f"{PACKED_BYTES / 1e6:.3f} (dense {4 * RESNET50_PARAMS / 1e6:.3f}) "
-          f"launches={json.dumps(launches)} epoch2 (profiled, worker 0): "
+          f"epoch2 (profiled, worker 0): "
           f"wall_ms={last['seconds'] * 1e3:.1f} device_busy_ms={busy} "
           f"idle_share={idle}; gpu={gpu}", flush=True)
     return out
+
+
+def sharded_phase(gpu, funnel: dict) -> dict:
+    """The elastic job again, its data plane on ``SHARDED_SERVERS`` port
+    ``RangeServer`` processes (dense and 2-bit chunks round-robin across
+    them).  Gates: the elastic phase's, and every worker's sha256 of
+    params, stats and optimizer state at every epoch end equal to the
+    single-funnel job's (the same seeds, cuDNN deterministic).  Prints its
+    windows and parts beside the funnel's; claims no gain."""
+    r, audit, launched, wall = _elastic_job(servers=SHARDED_SERVERS)
+    shas, launches = _elastic_gates("sharded", r, audit, launched, wall,
+                                    gpu)
+    if shas != funnel["shas"]:
+        raise AssertionError(f"sharded against single-funnel: {shas} != "
+                             f"{funnel['shas']}")
+    out = _elastic_report("sharded", r, gpu)
+    print(f"sharded vs funnel ({SHARDED_SERVERS} range servers): "
+          f"bit_identical=True ms_a_step "
+          f"{[round(w['ms_a_step'], 3) for w in out['windows']]} vs "
+          f"{[round(w['ms_a_step'], 3) for w in funnel['windows']]}; "
+          f"pipeline.wire ms a bucket {out['parts_ms']['pipeline.wire']:.3f}"
+          f" vs {funnel['parts_ms']['pipeline.wire']:.3f}; gpu={gpu}",
+          flush=True)
+    out.update(launches=launches, wall_s=wall)
+    return out
+
+
+class _PushLog:
+    """An audit of the ``dist_async`` pushes a port ``Scheduler`` applies,
+    installed from outside (:meth:`install`): the order (host, seq), each
+    gradient's digest, the update's ms; copies of the first ``keep``
+    gradients, of the master before the first push and after the
+    ``keep``-th, to replay them.  The copies are made under the plane's
+    lock; the digests are taken from them on a thread of their own."""
+
+    def __init__(self, keep: int):
+        import queue
+        import threading
+        self.keep = keep
+        self.order, self.ms, self.grads = [], [], []
+        self.digests, self.masters = [], []
+        self.before = self.after = None
+        self._who = threading.local()
+        self._q = queue.Queue()
+        self._thread = threading.Thread(target=self._digest, daemon=True)
+        self._thread.start()
+
+    def install(self, sched) -> None:
+        """Wrap the scheduler's plane: its ``async_push`` notes who pushes
+        (on the handler's thread), and the updater ``set_optimizer``
+        installs is timed and logged (called under the plane's lock, so
+        the log's order is the order of application)."""
+        dp = sched._dp
+        push, set_opt = dp.async_push, dp.async_set_optimizer
+        log = self
+
+        class Timed:
+            def __init__(self, upd):
+                self.upd = upd
+
+            def __getattr__(self, name):  # spec_input, sparse
+                return getattr(self.upd, name)
+
+            def __call__(self, key, grad, stored):
+                t0 = time.perf_counter()
+                new = self.upd(key, grad, stored)
+                log._applied(grad, stored, new,
+                             (time.perf_counter() - t0) * 1e3)
+                return new
+
+        def async_push(host, key, value, seq=-1):
+            log._who.pushed = (host, int(seq))
+            return push(host, key, value, seq)
+
+        def async_set_optimizer(spec):
+            out = set_opt(spec)
+            with dp._async_lock:
+                if dp._async_updater is not None and \
+                        not isinstance(dp._async_updater, Timed):
+                    dp._async_updater = Timed(dp._async_updater)
+            return out
+
+        dp.async_push = async_push
+        dp.async_set_optimizer = async_set_optimizer
+
+    def _applied(self, grad, before, after, ms):
+        n = len(self.order)
+        self.order.append(self._who.pushed)
+        self.ms.append(ms)
+        grad, after = np.array(grad), np.array(after)
+        if n == 0:
+            self.before = np.array(before)
+        if n < self.keep:
+            self.grads.append(grad)
+        if n + 1 == self.keep:
+            self.after = after
+        self._q.put((grad, after))
+
+    def _digest(self):
+        import hashlib
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            grad, after = item
+            self.digests.append(hashlib.blake2b(
+                memoryview(grad).cast("B"), digest_size=16).hexdigest())
+            self.masters.append(hashlib.sha256(memoryview(after).cast("B"))
+                                .hexdigest())
+
+    def close(self, timeout: float = 120.0) -> None:
+        self._q.put(None)
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise AssertionError("push-log digests did not finish")
+
+
+def async_phase(gpu) -> dict:
+    """The ``dist_async`` path at full width: ResNet-50 v1 bf16 on f32
+    params through ``Module.fit(kvstore="dist_async")``, two workers of
+    ``tests/torch_elastic_worker.py`` on the card at batch 32 each, the
+    port's ``Scheduler`` in this process with the server-side sgd
+    (``ASYNC_SGD``), 2 epochs of ``ELASTIC_STEPS`` steps; the operator adds
+    ``w2`` at the epoch-1 boundary, which adopts the live master.  Each
+    worker records its steps ``ASYNC_RECORD`` (``tests/
+    torch_elastic_drift.py``).  Gates: every process exits 0; per worker
+    and step 53 ``bn_stats`` and 53 ``bn_act`` (``fused_bn_train``), no
+    codec launch, 53 ``bn_act`` a scored batch (``fused_bn_inference``);
+    the scheduler's applied pushes equal the steps the workers took (none
+    lost or applied twice); its first ``ASYNC_KEEP`` pushes, applied again
+    in the logged order by the port's ``NpUpdater`` on the CPU from the
+    seeded master, give its master after push ``ASYNC_KEEP`` bit for bit;
+    every worker's first params equal the master it was served, the
+    joiner's one the scheduler applied; the recorded steps replay on the
+    CPU (:func:`_async_replay`).  Also times ``NpUpdater`` alone on this
+    host at the same size (:func:`_server_update_alone`)."""
+    import hashlib
+    import os
+    import tempfile
+
+    import torch_elastic_drift as drift
+    from torch_elastic_job import write_hosts
+
+    from dt_tpu_torch.elastic import server_optim
+    from dt_tpu_torch.elastic.scheduler import Scheduler
+    tmp = tempfile.mkdtemp(prefix="dt_async_")
+    hw = os.path.join(tmp, "host_worker")
+    write_hosts(hw, ["w0", "w1"])
+    go = os.path.join(tmp, "go_w2")
+    stems = {h: os.path.join(tmp, h) for h in ("w0", "w1", "w2")}
+    launched = []
+
+    def operator(epoch):
+        if epoch == 1:
+            write_hosts(hw, ["w0", "w1", "w2"])
+
+    def launch(host, epoch):
+        launched.append((host, epoch))
+        open(go, "w").close()
+
+    sched = Scheduler(host_worker_file=hw, launch_callback=launch,
+                      pre_change_hook=operator)
+    log = _PushLog(ASYNC_KEEP)
+    log.install(sched)
+    args = ASYNC_ARGS
+    procs = {}
+    t0 = time.monotonic()
+    try:
+        env = {"DT_OBS": "1", "DT_OBS_RING": "65536"}
+        for h in ("w0", "w1"):
+            procs[h] = drift.spawn(sched.port, h, stems[h], args, env,
+                                   dump=True, steps=ASYNC_RECORD)
+        procs["w2"] = drift.spawn(
+            sched.port, "w2", stems["w2"], args,
+            dict(env, NEW_WORKER="1", EPOCH_BEGIN="1", DT_WAIT_FILE=go),
+            dump=True, steps=ASYNC_RECORD)
+        drift.wait_all(procs, stems, t0 + ELASTIC_TIMEOUT)
+        stale = sched._dp.async_stats()
+        master = np.array(sched._async_store["params"])
+    finally:
+        sched.close()
+    wall = time.monotonic() - t0
+    log.close()
+    r, dumps = {}, {}
+    for h in stems:
+        r[h], dumps[h] = drift.load(stems[h], dump=True)
+    steps = {h: sum(e["steps"] for e in r[h]["epochs"]) for h in r}
+    pushes = {h: sum(1 for hh, _ in log.order if hh == h) for h in r}
+    print(f"async launched={launched} steps={steps} applied={pushes} "
+          f"wall_s={wall:.1f} staleness={json.dumps(stale)} gpu={gpu}",
+          flush=True)
+    if launched != [("w2", 1)] or pushes != steps or \
+            steps != {"w0": 2 * ELASTIC_STEPS, "w1": 2 * ELASTIC_STEPS,
+                      "w2": ELASTIC_STEPS}:
+        raise AssertionError(f"async: launched {launched}, steps {steps}, "
+                             f"applied {pushes}")
+    if sorted(log.order) != sorted(set(log.order)) or \
+            len(log.digests) != len(log.order):
+        raise AssertionError("async: a push applied twice")
+    for h in r:
+        seqs = [q for hh, q in log.order if hh == h]
+        if seqs != list(range(len(seqs))):
+            raise AssertionError(f"async: {h} applied seqs {seqs}")
+    # the first ASYNC_KEEP pushes again, in the logged order, on the CPU
+    upd = server_optim.create(**ASYNC_SGD)
+    w = np.array(log.before)
+    for g in log.grads:
+        w = upd("params", g, w)
+    replay_ok = w.tobytes() == log.after.tobytes()
+    print(f"async replay of the first {ASYNC_KEEP} pushes in order "
+          f"{log.order[:ASYNC_KEEP]} with the port's NpUpdater on the CPU: "
+          f"bit_identical={replay_ok} grad digests "
+          f"{log.digests[:ASYNC_KEEP]}", flush=True)
+    if not replay_ok:
+        raise AssertionError("async: the replayed master differs")
+    seeded = hashlib.sha256(log.before.tobytes()).hexdigest()
+    served_ok = {}
+    for h, res in r.items():
+        att = res["attach"]
+        served_ok[h] = att["served_sha256"] == att["first_params_sha256"] \
+            and att["served_sha256"] in [seeded] + log.masters
+    w2_served = r["w2"]["attach"]["served_sha256"]
+    w2_push = log.masters.index(w2_served) + 1 \
+        if w2_served in log.masters else None
+    print(f"async first params equal the master served: {served_ok} "
+          f"(w2: master after push {w2_push} of {len(log.order)})",
+          flush=True)
+    if not all(served_ok.values()) or w2_served == seeded:
+        raise AssertionError(f"async: served masters {served_ok}")
+    launches = {"bn_stats": 0, "bn_act": 0, "score_bn_act": 0,
+                "quantize_2bit": 0, "dequantize_2bit": 0}
+    for h, res in r.items():
+        for e in res["epochs"]:
+            n = e["steps"]
+            la = e["launches"]
+            want = {"bn_stats": BN_PER_FORWARD * n,
+                    "bn_act": BN_PER_FORWARD * n, "quantize_2bit": 0,
+                    "dequantize_2bit": 0}
+            got = {k: la[k] for k in want}
+            sc = e["score_launches"]
+            if n != ELASTIC_STEPS or got != want or sc != {
+                    "bn_stats": 0,
+                    "bn_act": BN_PER_FORWARD * ELASTIC_VAL_FORWARDS} or \
+                    not np.isfinite(e["loss"]):
+                raise AssertionError(f"async epoch {e['epoch']} {h}: "
+                                     f"steps {n} launches {got} want {want} "
+                                     f"score {sc} loss {e['loss']}")
+            for k in want:
+                launches[k] += la[k]
+            launches["score_bn_act"] += sc["bn_act"]
+        print(f"async {h} epochs "
+              f"{[(e['epoch'], e['num_workers'], e['loss']) for e in res['epochs']]}",
+              flush=True)
+    if not np.isfinite(master).all():
+        raise AssertionError("async: the master is not finite")
+    spans = r["w0"]["spans"]
+    parts = {k: float(np.median(spans[k][1:])) for k in
+             ("step", "step.grad", "step.push", "step.h2d")}
+    w1 = r["w1"]["epochs"]
+    n1 = sum(e["steps"] for e in w1)
+    up = sum(e["launches"]["wire_bytes"] for e in w1) / n1 / 1e6
+    down = sum(e["launches"]["wire_recv_bytes"] for e in w1) / n1 / 1e6
+    upd_ms = float(np.median(log.ms))
+    print(f"async resnet50 bf16 dist_async: step_ms (worker 0, median of "
+          f"its steps after the first)={json.dumps(parts)} "
+          f"server_update_ms_a_push={upd_ms:.3f} (median of {len(log.ms)}, "
+          f"the updater call alone, in the job) "
+          f"staleness max={stale['max_staleness']} "
+          f"mean={stale['mean_staleness']:.3f} over "
+          f"{stale['measured_pushes']} w1_mb_a_push up={up:.3f} "
+          f"down={down:.3f} (2-3 processes share one card; steps "
+          f"{list(ASYNC_RECORD)} of each worker recorded); gpu={gpu}",
+          flush=True)
+    alone = _server_update_alone(log, gpu)
+    replayed = _async_replay(dumps, log, gpu)
+    return {"launches": launches, "parts_ms": parts,
+            "server_update_ms": upd_ms, "server_update_alone": alone,
+            "staleness": stale, "mb_a_push": (up, down),
+            "pushes": len(log.order), "wall_s": wall, "replay": replayed}
+
+
+def _async_replay(dumps, log, gpu) -> dict:
+    """The async job's recorded steps again on the CPU, each from the
+    weights its worker adopted (a master the scheduler answered), in bf16
+    as on the card: the loss and the post-forward BN stats within
+    ``TOL_ASYNC_BF16``, the gradient within its ``grad`` limit or, where
+    it misses that, within twice what bf16 alone moves that step's
+    gradient on the CPU (the CPU's bf16 gradient against its f32 one, from
+    the same state): two bf16 implementations each that far from f32.
+    Early in the job a step's bf16 gradient can be undetermined at that
+    level (the stem's weight gradient, a large cancelling sum).  Each
+    reading is printed beside the control, the card's gradient of one
+    recorded step against the CPU's of another (what a gradient from the
+    wrong weights or batch gives); every worker needs a step whose
+    gradient limit lies below every control."""
+    import hashlib
+
+    import torch_elastic_drift as drift
+    t0 = time.monotonic()
+    answered = set(log.masters)
+    adopted = {(h, k): hashlib.sha256(memoryview(np.ascontiguousarray(
+        d[f"p{k}"], np.float32)).cast("B")).hexdigest() in answered
+        for h, d in dumps.items() for k in d["recorded"] if k > 0}
+    model = ASYNC_ARGS[ASYNC_ARGS.index("--model") + 1]
+    cpu_g = {}
+    rows, failures = drift.replay(
+        dumps, dict(TOL_ASYNC_BF16, grad=float("inf")), host_sync=False,
+        model=model, dtype=ASYNC_ARGS[ASYNC_ARGS.index("--dtype") + 1],
+        grads_out=cpu_g)
+    # bf16 against f32 on the CPU, for the steps over the fixed limit
+    over = {(r["host"], r["step"] - 1) for r in rows
+            if not r["grad"] <= TOL_ASYNC_BF16["grad"]}
+    f32_g = {}
+    if over:
+        drift.replay({h: dict(d, recorded=[k for k in d["recorded"]
+                                           if (h, k) in over])
+                      for h, d in dumps.items()}, float("inf"),
+                     host_sync=False, model=model, dtype="float32",
+                     grads_out=f32_g)
+    keys = sorted(cpu_g)
+    # the worker's function again: each step on this process's card from
+    # its recorded state, in bf16 and (over the fixed limit) in f32
+    again = _card_grads(dumps, model, "bfloat16", keys)
+    again32 = _card_grads(dumps, model, "float32", sorted(f32_g))
+
+    def rel32(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    cross = {f"{a[0]}/{a[1] + 1} vs {b[0]}/{b[1] + 1}":
+             rel32(dumps[a[0]][f"g{a[1]}"], cpu_g[b])
+             for a in keys for b in keys if a != b}
+    floor = min(cross.values())
+    loss = {(row["host"], row["step"] - 1): row["cpu_loss"] for row in rows}
+    cross_loss = min(abs(float(dumps[a[0]][f"loss{a[1]}"]) - loss[b]) /
+                     abs(loss[b]) for a in keys for b in keys if a != b)
+    separating = set()
+    for row in rows:
+        key = (row["host"], row["step"] - 1)
+        row["bf16_vs_f32_cpu"] = rel32(cpu_g[key], f32_g[key]) \
+            if key in f32_g else None
+        row["grad_limit"] = TOL_ASYNC_BF16["grad"] if key not in f32_g \
+            else max(TOL_ASYNC_BF16["grad"], 2 * row["bf16_vs_f32_cpu"])
+        row["card_again_bitwise"] = bool(np.array_equal(
+            again[key], dumps[key[0]][f"g{key[1]}"]))
+        row["f32_card_vs_cpu"] = rel32(again32[key], f32_g[key]) \
+            if key in f32_g else None
+        if not row["grad"] <= row["grad_limit"]:
+            failures.append(f"step {row['step']} {row['host']}: grad "
+                            f"{row['grad']} over {row['grad_limit']}")
+        if row["grad_limit"] < floor:
+            separating.add(row["host"])
+        print("async replay bf16 " + json.dumps(
+            {k: row[k] for k in ("host", "step", "relu_flips", "cpu_loss",
+                                 "loss", "stats", "grad", "bf16_vs_f32_cpu",
+                                 "grad_limit", "card_again_bitwise",
+                                 "f32_card_vs_cpu")}), flush=True)
+    worst = {k: max(row[k] for row in rows) for k in ("loss", "stats",
+                                                      "grad")}
+    print(f"async card-vs-cpu bf16 {model} batch 32: {len(rows)} "
+          f"recorded steps replayed, worst (rel) {json.dumps(worst)} limits "
+          f"{json.dumps(TOL_ASYNC_BF16)}; control (card grad of one step "
+          f"against the CPU's of another) min {floor:.4e} over "
+          f"{len(cross)} pairs {json.dumps(cross)}, loss control min "
+          f"{cross_loss:.4e}; workers with a separating step "
+          f"{sorted(separating)}; adopted masters answered "
+          f"{all(adopted.values())} ({len(adopted)}) wall_s="
+          f"{time.monotonic() - t0:.1f} gpu={gpu}", flush=True)
+    want_rows = sum(len(d["recorded"]) for d in dumps.values())
+    if failures or len(rows) != want_rows or \
+            not all(adopted.values()) or separating != set(dumps):
+        raise AssertionError(f"async bf16 replay: {failures}, {len(rows)} "
+                             f"rows, adopted {adopted}, separating "
+                             f"{separating}")
+    return {"worst": worst, "control_grad_min": floor,
+            "control_loss_min": cross_loss,
+            "rows": [{k: row[k] for k in ("host", "step", "relu_flips",
+                                          "loss", "stats", "grad",
+                                          "bf16_vs_f32_cpu", "grad_limit",
+                                          "card_again_bitwise",
+                                          "f32_card_vs_cpu")}
+                     for row in rows]}
+
+
+def _card_grads(dumps, model, dtype, keys) -> dict:
+    """The gradient of each recorded ``(host, step)`` in ``keys`` on this
+    process's card (the CPU without one), from the recorded params, BN
+    stats and batch, in ``dtype``: ``{key: flat f32 numpy}``."""
+    import torch
+
+    from dt_tpu_torch import models
+    from dt_tpu_torch.training.module import Module
+    from dt_tpu_torch.training.step import grad_step
+    if not keys:
+        return {}
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    mod = Module(models.create(model, device=dev, dtype=getattr(torch, dtype),
+                               num_classes=10 if model == "resnet20" else
+                               1000), optimizer="sgd",
+                 optimizer_params={
+                     "learning_rate": ASYNC_SGD["learning_rate"]},
+                 device=dev, seed=7)
+    mod.init_params()
+    st = mod.state
+    out = {}
+    for h, k in keys:
+        d = dumps[h]
+        with torch.no_grad():
+            for tree, rec, leaves in ((st.params, "p", st.layout.params),
+                                      (st.batch_stats, "st",
+                                       st.layout.stats)):
+                for name, t in leaves.unravel(
+                        torch.from_numpy(d[f"{rec}{k}"])).items():
+                    tree[name].copy_(t)
+        x = torch.from_numpy(d[f"x{k}"]).to(dev, mod._dtype).contiguous(
+            memory_format=torch.channels_last)
+        g = grad_step(st, x, torch.from_numpy(d[f"y{k}"]).to(dev),
+                      mod._forward_loss)[0]
+        out[h, k] = g.float().cpu().numpy()
+    return out
+
+
+def _server_update_alone(log, gpu, n: int = 6) -> dict:
+    """The server's sgd update (``ASYNC_SGD``, the port's ``NpUpdater``)
+    of the ResNet-50 master timed alone on this host after the job, with
+    no worker, handler or audit running: ``n`` updates from the seeded
+    master with the job's first gradients, median of all but the first
+    (which allocates the momentum slot)."""
+    from dt_tpu_torch.elastic import server_optim
+    upd = server_optim.create(**ASYNC_SGD)
+    w = log.before
+    ms = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        w = upd("params", log.grads[i % len(log.grads)], w)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(ms[1:]))
+    print(f"async server update alone (NpUpdater sgd momentum wd, "
+          f"{w.size} f32, this host, nothing else running): median "
+          f"{med:.3f} ms of {json.dumps([round(t, 3) for t in ms])}; in "
+          f"the job {float(np.median(log.ms)):.3f}; gpu={gpu}", flush=True)
+    return {"median_ms": med, "ms": ms}
+
+
+def sparse_phase(gpu, dev=None) -> dict:
+    """The row-sparse plane at ``examples/train_sparse_embedding.py``'s
+    defaults (``SPARSE``): the port's ``Scheduler``, two in-process
+    ``RangeServer``s and two workers (threads), each on the card with its
+    own table and ``optim.sparse.sparse_adagrad`` state; every step each
+    worker's CBOW batch gives a row-sparse gradient
+    (``ops.sparse.embedding_value_and_grad``), averaged by
+    ``WorkerClient.allreduce_sparse`` across the two servers, then the lazy
+    update.  Beside it the dense path: the two workers' dense gradients
+    averaged and the dense AdaGrad.  Gates: the two workers' tables equal
+    bit for bit, finite losses, and the sparse table within the example's
+    1e-3 of the dense one at the end (its ``--dense`` check)."""
+    import threading
+
+    import torch
+
+    from dt_tpu_torch.elastic.client import WorkerClient
+    from dt_tpu_torch.elastic.range_server import RangeServer
+    from dt_tpu_torch.elastic.scheduler import Scheduler
+    from dt_tpu_torch.ops import sparse
+    from dt_tpu_torch.optim import sparse as osparse
+    dev = dev or torch.device("cuda")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    v, d, b, win, steps, lr = (SPARSE[k] for k in (
+        "vocab", "dim", "batch", "window", "steps", "lr"))
+    n_blocks = 64
+    rng = np.random.RandomState(0)  # the example's draws, seed 0
+    block_of = rng.randint(0, n_blocks, v)
+    by_block = np.argsort(block_of, kind="stable")
+    block_start = np.searchsorted(block_of[by_block], np.arange(n_blocks + 1))
+    table0 = (rng.randn(v, d).astype(np.float32) * 0.05)
+    proj = torch.from_numpy(rng.randn(d, n_blocks).astype(np.float32)
+                            * 0.05).to(dev)
+
+    def batch(step_rng):
+        ctx = step_rng.randint(0, v, (b, win))
+        tgt_blk = block_of[ctx[:, 0]]
+        tgt = step_rng.randint(0, v, b)
+        same = step_rng.rand(b) < 0.75
+        lo, hi = block_start[tgt_blk], block_start[tgt_blk + 1]
+        pick = lo + (step_rng.rand(b) * np.maximum(hi - lo, 1)).astype(
+            np.int64)
+        tok = by_block[np.minimum(pick, len(by_block) - 1)]
+        tok = np.where(hi == lo, step_rng.randint(0, v, b), tok)
+        tgt = np.where(same, tok, tgt)
+        return (torch.from_numpy(ctx).to(dev),
+                torch.from_numpy(block_of[tgt]).to(dev))
+
+    def loss_of_rows(rows, tgt_blocks):
+        logits = rows.mean(dim=1) @ proj
+        return -torch.log_softmax(logits, dim=1)[
+            torch.arange(logits.shape[0], device=dev), tgt_blocks].mean()
+
+    vg = sparse.embedding_value_and_grad(loss_of_rows)
+    opt = osparse.sparse_adagrad(lr)
+    sched = Scheduler(initial_workers=["w0", "w1"])
+    servers, clients = [], []
+    try:
+        servers = [RangeServer("127.0.0.1", sched.port, i,
+                               advertise_host="127.0.0.1",
+                               membership_ttl_s=0.2, poll_interval_s=0.2)
+                   for i in range(2)]
+        clients = [WorkerClient("127.0.0.1", sched.port, host=h)
+                   for h in ("w0", "w1")]
+        for c in clients:
+            c.refresh_servers()
+            if len(c.servers) != 2:
+                raise AssertionError(f"sparse: {c.servers} range servers")
+        tables = [torch.from_numpy(table0).to(dev) for _ in clients]
+        states = [opt.init(t) for t in tables]
+        dense = torch.from_numpy(table0).to(dev)
+        hist = torch.zeros_like(dense)
+        step_rngs = [np.random.RandomState(1000 + i) for i in range(2)]
+        losses, t_sparse, t_dense, rows_a_step = [], 0.0, 0.0, []
+        for _ in range(steps):
+            data = [batch(r_) for r_ in step_rngs]
+            sync()
+            ts = time.perf_counter()
+            grads, avg, errs = [], [None, None], []
+            for i in range(2):
+                loss, (g_rs, _) = vg(tables[i], *data[i])
+                grads.append(g_rs)
+                losses.append(float(loss))
+
+            def push(i):
+                try:
+                    avg[i] = clients[i].allreduce_sparse("emb_grad",
+                                                         grads[i])
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errs.append(e)
+
+            th = [threading.Thread(target=push, args=(i,)) for i in (0, 1)]
+            for t in th:
+                t.start()
+            for t in th:
+                t.join(60)
+            if errs or any(t.is_alive() for t in th):
+                raise AssertionError(f"sparse allreduce: {errs}")
+            for i in range(2):
+                tables[i], states[i] = opt.update(avg[i], states[i],
+                                                  tables[i])
+            rows_a_step.append(int((avg[0].indices < v).sum()))
+            sync()
+            t_sparse += time.perf_counter() - ts
+            td = time.perf_counter()
+            g = (grads[0].to_dense() + grads[1].to_dense()) / 2
+            hist = hist + g * g
+            dense = dense - lr * (g / torch.sqrt(hist + opt.epsilon))
+            sync()
+            t_dense += time.perf_counter() - td
+        same = torch.equal(tables[0], tables[1])
+        div = float((tables[0] - dense).abs().max())
+    finally:
+        for c in clients:
+            c.close()
+        for srv in servers:
+            srv.close()
+        sched.close()
+    print(f"sparse embedding vocab={v} dim={d} batch={b} window={win} "
+          f"steps={steps} adagrad lr={lr}, 2 workers x 2 range servers: "
+          f"loss first={losses[0]:.4f} last={np.mean(losses[-2:]):.4f} "
+          f"merged_rows_a_step={np.mean(rows_a_step):.1f} "
+          f"({100 * np.mean(rows_a_step) / v:.2f}% of the table) "
+          f"sparse_ms_a_step={t_sparse / steps * 1e3:.3f} "
+          f"dense_ms_a_step={t_dense / steps * 1e3:.3f} "
+          f"workers_bit_identical={same} max|sparse-dense|={div:.3e} "
+          f"(tol 1e-3); gpu={gpu}", flush=True)
+    if not same or not div < 1e-3 or not np.isfinite(losses).all():
+        raise AssertionError(f"sparse: workers identical {same}, "
+                             f"divergence {div}")
+    return {"divergence": div, "sparse_ms": t_sparse / steps * 1e3,
+            "dense_ms": t_dense / steps * 1e3}
 
 
 def elastic_small_jobs(gpu) -> dict:
@@ -1947,9 +2651,20 @@ def main() -> int:
     # --- the elastic host-sync job --------------------------------------
     torch.cuda.empty_cache()  # the workers are other processes on the card
     elastic = elastic_phase(gpu)
-    elastic_small_jobs(gpu)
     print(f"phase elastic done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    sharded = sharded_phase(gpu, elastic)
+    print(f"phase sharded done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    async_run = async_phase(gpu)
+    print(f"phase async done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    sparse_phase(gpu)
+    print(f"phase sparse done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    elastic_small_jobs(gpu)
+    print(f"phase elastic small jobs done at "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -1985,6 +2700,10 @@ def main() -> int:
             # the elastic job's scores (every live worker, every epoch)
             kernels[-1]["elastic_launches"] = \
                 elastic["launches"]["score_bn_act"]
+            kernels[-1]["async_launches"] = \
+                async_run["launches"]["score_bn_act"]
+            kernels[-1]["sharded_launches"] = \
+                sharded["launches"]["score_bn_act"]
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -2010,6 +2729,8 @@ def main() -> int:
             kernels[-1]["fit_launches"] = fit_counts["bn_stats"]
             kernels[-1]["elastic_launches"] = \
                 elastic["launches"]["bn_stats"]
+            kernels[-1]["async_launches"] = async_run["launches"]["bn_stats"]
+            kernels[-1]["sharded_launches"] = sharded["launches"]["bn_stats"]
     for name, line in (("quantize_2bit", 233), ("dequantize_2bit", 284)):
         kernels.append({
             "name": name, "route": "cuda",
@@ -2020,7 +2741,9 @@ def main() -> int:
             "ms": codec[name]["ms"], "plain_ms": codec[name]["plain_ms"],
             "bound_ms": codec[name]["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
-            "elastic_launches": elastic["launches"][name]})
+            "elastic_launches": elastic["launches"][name],
+            "sharded_launches": sharded["launches"][name],
+            "async_launches": async_run["launches"][name]})
     fb = flash["lm", "bfloat16"]
     kernels.append({
         "name": "flash_attention[bfloat16]", "route": "cuda",

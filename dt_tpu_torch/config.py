@@ -42,9 +42,11 @@ ENV_REGISTRY = {
     # the control plane and its wire
     "DT_ELASTIC_SECRET": ("", "HMAC secret authenticating control frames"),
     "DT_ELASTIC_BIND": ("0.0.0.0", "interface the scheduler listens on"),
+    "DT_ELASTIC_ADVERTISE": ("", "address peers dial to reach a server bound here (DMLC_NODE_HOST analog)"),
     "DT_WIRE_SOCKBUF": (str(4 << 20), "SO_SNDBUF/SO_RCVBUF of data-plane sockets (bytes)"),
     # the allreduce and the overlapped step
     "DT_AR_CHUNK_BYTES": (str(4 << 20), "represented-gradient bytes per chunked-allreduce round"),
+    "DT_AR_SHARD_MIN_BYTES": (str(64 << 10), "tensors above this split across ALL range servers"),
     "DT_AR_WINDOW": ("0", "in-flight round window (0 = 2x fleet, min 4)"),
     "DT_AR_BUCKET_BYTES": (str(4 << 20), "represented-gradient bytes per overlap bucket"),
     "DT_AR_OVERLAP": ("1", "0 = serial host-sync step; must be the same job-wide"),

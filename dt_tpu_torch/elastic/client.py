@@ -6,17 +6,28 @@ A kvstore takes it through ``kv.set_controller(...)``.  It registers the
 worker, heartbeats from a thread, and carries the membership-change
 barrier (:meth:`WorkerClient.membership_change_barrier`, the re-admission
 of a crashed worker :meth:`~WorkerClient.wait_rejoin`), the plain
-barrier, the joiners' snapshot, the dead-node count, the graceful drain
-and the exact-average dense allreduce, chunked and windowed
+barrier, the joiners' snapshot, the dead-node count, the graceful drain,
+the exact-average dense allreduce, chunked and windowed
 (``client.py:834-1035``), with its bucketed pipeline
-(:class:`AllreducePipeline`) for the overlapped step.
+(:class:`AllreducePipeline`) for the overlapped step, the row-sparse
+allreduce (:meth:`WorkerClient.allreduce_sparse`) and the ``dist_async``
+calls (``set_optimizer``, ``async_init``, ``async_push``,
+``async_push_sparse``, ``async_stats``, ``async_pull_rows``).
+
+With a range-server fleet (the scheduler's ``servers``, at register or
+:meth:`WorkerClient.refresh_servers`) the bulk data goes to the servers,
+as the JAX client sends it: dense and 2-bit chunks round-robin from
+``crc32(key)``, every sizable tensor split across all R servers, and
+the async and sparse calls split into the row ranges of
+:func:`_row_bounds` (``np.array_split``'s), so a mixed fleet's workers
+address the same rows on the same server.
 
 Everything it sends is numpy or plain Python (the JAX package's processes
 unpickle it).  The heartbeat and comm threads touch no CUDA: only the
 training thread launches.  What it does not port raises, naming the
-ROADMAP item: the sparse and async calls (``client.py:1036-1298``; items
-3a, 3b), failover across ``DT_CTRL_ENDPOINTS`` (scheduler HA, item 3c),
-and the profiler commands and the obs export on the heartbeat (item 7).
+ROADMAP item: failover across ``DT_CTRL_ENDPOINTS`` (scheduler HA, item
+3c), and the profiler commands and the obs export on the heartbeat (item
+7).
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import queue
 import socket
 import threading
 import time
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,8 +51,18 @@ from dt_tpu_torch.obs import trace as obs_trace
 logger = logging.getLogger("dt_tpu_torch.elastic")
 
 _ITEM = "is not ported yet; see ROADMAP.md, Queue 1 "
-_ASYNC = "item 3a (dist_async and the scheduler-side optimizer)"
-_SPARSE = "item 3b (the sparse allreduce and range servers)"
+
+
+def _row_bounds(n: int, r: int) -> List[int]:
+    """The split points of ``np.array_split(arr, r, axis=0)`` for ``n``
+    rows: the contiguous key-range to server partition
+    (``kvstore_dist.h:547-589``).  It must split as the JAX client does
+    (``client.py:63``), or a mixed fleet sums misaligned rows."""
+    q, rem = divmod(n, r)
+    bounds = [0]
+    for i in range(r):
+        bounds.append(bounds[-1] + q + (1 if i < rem else 0))
+    return bounds
 
 
 class WorkerRemoved(Exception):
@@ -77,8 +99,6 @@ class WorkerClient:
         faults.crash_point("client.register", host=self.host)
         resp = self._req({"cmd": "register", "host": self.host,
                           "is_new": is_new, "is_recovery": is_recovery})
-        if resp.get("servers"):
-            raise NotImplementedError(f"range servers {_ITEM}{_SPARSE}")
         self.fence = int(resp.get("fence", 0))
         # rank/workers change at barriers (caller thread); the lock keeps
         # a reader on another thread from seeing half an update
@@ -93,11 +113,16 @@ class WorkerClient:
         self.policy_shares: Dict[str, int] = {}
         self.policy_lr_scale: float = 1.0
         self.policy_seq: int = 0
-        self.servers: List[Tuple[str, int]] = []
+        # the range-server fleet: with servers, bulk data goes to them
+        # instead of the scheduler's embedded plane
+        self.servers: List[Tuple[str, int]] = [
+            tuple(s) for s in resp.get("servers", [])]
+        self._key_rows: Dict[str, int] = {}  # key -> rows of a sharded table
         self._ar_seq: Dict[object, int] = {}
         self._seq_lock = threading.Lock()
-        self._pool = None  # lazy executor for chunk windows
+        self._pool = None  # lazy executor for chunk windows and fan-outs
         self._pipe_pool = None  # lazy executor for bucket rounds
+        self._announce_to_servers()
         self._stop = threading.Event()
         self._hb_thread = threading.Thread(
             target=self._heartbeat_loop, args=(heartbeat_interval_s,),
@@ -112,17 +137,62 @@ class WorkerClient:
     def addr(self) -> Tuple[str, int]:
         return self.addrs[0]
 
-    def _req(self, msg: dict, timeout: float = 600.0,
-             retries: int = 8) -> dict:
-        """Request with at-least-once retry (the ``resender.h`` role):
-        every re-send carries the same idempotency token.  ``retries`` is
-        the total number of attempts."""
-        resp = protocol.request(self.addr[0], self.addr[1], msg,
-                                timeout=timeout,
+    def _req_addr(self, addr, msg: dict, timeout: float = 600.0,
+                  retries: int = 8) -> dict:
+        """Request to ``addr`` (the scheduler or a range server) with
+        at-least-once retry (the ``resender.h`` role): every re-send
+        carries the same idempotency token.  ``retries`` is the total
+        number of attempts."""
+        resp = protocol.request(addr[0], addr[1], msg, timeout=timeout,
                                 retries=max(retries - 1, 0))
         if "error" in resp:
             raise RuntimeError(f"scheduler error: {resp['error']}")
         return resp
+
+    def _req(self, msg: dict, timeout: float = 600.0,
+             retries: int = 8) -> dict:
+        return self._req_addr(self.addr, msg, timeout, retries)
+
+    # -- sharded-plane routing (kvstore_dist.h:547-589) --------------------
+
+    def refresh_servers(self) -> List[Tuple[str, int]]:
+        """Fetch the range-server fleet again (for a client that
+        registered before the servers did)."""
+        self.servers = [tuple(s) for s in
+                        self._req({"cmd": "servers"})["servers"]]
+        self._announce_to_servers()
+        return self.servers
+
+    def _announce_to_servers(self) -> None:
+        """Tell every range server this host (re)registered: it purges the
+        host's retry-dedup entries, as the scheduler does in its
+        register."""
+        for addr in self.servers:
+            self._req_addr(addr, {"cmd": "host_reset", "host": self.host})
+
+    def _partition_rows(self, n: int, ids, vals=None):
+        """The row-range partition the sparse calls share: drop ids outside
+        the table, split ``n`` rows over the fleet by :func:`_row_bounds`,
+        give each id its server.  Returns ``(ids, vals, bounds, part)``."""
+        ids = np.asarray(ids).ravel()
+        live = (ids >= 0) & (ids < n)
+        ids = ids[live]
+        if vals is not None:
+            vals = np.asarray(vals)[live]
+        bounds = _row_bounds(n, len(self.servers))
+        part = np.searchsorted(bounds[1:], ids, side="right")
+        return ids, vals, bounds, part
+
+    def _data_addr(self, key: str, route: Optional[int] = None):
+        """One round's target: server ``route`` (``crc32(key)`` unrouted)
+        modulo R, or the scheduler's embedded plane with no servers; the
+        same on every worker."""
+        r = len(self.servers)
+        if r == 0:
+            return self.addr
+        if route is None:
+            route = zlib.crc32(key.encode())
+        return self.servers[route % r]
 
     def _heartbeat_loop(self, interval: float):
         while not self._stop.is_set():
@@ -250,11 +320,16 @@ class WorkerClient:
                         route: Optional[int], nbytes: int,
                         quantum: int = 1) -> int:
         """Elements per chunked-allreduce round (``DT_AR_CHUNK_BYTES``),
-        rounded down to whole packing words (``quantum``), as the JAX
-        client chunks with no range servers."""
-        del value_size, route, nbytes  # the fleet split needs servers
+        shrunk to ~size/R under a fleet of R > 1 servers for a top-level
+        tensor past ``DT_AR_SHARD_MIN_BYTES`` (the reference's bigarray
+        split; a routed chunk ships as it is), then rounded down to whole
+        packing words (``quantum``), as the JAX client chunks."""
         per = max(1, int(config.env("DT_AR_CHUNK_BYTES"))
                   // max(itemsize, 1))
+        nsrv = len(self.servers)
+        if nsrv > 1 and route is None and nbytes > int(
+                config.env("DT_AR_SHARD_MIN_BYTES")):
+            per = min(per, -(-value_size // nsrv))
         if quantum > 1:
             per = max(quantum, (per // quantum) * quantum)
         return per
@@ -262,7 +337,8 @@ class WorkerClient:
     def _ar_window(self) -> int:
         """The bounded in-flight round window (``DT_AR_WINDOW``, default
         2x fleet, min 4)."""
-        return int(config.env("DT_AR_WINDOW")) or 4
+        return int(config.env("DT_AR_WINDOW")) or \
+            max(4, 2 * max(len(self.servers), 1))
 
     def _fanout_pool(self):
         """Executor of chunk windows; its tasks never submit back into
@@ -270,7 +346,8 @@ class WorkerClient:
         if self._pool is None:
             from concurrent.futures import ThreadPoolExecutor
             self._pool = ThreadPoolExecutor(
-                max_workers=max(4, int(config.env("DT_AR_WINDOW"))),
+                max_workers=max(4, 2 * max(len(self.servers), 1),
+                                int(config.env("DT_AR_WINDOW"))),
                 thread_name_prefix=f"dt-ar-{self.host}")
         return self._pool
 
@@ -338,7 +415,9 @@ class WorkerClient:
         in rounds on subkeys ``key#c<i>`` (packed words chunk on the same
         element grid, 16 codes a word), streamed through the bounded
         window.  A per-(host, key) sequence makes a retried round
-        idempotent."""
+        idempotent.  With range servers chunk ``i`` goes to server
+        ``(crc32(key) + i) % R``."""
+        nsrv = len(self.servers)
         if isinstance(value, dict) and "packed" in value:
             from dt_tpu_torch.parallel.compression import (CODES_PER_WORD,
                                                            packed_chunks)
@@ -348,56 +427,261 @@ class WorkerClient:
             if _route is None and n > per:
                 packed = np.asarray(value["packed"])
                 thr = float(value["threshold"])
+                base = zlib.crc32(key.encode())
                 chunks = packed_chunks(packed, n, per)
                 parts = self._stream_chunks([
                     (lambda i=i, words=words, cn=cn:
                      self._allreduce(f"{key}#c{i}",
                                      {"packed": words, "n": cn,
-                                      "threshold": thr}, None))
+                                      "threshold": thr},
+                                     (base + i) if nsrv else None))
                     for i, (words, cn) in enumerate(chunks)])
                 return np.concatenate(parts)
-        elif isinstance(value, dict):
-            raise NotImplementedError(
-                f"a row-sparse allreduce {_ITEM}{_SPARSE}")
-        else:
+        elif not isinstance(value, dict):
             value = np.asarray(value)
             per = self._ar_chunk_elems(value.size, max(value.itemsize, 1),
                                        _route, value.nbytes)
             if value.size > per:
                 flat = value.ravel()
+                base = zlib.crc32(key.encode())
                 parts = self._stream_chunks([
                     (lambda i=i, start=start:
                      self._allreduce(f"{key}#c{i}",
-                                     flat[start:start + per], None))
+                                     flat[start:start + per],
+                                     (base + i) if nsrv else None))
                     for i, start in enumerate(range(0, flat.size, per))])
                 return np.concatenate(parts).reshape(value.shape)
-        out = self._req({"cmd": "allreduce", "host": self.host, "key": key,
-                         "seq": self._next_seq(key),
-                         "value": value})["value"]
+        out = self._req_addr(
+            self._data_addr(key, _route),
+            {"cmd": "allreduce", "host": self.host, "key": key,
+             "seq": self._next_seq(key), "value": value})["value"]
         if isinstance(out, dict) and "__error__" in out:
             raise RuntimeError(f"allreduce {key}: {out['__error__']}")
         return out
 
     def allreduce_sparse(self, key: str, rs, capacity: Optional[int] = None):
-        raise NotImplementedError(f"allreduce_sparse {_ITEM}{_SPARSE}")
+        """Row-sparse exact average (``client.py:1036-1117``): ships
+        ``(ids, rows)``, O(touched rows) on the wire, the reference's
+        row_sparse push (``kvstore_dist.h:690-748``).  ``rs`` is an
+        ``ops.sparse.RowSparse``; the result is one too, on ``rs.values``'
+        device, padded with sentinel slots to ``capacity``: by default the
+        next power of two above the merged row count, the same on every
+        worker.  An explicit ``capacity`` must be the same on every worker;
+        merged rows past it are dropped (identically everywhere).  With
+        R > 1 servers each takes its row range, every worker contributing
+        to every server each round (empty partitions included)."""
+        import torch
+
+        from dt_tpu_torch.ops.sparse import RowSparse
+        tr = obs_trace.tracer()
+        t0 = tr.begin("allreduce_sparse", {"key": key})
+        try:
+            ids_in, vals_in = _host(rs.indices), _host(rs.values)
+            nsrv = len(self.servers)
+            if nsrv > 1:
+                ids, vals, _, part = self._partition_rows(
+                    rs.num_rows, ids_in, vals_in)
+
+                def one(j):
+                    sel = part == j
+                    return self._req_addr(
+                        self.servers[j],
+                        {"cmd": "allreduce", "host": self.host,
+                         "key": key, "seq": self._next_seq(f"{key}@s{j}"),
+                         "value": {"ids": ids[sel], "vals": vals[sel],
+                                   "num_rows": rs.num_rows}})["value"]
+
+                outs = list(self._fanout_pool().map(one, range(nsrv)))
+                for o in outs:
+                    if isinstance(o, dict) and "__error__" in o:
+                        raise RuntimeError(
+                            f"allreduce_sparse {key}: {o['__error__']}")
+                # disjoint ascending ranges: the concatenation is the
+                # globally sorted merge
+                out = {"ids": np.concatenate([o["ids"] for o in outs]),
+                       "vals": np.concatenate([o["vals"] for o in outs],
+                                              axis=0)}
+            else:
+                out = self._req_addr(
+                    self._data_addr(key),
+                    {"cmd": "allreduce", "host": self.host, "key": key,
+                     "seq": self._next_seq(key),
+                     "value": {"ids": ids_in, "vals": vals_in,
+                               "num_rows": rs.num_rows}})["value"]
+            if isinstance(out, dict) and "__error__" in out:
+                raise RuntimeError(
+                    f"allreduce_sparse {key}: {out['__error__']}")
+        except BaseException:
+            tr.abandon(t0)
+            raise
+        merged = len(out["ids"])
+        if capacity is None:
+            capacity = 1 << max(merged - 1, 0).bit_length()
+        n = min(merged, capacity)
+        if merged > capacity:
+            logger.warning("allreduce_sparse %s: %d merged rows exceed "
+                           "capacity %d; excess rows dropped (identically "
+                           "on every worker)", key, merged, capacity)
+        out_vals = np.asarray(out["vals"])
+        ids = np.full((capacity,), rs.num_rows, np.int32)
+        vals = np.zeros((capacity,) + out_vals.shape[1:], out_vals.dtype)
+        ids[:n] = out["ids"][:n]
+        vals[:n] = out_vals[:n]
+        tr.complete_span("allreduce_sparse", t0,
+                         {"key": key, "merged": merged})
+        dev = rs.values.device if isinstance(rs.values, torch.Tensor) \
+            else torch.device("cpu")
+        return RowSparse(torch.from_numpy(ids).to(dev),
+                         torch.from_numpy(vals).to(dev), rs.num_rows)
+
+    # -- the dist_async data plane ----------------------------------------
 
     def set_optimizer(self, spec: Dict) -> None:
-        raise NotImplementedError(f"set_optimizer {_ITEM}{_ASYNC}")
+        """Install the server-side updater of ``dist_async`` pushes
+        (``kvstore.py:451-498``): ``spec`` is ``{"name": "sgd"|"adagrad"|
+        "adam", **scalar hyperparams}``.  Sent to the scheduler's embedded
+        plane and to every range server (each keeps its slice's slots)
+        before any push."""
+        self._req({"cmd": "set_optimizer", "spec": spec})
+        for addr in self.servers:
+            self._req_addr(addr, {"cmd": "set_optimizer", "spec": spec})
 
-    def async_init(self, key: str, value):
-        raise NotImplementedError(f"async_init {_ITEM}{_ASYNC}")
+    def _async_fanout(self, fn):
+        """``fn(j, addr)`` for every range server, concurrently; results in
+        server order."""
+        return list(self._fanout_pool().map(
+            lambda j: fn(j, self.servers[j]), range(len(self.servers))))
 
-    def async_push(self, key: str, grad):
-        raise NotImplementedError(f"async_push {_ITEM}{_ASYNC}")
+    def async_init(self, key: str, value) -> np.ndarray:
+        """Init-or-get the master weights: the first writer seeds them,
+        everyone gets the live copy (a joiner adopts the trained state).
+        With R > 1 servers the value splits into R row ranges, one a
+        server (``kvstore_dist.h:547-589``)."""
+        value = np.asarray(value)
+        nsrv = len(self.servers)
+        if nsrv > 1 and value.ndim >= 1:
+            self._key_rows[key] = int(value.shape[0])
+            parts = np.array_split(value, nsrv, axis=0)
+            outs = self._async_fanout(
+                lambda j, addr: self._req_addr(
+                    addr, {"cmd": "async_init", "key": key,
+                           "value": parts[j]})["value"])
+            return np.concatenate([np.asarray(o) for o in outs], axis=0)
+        return np.asarray(self._req_addr(
+            self._data_addr(key),
+            {"cmd": "async_init", "key": key, "value": value})["value"])
 
-    def async_push_sparse(self, key: str, ids, vals):
-        raise NotImplementedError(f"async_push_sparse {_ITEM}{_ASYNC}")
+    def async_push(self, key: str, grad) -> np.ndarray:
+        """Push a gradient, get the post-update master weights: applied at
+        once, no barrier (``kvstore_dist_server.h:347``); ``(host, key,
+        seq)`` dedups a retry, so a momentum update is never applied twice.
+        Sharded, each server updates its rows; the server optimizers are
+        elementwise, so the concatenation is the unsharded update."""
+        grad = np.asarray(grad)
+        nsrv = len(self.servers)
+        if nsrv > 1 and grad.ndim >= 1:
+            parts = np.array_split(grad, nsrv, axis=0)
+
+            def one(j, addr):
+                return self._req_addr(
+                    addr, {"cmd": "async_push", "host": self.host,
+                           "key": key,
+                           "seq": self._next_seq(("async", key, j)),
+                           "value": parts[j]})["value"]
+
+            outs = self._async_fanout(one)
+            return np.concatenate([np.asarray(o) for o in outs], axis=0)
+        out = self._req_addr(
+            self._data_addr(key),
+            {"cmd": "async_push", "host": self.host, "key": key,
+             "seq": self._next_seq(("async", key)), "value": grad})["value"]
+        return np.asarray(out)
+
+    def _sparse_rows(self, key: str) -> int:
+        """A sharded table's row count: from ``async_init``, else the sum
+        of the servers' slices."""
+        n = self._key_rows.get(key)
+        if n is None:
+            outs = self._async_fanout(
+                lambda j, addr: self._req_addr(
+                    addr, {"cmd": "async_pull_rows", "key": key,
+                           "ids": np.empty((0,), np.int64)}))
+            n = sum(int(o["num_rows"]) for o in outs)
+            self._key_rows[key] = n
+        return n
+
+    def async_push_sparse(self, key: str, ids, vals) -> dict:
+        """Row-sparse async push: the server updates the touched rows
+        lazily and answers ``{"ids", "vals"}`` of just those rows
+        (``kvstore_dist.h:690-748``).  Sharded, the ids split by row range
+        and are rebased to each server's slice."""
+        ids = _host(ids).ravel()
+        vals = _host(vals)
+        nsrv = len(self.servers)
+        if nsrv > 1:
+            n = self._sparse_rows(key)
+            ids, vals, bounds, part = self._partition_rows(n, ids, vals)
+
+            def one(j, addr):
+                sel = part == j
+                out = self._req_addr(
+                    addr, {"cmd": "async_push", "host": self.host,
+                           "key": key,
+                           "seq": self._next_seq(("async", key, j)),
+                           "value": {"ids": ids[sel] - bounds[j],
+                                     "vals": vals[sel]}})["value"]
+                return {"ids": np.asarray(out["ids"]) + bounds[j],
+                        "vals": np.asarray(out["vals"])}
+
+            outs = self._async_fanout(one)
+            return {"ids": np.concatenate([o["ids"] for o in outs]),
+                    "vals": np.concatenate([o["vals"] for o in outs],
+                                           axis=0)}
+        return self._req_addr(
+            self._data_addr(key),
+            {"cmd": "async_push", "host": self.host, "key": key,
+             "seq": self._next_seq(("async", key)),
+             "value": {"ids": ids, "vals": vals}})["value"]
 
     def async_stats(self) -> dict:
-        raise NotImplementedError(f"async_stats {_ITEM}{_ASYNC}")
+        """The fleet's staleness: max over the servers, the push-weighted
+        mean (each server measures its own slice's pushes)."""
+        if self.servers:
+            outs = self._async_fanout(
+                lambda j, addr: self._req_addr(addr,
+                                               {"cmd": "async_stats"}))
+        else:
+            outs = [self._req({"cmd": "async_stats"})]
+        n = sum(o["measured_pushes"] for o in outs)
+        return {
+            "max_staleness": max(o["max_staleness"] for o in outs),
+            "mean_staleness": (sum(o["mean_staleness"] *
+                                   o["measured_pushes"] for o in outs) / n)
+            if n else 0.0,
+            "measured_pushes": n,
+        }
 
-    def async_pull_rows(self, key: str, ids):
-        raise NotImplementedError(f"async_pull_rows {_ITEM}{_ASYNC}")
+    def async_pull_rows(self, key: str, ids) -> dict:
+        """Only the requested rows of the master table (the reference's
+        RowSparsePull, ``kvstore_dist.h:317-376``)."""
+        ids = _host(ids).ravel()
+        nsrv = len(self.servers)
+        if nsrv > 1:
+            n = self._sparse_rows(key)
+            ids, _, bounds, part = self._partition_rows(n, ids)
+            outs = self._async_fanout(
+                lambda j, addr: self._req_addr(
+                    addr, {"cmd": "async_pull_rows", "key": key,
+                           "ids": ids[part == j] - bounds[j]}))
+            return {"ids": np.concatenate(
+                        [np.asarray(o["ids"]) + bounds[j]
+                         for j, o in enumerate(outs)]),
+                    "vals": np.concatenate(
+                        [np.asarray(o["vals"]) for o in outs], axis=0),
+                    "num_rows": n}
+        return self._req_addr(
+            self._data_addr(key),
+            {"cmd": "async_pull_rows", "key": key, "ids": ids})
 
     def close(self):
         self._stop.set()
@@ -409,8 +693,15 @@ class WorkerClient:
             if pool is not None:
                 pool.shutdown(wait=False)
                 setattr(self, attr, None)
-        for addr in self.addrs:
+        for addr in list(self.addrs) + list(self.servers):
             protocol.pool().close_addr(tuple(addr))
+
+
+def _host(a) -> np.ndarray:
+    """A tensor (on any device) or array as numpy, for the wire."""
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 class AllreducePipeline:

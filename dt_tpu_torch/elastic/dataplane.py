@@ -1,16 +1,23 @@
-"""The scheduler's data plane: exact-average allreduce rounds
-(counterpart of ``dt_tpu/elastic/dataplane.py:36-449``, copied since the
-port imports nothing of the JAX package).
+"""The data plane of the scheduler and of each range server: exact-average
+allreduce rounds and the ``dist_async`` master-weight store (counterpart of
+``dt_tpu/elastic/dataplane.py``, copied since the port imports nothing of
+the JAX package).
 
 One round per key use: every expected host contributes, the plane sums the
 contributions in the order of the live worker list and divides by their
-count, as the JAX package's plane does, so both schedulers return the same
-bits.  A ``{"packed", "n", "threshold"}`` contribution is a 2-bit gradient,
-decoded with numpy before the sum (``dataplane.py:223``).  ``(host, seq)``
-makes a retried contribution idempotent.
+count, as the JAX package's plane does, so both return the same bits.  A
+``{"packed", "n", "threshold"}`` contribution is a 2-bit gradient, decoded
+with numpy before the sum (``dataplane.py:223``); an ``{"ids", "vals",
+"num_rows"}`` one is row-sparse, merged by :meth:`DataPlane._merge_sparse`.
+``(host, seq)`` makes a retried contribution idempotent.
 
-The ``dist_async`` store (``dataplane.py:477-599``) and row-sparse
-contributions raise, naming their ROADMAP items.
+The ``dist_async`` store applies each push at once with the server-side
+optimizer (``server_optim``) and answers the post-update weights; a
+``(host, key, seq)`` cache serves a retried or stale push the freshest
+weights and never applies it twice.
+
+The JAX plane's straggler EWMA (``worker.straggler``, ``DT_STRAGGLER_MS``)
+and HA round replication are not here: ROADMAP.md, Queue 1 items 7 and 3c.
 """
 
 from __future__ import annotations
@@ -20,43 +27,89 @@ from typing import Callable, Dict, Optional, Set
 
 import numpy as np
 
-from dt_tpu_torch import config
-
-_ASYNC = ("dist_async (the scheduler-side optimizer) is not ported yet; "
-          "see ROADMAP.md, Queue 1 item 3a")
-_SPARSE = ("the row-sparse allreduce is not ported yet; see ROADMAP.md, "
-           "Queue 1 item 3b (the sparse allreduce and range servers)")
 
 
 class DataPlane:
     """Allreduce rounds over the host set ``expected_fn()`` returns (the
-    scheduler's live worker list, in rank order).
+    scheduler's live worker list in rank order, or a range server's mirror
+    of it), and the ``dist_async`` store.
 
-    The embedding scheduler may call :meth:`complete_with` while holding
-    its own membership lock: the plane never calls back out, so the
-    nesting is one-way."""
+    ``confirm_fn`` is called right before a round completes, for an
+    authoritative membership read: a range server serves from a cache with
+    a TTL, and completing off a stale one would skip a just-registered
+    worker.
 
-    #: commands this plane serves (the async ones raise)
+    The embedding server may call :meth:`complete_with` while holding its
+    own membership lock: the plane never calls back out, so the nesting is
+    one-way."""
+
+    #: commands this plane serves
     CMDS = ("allreduce", "set_optimizer", "async_init", "async_push",
             "async_pull_rows", "async_stats")
 
-    def __init__(self, expected_fn: Callable[[], Set[str]], tracer=None):
+    def __init__(self, expected_fn: Callable[[], Set[str]],
+                 confirm_fn: Optional[Callable[[], Set[str]]] = None,
+                 tracer=None):
         from dt_tpu_torch.obs import trace as obs_trace
         self._obs = tracer if tracer is not None else obs_trace.tracer()
         self.expected_fn = expected_fn
+        self.confirm_fn = confirm_fn or expected_fn
         self._cv = threading.Condition()
         # key -> {vals: {host: (seq, arr)}, gen, result, served: {host:
         # (seq, result)}, t0, lag0, arrive: {host: mono_ns}, meta}
         self._reduce: Dict[str, dict] = {}  # guarded-by: _cv
+        self._async_lock = threading.Lock()
+        self._async_live: Set[str] = set()  # guarded-by: _async_lock
+        self._async_store: Dict[str, np.ndarray] = {}  # guarded-by: _async_lock
+        self._async_updater = None  # guarded-by: _async_lock
+        # (host, key) -> (seq, reply value); guarded-by: _async_lock
+        self._async_served: Dict[tuple, tuple] = {}
+        # staleness: updates by other workers between the weights a worker
+        # trained on and its next push (key -> updates, (host, key) -> the
+        # count its last reply carried)
+        self._async_update_count: Dict[str, int] = {}  # guarded-by: _async_lock
+        self._async_last_seen: Dict[tuple, int] = {}  # guarded-by: _async_lock
+        self._async_stale_max = 0  # guarded-by: _async_lock
+        self._async_stale_sum = 0  # guarded-by: _async_lock
+        self._async_stale_n = 0  # guarded-by: _async_lock
 
     def dispatch(self, msg: dict) -> Optional[dict]:
         cmd = msg.get("cmd")
         if cmd == "allreduce":
             return self.allreduce(msg["host"], msg["key"], msg["value"],
                                   int(msg.get("seq", -1)))
-        if cmd in self.CMDS:
-            return {"error": f"{cmd}: {_ASYNC}"}
+        if cmd == "set_optimizer":
+            return self.async_set_optimizer(msg["spec"])
+        if cmd == "async_init":
+            return self.async_init(msg["key"], msg["value"])
+        if cmd == "async_push":
+            return self.async_push(msg["host"], msg["key"], msg["value"],
+                                   int(msg.get("seq", -1)))
+        if cmd == "async_pull_rows":
+            return self.async_pull_rows(msg["key"], msg["ids"])
+        if cmd == "async_stats":
+            return self.async_stats()
         return None
+
+    # -- membership hooks (called by the embedding server) ---------------
+
+    def host_registered(self, host: str) -> None:
+        """A (re)registering worker starts fresh push sequences: purge its
+        retry-dedup entries (else its first push after a restart would be
+        swallowed by an old ``(host, seq)``) and its staleness basis (it
+        re-bases on the live weights through ``async_init``)."""
+        with self._async_lock:
+            self._async_live.add(host)
+            for key in [k for k in self._async_served if k[0] == host]:
+                del self._async_served[key]
+            for key in [k for k in self._async_last_seen if k[0] == host]:
+                del self._async_last_seen[key]
+
+    def hosts_removed(self, hosts: Set[str]) -> None:
+        with self._async_lock:
+            self._async_live -= set(hosts)
+            for key in [k for k in self._async_last_seen if k[0] in hosts]:
+                del self._async_last_seen[key]
 
     @staticmethod
     def _new_slot() -> dict:
@@ -91,7 +144,10 @@ class DataPlane:
                                      int(value["n"]),
                                      float(value["threshold"]))
         elif isinstance(value, dict) and "ids" in value:
-            return {"error": _SPARSE}
+            # row-sparse: O(touched rows) on the wire (the reference's
+            # row_sparse push, kvstore_dist.h:690-748)
+            arr = ("rsp", np.asarray(value["ids"]),
+                   np.asarray(value["vals"]), int(value["num_rows"]))
         else:
             arr = np.asarray(value)
         tnow = self._obs.now()  # None when tracing is off
@@ -110,6 +166,8 @@ class DataPlane:
                 slot["arrive"].setdefault(host, tnow[1])
             slot["vals"][host] = (seq, arr)
             expected = self.expected_fn()
+            if expected and set(slot["vals"]) >= set(expected):
+                expected = self.confirm_fn()  # authoritative recheck
             if expected and set(slot["vals"]) >= set(expected):
                 contributors = [h for h in expected if h in slot["vals"]]
                 self._finish_round_locked(slot, contributors, key)
@@ -139,20 +197,24 @@ class DataPlane:
     def _finish_round_locked(self, slot: dict, contributors,
                              key: str = "") -> None:
         stacked = [slot["vals"][h][1] for h in contributors]
-        # accumulate in place in contributor order, with np.mean's dtype
-        # rules (the JAX package's plane, bit for bit)
-        out_dtype = np.result_type(*[np.asarray(a).dtype for a in stacked])
-        if not np.issubdtype(out_dtype, np.inexact):
-            out_dtype = np.float64
-        acc_dtype = np.float32 if out_dtype == np.float16 else out_dtype
-        if len(stacked) == 1:
-            acc = np.array(stacked[0], dtype=acc_dtype, copy=True)
+        if any(isinstance(a, tuple) and a[0] == "rsp" for a in stacked):
+            slot["result"] = self._merge_sparse(stacked)
         else:
-            acc = np.add(stacked[0], stacked[1], dtype=acc_dtype)
-            for a in stacked[2:]:
-                np.add(acc, a, out=acc)
-        acc /= len(stacked)
-        slot["result"] = acc.astype(out_dtype, copy=False)
+            # accumulate in place in contributor order, with np.mean's
+            # dtype rules (the JAX package's plane, bit for bit)
+            out_dtype = np.result_type(*[np.asarray(a).dtype
+                                         for a in stacked])
+            if not np.issubdtype(out_dtype, np.inexact):
+                out_dtype = np.float64
+            acc_dtype = np.float32 if out_dtype == np.float16 else out_dtype
+            if len(stacked) == 1:
+                acc = np.array(stacked[0], dtype=acc_dtype, copy=True)
+            else:
+                acc = np.add(stacked[0], stacked[1], dtype=acc_dtype)
+                for a in stacked[2:]:
+                    np.add(acc, a, out=acc)
+            acc /= len(stacked)
+            slot["result"] = acc.astype(out_dtype, copy=False)
         for h, (h_seq, _) in slot["vals"].items():
             slot["served"][h] = (h_seq, slot["result"])
         lag0 = slot.get("lag0")
@@ -177,3 +239,138 @@ class DataPlane:
         self._obs.counter("dataplane.rounds")
         if "#b" in key:  # an overlap-pipeline bucket round
             self._obs.counter("dataplane.bucket_rounds")
+
+    @staticmethod
+    def _merge_sparse(stacked) -> dict:
+        """Merge row-sparse contributions: concatenate, sum duplicate ids,
+        divide by the contributor count, elementwise the average of the
+        dense-with-zeros equivalents (``kvstore_dist_server.h:345-379``).
+        Mixed dense and sparse contributions give every waiter an
+        ``__error__`` result, raised client-side."""
+        if not all(isinstance(a, tuple) and a[0] == "rsp" for a in stacked):
+            return {"__error__": "mixed dense and row-sparse contributions "
+                                 "for one allreduce key"}
+        num_rows = stacked[0][3]
+        all_ids = np.concatenate([a[1] for a in stacked])
+        all_vals = np.concatenate([a[2] for a in stacked], axis=0)
+        live = all_ids < num_rows
+        all_ids, all_vals = all_ids[live], all_vals[live]
+        uniq, inv = np.unique(all_ids, return_inverse=True)
+        summed = np.zeros((len(uniq),) + all_vals.shape[1:],
+                          all_vals.dtype)
+        np.add.at(summed, inv, all_vals)
+        return {"ids": uniq.astype(np.int32),
+                "vals": summed / len(stacked), "num_rows": num_rows}
+
+    # -- the dist_async store --------------------------------------------
+
+    def async_set_optimizer(self, spec: dict) -> dict:
+        """Install the server-side updater from a spec (the reference
+        pickled the optimizer to the servers, ``kvstore.py:451-498``).
+        Idempotent for an identical spec (every worker sends it); a
+        different one resets the updater, its slots and the dedup cache."""
+        from dt_tpu_torch.elastic import server_optim
+        with self._async_lock:
+            if self._async_updater is not None and \
+                    self._async_updater.spec_input == \
+                    server_optim.spec_identity(spec):
+                return {}
+            try:
+                upd = server_optim.create(**dict(spec))
+            except (TypeError, ValueError) as e:
+                return {"error": f"set_optimizer: {e}"}
+            self._async_updater = upd
+            self._async_served.clear()
+        return {}
+
+    def async_init(self, key: str, value) -> dict:
+        """Init-or-get: the first writer seeds the master, later inits get
+        the live copy (``kvstore_local.h:95-110``), so every worker inits
+        and a joiner adopts the trained state."""
+        with self._async_lock:
+            if key not in self._async_store:
+                self._async_store[key] = np.asarray(value)
+            return {"value": self._async_store[key]}
+
+    def _count_staleness_locked(self, host: str, key: str) -> None:
+        """One applied push: how many updates landed since ``host``'s last
+        reply.  Caller holds ``_async_lock``; a served replay never gets
+        here."""
+        cnt = self._async_update_count.get(key, 0)
+        last = self._async_last_seen.get((host, key))
+        if last is not None:
+            lag = cnt - last
+            self._async_stale_max = max(self._async_stale_max, lag)
+            self._async_stale_sum += lag
+            self._async_stale_n += 1
+        self._async_update_count[key] = cnt + 1
+        self._async_last_seen[(host, key)] = cnt + 1
+
+    def async_stats(self) -> dict:
+        with self._async_lock:
+            n = self._async_stale_n
+            return {"max_staleness": self._async_stale_max,
+                    "mean_staleness":
+                        (self._async_stale_sum / n) if n else 0.0,
+                    "measured_pushes": n,
+                    "keys": len(self._async_store)}
+
+    def async_push(self, host: str, key: str, value, seq: int = -1) -> dict:
+        """Apply one worker's gradient at once and answer the new weights
+        (``kvstore_dist_server.h:347``: push order is apply order).  A
+        replayed ``(host, key, seq)`` is served its cached reply; a stale
+        one (below the last served seq: a delayed handler that lost the
+        race to its own retry) is served the freshest weights; neither is
+        applied again."""
+        with self._async_lock:
+            served = self._async_served.get((host, key))
+            if seq >= 0 and served is not None and served[0] == seq:
+                return {"value": served[1]}
+            if seq >= 0 and served is not None and seq < served[0]:
+                return {"value": served[1]}
+            if self._async_updater is None:
+                return {"error": "async_push before set_optimizer"}
+            stored = self._async_store.get(key)
+            if stored is None:
+                return {"error": f"async_push: key {key!r} not initialized"}
+            if isinstance(value, dict) and "ids" in value:
+                # lazy update of the touched rows, and only those rows back
+                # (kvstore_dist.h:690-748, optimizer_op.cc sparse variants)
+                ids = np.asarray(value["ids"]).ravel()
+                try:
+                    new = self._async_updater.sparse(
+                        key, ids, np.asarray(value["vals"]), stored)
+                except ValueError as e:
+                    return {"error": f"async_push sparse: {e}"}
+                self._async_store[key] = new
+                self._count_staleness_locked(host, key)
+                keep = (ids >= 0) & (ids < new.shape[0])
+                uniq = np.unique(ids[keep])
+                resp = {"ids": uniq, "vals": new[uniq]}
+                self._async_served[(host, key)] = (seq, resp)
+                return {"value": resp}
+            grad = np.asarray(value)
+            new = self._async_updater(key, grad, stored)
+            self._async_store[key] = new
+            self._count_staleness_locked(host, key)
+            self._async_served[(host, key)] = (seq, new)
+            if len(self._async_served) > 4 * max(len(self._async_live), 1):
+                # bound the cache by departed hosts' entries only: dropping
+                # a live worker's would re-open the double-apply window
+                for k in [k for k in self._async_served
+                          if k[0] not in self._async_live]:
+                    del self._async_served[k]
+            return {"value": new}
+
+    def async_pull_rows(self, key: str, ids) -> dict:
+        """Only the requested live rows of the master table
+        (``kvstore_dist.h:317-376``)."""
+        with self._async_lock:
+            stored = self._async_store.get(key)
+            if stored is None:
+                return {"error":
+                        f"async_pull_rows: key {key!r} not initialized"}
+            ids = np.asarray(ids).ravel()
+            keep = (ids >= 0) & (ids < stored.shape[0])
+            return {"ids": ids[keep], "vals": stored[ids[keep]],
+                    "num_rows": int(stored.shape[0])}

@@ -88,6 +88,19 @@ def bind_interface() -> str:
     return config.env("DT_ELASTIC_BIND")
 
 
+def advertise_host() -> str:
+    """The address peers dial to reach a server bound on this machine
+    (``DT_ELASTIC_ADVERTISE``; else the bind interface when it is a
+    concrete address, else the hostname: ps-lite's ``DMLC_NODE_HOST``)."""
+    adv = config.env("DT_ELASTIC_ADVERTISE")
+    if adv:
+        return adv
+    bind = bind_interface()
+    if bind not in ("0.0.0.0", "::"):
+        return bind
+    return socket.gethostname()
+
+
 def _mac(key: bytes, *parts: bytes) -> bytes:
     m = _hmac.new(key, digestmod=hashlib.sha256)
     for p in parts:

@@ -18,8 +18,15 @@ job, a thread a connection over the pooled transport
   91-126``), with the ``<host_worker>_log`` audit lines ``SEQ ADDED|
   REMOVED|RECOVERED|DRAINED HOST TIME``; ``launch_callback(host, epoch)``
   starts an added worker, ``pre_change_hook(epoch)`` runs before the diff;
-- the plain ``barrier``; ``allreduce`` through ``dataplane.DataPlane``;
-  ``publish_snapshot``/``fetch_snapshot``; ``drain``; ``membership``,
+- the plain ``barrier``; ``allreduce`` (dense, 2-bit and row-sparse) and
+  the ``dist_async`` store (``set_optimizer``, ``async_init``,
+  ``async_push``, ``async_pull_rows``, ``async_stats``) through its
+  embedded ``dataplane.DataPlane``, the single-funnel plane used when no
+  range server registered;
+- ``register_server`` and ``servers``, the range-server fleet workers
+  route their bulk data to (``elastic.range_server``; the register reply
+  carries the fleet);
+- ``publish_snapshot``/``fetch_snapshot``; ``drain``; ``membership``,
   ``status`` and ``shutdown``.
 
 Every other command of the JAX scheduler answers an error naming its
@@ -34,7 +41,7 @@ import random
 import socket
 import threading
 import time
-from typing import Callable, List, Optional, Set
+from typing import Callable, Dict, List, Optional, Set
 
 from dt_tpu_torch import config
 from dt_tpu_torch.elastic import faults, journal, protocol
@@ -63,8 +70,6 @@ UNPORTED = {
     **dict.fromkeys(("serve_register", "serve_heartbeat",
                      "serve_endpoints"),
                     "item 5 (the serve gateway and replica)"),
-    **dict.fromkeys(("register_server", "servers"),
-                    "item 3b (the sparse allreduce and range servers)"),
     **dict.fromkeys(("ckpt_intent", "ckpt_ack", "ckpt_manifest"),
                     "item 3e (fleet checkpoints)"),
     "ha_round": "item 3c (scheduler HA)",
@@ -133,6 +138,10 @@ class Scheduler:
         self._barrier_t0 = None  # guarded-by: _lock
         self._dp = DataPlane(expected_fn=lambda: list(self._state.workers),
                              tracer=self._obs)
+        # the range-server fleet, index -> (host, port); its own lock:
+        # _server_list() is read from inside _register under _lock
+        self._servers: Dict[int, tuple] = {}  # guarded-by: _servers_lock
+        self._servers_lock = threading.Lock()
         self._tokens = protocol.TokenCache(
             ttl_s=float(config.env("DT_CTRL_TOKEN_TTL_S")))
 
@@ -300,6 +309,15 @@ class Scheduler:
             if cmd == "allreduce":
                 faults.crash_point("sched.allreduce", host=msg.get("host"))
             return self._dp.dispatch(msg)
+        if cmd == "register_server":
+            with self._servers_lock:
+                self._servers[int(msg["index"])] = (msg["host"],
+                                                    int(msg["port"]))
+            logger.info("range server %d registered at %s:%d",
+                        int(msg["index"]), msg["host"], int(msg["port"]))
+            return {}
+        if cmd == "servers":
+            return {"servers": self._server_list()}
         if cmd == "mc_barrier":
             return self._mc_barrier(msg["host"], int(msg["epoch"]),
                                     msg.get("info") or {})
@@ -351,6 +369,7 @@ class Scheduler:
                 # the new one for re-admission
                 self._apply("quick_evict", host=host, seq=st.log_seq + 1)
                 self._audit_locked("REMOVED", host)
+                self._dp.hosts_removed({host})
                 self._rewrite_host_file([host])
                 self._complete_pending_locked()
             if host in st.removed_hosts:
@@ -358,6 +377,7 @@ class Scheduler:
                 # itself at the next membership barrier, never mid-epoch
                 self._apply("recovery_pending", host=host)
                 self._heartbeats[host] = time.time()
+                self._dp.host_registered(host)
                 self._cv.notify_all()
                 self._obs.event("recovery.registered", {"host": host})
                 logger.info("recovery registration from %s: pending "
@@ -365,13 +385,17 @@ class Scheduler:
                 return {"rank": -1, "workers": list(st.workers),
                         "recovery_pending": True,
                         "resume_epoch": st.last_completed_epoch + 1,
-                        "profile_seq": 0, "fence": 0, "servers": []}
+                        "profile_seq": 0, "fence": 0,
+                        "servers": self._server_list()}
             self._apply("worker_add", host=host, base=not is_new)
             self._heartbeats[host] = time.time()
+            # a (re)registering worker starts fresh async-push sequences
+            self._dp.host_registered(host)
             self._cv.notify_all()
             return {"rank": st.workers.index(host),
                     "workers": list(st.workers),
-                    "profile_seq": 0, "fence": 0, "servers": []}
+                    "profile_seq": 0, "fence": 0,
+                    "servers": self._server_list()}
 
     def _num_dead(self, timeout_s: float) -> int:
         now = time.time()
@@ -401,6 +425,7 @@ class Scheduler:
                                    h, now - self._heartbeats.get(h, 0.0))
                     self._apply("evict", host=h, seq=st.log_seq + 1)
                     self._audit_locked("REMOVED", h)
+                self._dp.hosts_removed(set(dead))
                 self._rewrite_host_file(dead)
                 self._complete_pending_locked()
                 self._cv.notify_all()
@@ -460,6 +485,7 @@ class Scheduler:
             self._obs.event("drain.begin", {"host": host})
             self._apply("evict", host=host, seq=st.log_seq + 1)
             self._audit_locked("DRAINED", host)
+            self._dp.hosts_removed({host})
             self._rewrite_host_file([host])
             self._complete_pending_locked()
             self._cv.notify_all()
@@ -553,6 +579,7 @@ class Scheduler:
                                    epoch=epoch)
                 self._apply("mc_remove", host=h, seq=st.log_seq + 1)
                 self._audit_locked("REMOVED", h)
+            self._dp.hosts_removed(removable)
         else:
             # crashed-and-restarted hosts come back as themselves (audit
             # RECOVERED), only those that arrived at this barrier
@@ -624,6 +651,21 @@ class Scheduler:
                 if not self._cv.wait(timeout=300):
                     raise TimeoutError("barrier stuck")
             return {}
+
+    # ------------------------------------------------------------------
+    # the range-server registry
+    # ------------------------------------------------------------------
+
+    def _server_list(self) -> list:
+        """``[[host, port], ...]`` by server index: the worker's key-range
+        to server table (``kvstore_dist.h:547-589``)."""
+        with self._servers_lock:
+            return [list(self._servers[i]) for i in sorted(self._servers)]
+
+    @property
+    def _async_store(self):
+        """The embedded plane's ``dist_async`` master weights."""
+        return self._dp._async_store
 
 
 def _read_hosts(path: str) -> List[str]:

@@ -30,10 +30,20 @@ serial; 2-bit words on the wire under ``set_gradient_compression``), the
 graceful drain after a step and rank 0's snapshot at each epoch end, from
 which joiners bootstrap (``init_params(initialize_from_kvstore=True)``).
 
+Over a ``dist_async`` kvstore (``module.py:682-698, 864-915``) the master
+weights live on the scheduler or the range servers: ``fit`` ships the
+optimizer spec and attaches the flat master vector (init-or-get, in the
+JAX ravel order of ``training.flat``, so JAX and port workers share one
+master), and each step computes the local gradient, withholds a
+non-finite one under the halt, pushes it and adopts the master the server
+answers, through a pinned buffer and a side stream (the next step's work
+waits on that copy's event).  BN stats stay worker-local between the
+epoch-end snapshots; rank 0 logs the staleness each epoch.
+
 What the port does not have raises ``NotImplementedError`` naming its
 ROADMAP item: a ``mesh_manager`` and the mesh sync mode across processes
-(Queue 1 item 4), ``dist_async`` (item 3a), policy batch shares (item 3d)
-and ``remat=True`` (item 6).  ``shard_opt_state``/``shard_params`` shard
+(Queue 1 item 4), policy batch shares (item 3d) and ``remat=True`` (item
+6).  ``shard_opt_state``/``shard_params`` shard
 nothing on one device, as in the JAX package, so they are accepted and
 ``sharding_report`` stays empty.
 """
@@ -155,6 +165,58 @@ def _compute_dtype(model) -> torch.dtype:
     return torch.float32
 
 
+class _ServerSideOptimizer:
+    """The local optimizer of a ``dist_async`` Module whose optimizer the
+    port has not ported for local use: the servers run it, so the state
+    keeps a count only and an update is an error."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def init(self, params) -> dict:
+        return {"count": 0}
+
+    def update(self, grads, state, params):
+        raise RuntimeError(f"optimizer {self.name!r} runs on the dist_async "
+                           "servers, not in this process")
+
+
+class _AsyncMaster:
+    """The host legs of a ``dist_async`` step on a card: the gradient comes
+    to a pinned buffer (a copy and an event on the current stream), and
+    the master the server answers goes back through a second pinned buffer
+    on a side stream into a flat device vector; the current stream waits
+    on that copy's event, the host does not.  The pinned master buffer is
+    rewritten only once its previous copy completed."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.grad = torch.empty(n, dtype=torch.float32, pin_memory=True)
+        self.master = torch.empty(n, dtype=torch.float32, pin_memory=True)
+        self.flat = torch.empty(n, dtype=torch.float32, device=device)
+        self.stream = torch.cuda.Stream(device)
+        self.copied = None  # the last H2D's event
+
+    def to_host(self, flat_g: torch.Tensor) -> np.ndarray:
+        self.grad.copy_(flat_g, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+        return self.grad.numpy()
+
+    def to_device(self, new_p: np.ndarray) -> torch.Tensor:
+        if self.copied is not None:
+            self.copied.synchronize()
+        np.copyto(self.master.numpy(), new_p)
+        cur = torch.cuda.current_stream(self.flat.device)
+        self.stream.wait_stream(cur)  # earlier reads of ``flat`` are done
+        with torch.cuda.stream(self.stream):
+            self.flat.copy_(self.master, non_blocking=True)
+            self.copied = torch.cuda.Event()
+            self.copied.record(self.stream)
+        cur.wait_event(self.copied)
+        return self.flat
+
+
 class Module:
     """Model + loss + optimizer + kvstore, with ``fit``/``score``/
     ``predict``, on one device.
@@ -164,7 +226,9 @@ class Module:
     ``device="cpu"``).  ``loss_fn(logits, labels)`` is a scalar loss, as in
     the JAX package.  The whole training state is ``self.state``, a
     ``training.train_state.TrainState`` holding the model (params and BN
-    stats), the step and the optimizer state.
+    stats), the step and the optimizer state.  ``async_key`` names the
+    flat master vector on the ``dist_async`` servers: two Modules of one
+    scheduler need distinct keys (attach is init-or-get).
     """
 
     def __init__(self, model, loss_fn: Callable = softmax_ce_loss,
@@ -174,7 +238,8 @@ class Module:
                  device: Union[str, torch.device] = "cuda",
                  mesh=None, mesh_manager=None, seed: int = 0,
                  remat: bool = False, shard_opt_state: bool = False,
-                 shard_params: bool = False, grad_accum: int = 1):
+                 shard_params: bool = False, async_key: str = "params",
+                 grad_accum: int = 1):
         if remat:
             raise NotImplementedError(
                 "Module(remat=True) is not ported yet (a recomputed forward "
@@ -193,12 +258,23 @@ class Module:
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
-        if isinstance(optimizer, str):
-            from dt_tpu_torch import optim
-            optimizer = optim.create(optimizer, **(optimizer_params or {}))
-        self.tx = optimizer
         self.kv = kvstore_lib.create(kvstore) if isinstance(kvstore, str) \
             else kvstore
+        # the (name, scalar hyperparams) spec dist_async ships to the
+        # servers' updater
+        self._optimizer_spec = None
+        if isinstance(optimizer, str):
+            from dt_tpu_torch import optim
+            self._optimizer_spec = {"name": optimizer,
+                                    **(optimizer_params or {})}
+            if self.kv.type == "dist_async" and optimizer.lower() != "sgd":
+                optimizer = _ServerSideOptimizer(optimizer)
+            else:
+                optimizer = optim.create(optimizer,
+                                         **(optimizer_params or {}))
+        self.tx = optimizer
+        self.async_key = async_key
+        self._async = None  # _AsyncMaster on a card, lazy
         self.seed = seed
         self.grad_accum = int(grad_accum)
         self.state: Optional[TrainState] = None
@@ -378,6 +454,73 @@ class Module:
         tr.complete_span("step.apply", ta, {"epoch": epoch})
         return loss, logits, health, prefetched
 
+    def _attach_async(self) -> None:
+        """Ship the optimizer spec and init-or-get the flat master: the
+        first worker seeds it, every other (and a joiner) adopts it."""
+        if self._optimizer_spec is None:
+            raise ValueError(
+                "dist_async needs the optimizer as (name, hyperparams) — "
+                "pass optimizer='sgd' style, not an optimizer object (the "
+                "spec ships to the servers' updater)")
+        st = self.state
+        flat = st.layout.params.ravel(st.params).cpu().numpy()
+        self._adopt_master(self.kv.attach_flat(
+            self.async_key, self._optimizer_spec, flat))
+
+    def _adopt_master(self, new_p) -> None:
+        """Load the flat master (numpy, JAX ravel order) into the params;
+        on a card through :class:`_AsyncMaster`."""
+        st = self.state
+        if self.device.type == "cuda":
+            if self._async is None:
+                self._async = _AsyncMaster(st.layout.params.size,
+                                           self.device)
+            src = self._async.to_device(np.asarray(new_p, np.float32))
+        else:
+            src = torch.from_numpy(np.array(new_p, np.float32))
+        params = st.params
+        with torch.no_grad():
+            for name, t in st.layout.params.unravel(src).items():
+                params[name].copy_(t)
+
+    def _async_step(self, data, labels, train_data, epoch):
+        """The ``dist_async`` step (``module.py:864-915``): local gradient
+        and BN stats, the next batch placed, the gradient to the host, then
+        (unless the halt withholds a non-finite one) push and adopt the
+        post-update master.  No peer barrier: the optimizer and its
+        momentum run on the servers.  Returns ``(loss, logits, health,
+        prefetched)``."""
+        tr = obs_trace.tracer()
+        stats0 = self._stats_snapshot()
+        t0 = tr.now()
+        flat_g, _, loss, logits = self._grads(data, labels)
+        prefetched = self._prefetch_batch(train_data)
+        if self.device.type == "cuda":
+            if self._async is None:
+                self._async = _AsyncMaster(flat_g.numel(), self.device)
+            g_host = self._async.to_host(flat_g)
+        else:
+            g_host = flat_g.numpy()
+        tr.complete_span("step.grad", t0, {"epoch": epoch})
+        health = None
+        st = self.state
+        if self._sentinel:
+            # no post-average apply to fuse the check into: it guards the
+            # push, so a non-finite gradient never poisons the master
+            health = sentinel_health_vec(
+                flat_g, st.layout.params.ravel(st.params), loss)
+            if self._halt and float(health[0]) > 0:
+                self._restore_stats(stats0)
+                return loss, logits, health, prefetched
+        tp = tr.now()
+        new_p = self.kv.push_flat(self.async_key, g_host)
+        tr.complete_span("step.push", tp, {"epoch": epoch})
+        th = tr.now()
+        self._adopt_master(new_p)
+        tr.complete_span("step.h2d", th, {"epoch": epoch})
+        st.step += 1
+        return loss, logits, health, prefetched
+
     # ------------------------------------------------------------------
     # Placement
     # ------------------------------------------------------------------
@@ -422,14 +565,11 @@ class Module:
     # ------------------------------------------------------------------
 
     def _check_ported(self) -> None:
-        if self.kv.type == "dist_async":
-            raise NotImplementedError(
-                f"fit over dist_async {_ITEM}item 3a (dist_async and the "
-                "scheduler-side optimizer)")
         if self.sync_mode not in ("mesh", "host"):
             raise ValueError(f"sync_mode must be 'mesh' or 'host', got "
                              f"{self.sync_mode!r}")
-        if self.sync_mode == "mesh" and self.kv.num_workers > 1:
+        if self.sync_mode == "mesh" and self.kv.num_workers > 1 and \
+                self.kv.type != "dist_async":
             raise NotImplementedError(
                 f"the mesh sync mode across {self.kv.num_workers} worker "
                 f"processes {_ITEM}item 4 (elastic mesh and survivability); "
@@ -515,6 +655,9 @@ class Module:
         self._refuse_policy_shares(elastic_data_iterator)
         tr = obs_trace.tracer()
         drain_lib.install(host)
+        is_async = self.kv.type == "dist_async"
+        if is_async:
+            self._attach_async()
 
         for epoch in range(begin_epoch, num_epoch):
             t_epoch = tr.begin("epoch")
@@ -545,7 +688,8 @@ class Module:
                         if new_eval is not None:
                             eval_data = new_eval
                     self._refuse_policy_shares(elastic_data_iterator)
-            host_sync = self.sync_mode == "host" and self.kv.num_workers > 1
+            host_sync = not is_async and self.sync_mode == "host" and \
+                self.kv.num_workers > 1
             if host_sync and ctrl is None:
                 raise RuntimeError(
                     "sync_mode='host' needs an elastic controller "
@@ -575,7 +719,10 @@ class Module:
                     labels = self._place(batch.label, label=True)
                 faults_lib.stall_point("worker.step", host=host)
                 t_step = tr.now()
-                if host_sync:
+                if is_async:
+                    loss, logits, health, prefetched = self._async_step(
+                        data, labels, train_data, epoch)
+                elif host_sync:
                     loss, logits, health, prefetched = self._host_sync_step(
                         ctrl, data, labels, train_data, epoch)
                 else:
@@ -626,6 +773,15 @@ class Module:
             # the epoch-end snapshot joiners bootstrap from
             # (store_aux_params analog, base_module.py:601-605)
             self._publish_snapshot()
+            if is_async and self.kv.rank == 0:
+                try:
+                    sst = self.kv.staleness_stats()
+                    logger.info("Epoch[%d] dist_async staleness: max %d "
+                                "mean %.2f over %d pushes", epoch,
+                                sst["max_staleness"], sst["mean_staleness"],
+                                sst["measured_pushes"])
+                except (RuntimeError, OSError, KeyError):
+                    pass  # observability, never fatal
             if epoch_end_callback is not None:
                 for cb in epoch_end_callback:
                     cb(epoch, self.state, eval_metric)

@@ -27,6 +27,7 @@ from dt_tpu.ops.pallas.attention import flash_attention as jflash
 from dt_tpu.parallel.ring_attention import full_attention as jfull
 from dt_tpu_torch.ops import attention as TA
 from dt_tpu_torch.parallel.ring_attention import full_attention
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 F32 = dict(rtol=2e-4, atol=2e-5)
 LSE = 1e-5

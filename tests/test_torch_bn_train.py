@@ -20,6 +20,7 @@ from dt_tpu.ops.pallas import kernels as K
 from dt_tpu_torch.ops import kernels as TK
 from dt_tpu_torch.ops import nn as tnn
 from test_torch_shapes import RESNET50_BN_CHW
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 # f32: the two sides sum the batch in different orders (the JAX kernel in
 # 256-row blocks), so mean and var differ in the last bits and the

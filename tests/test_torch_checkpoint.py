@@ -28,6 +28,7 @@ from dt_tpu_torch.training import checkpoint as tckpt
 from dt_tpu_torch.training.step import train_step
 from dt_tpu_torch.training.train_state import TrainState
 from dt_tpu_torch.utils import msgpack as tmsgpack
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 SGD = dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-4)
 

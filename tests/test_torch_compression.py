@@ -18,6 +18,7 @@ from dt_tpu.ops.pallas import kernels as K
 from dt_tpu.parallel import compression as JC
 from dt_tpu_torch.ops import kernels as TK
 from dt_tpu_torch.parallel import compression as TC
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 SIZES = [0, 1, 15, 16, 17, 1000, 4099]
 

@@ -10,6 +10,7 @@ import pytest
 import torch_elastic_job as job
 from test_torch_elastic_mixed_ref import save_jax_init
 from dt_tpu_torch.elastic.scheduler import Scheduler
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 #: relative agreement of the JAX and port workers' params at the end (the
 #: two SGD implementations round differently; the averages are shared)

@@ -12,6 +12,7 @@ import pytest
 
 import torch_elastic_job as job
 from dt_tpu.elastic import Scheduler
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 #: how close the JAX and port workers' params end (relative): both apply
 #: the same averaged gradient each step, so the only difference is the

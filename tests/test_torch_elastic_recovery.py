@@ -15,6 +15,7 @@ import time
 
 import torch_elastic_job as job
 from dt_tpu_torch.elastic.scheduler import Scheduler
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 CRASH = json.dumps({"seed": 0, "rules": [
     {"kind": "crash", "site": "module.epoch_begin", "host": "w1",

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 import torch_elastic_drift as drift
+from torch_one_thread import ENV, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -21,9 +22,10 @@ def job(tmp_path_factory):
     try:
         for h in ("w0", "w1"):
             stems[h] = str(tmp / h)
+            # the replay below runs in this process on one thread
             procs[h] = drift.spawn(sched.port, h, stems[h],
                                    drift.job_args(8, 64, 64) +
-                                   ["--device", "cpu"], dump=True)
+                                   ["--device", "cpu"], ENV, dump=True)
         drift.wait_all(procs, stems, time.monotonic() + 120)
     finally:
         sched.close()

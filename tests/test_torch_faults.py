@@ -8,6 +8,7 @@ import pytest
 
 from dt_tpu.elastic import faults as jfaults
 from dt_tpu_torch.elastic import faults as tfaults
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 _RULES = [
     {"kind": "drop", "op": "send", "cmd": "allreduce", "prob": 0.3},

@@ -23,6 +23,7 @@ from dt_tpu import models as jmodels
 from dt_tpu_torch import initializer as TI
 from dt_tpu_torch import models as tmodels
 from dt_tpu_torch.interchange import export_jax_variables
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 ALPHA = 1e-3  # KS rejection level of one comparison
 SHAPE = (3, 3, 16, 32)  # HWIO, 4608 values

@@ -17,6 +17,7 @@ from dt_tpu_torch import models as tmodels
 from dt_tpu_torch.interchange import (export_jax_variables, from_jax_layout,
                                       load_jax_variables, to_jax_layout)
 from dt_tpu_torch.training.flat import FlatLayout
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 
 def _seeded(shapes, seed=0):

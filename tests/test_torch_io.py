@@ -12,6 +12,7 @@ import torch
 
 from dt_tpu.data import io as jio
 from dt_tpu_torch.data import io as tio
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 
 def _arrays(seed, n=53):

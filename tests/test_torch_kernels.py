@@ -14,6 +14,7 @@ import torch
 from dt_tpu.ops.pallas import kernels as K
 from dt_tpu_torch.ops import _build
 from dt_tpu_torch.ops import kernels as TK
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 SHAPES = [(2, 8, 8, 16), (300, 64), (5, 3), (4, 7, 7, 2048)]
 # f32: one ulp of rsqrt may differ between the frameworks.  bf16: one bf16

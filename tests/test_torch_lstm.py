@@ -35,6 +35,7 @@ from dt_tpu_torch.ops.tensor import clip_global_norm
 from dt_tpu_torch.training.flat import FlatLayout
 from dt_tpu_torch.training.step import BPTTLoss, grad_step, train_step
 from dt_tpu_torch.training.train_state import TrainState
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 POINT = dict(rtol=0, atol=1e-6)
 MATMUL = dict(rtol=1e-5, atol=1e-5)

@@ -7,6 +7,7 @@ import pytest
 
 from dt_tpu.training import metrics as jm
 from dt_tpu_torch.training import metrics as tm
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 _NAMES = sorted(jm._REGISTRY)
 

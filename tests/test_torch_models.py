@@ -19,6 +19,7 @@ from dt_tpu_torch import models as tmodels
 from dt_tpu_torch.interchange import export_jax_variables, load_jax_variables
 from dt_tpu_torch.models import common as tcommon
 from dt_tpu_torch.ops import nn as tnn
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 # f32 logits: CPU convs sum in a different order in the two frameworks.
 TOL = 1e-4

@@ -29,6 +29,7 @@ from dt_tpu_torch.obs import metrics as tobs
 from dt_tpu_torch.parallel import kvstore as tkv
 from dt_tpu_torch.training import callbacks as tcb
 from dt_tpu_torch.training.module import Module as TModule
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 SGD = dict(learning_rate=0.1, momentum=0.9)
 
@@ -242,8 +243,9 @@ def test_unported_features_raise(monkeypatch):
     for name in ("tpu_sync", "dist_sync", "dist_device_sync", "dist"):
         kv = tkv.create(name)
         assert (kv.type, kv.rank, kv.num_workers) == ("tpu_sync", 0, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3a"):
-        TModule(model, device="cpu", kvstore="dist_async")
+    # dist_async is ported: without a controller fit says what it needs
+    with pytest.raises(RuntimeError, match="elastic controller"):
+        TModule(model, device="cpu", kvstore="dist_async").fit(it)
     with pytest.raises(ValueError, match="unknown kvstore"):
         tkv.create("nccl")
     for var in ("NEW_WORKER", "ELASTIC_TRAINING_ENABLED", "EPOCH_BEGIN"):

@@ -15,6 +15,7 @@ import torch
 
 from dt_tpu import optim as joptim
 from dt_tpu_torch import optim as toptim
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 # f32 elementwise math, each op rounded once on both sides; a scheduler's
 # LR is an f32 jnp value on the JAX side and a Python float (rounded to f32

@@ -14,6 +14,7 @@ from dt_tpu.training import overlap as joverlap
 from dt_tpu_torch.elastic.client import WorkerClient
 from dt_tpu_torch.parallel.compression import GradientCompression
 from dt_tpu_torch.training import overlap as toverlap
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 
 @pytest.mark.parametrize("quantum", [1, 16])

@@ -1,7 +1,9 @@
 """Rules of the port package: it imports neither JAX nor ``dt_tpu``, and
 neither do the port's elastic worker harness (``tests/
 torch_elastic_worker.py``), its job helpers, its step recorder and replay
-(``tests/torch_elastic_drift.py``) and ``chip_smoke.py``.
+(``tests/torch_elastic_drift.py``) and ``chip_smoke.py``.  A ROADMAP item
+that is done refuses nothing any more, and the items still open keep
+their refusals.
 
 ``tests/conftest.py`` imports jax into every test process, so the import
 check runs in a fresh interpreter.
@@ -16,6 +18,7 @@ import sys
 from pathlib import Path
 
 import dt_tpu_torch
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "dt_tpu_torch"
@@ -81,7 +84,9 @@ def test_port_imports_no_jax_and_no_dt_tpu():
             "dt_tpu_torch.elastic.scheduler",
             "dt_tpu_torch.elastic.scheduler_main",
             "dt_tpu_torch.elastic.client", "dt_tpu_torch.elastic.drain",
-            "dt_tpu_torch.training.overlap"} <= want
+            "dt_tpu_torch.training.overlap", "dt_tpu_torch.ops.sparse",
+            "dt_tpu_torch.optim.sparse", "dt_tpu_torch.elastic.server_optim",
+            "dt_tpu_torch.elastic.range_server"} <= want
 
 
 _FORBIDDEN = re.compile(r"import jax|from jax|flax|dt_tpu\.|"
@@ -100,3 +105,34 @@ def test_port_sources_name_no_jax_and_no_dt_tpu_module():
             if _FORBIDDEN.search(line):
                 hits.append(f"{f.relative_to(ROOT)}:{i}: {line.strip()}")
     assert hits == []
+
+
+#: ROADMAP Queue 1 items done, whose refusals must be gone, and items still
+#: open that the port refuses by name (3f, 3g and 9 add modules the port
+#: does not import, so nothing refuses them)
+_DONE_ITEMS = ("item 3a", "item 3b")
+_OPEN_ITEMS = ("item 3c", "item 3d", "item 3e", "item 4", "item 5",
+               "item 6", "item 7", "item 8")
+
+
+def test_done_items_refuse_nothing_and_open_items_still_refuse():
+    text = "\n".join(f.read_text() for f in sorted(PORT.rglob("*.py")))
+    for item in _DONE_ITEMS:
+        assert item not in text, item
+    for item in _OPEN_ITEMS:
+        assert re.search(re.escape(item) + r"\b", text), item
+    from dt_tpu_torch.elastic.client import WorkerClient
+    from dt_tpu_torch.elastic.scheduler import UNPORTED, Scheduler
+    from dt_tpu_torch.parallel import kvstore
+    assert kvstore.create("dist_async").type == "dist_async"
+    assert not {"register_server", "servers", "set_optimizer",
+                "async_push"} & set(UNPORTED)
+    for name in ("allreduce_sparse", "set_optimizer", "async_init",
+                 "async_push", "async_push_sparse", "async_stats",
+                 "async_pull_rows", "refresh_servers"):
+        assert callable(getattr(WorkerClient, name))
+    import pytest
+    with pytest.raises(NotImplementedError, match="item 3e"):
+        Scheduler(resume=True, initial_workers=["w0"])
+    with pytest.raises(NotImplementedError, match="item 3c"):
+        WorkerClient("127.0.0.1", 1, endpoints=[("a", 1), ("b", 2)])

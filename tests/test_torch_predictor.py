@@ -23,6 +23,7 @@ from dt_tpu_torch.interchange import load_jax_variables
 from dt_tpu_torch.predictor import Predictor
 from dt_tpu_torch.training import checkpoint as tckpt
 from dt_tpu_torch.utils import msgpack
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 BUCKETS = (1, 2, 4, 8)
 ROW = (8, 8, 3)

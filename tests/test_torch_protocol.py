@@ -12,6 +12,7 @@ import pytest
 
 from dt_tpu.elastic import protocol as jproto
 from dt_tpu_torch.elastic import protocol as tproto
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 
 class _Capture:

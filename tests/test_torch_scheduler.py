@@ -14,6 +14,7 @@ from dt_tpu.elastic import Scheduler as JScheduler
 from dt_tpu.elastic import protocol as jproto
 from dt_tpu.parallel.compression import np_quantize_2bit
 from dt_tpu_torch.elastic.scheduler import Scheduler as TScheduler
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 
 def _write(path, hosts):
@@ -147,15 +148,22 @@ def test_scripted_sequence_matches_the_jax_scheduler(tmp_path):
 def test_unported_commands_name_their_item():
     sched = TScheduler(initial_workers=["w0"])
     try:
-        for cmd, item in (("obs_dump", "item 7"), ("servers", "item 3b"),
+        for cmd, item in (("obs_dump", "item 7"), ("health", "item 7"),
                           ("ckpt_manifest", "item 3e"),
                           ("ha_round", "item 3c"),
-                          ("async_stats", "item 3a")):
+                          ("serve_endpoints", "item 5")):
             resp = jproto.request("127.0.0.1", sched.port, {"cmd": cmd},
                                   timeout=10)
             assert item in resp["error"] and "ROADMAP" in resp["error"]
         assert "unknown cmd" in jproto.request(
             "127.0.0.1", sched.port, {"cmd": "bogus"}, timeout=10)["error"]
+        # the range-server registry and the dist_async store are served
+        assert jproto.request("127.0.0.1", sched.port, {"cmd": "servers"},
+                              timeout=10) == {"servers": []}
+        assert jproto.request("127.0.0.1", sched.port,
+                              {"cmd": "async_stats"}, timeout=10) == {
+            "max_staleness": 0, "mean_staleness": 0.0,
+            "measured_pushes": 0, "keys": 0}
     finally:
         sched.close()
     with pytest.raises(NotImplementedError, match="item 3c"):

@@ -9,6 +9,7 @@ import torch
 
 from dt_tpu_torch import models
 from dt_tpu_torch.models.common import FusedBatchNorm
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 RESNET50_BN_CHW = [(64, 112, 112), (64, 56, 56), (256, 56, 56),
                    (128, 56, 56), (128, 28, 28), (512, 28, 28),

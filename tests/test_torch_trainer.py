@@ -13,6 +13,7 @@ from dt_tpu.obs import metrics as jobs
 from dt_tpu.training.trainer import Trainer as JTrainer
 from dt_tpu_torch.obs import metrics as tobs
 from dt_tpu_torch.training.trainer import Trainer as TTrainer
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 OPT = {"learning_rate": 0.1, "momentum": 0.9, "weight_decay": 1e-4}
 

@@ -41,6 +41,7 @@ from dt_tpu_torch.training.flat import FlatLayout
 from dt_tpu_torch.training.step import (apply_step, grad_step,
                                         next_token_loss, train_step)
 from dt_tpu_torch.training.train_state import TrainState
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 CFG = dict(vocab_size=64, embed_dim=32, num_layers=2, num_heads=2,
            max_len=256)

@@ -2,8 +2,9 @@
 the port on the CPU, and show where a card job and a CPU job part.
 
 Recording: ``python tests/torch_elastic_drift.py worker --dump X.npz
-[--layers N] -- <tests/torch_elastic_worker.py args>`` is one worker
-that records, for each step, its start state (flat params, momentum, BN
+[--layers N] [--steps K,...] -- <tests/torch_elastic_worker.py args>`` is
+one worker that records, for each step (with ``--steps``, only for those
+0-based steps), its start state (flat params, momentum, BN
 stats), its batch, its own loss, gradient and post-forward BN stats, the
 ReLU mask of every fused BatchNorm-ReLU output, and the gradient and
 stats it applies (the fleet's average with two workers); with
@@ -74,10 +75,10 @@ def _fused_bns(model):
     return [m for m in model.modules() if isinstance(m, FusedBatchNorm)]
 
 
-def worker(dump, argv, layer_steps=0):
+def worker(dump, argv, layer_steps=0, steps=None):
     """Run ``torch_elastic_worker.main`` with ``argv``, recording what the
     module docstring lists into ``dump`` (device clones, so nothing waits
-    on the card)."""
+    on the card), for every step or for the 0-based ``steps`` only."""
     import torch
 
     sys.path.insert(0, HERE)
@@ -87,8 +88,9 @@ def worker(dump, argv, layer_steps=0):
 
     keys = ("p", "m", "st", "x", "y", "g", "s", "loss", "mask", "ag", "as")
     rec = {k: [] for k in keys}
+    index = []  # the step of each record
     layers = []  # (step, x, y, scale, bias, relu) of training BN calls
-    live = {"on": False, "masks": [], "hooked": False}
+    live = {"on": False, "masks": [], "hooked": False, "step": -1}
     grads, apply = Module._grads, Module._apply_synced
 
     def hook(bn, args, out):
@@ -103,10 +105,14 @@ def worker(dump, argv, layer_steps=0):
 
     def _grads(self, data, labels):
         st = self.state
+        live["step"] += 1
+        if steps is not None and live["step"] not in steps:
+            return grads(self, data, labels)
         if not live["hooked"]:
             for bn in _fused_bns(st.module):
                 bn.register_forward_hook(hook)
             live["hooked"] = True
+        index.append(live["step"])
         lay = st.layout
         rec["p"].append(lay.params.ravel(st.params).clone())
         rec["m"].append(lay.params.ravel(st.opt_state["mom"]).clone())
@@ -123,8 +129,9 @@ def worker(dump, argv, layer_steps=0):
         return out
 
     def _apply(self, flat_g, flat_s, loss, stats0):
-        rec["ag"].append(flat_g.clone())
-        rec["as"].append(flat_s.clone())
+        if index and index[-1] == live["step"]:
+            rec["ag"].append(flat_g.clone())
+            rec["as"].append(flat_s.clone())
         return apply(self, flat_g, flat_s, loss, stats0)
 
     Module._grads, Module._apply_synced = _grads, _apply
@@ -132,7 +139,7 @@ def worker(dump, argv, layer_steps=0):
     torch_elastic_worker.main()
     arrays = {}
     for k, ts in rec.items():
-        for i, t in enumerate(ts):
+        for i, t in zip(index, ts):
             a = t.cpu().numpy() if k in ("y", "mask") else \
                 t.float().cpu().numpy()
             arrays[f"{k}{i}"] = np.packbits(a) if k == "mask" else a
@@ -145,7 +152,8 @@ def worker(dump, argv, layer_steps=0):
         "resnet20", device="cpu", num_classes=10)).params
     arrays["names"] = np.array(lay.names)
     arrays["sizes"] = np.array(lay.sizes)
-    np.savez(dump, steps=len(rec["g"]), **arrays)
+    np.savez(dump, steps=live["step"] + 1, recorded=np.array(index, int),
+             **arrays)
 
 
 def _rel(a, b):
@@ -154,17 +162,29 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-def replay(dumps, tol=TOL_REPLAY):
+def replay(dumps, tol=TOL_REPLAY, host_sync=True, model="resnet20",
+           dtype="float32", grads_out=None):
     """Each recorded step of one job (``{host: arrays}``) again on the CPU,
     as the module docstring says.  Returns ``(rows, failures)``: one row
-    per worker and step, and a message per broken gate."""
+    per worker and step, and a message per broken gate.  A ``dist_async``
+    job (``host_sync=False``) applies nothing on the worker: each step it
+    recorded is held from the weights the worker adopted (loss, stats,
+    gradient), and the applied average and the update are not held; there
+    ``tol`` may be a dict of limits for ``loss``, ``stats`` and ``grad``,
+    each then held whether or not a ReLU mask flipped (a bf16 job's limits,
+    set to cover the flips).  ``model`` and ``dtype`` name the workers'
+    ``--model`` and ``--dtype``; ``grads_out``, when given, collects the
+    CPU gradient of each ``(host, step)``."""
     import torch
 
     from dt_tpu_torch import models
     from dt_tpu_torch.training.module import Module
     from dt_tpu_torch.training.step import apply_step, grad_step
     lr, momentum, wd = SGD
-    mod = Module(models.create("resnet20", device="cpu", num_classes=10),
+    mod = Module(models.create(model, device="cpu",
+                               dtype=getattr(torch, dtype),
+                               num_classes=10 if model == "resnet20" else
+                               1000),
                  optimizer="sgd", optimizer_params={
                      "learning_rate": lr, "momentum": momentum,
                      "weight_decay": wd}, device="cpu", seed=7)
@@ -182,10 +202,27 @@ def replay(dumps, tol=TOL_REPLAY):
                 tree[name].copy_(t)
 
     hosts = sorted(dumps)
-    steps = int(dumps[hosts[0]]["steps"])
+    steps = max(int(d["steps"]) for d in dumps.values())
     rows, failures = [], []
     try:
         for k in range(steps):
+            if not host_sync:
+                for h in hosts:
+                    if k not in dumps[h]["recorded"]:
+                        continue
+                    rows.append(_replay_step(st, mod, masks, put, dumps[h],
+                                             k, h, grads_out))
+                    r = rows[-1]
+                    lim = tol if isinstance(tol, dict) else \
+                        dict.fromkeys(("loss", "stats", "grad"), tol)
+                    gated = ["loss", "stats"] + \
+                        (["grad"] if r["relu_flips"] == 0 or
+                         isinstance(tol, dict) else [])
+                    bad = [c for c in gated if not r[c] <= lim[c]]
+                    if bad:
+                        failures.append(f"step {k + 1} {h}: {bad} over "
+                                        f"{lim}: {r}")
+                continue
             own = [dumps[h][f"g{k}"] for h in hosts]
             stats = [dumps[h][f"s{k}"] for h in hosts]
             mean_g = own[0] if len(own) == 1 else \
@@ -240,6 +277,31 @@ def replay(dumps, tol=TOL_REPLAY):
     return rows, failures
 
 
+def _replay_step(st, mod, masks, put, d, k, h, grads_out=None):
+    """One recorded step of one worker on the CPU from its recorded start
+    state: the row of :func:`replay` without the applied update."""
+    import torch
+
+    from dt_tpu_torch.training.step import grad_step
+    lay = st.layout
+    put(st.params, d[f"p{k}"], lay.params)
+    put(st.batch_stats, d[f"st{k}"], lay.stats)
+    x = torch.from_numpy(d[f"x{k}"]).to(mod._dtype).contiguous(
+        memory_format=torch.channels_last)
+    masks.clear()
+    g, s, loss, _ = grad_step(st, x, torch.from_numpy(d[f"y{k}"]),
+                              mod._forward_loss)
+    mask = np.packbits(torch.cat(masks).numpy())
+    if grads_out is not None:
+        grads_out[h, k] = g.numpy()
+    return {"host": h, "step": k + 1,
+            "relu_flips": int(np.unpackbits(mask ^ d[f"mask{k}"]).sum()),
+            "cpu_loss": float(loss),
+            "loss": _rel(d[f"loss{k}"], loss.numpy()),
+            "stats": _rel(d[f"s{k}"], s.numpy()),
+            "grad": _rel(d[f"g{k}"], g.numpy()), "applied_is_mean": True}
+
+
 def hold_card_job(card, cpu, tol=TOL_REPLAY):
     """One job on the card (``card``: ``{host: (result, arrays)}``, the
     workers recording) against the port on the CPU: :func:`replay`, then
@@ -280,14 +342,18 @@ def hold_card_job(card, cpu, tol=TOL_REPLAY):
     return summary, failures
 
 
-def spawn(port, host, stem, args, env=None, dump=False, layer_steps=0):
+def spawn(port, host, stem, args, env=None, dump=False, layer_steps=0,
+          steps=None):
     """One worker against the scheduler at ``port``, output to
     ``stem.log``, result to ``stem.json``; a recording worker (``stem.npz``)
-    with ``dump``."""
+    with ``dump``, of the 0-based ``steps`` only when given."""
     cmd = [sys.executable, os.path.join(HERE, "torch_elastic_worker.py")]
     if dump:
         cmd = [sys.executable, __file__, "worker", "--dump", stem + ".npz",
-               "--layers", str(layer_steps), "--"]
+               "--layers", str(layer_steps)]
+        if steps is not None:
+            cmd += ["--steps", ",".join(str(k) for k in steps)]
+        cmd.append("--")
     return subprocess.Popen(
         cmd + ["--scheduler-port", str(port), "--host", host, "--out",
                stem + ".json"] + list(args),
@@ -436,11 +502,16 @@ def compare(runs):
 
 def main():
     argv = sys.argv[1:]
-    if argv[:2] == ["worker", "--dump"] and "--" in argv:
+    if argv[:1] == ["worker"] and "--" in argv:
         cut = argv.index("--")
-        opts = argv[3:cut]
-        layer_steps = int(opts[1]) if opts[:1] == ["--layers"] else 0
-        worker(argv[2], argv[cut + 1:], layer_steps)
+        wp = argparse.ArgumentParser(prog="torch_elastic_drift.py worker")
+        wp.add_argument("--dump", required=True)
+        wp.add_argument("--layers", type=int, default=0)
+        wp.add_argument("--steps", default=None)
+        w = wp.parse_args(argv[1:cut])
+        steps = None if w.steps is None else \
+            {int(k) for k in w.steps.split(",")}
+        worker(w.dump, argv[cut + 1:], w.layers, steps)
         return 0
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the report here")

@@ -26,6 +26,8 @@ def spawn(kind, port, host, out, num_epoch, extra_env=None, args=(),
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["ELASTIC_TRAINING_ENABLED"] = "1"
+    # one OpenMP thread a worker: the tests run several processes at once
+    env.setdefault("OMP_NUM_THREADS", "1")
     env.update(extra_env or {})
     cmd = [sys.executable, JAX_WORKER if kind == "jax" else PORT_WORKER,
            "--scheduler-port", str(port), "--host", host,

@@ -6,7 +6,9 @@ mirror of ``tests/elastic_worker.py``).
 
 It registers with the scheduler at ``127.0.0.1:P`` (the JAX package's
 ``Scheduler`` or the port's), trains through ``Module.fit`` with
-``sync_mode="host"`` over a ``tpu_sync`` kvstore, the elastic contract
+``sync_mode="host"`` over a ``tpu_sync`` kvstore (or, with ``--kvstore
+dist_async``, pushing to the scheduler-side optimizer; ``--fixed-batch``
+keeps ``--global-batch`` a worker), the elastic contract
 (``NEW_WORKER``/``EPOCH_BEGIN``, ``DT_RECOVERY`` re-entry, the membership
 barrier, re-sharding through ``ElasticDataIterator``) and the joiners'
 snapshot, and writes a JSON result.  ``tinybn`` is the JAX harness's job
@@ -46,7 +48,8 @@ from dt_tpu_torch.training.module import Module  # noqa: E402
 #: the spans of worker 0 that make up the elastic step (training.module,
 #: training.overlap, elastic.client)
 SPANS = ("step", "step.grad", "pipeline.d2h", "pipeline.wire",
-         "pipeline.h2d", "step.apply", "allreduce")
+         "pipeline.h2d", "step.apply", "allreduce", "step.push",
+         "step.h2d")
 
 
 def make_dataset(n=256, seed=1234):
@@ -230,6 +233,10 @@ def main():
     ap.add_argument("--deterministic", action="store_true",
                     help="cuDNN's deterministic algorithms (runs compared "
                          "bit for bit)")
+    ap.add_argument("--kvstore", default="tpu_sync",
+                    choices=("tpu_sync", "dist_async"))
+    ap.add_argument("--fixed-batch", action="store_true",
+                    help="--global-batch is each worker's batch")
     args = ap.parse_args()
 
     dev = torch.device(args.device)
@@ -251,8 +258,19 @@ def main():
     begin_epoch = 0
     if ctrl.recovery_pending:
         begin_epoch = ctrl.wait_rejoin()
-    kv = kvstore_lib.create("tpu_sync")
+    kv = kvstore_lib.create(args.kvstore)
     kv.set_controller(ctrl)
+    attach = {}  # dist_async: the master served at attach, the first params
+    if args.kvstore == "dist_async":
+        attach_flat = kv.attach_flat
+
+        def recording_attach(key, spec, flat):
+            cur = attach_flat(key, spec, flat)
+            attach["served_sha256"] = hashlib.sha256(
+                np.ascontiguousarray(cur, np.float32).tobytes()).hexdigest()
+            return cur
+
+        kv.attach_flat = recording_attach
     if args.compress:
         kv.set_gradient_compression({"type": "2bit",
                                      "threshold": args.compress})
@@ -266,13 +284,25 @@ def main():
         return SlowIter(resized, args.host,
                         args.global_batch // max(num_parts, 1)), None
 
-    eit = io.ElasticDataIterator(factory, args.global_batch)
+    eit = io.ElasticDataIterator(factory, args.global_batch,
+                                 fixed_per_worker_batch=args.fixed_batch)
     train, _ = eit.get_data_iterator(kv)
     mod = Module(model, optimizer="sgd",
                  optimizer_params={"learning_rate": lr, "momentum": momentum,
                                    "weight_decay": wd},
                  kvstore=kv, seed=7, device=dev)
     mod.sync_mode = "host"
+    if args.kvstore == "dist_async":
+        attach_async = mod._attach_async
+
+        def recording_attach_async():
+            attach_async()
+            st = mod.state
+            attach["first_params_sha256"] = hashlib.sha256(
+                st.layout.params.ravel(st.params).cpu().numpy()
+                .tobytes()).hexdigest()
+
+        mod._attach_async = recording_attach_async
     bootstrap_step = None
     if os.environ.get("NEW_WORKER") == "1" or \
             os.environ.get("DT_RECOVERY") == "1":
@@ -340,6 +370,7 @@ def main():
         "param_hash": float(np.abs(flat).sum()),
         "num_workers_at_end": kv.num_workers,
         "bootstrap_step": bootstrap_step,
+        "attach": attach,
         "epochs": epochs,
         "spans": span_summary() if obs_trace.enabled() else None,
     }
