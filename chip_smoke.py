@@ -117,12 +117,30 @@ JAX.  Phases, each fatal on failure:
    ``NpUpdater`` on the CPU from the seeded master bit for bit, every
    worker's first params = the master it was served, 53 + 53 BN-train
    launches a step, no codec launch, and 53 BN-inference a scored batch;
-   steps 2 and 10 of each worker (the joiner's step 2) replayed on the CPU
+   step 10 of w0 and the joiner's step 2 replayed on the CPU
    in bf16 from the weights the worker adopted, held to bf16 limits beside
    a control (another step's gradient); step ms split into grad,
    push-and-adopt and H2D, the server's update ms in the job and alone,
    staleness, MB a push;
-14. sparse: ``examples/train_sparse_embedding.py``'s defaults (vocab
+14. failover: phase 11's job again under an HA pair of port
+   ``scheduler_main`` processes (a journaled primary with a lease that
+   replicates completed rounds to a ``--standby`` tailing the journal; the
+   workers fail over through ``DT_CTRL_ENDPOINTS``), the primary SIGKILLed
+   once worker 0 reported the third step of the 3-worker epoch: every
+   live worker's sha256 at every epoch end equal to phase 11's, one
+   ``leader.elected`` under the next incarnation, phase 11's audit rows and
+   launch counts; the ``scheduler.failover`` span, the stall on worker 0's
+   clock, ``client.failover`` counts, and the lease chosen from the
+   renewal delay a probe thread measured under phase 11's load;
+15. outage: the dense job (ResNet-50 v1 bf16, 2 x 32 images, 2 epochs of
+   8 steps, a fleet checkpoint every 4 steps, a journaled port scheduler
+   process) never killed, then killed whole after the step-12 commit, then
+   resumed (``--resume``, ``DT_RESUME=1``): ``resumed_from_step`` 12 on
+   every worker, the final sha256 equal to the never-killed run's, each
+   blob's digest equal to the journal's, 53 + 53 BN-train launches a
+   resumed step and no codec; the save's cost on the step, ``ckpt.save``
+   spans, blob bytes and the resume time;
+16. sparse: ``examples/train_sparse_embedding.py``'s defaults (vocab
    50,000, dim 64, batch 256, window 8, adagrad lr 0.1), 2 workers and 2
    range servers, 50 steps of ``allreduce_sparse`` on the card with
    ``ops.sparse`` and ``optim.sparse``, the sparse table within 1e-3 of
@@ -134,8 +152,10 @@ this run except the bounds, which it computes (the two kernels redesigned
 for Hopper carry ``redesigned_in``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every phase, timings
 included.  The kernels line carries, beside each kernel's own launches,
-its launches on ``fit`` and on the elastic, sharded and async jobs
-(``*_launches``).
+its launches on ``fit`` and on the elastic, sharded, async, failover
+(``ha_launches``) and resumed (``resume_launches``) jobs, each read from
+the counters of that job's workers (the f32 BatchNorm rows carry none:
+the jobs run bf16, and one counter serves both dtypes).
 """
 
 from __future__ import annotations
@@ -152,6 +172,8 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of the H100 SXM data sheet
 L2_BYTES = 2 * 50 * 2 ** 20  # twice the H100's 50 MB L2
 BN_PER_FORWARD = 53  # ResNet-50 v1: stem + 16 bottlenecks x 3 + 4 shortcuts
+# the LM kernels' counters, which every ResNet-50 job leaves at 0
+LM_KERNELS = ("flash_attention", "lstm_pointwise", "lstm_layer")
 BUCKET_MAX = 64
 REQUESTS = (1, 3, 32, 130)  # 130 splits into 64 + 64 + 2
 TOL_F32 = 1e-3  # card f32 (no TF32) against the CPU: summation order
@@ -248,9 +270,13 @@ ASYNC_ARGS = ["--model", "resnet50", "--dtype", "bfloat16", "--kvstore",
               "--num-epoch", "2", "--epoch-steps", str(ELASTIC_STEPS),
               "--val-images", "64"]
 ASYNC_KEEP = 8
-# the 0-based steps each async worker records, replayed on the CPU in bf16
-# (the joiner has no step 9)
-ASYNC_RECORD = (1, 9)
+# the 0-based steps async workers record, replayed on the CPU in bf16:
+# step 10 of w0, step 2 of the joiner (it has no step 10). Each is a step
+# whose bf16 gradient the CPU settles within TOL_ASYNC_BF16; the base
+# workers' step 2, which bf16 leaves undetermined, and w1, whose steps run
+# the same function from other masters, are not recorded, to keep the
+# whole run short
+ASYNC_RECORD = {"w0": (9,), "w2": (1,)}
 # one bf16 ResNet-50 step, card against the port on the CPU from the same
 # adopted weights and batch, relative to the largest |value|, whether or
 # not a ReLU mask flipped (first readings, NVIDIA H100 80GB HBM3, 700.00 W:
@@ -265,6 +291,24 @@ SPARSE = {"vocab": 50_000, "dim": 64, "batch": 256, "window": 8,
 # epochs of 2 steps over 128 seeded images (tests/torch_elastic_drift.py)
 SMALL_SIZES = (8, 32)
 TOL_ELASTIC_LOSS = 1e-4  # card against CPU, relative
+# the failover phase: the elastic job under an HA pair of port scheduler
+# processes, the primary SIGKILLed once worker 0 reported the third step
+# of the 3-worker epoch; the lease is the default unless the renewal
+# delay measured under phase 11's load asks for more (3x its worst case)
+FAILOVER_KILL_STEP = ELASTIC_STEPS + 3
+LEASE_MIN_S = 2.0  # DT_CTRL_LEASE_S's default
+# the outage phase: dense ResNet-50 v1 bf16, 2 workers x 32 images, 2
+# epochs of ELASTIC_STEPS steps, a fleet checkpoint every OUTAGE_EVERY
+# steps; the whole job SIGKILLed after the step-OUTAGE_KILL_STEP commit
+# (every worker held before its next step but one by a stall rule), then
+# resumed on the same journal
+OUTAGE_ARGS = ["--model", "resnet50", "--dtype", "bfloat16",
+               "--global-batch", "64", "--images", "128", "--lr", "0.025",
+               "--wd", "1e-4", "--num-epoch", "2", "--epoch-steps",
+               str(ELASTIC_STEPS), "--deterministic"]
+OUTAGE_EVERY = 4
+OUTAGE_KILL_STEP = 12
+OUTAGE_TIMEOUT = 300  # s, each of the three jobs
 
 
 def gpu_line() -> str:
@@ -1765,7 +1809,8 @@ def _elastic_gates(tag, r, audit, launched, wall, gpu):
             by_epoch.setdefault(e["epoch"], {})[h] = e
     want_live = {0: {"w0", "w1"}, 1: {"w0", "w1", "w2"}, 2: {"w0", "w1"}}
     launches = {"bn_stats": 0, "bn_act": 0, "quantize_2bit": 0,
-                "dequantize_2bit": 0, "score_bn_act": 0}
+                "dequantize_2bit": 0, **dict.fromkeys(LM_KERNELS, 0),
+                "score_bn_act": 0}
     score_want = {"bn_stats": 0, "bn_act": BN_PER_FORWARD *
                   ELASTIC_VAL_FORWARDS}
     shas = {}
@@ -1784,7 +1829,8 @@ def _elastic_gates(tag, r, audit, launched, wall, gpu):
             la = e["launches"]
             want = {"bn_stats": BN_PER_FORWARD * n,
                     "bn_act": BN_PER_FORWARD * n, "quantize_2bit": n,
-                    "dequantize_2bit": 0, "grad_bytes": PACKED_BYTES * n}
+                    "dequantize_2bit": 0, **dict.fromkeys(LM_KERNELS, 0),
+                    "grad_bytes": PACKED_BYTES * n}
             got_la = {k: la[k] for k in want}
             if n != ELASTIC_STEPS or got_la != want or \
                     e["score_launches"] != score_want or \
@@ -1821,11 +1867,14 @@ def elastic_phase(gpu) -> dict:
     and the fleet's images/s, the step's parts from worker 0's spans, the
     bare step, and MB on the wire a step (two or three processes share
     the card)."""
-    r, audit, launched, wall = _elastic_job()
+    import tempfile
+    with _RenewalProbe(tempfile.mkdtemp(prefix="dt_probe_")) as probe:
+        r, audit, launched, wall = _elastic_job()
     shas, launches = _elastic_gates("elastic", r, audit, launched, wall,
                                     gpu)
     out = _elastic_report("elastic", r, gpu)
-    out.update(launches=launches, wall_s=wall, shas=shas)
+    out.update(launches=launches, wall_s=wall, shas=shas,
+               renewal=probe.summary())
     return out
 
 
@@ -2019,8 +2068,8 @@ def async_phase(gpu) -> dict:
     ``tests/torch_elastic_worker.py`` on the card at batch 32 each, the
     port's ``Scheduler`` in this process with the server-side sgd
     (``ASYNC_SGD``), 2 epochs of ``ELASTIC_STEPS`` steps; the operator adds
-    ``w2`` at the epoch-1 boundary, which adopts the live master.  Each
-    worker records its steps ``ASYNC_RECORD`` (``tests/
+    ``w2`` at the epoch-1 boundary, which adopts the live master.  ``w0``
+    and ``w2`` record their steps ``ASYNC_RECORD`` (``tests/
     torch_elastic_drift.py``).  Gates: every process exits 0; per worker
     and step 53 ``bn_stats`` and 53 ``bn_act`` (``fused_bn_train``), no
     codec launch, 53 ``bn_act`` a scored batch (``fused_bn_inference``);
@@ -2067,11 +2116,12 @@ def async_phase(gpu) -> dict:
         env = {"DT_OBS": "1", "DT_OBS_RING": "65536"}
         for h in ("w0", "w1"):
             procs[h] = drift.spawn(sched.port, h, stems[h], args, env,
-                                   dump=True, steps=ASYNC_RECORD)
+                                   dump=h in ASYNC_RECORD,
+                                   steps=ASYNC_RECORD.get(h))
         procs["w2"] = drift.spawn(
             sched.port, "w2", stems["w2"], args,
             dict(env, NEW_WORKER="1", EPOCH_BEGIN="1", DT_WAIT_FILE=go),
-            dump=True, steps=ASYNC_RECORD)
+            dump=True, steps=ASYNC_RECORD["w2"])
         drift.wait_all(procs, stems, t0 + ELASTIC_TIMEOUT)
         stale = sched._dp.async_stats()
         master = np.array(sched._async_store["params"])
@@ -2081,7 +2131,9 @@ def async_phase(gpu) -> dict:
     log.close()
     r, dumps = {}, {}
     for h in stems:
-        r[h], dumps[h] = drift.load(stems[h], dump=True)
+        r[h], dump = drift.load(stems[h], dump=h in ASYNC_RECORD)
+        if h in ASYNC_RECORD:
+            dumps[h] = dump
     steps = {h: sum(e["steps"] for e in r[h]["epochs"]) for h in r}
     pushes = {h: sum(1 for hh, _ in log.order if hh == h) for h in r}
     print(f"async launched={launched} steps={steps} applied={pushes} "
@@ -2166,8 +2218,8 @@ def async_phase(gpu) -> dict:
           f"staleness max={stale['max_staleness']} "
           f"mean={stale['mean_staleness']:.3f} over "
           f"{stale['measured_pushes']} w1_mb_a_push up={up:.3f} "
-          f"down={down:.3f} (2-3 processes share one card; steps "
-          f"{list(ASYNC_RECORD)} of each worker recorded); gpu={gpu}",
+          f"down={down:.3f} (2-3 processes share one card; 0-based "
+          f"steps {ASYNC_RECORD} recorded); gpu={gpu}",
           flush=True)
     alone = _server_update_alone(log, gpu)
     replayed = _async_replay(dumps, log, gpu)
@@ -2189,7 +2241,7 @@ def _async_replay(dumps, log, gpu) -> dict:
     level (the stem's weight gradient, a large cancelling sum).  Each
     reading is printed beside the control, the card's gradient of one
     recorded step against the CPU's of another (what a gradient from the
-    wrong weights or batch gives); every worker needs a step whose
+    wrong weights or batch gives); every recording worker needs a step whose
     gradient limit lies below every control."""
     import hashlib
 
@@ -2337,6 +2389,431 @@ def _server_update_alone(log, gpu, n: int = 6) -> dict:
           f"{med:.3f} ms of {json.dumps([round(t, 3) for t in ms])}; in "
           f"the job {float(np.median(log.ms)):.3f}; gpu={gpu}", flush=True)
     return {"median_ms": med, "ms": ms}
+
+
+class _RenewalProbe:
+    """What a lease renewal does, on a thread of this process while a job
+    runs: sleep one renewal period (a third of the default lease), then
+    write, fsync and rename a small file.  ``max_delay_s`` is the worst
+    lateness of a renewal past its period, the slack a lease must leave a
+    starved renewal thread."""
+
+    def __init__(self, tmp: str, period: float = LEASE_MIN_S / 3.0):
+        import os
+        import threading
+        self.path = os.path.join(tmp, "renewal.probe")
+        self.period = period
+        self.delays = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self):
+        import os
+        while True:
+            t0 = time.monotonic()
+            if self._stop.wait(self.period):
+                return
+            with open(self.path + ".tmp", "w") as f:
+                f.write(str(time.time()))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(self.path + ".tmp", self.path)
+            self.delays.append(time.monotonic() - t0 - self.period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+    def summary(self) -> dict:
+        return {"renewals": len(self.delays),
+                "max_delay_s": max(self.delays, default=0.0),
+                "median_delay_s": float(np.median(self.delays))
+                if self.delays else 0.0}
+
+
+def _leader_status(ports):
+    """The ``status`` of whichever scheduler endpoint leads, else None."""
+    from dt_tpu_torch.elastic import protocol
+    for port in ports:
+        try:
+            st = protocol.request("127.0.0.1", port, {"cmd": "status"},
+                                  timeout=5)
+        except (OSError, RuntimeError):
+            continue
+        if st.get("active"):
+            return st
+    return None
+
+
+def _check_alive(procs, stems):
+    """Raise with the log's tail when a worker exited before its job
+    ended (the operator loops of the HA phases)."""
+    for h, p in procs.items():
+        if p.poll() is not None:
+            raise AssertionError(f"{h} exited rc={p.returncode} before the "
+                                 f"job ended:\n"
+                                 f"{open(stems[h] + '.log').read()[-3000:]}")
+
+
+def failover_phase(gpu, elastic: dict) -> dict:
+    """Phase 11's job (the same args, seeds and operator) under an HA pair
+    of port ``scheduler_main`` processes: the primary with ``--journal``,
+    ``--lease`` and ``--peer`` (completed rounds replicated to the
+    standby), a ``--standby`` process tailing the same journal, the
+    workers given both through ``DT_CTRL_ENDPOINTS``.  The operator (this
+    process, polling the leader's ``status``) lists ``w2`` after the
+    epoch-0 barrier, releases it once the epoch-1 barrier added it, and
+    unlists it after that barrier; the primary is SIGKILLed once worker 0
+    reported step ``FAILOVER_KILL_STEP`` (the third of the 3-worker
+    epoch).  Gates: every worker exits 0; every live worker's sha256 at
+    every epoch end equals phase 11's; exactly one ``leader.elected`` on
+    the standby, under the primary's incarnation + 1 (the fence the
+    workers end under is printed: a request the successor took over for
+    answers without a reattach); the audit log holds phase 11's rows;
+    phase 11's launch counts.  Prints the ``scheduler.failover`` span, the
+    stall on worker 0's clock (:func:`_failover_stall`; beside it the kill
+    epoch's longest step and median), the workers' ``client.failover``
+    counts and the lease with the renewal delay it was chosen from."""
+    import math
+    import os
+    import signal
+    import tempfile
+
+    import torch_elastic_drift as drift
+    from torch_elastic_job import (read_step, start_scheduler,
+                                   stop_scheduler, write_hosts)
+
+    from dt_tpu_torch.elastic import protocol
+    probe = elastic["renewal"]
+    lease_s = max(LEASE_MIN_S,
+                  math.ceil(3.0 * probe["max_delay_s"] * 2.0) / 2.0)
+    print(f"failover lease_s={lease_s} (renewal delay under phase 11's "
+          f"load: max {probe['max_delay_s'] * 1e3:.3f} ms, median "
+          f"{probe['median_delay_s'] * 1e3:.3f} ms over "
+          f"{probe['renewals']} renewals of period "
+          f"{LEASE_MIN_S / 3.0:.3f} s); gpu={gpu}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="dt_failover_")
+    hw = os.path.join(tmp, "host_worker")
+    write_hosts(hw, ["w0", "w1"])
+    common = ["--journal", os.path.join(tmp, "ctrl.journal"),
+              "--host-worker-file", hw, "--lease-s", str(lease_s)]
+    go = os.path.join(tmp, "go_w2")
+    progress = os.path.join(tmp, "w0.progress")
+    stems = {h: os.path.join(tmp, h) for h in ("w0", "w1", "w2")}
+    sb, sb_port = start_scheduler(
+        tmp, "standby", ["--standby"] + common, env={"DT_OBS": "1"})
+    pr, pr_port, procs = None, None, {}
+    launched, kill = [], {}
+    t0 = time.monotonic()
+    try:
+        pr, pr_port = start_scheduler(
+            tmp, "primary", ["--peer", f"127.0.0.1:{sb_port}"] + common,
+            env={"DT_OBS": "1"})
+        inc0 = protocol.request("127.0.0.1", pr_port, {"cmd": "status"},
+                                timeout=10)["incarnation"]
+        env = {"DT_OBS": "1", "DT_OBS_RING": "65536",
+               "DT_CTRL_ENDPOINTS": f"127.0.0.1:{pr_port},"
+                                    f"127.0.0.1:{sb_port}"}
+        for h in ("w0", "w1"):
+            procs[h] = drift.spawn(
+                pr_port, h, stems[h], ELASTIC_ARGS +
+                (["--progress", progress] if h == "w0" else []), env)
+        procs["w2"] = drift.spawn(
+            pr_port, "w2", stems["w2"], ELASTIC_ARGS,
+            dict(env, NEW_WORKER="1", EPOCH_BEGIN="1", DT_WAIT_FILE=go))
+        deadline = t0 + ELASTIC_TIMEOUT
+        listed = unlisted = False
+        while not (unlisted and kill):  # the operator
+            _check_alive(procs, stems)
+            if time.monotonic() > deadline:
+                raise AssertionError("failover: the operator timed out "
+                                     f"(listed {listed}, unlisted "
+                                     f"{unlisted}, killed {bool(kill)})")
+            st = _leader_status((pr_port, sb_port))
+            if st is not None:
+                done = st["last_completed_epoch"]
+                if not listed and done >= 0:
+                    write_hosts(hw, ["w0", "w1", "w2"])
+                    listed = True
+                if listed and not launched and "w2" in st["workers"]:
+                    launched.append(("w2", done))
+                    open(go, "w").close()
+                if listed and not unlisted and done >= 1:
+                    write_hosts(hw, ["w0", "w1"])
+                    unlisted = True
+            step = read_step(progress)
+            if not kill and step >= FAILOVER_KILL_STEP:
+                pr.send_signal(signal.SIGKILL)
+                kill = {"w0_step": step, "t": time.monotonic() - t0,
+                        "wall_ms": time.time() * 1e3}
+                pr.wait(timeout=30)
+            time.sleep(0.005)
+        drift.wait_all(procs, stems, deadline)
+        # the standby's control-plane records and incarnation
+        tr = protocol.request("127.0.0.1", sb_port, {"cmd": "obs_dump"},
+                              timeout=30)["job"]["tracks"]["control-plane"]
+        sb_inc = protocol.request("127.0.0.1", sb_port, {"cmd": "status"},
+                                  timeout=30)["incarnation"]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        if pr is not None:
+            stop_scheduler(pr, pr_port)
+        stop_scheduler(sb, sb_port)
+    wall = time.monotonic() - t0
+    r = {h: json.load(open(stems[h] + ".json")) for h in stems}
+    audit = [ln.split()[1:3] for ln in open(hw + "_log")]
+    shas, launches = _elastic_gates("failover", r, audit, launched, wall,
+                                    gpu)
+    if shas != elastic["shas"]:
+        raise AssertionError(f"failover: sha256 by epoch {shas} differ from "
+                             f"phase 11's {elastic['shas']}")
+    elected = [rec[8] for rec in tr["records"] if rec[2] == "leader.elected"]
+    spans = [rec for rec in tr["records"]
+             if rec[0] == "X" and rec[2] == "scheduler.failover"]
+    fences = {h: r[h]["fence"] for h in ("w0", "w1", "w2")}
+    if [e["incarnation"] for e in elected] != [inc0 + 1] or \
+            len(spans) != 1 or sb_inc != inc0 + 1:
+        raise AssertionError(f"failover: leader.elected {elected}, "
+                             f"{len(spans)} failover spans, standby "
+                             f"incarnation {sb_inc} (primary {inc0}), "
+                             f"fences {fences}")
+    stall = _failover_stall(r["w0"]["spans"], kill["wall_ms"])
+    failovers = {h: r[h]["failovers"] for h in r}
+    span_ms = spans[0][4] / 1e3
+    print(f"failover killed the primary at w0 step {kill['w0_step']} "
+          f"({kill['t']:.3f} s in); standby incarnation {inc0} -> "
+          f"{sb_inc}, leader.elected {elected}; "
+          f"scheduler.failover span {span_ms:.3f} ms; client.failover "
+          f"{failovers}; fences {fences}; audit {audit}; sha256 by epoch "
+          f"equal to phase 11's; wall_s={wall:.1f} gpu={gpu}", flush=True)
+    print(f"failover stall on worker 0's clock: the kill landed in global "
+          f"step {stall['kill_step']} (0-based); the longest of it and the "
+          f"next {stall['stall_step_ms']:.3f} ms against the median "
+          f"{stall['median_step_ms']:.3f} ms of epoch 1's other steps after "
+          f"its first (w2's bootstrap): stall {stall['stall_ms']:.3f} ms; "
+          f"the epoch's longest step is step {stall['longest_step']}, its "
+          f"median {stall['epoch_median_ms']:.3f} ms; "
+          f"epoch 1 steps by global step "
+          f"{json.dumps(stall['step_ms'])}; lease_s={lease_s}; gpu={gpu}",
+          flush=True)
+    return {"launches": launches, "failover_span_ms": span_ms,
+            "stall": stall, "client_failovers": failovers,
+            "lease_s": lease_s, "renewal": probe, "wall_s": wall}
+
+
+def _failover_stall(spans, kill_ms) -> dict:
+    """The failover's stall on a worker's clock: the step the kill landed
+    in (the last to start before it) and the next one (the kill may land
+    after the step's last request) against the median of epoch 1's other
+    steps after its first (the joiner's bootstrap step, which the
+    elastic windows leave out too)."""
+    start, step = spans["step_start"], spans["step"]
+    k = max(i for i, t in enumerate(start) if t <= kill_ms)
+    window = range(ELASTIC_STEPS + 1, 2 * ELASTIC_STEPS)
+    if k not in window:
+        raise AssertionError(f"failover: the kill landed in step {k}, "
+                             f"outside epoch 1's window {list(window)}")
+    hit = [i for i in (k, k + 1) if i in window]
+    rest = [step[i] for i in window if i not in hit]
+    worst = max(step[i] for i in hit)
+    med = float(np.median(rest))
+    epoch = range(ELASTIC_STEPS, 2 * ELASTIC_STEPS)
+    longest = max(epoch, key=lambda i: step[i])
+    return {"kill_step": k, "stall_step_ms": worst, "median_step_ms": med,
+            "stall_ms": worst - med, "longest_step": longest,
+            "epoch_median_ms": float(np.median([step[i] for i in epoch])),
+            "step_ms": {i: round(step[i], 3)
+                        for i in range(ELASTIC_STEPS, 2 * ELASTIC_STEPS)}}
+
+
+def _nvidia_pids() -> set:
+    """The pids ``nvidia-smi`` lists with a compute context."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30).stdout
+    return {int(t) for t in out.split() if t.strip().isdigit()}
+
+
+def outage_phase(gpu) -> dict:
+    """The dense job (``OUTAGE_ARGS``: ResNet-50 v1 bf16, 2 workers x 32
+    images, 2 epochs of ``ELASTIC_STEPS`` steps, no 2-bit leg: the
+    residual is not part of a checkpoint) with a fleet checkpoint every
+    ``OUTAGE_EVERY`` steps, against a journaled port ``scheduler_main``
+    process, three times: (a) never killed, beside (b) on the card (two
+    jobs, four workers); (b) a stall rule holds every
+    worker before its 14th step, and once the step-12 window committed
+    (``ckpt_manifest``) every worker and the scheduler are SIGKILLed,
+    reaped, and gone from ``nvidia-smi``'s compute apps; (c) ``--resume``
+    on (b)'s journal and fresh workers with ``DT_RESUME=1``.  Gates: (b)'s
+    commit is step 12 exactly; every worker of (c) reports
+    ``resumed_from_step`` 12 and its final sha256 equals (a)'s bit for
+    bit; each worker's blob digest equals its journaled sha256; (c)'s
+    resumed steps launch 53 + 53 BN-train kernels a step and no codec.
+    Prints the checkpointed steps' time (start to next start, the save's
+    cost on the step path) against their epoch's median step, the
+    ``ckpt.save`` spans, the blob bytes, and the resume time from the
+    scheduler's start to the first resumed step."""
+    import hashlib
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch_elastic_drift as drift
+    from torch_elastic_job import (start_scheduler, stop_scheduler,
+                                   write_hosts)
+
+    from dt_tpu_torch.elastic import protocol
+    tmp = tempfile.mkdtemp(prefix="dt_outage_")
+    hosts = ("w0", "w1")
+
+    def start(tag, journal, resume=False):
+        hw = os.path.join(tmp, f"hw_{tag}")
+        write_hosts(hw, list(hosts))
+        t_start = time.time()
+        sp, port = start_scheduler(
+            tmp, f"sched_{tag}", ["--journal", journal, "--host-worker-file",
+                                  hw] + (["--resume"] if resume else []))
+        return sp, port, t_start
+
+    def spawn(tag, port, ckpt_dir, extra):
+        stems = {h: os.path.join(tmp, f"{h}_{tag}") for h in hosts}
+        env = {"DT_OBS": "1", "DT_OBS_RING": "65536",
+               "DT_CKPT_DIR": ckpt_dir, "DT_CKPT_EVERY": str(OUTAGE_EVERY),
+               **extra}
+        return stems, {h: drift.spawn(port, h, stems[h], OUTAGE_ARGS, env)
+                       for h in hosts}
+
+    def finish(stems, procs, sp, port):
+        try:
+            drift.wait_all(procs, stems, time.monotonic() + OUTAGE_TIMEOUT)
+        finally:
+            stop_scheduler(sp, port)
+        return {h: json.load(open(stems[h] + ".json")) for h in hosts}
+
+    t0 = time.monotonic()
+    # (a) never killed, and beside it on the card (b), killed after the
+    # step-12 commit
+    ckpt_a = os.path.join(tmp, "ckpt_a")
+    sp_a, port_a, _ = start("a", os.path.join(tmp, "a.journal"))
+    stems_a, procs_a = spawn("a", port_a, ckpt_a, {})
+    ckpt = os.path.join(tmp, "ckpt")
+    journal = os.path.join(tmp, "b.journal")
+    sp, port, _ = start("b", journal)
+    stall = json.dumps({"seed": 0, "rules": [
+        {"kind": "stall", "site": "worker.step",
+         "after": OUTAGE_KILL_STEP + 1}]})
+    stems, procs = spawn("b", port, ckpt, {"DT_FAULT_PLAN": stall})
+    pids = {p.pid for p in procs.values()} | {sp.pid}
+    try:
+        try:
+            deadline = time.monotonic() + OUTAGE_TIMEOUT
+            while True:
+                _check_alive(procs, stems)
+                view = protocol.request("127.0.0.1", port,
+                                        {"cmd": "ckpt_manifest"},
+                                        timeout=10)
+                com = view["committed"]
+                if com is not None and com["step"] >= OUTAGE_KILL_STEP:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"outage: no step-"
+                                         f"{OUTAGE_KILL_STEP} commit in "
+                                         f"time ({view})")
+                time.sleep(0.02)
+        finally:
+            for p in list(procs.values()) + [sp]:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGKILL)
+            for p in list(procs.values()) + [sp]:
+                p.wait(timeout=60)
+        base = finish(stems_a, procs_a, sp_a, port_a)
+    finally:  # (a) ends with the phase whatever failed
+        for p in list(procs_a.values()) + [sp_a]:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    blob_bytes = os.path.getsize(os.path.join(ckpt_a, "w0",
+                                              "fleet-0004.state"))
+    shutil.rmtree(ckpt_a, ignore_errors=True)
+    if com["step"] != OUTAGE_KILL_STEP:
+        raise AssertionError(f"outage: the kill missed its window: commit "
+                             f"at step {com['step']}")
+    deadline = time.monotonic() + 60
+    while pids & _nvidia_pids():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"outage: {pids & _nvidia_pids()} still "
+                                 "hold the card after the kill")
+        time.sleep(0.2)
+    digests = {}
+    for h, ent in com["files"].items():
+        with open(ent["path"], "rb") as f:
+            digests[h] = (hashlib.sha256(f.read()).hexdigest(),
+                          ent["sha256"])
+    if any(a != b for a, b in digests.values()) or set(digests) != \
+            set(hosts):
+        raise AssertionError(f"outage: blob digests {digests}")
+    # (c) resumed on the same journal
+    sp, port, t_sched = start("c", journal, resume=True)
+    stems, procs = spawn("c", port, ckpt, {"DT_RESUME": "1"})
+    res = finish(stems, procs, sp, port)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.monotonic() - t0
+    resumed = {h: res[h]["resumed_from_step"] for h in hosts}
+    finals = {h: (res[h]["epochs"][-1]["sha256"][:16],
+                  base[h]["epochs"][-1]["sha256"][:16]) for h in hosts}
+    launches = {"bn_stats": 0, "bn_act": 0, "quantize_2bit": 0,
+                "dequantize_2bit": 0, **dict.fromkeys(LM_KERNELS, 0)}
+    bad = []
+    for h in hosts:
+        ep = res[h]["epochs"]
+        n = sum(e["steps"] for e in ep)
+        got = {k: sum(e["launches"][k] for e in ep) for k in launches}
+        want = {"bn_stats": BN_PER_FORWARD * n, "bn_act": BN_PER_FORWARD * n,
+                "quantize_2bit": 0, "dequantize_2bit": 0,
+                **dict.fromkeys(LM_KERNELS, 0)}
+        if n != 2 * ELASTIC_STEPS - OUTAGE_KILL_STEP or got != want:
+            bad.append((h, n, got, want))
+        for k in launches:
+            launches[k] += got[k]
+    if set(resumed.values()) != {OUTAGE_KILL_STEP} or bad or \
+            any(a != b for a, b in finals.values()):
+        raise AssertionError(f"outage: resumed_from_step {resumed}, final "
+                             f"sha256 (resumed, never killed) {finals}, "
+                             f"launches {bad}")
+    # the save's cost on the step path, on worker 0's clock in (a)
+    start_ms = base["w0"]["spans"]["step_start"]
+    gaps = np.diff(start_ms)  # gaps[k - 1]: step k's start to step k+1's
+    ckpt_steps = [k for k in range(OUTAGE_EVERY, 2 * ELASTIC_STEPS,
+                                   OUTAGE_EVERY)]
+    cost = {k: {"step_ms": float(gaps[k - 1]),
+                "epoch_median_ms": float(np.median(
+                    gaps[(k - 1) // ELASTIC_STEPS * ELASTIC_STEPS:
+                         ((k - 1) // ELASTIC_STEPS + 1) * ELASTIC_STEPS
+                         - 1]))}
+            for k in ckpt_steps}
+    saves = base["w0"]["spans"]["ckpt.save"]
+    resume_s = res["w0"]["spans"]["step_start"][0] / 1e3 - t_sched
+    print(f"outage commit before the kill: step {com['step']}; "
+          f"resumed_from_step {resumed}; final sha256 (resumed, never "
+          f"killed) {finals}; blob digests equal to the journal's; "
+          f"resumed launches {launches}; wall_s={wall:.1f} gpu={gpu}",
+          flush=True)
+    print(f"outage save cost on worker 0's clock (step start to next start "
+          f"vs the epoch's median, never-killed run (a), the killed run (b) "
+          f"beside it on the card until its kill): {json.dumps(cost)}; "
+          f"ckpt.save spans ms {json.dumps([round(t, 3) for t in saves])}; "
+          f"blob_bytes={blob_bytes}; resume_s (scheduler start to the first "
+          f"resumed step)={resume_s:.3f}; gpu={gpu}", flush=True)
+    return {"launches": launches, "save_cost": cost, "save_ms": saves,
+            "blob_bytes": blob_bytes, "resume_s": resume_s, "wall_s": wall}
 
 
 def sparse_phase(gpu, dev=None) -> dict:
@@ -2659,6 +3136,12 @@ def main() -> int:
     async_run = async_phase(gpu)
     print(f"phase async done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    failover = failover_phase(gpu, elastic)
+    print(f"phase failover done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    outage = outage_phase(gpu)
+    print(f"phase outage done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
     sparse_phase(gpu)
     print(f"phase sparse done at {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -2704,6 +3187,11 @@ def main() -> int:
                 async_run["launches"]["score_bn_act"]
             kernels[-1]["sharded_launches"] = \
                 sharded["launches"]["score_bn_act"]
+            kernels[-1]["ha_launches"] = \
+                failover["launches"]["score_bn_act"]
+            # the resumed job scores nothing: pass 2 alone past pass 1
+            kernels[-1]["resume_launches"] = (outage["launches"]["bn_act"]
+                                              - outage["launches"]["bn_stats"])
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -2731,6 +3219,8 @@ def main() -> int:
                 elastic["launches"]["bn_stats"]
             kernels[-1]["async_launches"] = async_run["launches"]["bn_stats"]
             kernels[-1]["sharded_launches"] = sharded["launches"]["bn_stats"]
+            kernels[-1]["ha_launches"] = failover["launches"]["bn_stats"]
+            kernels[-1]["resume_launches"] = outage["launches"]["bn_stats"]
     for name, line in (("quantize_2bit", 233), ("dequantize_2bit", 284)):
         kernels.append({
             "name": name, "route": "cuda",
@@ -2743,7 +3233,9 @@ def main() -> int:
             "library_ms": None,
             "elastic_launches": elastic["launches"][name],
             "sharded_launches": sharded["launches"][name],
-            "async_launches": async_run["launches"][name]})
+            "async_launches": async_run["launches"][name],
+            "ha_launches": failover["launches"][name],
+            "resume_launches": outage["launches"][name]})
     fb = flash["lm", "bfloat16"]
     kernels.append({
         "name": "flash_attention[bfloat16]", "route": "cuda",
@@ -2769,6 +3261,9 @@ def main() -> int:
         "path": "lm step f32 transformer_lm",
         "more": {c: r for (c, n), r in flash.items()
                  if n == "float32" and c != "lm"}})
+    for k in kernels[-2:]:  # both dtypes share one counter
+        k["ha_launches"] = failover["launches"]["flash_attention"]
+        k["resume_launches"] = outage["launches"]["flash_attention"]
     lp = lstm[200]
     kernels.append({
         "name": "lstm_pointwise", "route": "cuda",
@@ -2780,7 +3275,9 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": lp["library_ms"],
         "path": "lstm_forward bf16",
         "main_path_launches": lstm_trained["launches"]["lstm_pointwise"],
-        "shape": [PTB_BATCH, 200], "h650": lstm[650]})
+        "shape": [PTB_BATCH, 200], "h650": lstm[650],
+        "ha_launches": failover["launches"]["lstm_pointwise"],
+        "resume_launches": outage["launches"]["lstm_pointwise"]})
     ll = layer[200]
     kernels.append({
         "name": "lstm_layer", "route": "cuda",
@@ -2793,7 +3290,9 @@ def main() -> int:
         "redesigned_in": 5, "path": "lstm_train f32",
         "layer_ms": ll["layer_ms"], "per_step_ms": ll["per_step_ms"],
         "serial_floor_ms": ll["serial_floor_ms"],
-        "shape": ll["shape"], "h650": layer[650]})
+        "shape": ll["shape"], "h650": layer[650],
+        "ha_launches": failover["launches"]["lstm_layer"],
+        "resume_launches": outage["launches"]["lstm_layer"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

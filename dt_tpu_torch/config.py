@@ -29,7 +29,7 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 # ---------------------------------------------------------------------------
 # The environment the elastic host-sync path reads, with the JAX package's
-# defaults (``dt_tpu/config.py:65-81, 131`` and the fit contract of
+# defaults (``dt_tpu/config.py:65-86, 131`` and the fit contract of
 # ``dt_tpu/training/module.py:612-617``).  Read through :func:`env`, which
 # raises for a name not declared here, so a mistyped knob fails loudly.
 # ---------------------------------------------------------------------------
@@ -54,10 +54,18 @@ ENV_REGISTRY = {
     # worker identity
     "DT_WORKER_ID": ("", "this worker's host name under the launcher's env contract"),
     "DT_RECOVERY": ("", "1 = re-register under the old identity after a crash"),
-    # control-plane clients
-    "DT_CTRL_JOURNAL": ("", "scheduler journal path (scheduler HA: not ported)"),
+    # control-plane HA (scheduler journal, warm standby, client failover)
+    "DT_CTRL_JOURNAL": ("", "control-state write-ahead journal path (enables scheduler HA replay)"),
+    "DT_CTRL_LEASE": ("", "leader lease file path (default <journal>.lease)"),
+    "DT_CTRL_LEASE_S": ("2.0", "leader lease duration; the standby takes over after this much silence"),
     "DT_CTRL_TOKEN_TTL_S": ("300", "idempotency-token response-cache TTL (s)"),
-    "DT_CTRL_ENDPOINTS": ("", "host:port[,host:port] for client failover (not ported)"),
+    "DT_CTRL_ENDPOINTS": ("", "ordered scheduler endpoints host:port[,host:port] for client failover (leader first)"),
+    "DT_CTRL_FAILOVER_S": ("60", "client-side wall budget for failing a request over across the endpoint list"),
+    "DT_CTRL_SNAP_KEEP": ("2", "newest snapshot sidecars kept a journal (older ones pruned at each snapshot; min 1)"),
+    # fleet checkpoints and cold-restart resume
+    "DT_CKPT_DIR": ("", "fleet-checkpoint directory (<dir>/<host>/fleet-<step>.state blobs, the manifest in the scheduler journal); empty = off"),
+    "DT_CKPT_EVERY": ("0", "global steps between fleet checkpoints (0 = only the scheduler-forced epoch-boundary ones)"),
+    "DT_RESUME": ("", "1 = cold-restart resume: the scheduler replays its journal for the newest committed manifest, workers restore the train state and data cursor"),
     # tracing
     "DT_OBS": ("", "1 = record spans and events in the process tracer"),
     "DT_OBS_RING": (str(4096), "tracer ring capacity (records)"),

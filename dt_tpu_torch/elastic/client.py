@@ -22,12 +22,27 @@ the async and sparse calls split into the row ranges of
 :func:`_row_bounds` (``np.array_split``'s), so a mixed fleet's workers
 address the same rows on the same server.
 
+With scheduler HA the client holds the ordered endpoints of
+``DT_CTRL_ENDPOINTS`` (leader first, standbys after; ``client.py:85-99``)
+and every request to a scheduler endpoint, the data-plane rounds of the
+funnel included, fails over (:meth:`WorkerClient._req_failover`): the
+idempotency token is pinned before the first attempt, a dead connection
+or a ``not_leader``/``fenced`` answer rotates to the next endpoint, where
+the client re-registers under the new fence and replays the same message.
+A round in flight on a side thread of the overlap engine takes the same
+route and resends the same bytes (its 2-bit words were packed, and the
+residual updated, once); the standby was sent the primary's completed
+rounds (``ha_round``), so a retry it serves gets the identical average.
+It also carries the fleet checkpoint (``ckpt_begin``, ``ckpt_ack``,
+``ckpt_manifest``), the committed manifest of a resume boot
+(:attr:`WorkerClient.resume`) and a draining scheduler's
+``ckpt_epoch_end``.
+
 Everything it sends is numpy or plain Python (the JAX package's processes
 unpickle it).  The heartbeat and comm threads touch no CUDA: only the
 training thread launches.  What it does not port raises, naming the
-ROADMAP item: failover across ``DT_CTRL_ENDPOINTS`` (scheduler HA, item
-3c), and the profiler commands and the obs export on the heartbeat (item
-7).
+ROADMAP item: the profiler commands and the obs export on the heartbeat
+(item 7).
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ import queue
 import socket
 import threading
 import time
+import uuid
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -51,6 +67,23 @@ from dt_tpu_torch.obs import trace as obs_trace
 logger = logging.getLogger("dt_tpu_torch.elastic")
 
 _ITEM = "is not ported yet; see ROADMAP.md, Queue 1 "
+
+
+def _parse_endpoints(spec: str) -> List[Tuple[str, int]]:
+    """``host:port[,host:port]`` -> the ordered address list (the
+    ``DT_CTRL_ENDPOINTS`` contract: the leader first, standbys after)."""
+    out: List[Tuple[str, int]] = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        host, _, port = part.rpartition(":")
+        out.append((host or "127.0.0.1", int(port)))
+    return out
+
+
+#: the public name, as the JAX package exports it
+parse_endpoints = _parse_endpoints
 
 
 def _row_bounds(n: int, r: int) -> List[int]:
@@ -77,16 +110,19 @@ class WorkerClient:
                  heartbeat_interval_s: float = 1.0,
                  is_recovery: Optional[bool] = None,
                  endpoints: Optional[Sequence[Tuple[str, int]]] = None):
-        if endpoints is not None and len(endpoints) > 1 or \
-                config.env("DT_CTRL_ENDPOINTS"):
-            raise NotImplementedError(
-                f"failover across scheduler endpoints {_ITEM}item 3c "
-                "(scheduler HA)")
-        if endpoints:
-            scheduler_host, scheduler_port = endpoints[0]
-        self.addrs: List[Tuple[str, int]] = [(scheduler_host,
-                                              int(scheduler_port))]
-        self.fence = 0
+        eps = endpoints
+        if eps is None:
+            spec = config.env("DT_CTRL_ENDPOINTS")
+            if spec:
+                eps = _parse_endpoints(spec)
+        self.addrs: List[Tuple[str, int]] = \
+            [(a[0], int(a[1])) for a in eps] if eps \
+            else [(scheduler_host, int(scheduler_port))]
+        self._leader = 0  # index into addrs; guarded-by: _addr_lock
+        self._addr_lock = threading.Lock()
+        # the leader incarnation we registered under; a failover reattach
+        # rewrites it on whichever thread saw the rotation
+        self.fence = 0  # guarded-by: _addr_lock
         self.host = host or f"{socket.gethostname()}:{os.getpid()}"
         if is_new is None:
             is_new = os.environ.get("NEW_WORKER", "") in ("1", "true")
@@ -108,6 +144,12 @@ class WorkerClient:
         # a recovering worker: rank -1 until a barrier re-admits it
         self.recovery_pending: bool = bool(resp.get("recovery_pending"))
         self.resume_epoch: int = int(resp.get("resume_epoch", 0))
+        # the committed fleet checkpoint a resume boot serves until the
+        # fleet passes its epoch; fit restores from it (DT_RESUME)
+        self.resume: Optional[dict] = resp.get("resume")
+        # a draining scheduler's request for an epoch-boundary
+        # checkpoint (the heartbeat thread sets it; a write-once bool)
+        self.ckpt_epoch_end: bool = False
         # the policy engine is not ported: a barrier carrying shares
         # raises in _adopt_policy_locked
         self.policy_shares: Dict[str, int] = {}
@@ -135,14 +177,20 @@ class WorkerClient:
 
     @property
     def addr(self) -> Tuple[str, int]:
-        return self.addrs[0]
+        """The endpoint this client takes for the leader."""
+        with self._addr_lock:
+            return self.addrs[self._leader]
 
     def _req_addr(self, addr, msg: dict, timeout: float = 600.0,
                   retries: int = 8) -> dict:
         """Request to ``addr`` (the scheduler or a range server) with
         at-least-once retry (the ``resender.h`` role): every re-send
         carries the same idempotency token.  ``retries`` is the total
-        number of attempts."""
+        number of attempts.  With more than one scheduler endpoint, a
+        request to one of them fails over (:meth:`_req_failover`); a
+        range server's never rotates."""
+        if len(self.addrs) > 1 and tuple(addr) in set(self.addrs):
+            return self._req_failover(msg, timeout, retries)
         resp = protocol.request(addr[0], addr[1], msg, timeout=timeout,
                                 retries=max(retries - 1, 0))
         if "error" in resp:
@@ -151,7 +199,100 @@ class WorkerClient:
 
     def _req(self, msg: dict, timeout: float = 600.0,
              retries: int = 8) -> dict:
-        return self._req_addr(self.addr, msg, timeout, retries)
+        if len(self.addrs) == 1:
+            return self._req_addr(self.addr, msg, timeout, retries)
+        return self._req_failover(msg, timeout, retries)
+
+    # -- scheduler failover (client.py:300-402) ----------------------------
+
+    def _req_failover(self, msg: dict, timeout: float,
+                      retries: int) -> dict:
+        """One control request over the ordered endpoints.  The token is
+        pinned before the first attempt, so a replay that crosses
+        endpoints dedups like a same-endpoint retry; ``not_leader`` and
+        ``fenced`` answers rotate like a dead connection.
+        ``DT_CTRL_FAILOVER_S`` bounds the rotations, not one attempt (a
+        barrier may park for minutes on a healthy leader), and every
+        endpoint is tried at least once; the backoff between rotations is
+        jittered (:func:`protocol.next_backoff`), so a failing-over fleet
+        does not reach the standby in lockstep."""
+        msg = dict(msg)
+        msg.setdefault("token", uuid.uuid4().hex)
+        with self._addr_lock:
+            msg.setdefault("fence", self.fence)
+        deadline = time.monotonic() + \
+            float(config.env("DT_CTRL_FAILOVER_S"))
+        attempts = max(2, retries) * len(self.addrs)
+        delay = 0.1
+        tried: set = set()
+        last_exc: Optional[Exception] = None
+        for _ in range(attempts):
+            addr = self.addr
+            tried.add(tuple(addr))
+            try:
+                resp = protocol.request(addr[0], addr[1], msg,
+                                        timeout=timeout, retries=1)
+            except (ConnectionError, socket.timeout, OSError) as e:
+                last_exc = e
+                resp = None
+            if resp is not None:
+                err = resp.get("error")
+                if err is None:
+                    return resp
+                if not (str(err).startswith("not_leader")
+                        or str(err).startswith("fenced")):
+                    raise RuntimeError(f"scheduler error: {err}")
+                last_exc = ConnectionError(
+                    f"scheduler at {addr} refused: {err}")
+            if len(tried) >= len(self.addrs) and \
+                    time.monotonic() + delay > deadline:
+                break
+            time.sleep(delay)
+            delay = protocol.next_backoff(delay, 0.1, 1.0)
+            self._rotate_leader(addr, msg.get("cmd"))
+        raise last_exc if last_exc is not None else \
+            ConnectionError("control plane unreachable")
+
+    def _rotate_leader(self, failed_addr: Tuple[str, int],
+                       cmd: Optional[str]) -> None:
+        """Advance to the next endpoint (the first thread to see the
+        failure rotates; later ones find it done) and re-establish
+        identity there."""
+        with self._addr_lock:
+            rotated = self.addrs[self._leader] == tuple(failed_addr)
+            if rotated:
+                self._leader = (self._leader + 1) % len(self.addrs)
+            target = self.addrs[self._leader]
+        if rotated and obs_trace.enabled():
+            tr = obs_trace.tracer()
+            tr.counter("client.failover")
+            tr.event("client.failover", {"to": f"{target[0]}:{target[1]}",
+                                         "cmd": cmd})
+        if rotated and cmd != "register":
+            self._reattach(target)
+
+    def _reattach(self, addr: Tuple[str, int]) -> None:
+        """Re-register at the (possibly new) leader for its fence.  The
+        successor replayed the membership, so rank and the live set stay;
+        best-effort (a passive standby refuses it, and that refusal is
+        what triggers its on-demand takeover)."""
+        try:
+            resp = protocol.request(
+                addr[0], addr[1],
+                {"cmd": "register", "host": self.host, "is_new": False,
+                 "is_recovery": False, "reattach": True,
+                 "token": uuid.uuid4().hex},
+                timeout=10.0, retries=1)
+        except (ConnectionError, socket.timeout, OSError):
+            return
+        if "error" in resp:
+            return
+        fence = int(resp.get("fence", 0))
+        with self._addr_lock:
+            changed = fence != self.fence
+            self.fence = fence
+        if changed and obs_trace.enabled():
+            obs_trace.tracer().event("client.reattached", {"fence": fence})
 
     # -- sharded-plane routing (kvstore_dist.h:547-589) --------------------
 
@@ -204,8 +345,10 @@ class WorkerClient:
                 if obs_trace.enabled():
                     obs_trace.tracer().counter("heartbeat.sent")
                 # retries=1: a lost heartbeat is superseded by the next
-                self._req({"cmd": "heartbeat", "host": self.host,
-                           "pseq": 0}, timeout=10, retries=1)
+                resp = self._req({"cmd": "heartbeat", "host": self.host,
+                                  "pseq": 0}, timeout=10, retries=1)
+                if resp.get("ckpt_epoch_end"):
+                    self.ckpt_epoch_end = True
             except (OSError, RuntimeError):
                 pass  # scheduler gone: dead-node detection is its problem
             self._stop.wait(interval)
@@ -303,6 +446,26 @@ class WorkerClient:
     def num_dead_nodes(self, timeout_s: float = 60.0) -> int:
         return self._req({"cmd": "num_dead",
                           "timeout_s": timeout_s})["count"]
+
+    # -- the fleet checkpoint (client.py:810-830) --------------------------
+
+    def ckpt_begin(self, step: int, epoch: int) -> dict:
+        """Open, or join, the two-phase window of ``step``: the first
+        worker there opens it, the others get the same seq back."""
+        return self._req({"cmd": "ckpt_intent", "host": self.host,
+                          "step": int(step), "epoch": int(epoch)})
+
+    def ckpt_ack(self, step: int, path: str, sha256: str,
+                 cursor: Dict) -> dict:
+        """This host's durable save (path, content digest, data cursor);
+        the last pinned worker's ack commits the manifest."""
+        return self._req({"cmd": "ckpt_ack", "host": self.host,
+                          "step": int(step), "path": path,
+                          "sha256": sha256, "cursor": dict(cursor)})
+
+    def ckpt_manifest(self) -> dict:
+        """The committed and pending windows, read-only."""
+        return self._req({"cmd": "ckpt_manifest"})
 
     def drain(self) -> dict:
         """Leave the job through the eviction machinery (no recovery

@@ -16,17 +16,23 @@ optimizer (``server_optim``) and answers the post-update weights; a
 ``(host, key, seq)`` cache serves a retried or stale push the freshest
 weights and never applies it twice.
 
-The JAX plane's straggler EWMA (``worker.straggler``, ``DT_STRAGGLER_MS``)
-and HA round replication are not here: ROADMAP.md, Queue 1 items 7 and 3c.
+With scheduler HA, the primary's plane replicates each completed round to
+the warm standby before any waiter sees it (``replicate_fn``), and the
+standby installs it (:meth:`DataPlane.install_round`), so a retry that
+lands on the successor after a failover is served the identical average.
+The JAX plane's straggler EWMA (``worker.straggler``,
+``DT_STRAGGLER_MS``) is not here: ROADMAP.md, Queue 1 item 7.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Callable, Dict, Optional, Set
 
 import numpy as np
 
+logger = logging.getLogger("dt_tpu_torch.elastic")
 
 
 class DataPlane:
@@ -49,10 +55,15 @@ class DataPlane:
 
     def __init__(self, expected_fn: Callable[[], Set[str]],
                  confirm_fn: Optional[Callable[[], Set[str]]] = None,
-                 tracer=None):
+                 tracer=None, replicate_fn=None):
         from dt_tpu_torch.obs import trace as obs_trace
         self._obs = tracer if tracer is not None else obs_trace.tracer()
         self.expected_fn = expected_fn
+        # HA: called with (key, gen, {host: seq}, result) after a round's
+        # result is computed and before any waiter is released;
+        # best-effort (a dead standby degrades HA, never the round)
+        self._replicate = replicate_fn
+        self._replicate_warned = False  # one log line an outage
         self.confirm_fn = confirm_fn or expected_fn
         self._cv = threading.Condition()
         # key -> {vals: {host: (seq, arr)}, gen, result, served: {host:
@@ -115,6 +126,26 @@ class DataPlane:
     def _new_slot() -> dict:
         return {"vals": {}, "gen": 0, "result": None, "served": {},
                 "t0": None, "lag0": None, "arrive": {}, "meta": None}
+
+    def install_round(self, key: str, gen: int, seqs: Dict[str, int],
+                      result) -> None:
+        """Install a completed round the live primary replicated
+        (``ha_round``): advance the slot's generation and seed the served
+        cache, so a retry of that round after a failover gets the same
+        result.  Idempotent: a replica at or below the slot's generation
+        is a no-op, and a pending contribution at or below a served seq
+        belongs to the replicated round and is dropped."""
+        with self._cv:
+            slot = self._reduce.setdefault(key, self._new_slot())
+            if int(gen) <= slot["gen"]:
+                return
+            slot["gen"] = int(gen)
+            for h, s in seqs.items():
+                slot["served"][h] = (int(s), result)
+                pend = slot["vals"].get(h)
+                if pend is not None and pend[0] <= int(s):
+                    del slot["vals"][h]
+            self._cv.notify_all()
 
     def complete_with(self, live: Set[str], ordered=None) -> None:
         """After membership shrank, finish every round the survivors
@@ -217,6 +248,20 @@ class DataPlane:
             slot["result"] = acc.astype(out_dtype, copy=False)
         for h, (h_seq, _) in slot["vals"].items():
             slot["served"][h] = (h_seq, slot["result"])
+        if self._replicate is not None:
+            # to the warm standby before any waiter sees the result (one
+            # loopback round trip a round, paid only with a standby)
+            try:
+                self._replicate(key, slot["gen"] + 1,
+                                {h: s for h, (s, _) in slot["vals"].items()},
+                                slot["result"])
+                self._replicate_warned = False
+            except Exception as e:  # noqa: BLE001 — HA is best-effort
+                if not self._replicate_warned:
+                    self._replicate_warned = True
+                    logger.warning("HA round replication to the standby "
+                                   "failed (%s); continuing unreplicated",
+                                   e)
         lag0 = slot.get("lag0")
         if lag0 is not None:
             arrive = slot.get("arrive") or {}

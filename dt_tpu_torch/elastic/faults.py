@@ -10,6 +10,15 @@ and site-scoped ``delay`` rules fire at named hooks (:func:`crash_point`,
 rule either raises :class:`CrashInjected` or, with ``action="exit"``,
 ends the process with ``os._exit(137)``, as a SIGKILL would.
 
+Crash sites, under the JAX package's names so that one seeded plan means
+the same in both: ``client.register``, ``client.heartbeat``,
+``client.mc_barrier``; ``sched.register``, ``sched.barrier_arrived``,
+``sched.allreduce``, ``sched.membership_change``; the fleet checkpoint's
+``sched.ckpt_intent``, ``sched.ckpt_ack`` and ``sched.ckpt_commit`` (every
+ack journaled, the commit not: the torn window), ``worker.ckpt_save``
+(after the intent, before the save) and ``worker.resume`` (a worker dying
+while it restores); ``module.epoch_begin``.
+
 Every probabilistic rule draws from a stream seeded by ``(seed, rule
 index, host)`` (crc32, so ``PYTHONHASHSEED`` does not matter): one host's
 draws never interleave with another's.  In process: ``install(FaultPlan(

@@ -27,7 +27,26 @@ job, a thread a connection over the pooled transport
   route their bulk data to (``elastic.range_server``; the register reply
   carries the fleet);
 - ``publish_snapshot``/``fetch_snapshot``; ``drain``; ``membership``,
-  ``status`` and ``shutdown``.
+  ``status`` and ``shutdown``; ``obs_dump`` with the control-plane track
+  alone (worker tracks arrive by ``obs_push``, item 7);
+- scheduler HA (``scheduler.py:118-250, 418-750``): every state change is
+  a ``journal.ControlState`` op appended to a fsync'd write-ahead journal
+  (``journal_path``/``DT_CTRL_JOURNAL``) before it applies; leadership is
+  a lease file with a fencing incarnation (``lease_path``,
+  ``lease_s``/``DT_CTRL_LEASE_S``); a warm standby (``standby=True``, the
+  same journal) tails the journal and takes over under ``incarnation + 1``
+  when the lease lapses, while the journal refuses the deposed leader's
+  writes.  A primary given ``peer=`` replicates each completed allreduce
+  round to the standby (``ha_round``) before answering, so rounds complete
+  exactly once across a failover.  A passive instance answers
+  ``not_leader`` to all but the passive commands (:data:`_PASSIVE_CMDS`);
+- the fleet checkpoint (``ckpt_intent``, ``ckpt_ack``, ``ckpt_manifest``,
+  ``scheduler.py:1600-1630, 1883-1975``): a two-phase commit journaled as
+  ops, the pinned window aborted when a pinned worker leaves; and the
+  cold-restart resume (``resume=True``/``DT_RESUME``): the journal
+  replayed, the dead incarnation cleared by a journaled ``resume`` op, and
+  the committed manifest handed to registering workers until the fleet
+  passes the checkpointed epoch.
 
 Every other command of the JAX scheduler answers an error naming its
 ROADMAP item (:data:`UNPORTED`), never a silent no-op.
@@ -60,19 +79,23 @@ _TOKEN_EXEMPT = frozenset((
     "obs_dump", "obs_push", "serve_endpoints", "serve_heartbeat",
     "serve_register", "servers", "status"))
 
+#: commands a passive instance (a warm standby, a fenced ex-leader) still
+#: serves; everything else answers ``not_leader`` so clients rotate (the
+#: ``passive`` flag of ``dt_tpu/elastic/commands.py``, copied as data)
+_PASSIVE_CMDS = frozenset((
+    "blackbox_index", "ckpt_manifest", "ha_round", "health", "obs_dump",
+    "obs_push", "shutdown", "status"))
+
 _ITEM = "is not ported yet; see ROADMAP.md, Queue 1 "
 #: the JAX scheduler's commands this one does not serve, each with the
 #: ROADMAP item that brings it
 UNPORTED = {
-    **dict.fromkeys(("obs_push", "obs_dump", "health", "blackbox_index",
+    **dict.fromkeys(("obs_push", "health", "blackbox_index",
                      "profile", "profile_capture"),
                     "item 7 (the obs, metrics and device planes)"),
     **dict.fromkeys(("serve_register", "serve_heartbeat",
                      "serve_endpoints"),
                     "item 5 (the serve gateway and replica)"),
-    **dict.fromkeys(("ckpt_intent", "ckpt_ack", "ckpt_manifest"),
-                    "item 3e (fleet checkpoints)"),
-    "ha_round": "item 3c (scheduler HA)",
 }
 
 
@@ -93,34 +116,75 @@ class Scheduler:
                  peer: Optional[tuple] = None,
                  resume: bool = False):
         """``initial_workers`` seeds the base set, else the hosts listed in
-        ``host_worker_file`` do.  ``journal_path``, ``lease_path``,
-        ``lease_s``, ``standby``, ``peer`` (scheduler HA, ROADMAP Queue 1
-        item 3c) and ``resume`` (fleet checkpoints, item 3e) raise."""
-        journal_path = journal_path or (config.env("DT_CTRL_JOURNAL")
-                                        or None)
-        for name, val, item in (
-                ("journal_path", journal_path, "3c (scheduler HA)"),
-                ("lease_path", lease_path, "3c (scheduler HA)"),
-                ("lease_s", lease_s, "3c (scheduler HA)"),
-                ("standby", standby, "3c (scheduler HA)"),
-                ("peer", peer, "3c (scheduler HA)"),
-                ("resume", resume, "3e (fleet checkpoints)")):
-            if val:
-                raise NotImplementedError(
-                    f"Scheduler({name}=...) {_ITEM}item {item}")
+        ``host_worker_file`` do (not for a standby: its state comes from
+        the journal).  ``journal_path`` turns the write-ahead journal on (a
+        restarted primary replays it); ``standby=True`` builds a warm
+        standby that answers ``not_leader`` until the lease (``lease_path``,
+        default ``<journal>.lease``) is ``lease_s`` stale, then takes over;
+        ``peer=(host, port)`` on the primary replicates completed rounds to
+        the standby; ``resume=True`` is the cold-restart resume from the
+        journal's committed fleet checkpoint."""
         self.host_worker_file = host_worker_file
         if initial_workers is None and host_worker_file and \
-                os.path.exists(host_worker_file):
+                not standby and os.path.exists(host_worker_file):
             initial_workers = _read_hosts(host_worker_file)
 
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._state = journal.ControlState()  # guarded-by: _lock
-        if initial_workers:
+        self._obs = obs_trace.Tracer(name="control-plane")
+
+        # -- the journal, the lease and fencing ---------------------------
+        self.journal_path = journal_path or \
+            (config.env("DT_CTRL_JOURNAL") or None)
+        self._state.sidecar_base = self.journal_path
+        self.lease_s = float(lease_s if lease_s is not None
+                             else config.env("DT_CTRL_LEASE_S"))
+        lp = lease_path or config.env("DT_CTRL_LEASE") or \
+            (self.journal_path + ".lease" if self.journal_path else None)
+        self._lease = journal.Lease(lp) \
+            if (lp and self.journal_path) else None
+        self._journal: Optional[journal.JournalWriter] = None
+        self._journal_reader = journal.JournalReader(self.journal_path) \
+            if self.journal_path else None
+        self._incarnation = 0  # the fencing epoch; bumped in _takeover
+        self.standby = bool(standby)
+        self.peer = tuple(peer) if peer else None
+        self._active = threading.Event()
+        self._takeover_lock = threading.Lock()
+        if standby:
+            if not self.journal_path:
+                raise ValueError("a standby scheduler needs a journal_path")
             with self._cv:
-                self._apply("init", workers=list(initial_workers),
-                            expected=(expected_workers
-                                      or len(initial_workers)))
+                self._refresh_from_journal_locked()
+            self._incarnation = self._lease.incarnation() \
+                if self._lease else 0
+        else:
+            if self.journal_path:
+                # a restarted primary replays its own journal
+                with self._cv:
+                    self._refresh_from_journal_locked()
+            if self._lease is not None:
+                self._incarnation = self._lease.acquire(
+                    owner=f"sched:{os.getpid()}")
+            if self.journal_path:
+                self._journal = journal.JournalWriter(
+                    self.journal_path, fence=self._incarnation,
+                    lease=self._lease)
+            if resume and self.journal_path:
+                # the replayed journal holds the dead incarnation's fleet:
+                # the resume op clears it (init below re-seeds it from the
+                # host file, at any size) and keeps the committed manifest
+                with self._cv:
+                    self._apply("resume", seq=self._state.resume_seq + 1)
+            if not self._state.workers and initial_workers:
+                with self._cv:
+                    self._apply("init", workers=list(initial_workers),
+                                expected=(expected_workers
+                                          or len(initial_workers)))
+        # while a resume boot has not passed its checkpointed epoch,
+        # register hands out the committed manifest
+        self._resume_boot = bool(resume)
         self.expected_workers = (expected_workers
                                  or self._state.expected_workers
                                  or len(self._state.workers))
@@ -134,10 +198,21 @@ class Scheduler:
         # the snapshot has its own lock: a model-sized blob copy never
         # blocks membership traffic
         self._snapshot_lock = threading.Lock()
-        self._obs = obs_trace.Tracer(name="control-plane")
         self._barrier_t0 = None  # guarded-by: _lock
-        self._dp = DataPlane(expected_fn=lambda: list(self._state.workers),
-                             tracer=self._obs)
+        # fleet-checkpoint timing (the ckpt.commit event's dur_ms and
+        # spread_ms); the journaled truth is ControlState.ckpt_*
+        self._ckpt_times: Dict[int, dict] = {}  # guarded-by: _lock
+        # a draining scheduler (SIGTERM on scheduler_main) flags every
+        # heartbeat reply with ckpt_epoch_end; a write-once bool
+        self._ckpt_epoch_end = False
+        if self._resume_boot and self._state.ckpt_committed is not None:
+            m = self._state.ckpt_committed
+            self._obs.event("ckpt.resume",
+                            {"step": int(m["step"]), "epoch": int(m["epoch"]),
+                             "workers": list(m["workers"])})
+        self._dp = DataPlane(
+            expected_fn=lambda: list(self._state.workers), tracer=self._obs,
+            replicate_fn=self._make_replicator() if self.peer else None)
         # the range-server fleet, index -> (host, port); its own lock:
         # _server_list() is read from inside _register under _lock
         self._servers: Dict[int, tuple] = {}  # guarded-by: _servers_lock
@@ -163,21 +238,159 @@ class Scheduler:
         self.auto_evict_dead_s = auto_evict_dead_s
         self.startup_grace_s = max(startup_grace_s, auto_evict_dead_s or 0)
         self._evict_thread: Optional[threading.Thread] = None
-        if auto_evict_dead_s:
-            self._evict_thread = threading.Thread(target=self._evict_loop,
-                                                  daemon=True)
-            self._evict_thread.start()
-        logger.info("scheduler listening on :%d, base workers %s",
-                    self.port, self._state.workers)
+        self._lease_thread: Optional[threading.Thread] = None
+        self._monitor_thread: Optional[threading.Thread] = None
+        if standby:
+            self._monitor_thread = threading.Thread(
+                target=self._monitor_loop, daemon=True)
+            self._monitor_thread.start()
+            logger.info("standby scheduler listening on :%d (journal %s)",
+                        self.port, self.journal_path)
+        else:
+            self._active.set()
+            if self._lease is not None:
+                self._obs.event("leader.elected",
+                                {"incarnation": self._incarnation,
+                                 "reason": "primary start"})
+                self._start_thread("_lease_thread", self._lease_loop)
+            if auto_evict_dead_s:
+                self._start_thread("_evict_thread", self._evict_loop)
+            logger.info("scheduler listening on :%d (incarnation %d), base "
+                        "workers %s", self.port, self._incarnation,
+                        self._state.workers)
 
     # ------------------------------------------------------------------
-    # state access
+    # journaled state access
     # ------------------------------------------------------------------
 
     def _apply(self, op: str, **kw) -> None:
-        """Apply one control-state op.  Caller holds the lock (the
-        snapshot op: ``_snapshot_lock``)."""
+        """Append one op to the journal (fsync), then apply it.  Caller
+        holds the lock (the snapshot op: ``_snapshot_lock``).  Raises
+        :class:`journal.Fenced` when a newer leader holds the lease; the
+        dispatcher answers ``fenced:`` and the client rotates."""
+        if self._journal is not None:
+            self._journal.append(op, kw)
         self._state.apply(op, **kw)
+
+    def _refresh_from_journal_locked(self) -> None:
+        """Apply the records appended since the last read (a standby's
+        tail, a restart's replay).  Caller holds the lock."""
+        if self._journal_reader is None:
+            return
+        for _fence, op, kw in self._journal_reader.read_new():
+            self._state.apply(op, **kw)
+
+    # ------------------------------------------------------------------
+    # leadership: the lease, the standby's watch, the takeover
+    # ------------------------------------------------------------------
+
+    @property
+    def incarnation(self) -> int:
+        """This instance's fencing epoch (0: no lease)."""
+        return self._incarnation
+
+    def is_leader(self) -> bool:
+        return self._active.is_set()
+
+    def _start_thread(self, attr: str, target) -> None:
+        t = threading.Thread(target=target, daemon=True)
+        setattr(self, attr, t)
+        t.start()
+
+    def _lease_loop(self):
+        """The leader's lease renewal; losing the lease to a newer
+        incarnation demotes this instance."""
+        period = max(self.lease_s / 3.0, 0.05)
+        owner = f"sched:{os.getpid()}"
+        while not self._stop.wait(period):
+            if self._lease is None or not self._active.is_set():
+                return
+            if not self._lease.renew(self._incarnation, owner):
+                logger.error("lease lost to a newer incarnation; fencing "
+                             "this scheduler (was %d)", self._incarnation)
+                self._obs.event("leader.fenced",
+                                {"incarnation": self._incarnation})
+                self._active.clear()
+                return
+
+    def _primary_gone(self) -> bool:
+        """A leader has existed (the lease file is there) and its lease
+        lapsed.  A standby never takes over before a primary led: the
+        launcher starts the standby first."""
+        return (self._lease is not None
+                and self._lease.read() is not None
+                and self._lease.expired(self.lease_s))
+
+    def _monitor_loop(self):
+        """The standby: tail the journal and watch the lease."""
+        period = max(self.lease_s / 4.0, 0.05)
+        while not self._stop.wait(period):
+            if self._active.is_set():
+                return
+            try:
+                with self._cv:
+                    self._refresh_from_journal_locked()
+                if self._primary_gone():
+                    self._takeover("lease expired")
+                    return
+            except Exception:  # noqa: BLE001 — the watch must not die
+                logger.exception("standby monitor pass failed; retrying")
+
+    def _takeover(self, reason: str) -> bool:
+        """Promote this standby: the last journal catch-up, the lease
+        under ``incarnation + 1``, fresh heartbeat clocks, and the
+        ``scheduler.failover`` span."""
+        with self._takeover_lock:
+            if self._active.is_set():
+                return True
+            t0 = self._obs.now()
+            try:
+                inc = self._lease.acquire(owner=f"sched:{os.getpid()}") \
+                    if self._lease else self._incarnation + 1
+            except journal.Fenced:
+                return False  # another standby won; stay passive
+            with self._cv:
+                self._refresh_from_journal_locked()
+                self._incarnation = inc
+                self._journal = journal.JournalWriter(
+                    self.journal_path, fence=inc, lease=self._lease)
+                # the failover window is not silence: every replayed
+                # worker gets a fresh clock, or the evictor would evict
+                # the healthy fleet
+                now = time.time()
+                workers = list(self._state.workers)
+                for h in workers:
+                    self._heartbeats[h] = now
+                self._cv.notify_all()
+            for h in workers:
+                self._dp.host_registered(h)
+            self._active.set()
+            if self.auto_evict_dead_s:
+                self._start_thread("_evict_thread", self._evict_loop)
+            if self._lease is not None:
+                self._start_thread("_lease_thread", self._lease_loop)
+            self._obs.complete_span(
+                "scheduler.failover", t0,
+                {"incarnation": inc, "reason": reason,
+                 "workers": len(workers)})
+            self._obs.event("leader.elected",
+                            {"incarnation": inc, "reason": reason})
+            logger.warning("standby took over as leader (incarnation %d): "
+                           "%s; workers=%s", inc, reason, workers)
+            return True
+
+    def _make_replicator(self):
+        """The primary's round replication to the standby, stamped with
+        our incarnation (a deposed primary's replica is refused)."""
+        host, port = self.peer
+
+        def _rep(key: str, gen: int, seqs: Dict[str, int], result) -> None:
+            protocol.request(host, int(port),
+                             {"cmd": "ha_round",
+                              "fence": self._incarnation, "key": key,
+                              "gen": gen, "seqs": seqs, "value": result},
+                             timeout=5.0)
+        return _rep
 
     # ------------------------------------------------------------------
     # server plumbing
@@ -216,6 +429,16 @@ class Scheduler:
         if plan is not None and \
                 not plan.on_recv(msg.get("cmd"), msg.get("host")):
             return None
+        # the leadership gate: a passive instance refuses all but the
+        # passive commands so clients rotate; a standby whose watch finds
+        # the primary gone takes over on demand here, so the first
+        # failed-over request completes the failover
+        if not self._active.is_set() and \
+                msg.get("cmd") not in _PASSIVE_CMDS:
+            if not (self.standby and self._primary_gone()
+                    and self._takeover("client demand")):
+                return {"error": "not_leader",
+                        "incarnation": self._incarnation}
         token = msg.get("token")
         if token is not None:
             cached = self._tokens.get(token)
@@ -224,6 +447,14 @@ class Scheduler:
                 return cached
         try:
             resp = self._dispatch(msg)
+        except journal.Fenced as e:
+            # a newer leader exists: stop leading and tell the client to
+            # rotate (its failover treats this as a dead endpoint)
+            logger.error("request fenced: %s", e)
+            self._obs.event("leader.fenced",
+                            {"incarnation": self._incarnation})
+            self._active.clear()
+            return {"error": f"fenced: {e}"}
         except Exception as e:
             if self._stop.is_set():
                 # close() raced this handler: close the connection, as
@@ -263,9 +494,12 @@ class Scheduler:
                 except OSError:
                     pass
         me = threading.current_thread()
-        for t in (self._evict_thread, self._thread):
+        for t in (self._evict_thread, self._monitor_thread,
+                  self._lease_thread, self._thread):
             if t is not None and t is not me and t.is_alive():
                 t.join(timeout=5.0)
+        if self._journal is not None:
+            self._journal.close()
 
     def join(self, timeout: Optional[float] = None) -> bool:
         """Block until :meth:`close`; True when closed."""
@@ -279,7 +513,8 @@ class Scheduler:
         cmd = msg.get("cmd")
         if cmd == "register":
             return self._register(msg["host"], bool(msg.get("is_new")),
-                                  bool(msg.get("is_recovery")))
+                                  bool(msg.get("is_recovery")),
+                                  reattach=bool(msg.get("reattach")))
         if cmd == "heartbeat":
             # a JAX worker's span/metrics/device payloads ride here; their
             # ingest is the obs plane (ROADMAP Queue 1 item 7) and is
@@ -289,21 +524,34 @@ class Scheduler:
                     self._obs.counter(f"heartbeat.{k}_ignored")
             with self._lock:
                 self._heartbeats[msg["host"]] = time.time()
+            if self._ckpt_epoch_end:
+                # a draining scheduler asks the fleet for an
+                # epoch-boundary checkpoint
+                return {"ckpt_epoch_end": True}
             return {}
+        if cmd == "ha_round":
+            return self._ha_round(msg)
         if cmd == "status":
             with self._lock:
                 st = self._state
-                out = {"active": True, "incarnation": 0,
+                out = {"active": self._active.is_set(),
+                       "incarnation": self._incarnation,
                        "workers": list(st.workers),
                        "last_completed_epoch": st.last_completed_epoch,
                        "policy": {"enabled": False,
                                   "shares": dict(st.policy_shares),
-                                  "streaks": {},
+                                  "streaks": dict(st.policy_streaks),
                                   "lr_scale": st.policy_lr_scale,
-                                  "seq": st.policy_seq, "log": []},
-                       "ckpt": {"committed_step": None,
-                                "pending_step": None,
-                                "draining": sorted(st.draining)}}
+                                  "seq": st.policy_seq,
+                                  "log": list(st.policy_log)},
+                       "ckpt": {
+                           "committed_step":
+                               int(st.ckpt_committed["step"])
+                               if st.ckpt_committed else None,
+                           "pending_step":
+                               int(st.ckpt_pending["step"])
+                               if st.ckpt_pending else None,
+                           "draining": sorted(st.draining)}}
             return out
         if cmd in DataPlane.CMDS:
             if cmd == "allreduce":
@@ -326,19 +574,48 @@ class Scheduler:
                                        int(msg.get("seq", -1)))
         if cmd == "publish_snapshot":
             with self._snapshot_lock:
-                self._apply("snapshot", blob=msg["blob"])
+                blob = msg["blob"]
+                if self._journal is not None:
+                    # a model-sized blob does not ride the journal: the
+                    # bytes go to a sidecar first, then the marker is
+                    # journaled, then the blob itself memoed (the bytes
+                    # the sidecar holds)
+                    self._apply("snapshot", blob=journal.
+                                write_snapshot_sidecar(self.journal_path,
+                                                       blob))
+                    self._state.snapshot = blob
+                else:
+                    self._apply("snapshot", blob=blob)
             return {}
         if cmd == "fetch_snapshot":
             with self._snapshot_lock:
                 # the one ControlState field read under _snapshot_lock
-                return {"blob": self._state.snapshot}
+                snap = self._state.snapshot
+                if journal.snapshot_marker(snap) and self.journal_path:
+                    # replay left a marker it could not resolve yet
+                    snap = journal.load_snapshot_sidecar(
+                        self.journal_path, snap[journal._SNAP_REF])
+                    if snap is not None:
+                        self._state.snapshot = snap
+                return {"blob": snap}
         if cmd == "num_dead":
             return {"count": self._num_dead(float(msg.get("timeout_s", 60)))}
         if cmd == "membership":
             with self._lock:
                 return {"workers": list(self._state.workers)}
+        if cmd == "ckpt_intent":
+            return self._ckpt_intent(msg["host"], int(msg["step"]),
+                                     int(msg["epoch"]))
+        if cmd == "ckpt_ack":
+            return self._ckpt_ack(msg["host"], int(msg["step"]),
+                                  msg["path"], msg["sha256"],
+                                  msg.get("cursor") or {})
+        if cmd == "ckpt_manifest":
+            return self._ckpt_manifest()
         if cmd == "drain":
             return self._drain(msg["host"])
+        if cmd == "obs_dump":
+            return {"job": self.obs_dump()}
         if cmd == "shutdown":
             self.close()
             return {}
@@ -346,16 +623,42 @@ class Scheduler:
             return {"error": f"{cmd} {_ITEM}{UNPORTED[cmd]}"}
         return {"error": f"unknown cmd {cmd!r}"}
 
+    def obs_dump(self) -> dict:
+        """The job dump (``scheduler.py:904``) with its control-plane
+        track alone: this instance's records (the ``scheduler.failover``
+        span, ``leader.*`` and ``ckpt.*`` events) merged with the process
+        tracer's.  Worker tracks come with ``obs_push`` (item 7)."""
+        own = self._obs.snapshot()
+        proc = obs_trace.tracer().snapshot()
+        return {"tracks": {"control-plane": {
+            "records": own["records"] + proc["records"],
+            "counters": {**proc["counters"], **own["counters"]},
+            "dropped": own["dropped"] + proc["dropped"]}}}
+
+    def _ha_round(self, msg: dict) -> dict:
+        """Install a completed round the live primary replicated; a
+        replica stamped with an incarnation below ours comes from a
+        deposed leader and is refused."""
+        fence = int(msg.get("fence", 0))
+        if fence < self._incarnation:
+            return {"error": f"fenced: round replica carries stale "
+                             f"incarnation {fence} < {self._incarnation}"}
+        self._dp.install_round(msg["key"], int(msg["gen"]),
+                               dict(msg["seqs"]), msg["value"])
+        self._obs.counter("ha.rounds_replicated")
+        return {}
+
     # ------------------------------------------------------------------
     # registration / heartbeat
     # ------------------------------------------------------------------
 
     def _register(self, host: str, is_new: bool,
-                  is_recovery: bool = False) -> dict:
+                  is_recovery: bool = False, reattach: bool = False) -> dict:
         """A base or new worker takes the next rank; a crashed one
-        (``is_recovery``) queues for re-admission.  (A failover
-        ``reattach`` is scheduler HA: the dense plane keeps no per-host
-        state it could purge, so it registers like any worker.)"""
+        (``is_recovery``) queues for re-admission.  ``reattach`` is a
+        client's endpoint rotation, a live process refreshing its fence:
+        its retry-dedup state stays (a purge would let a retried push
+        apply twice)."""
         faults.crash_point("sched.register", host=host)
         with self._cv:
             st = self._state
@@ -385,17 +688,29 @@ class Scheduler:
                 return {"rank": -1, "workers": list(st.workers),
                         "recovery_pending": True,
                         "resume_epoch": st.last_completed_epoch + 1,
-                        "profile_seq": 0, "fence": 0,
+                        "profile_seq": 0, "fence": self._incarnation,
                         "servers": self._server_list()}
             self._apply("worker_add", host=host, base=not is_new)
             self._heartbeats[host] = time.time()
-            # a (re)registering worker starts fresh async-push sequences
-            self._dp.host_registered(host)
+            if not reattach:
+                # a (re)registering worker starts fresh push sequences
+                self._dp.host_registered(host)
             self._cv.notify_all()
-            return {"rank": st.workers.index(host),
-                    "workers": list(st.workers),
-                    "profile_seq": 0, "fence": 0,
-                    "servers": self._server_list()}
+            out = {"rank": st.workers.index(host),
+                   "workers": list(st.workers),
+                   "profile_seq": 0, "fence": self._incarnation,
+                   "servers": self._server_list()}
+            # a resume boot short of its checkpointed epoch hands every
+            # registrant the committed manifest (any member's blob
+            # restores any worker: the N+-1 resume)
+            com = st.ckpt_committed
+            if self._resume_boot and com is not None and \
+                    st.last_completed_epoch < int(com["epoch"]):
+                out["resume"] = {
+                    "step": int(com["step"]), "epoch": int(com["epoch"]),
+                    "workers": list(com["workers"]),
+                    "files": {h: dict(a) for h, a in com["files"].items()}}
+            return out
 
     def _num_dead(self, timeout_s: float) -> int:
         now = time.time()
@@ -410,6 +725,8 @@ class Scheduler:
     def _evict_loop(self):
         period = max(self.auto_evict_dead_s / 4.0, 0.1)
         while not self._stop.wait(period):
+            if not self._active.is_set():
+                continue  # a fenced ex-leader: membership is not ours
             now = time.time()
             with self._cv:
                 st = self._state
@@ -420,14 +737,21 @@ class Scheduler:
                      else self.startup_grace_s)]
                 if not dead:
                     continue
-                for h in dead:
-                    logger.warning("evicting dead worker %s (silent %.1fs)",
-                                   h, now - self._heartbeats.get(h, 0.0))
-                    self._apply("evict", host=h, seq=st.log_seq + 1)
-                    self._audit_locked("REMOVED", h)
-                self._dp.hosts_removed(set(dead))
-                self._rewrite_host_file(dead)
-                self._complete_pending_locked()
+                try:
+                    for h in dead:
+                        logger.warning(
+                            "evicting dead worker %s (silent %.1fs)", h,
+                            now - self._heartbeats.get(h, 0.0))
+                        self._apply("evict", host=h, seq=st.log_seq + 1)
+                        self._audit_locked("REMOVED", h)
+                    self._dp.hosts_removed(set(dead))
+                    self._rewrite_host_file(dead)
+                    self._complete_pending_locked()
+                except journal.Fenced:
+                    # deposed mid-pass: stop leading, or this thread
+                    # would die with the instance still serving
+                    self._active.clear()
+                    continue
                 self._cv.notify_all()
 
     def _rewrite_host_file(self, evicted):
@@ -471,7 +795,127 @@ class Scheduler:
             self._barrier_t0 = None
         if st.plain_arrived and live and st.plain_arrived >= live:
             self._apply("plain_release", gen=st.plain_gen + 1)
+        # a window pinned to a worker set that lost a member can never
+        # gather its acks: abort it (the last commit stays the resume
+        # point; the next cadence step pins the survivors)
+        if st.ckpt_pending is not None and \
+                not set(st.ckpt_pending["workers"]) <= live:
+            step = st.ckpt_pending["step"]
+            self._apply("ckpt_abort", step=step)
+            self._ckpt_times.pop(step, None)
+            self._obs.event("ckpt.abort",
+                            {"step": step, "reason": "member_lost"})
         self._dp.complete_with(live, ordered=st.workers)
+
+    # ------------------------------------------------------------------
+    # the fleet checkpoint (scheduler.py:1883-1975)
+    # ------------------------------------------------------------------
+
+    def _ckpt_intent(self, host: str, step: int, epoch: int) -> dict:
+        """The first worker at a checkpoint step opens the two-phase
+        window, the others join it; the journaled intent pins the worker
+        set whose acks commit."""
+        faults.crash_point("sched.ckpt_intent", host=host)
+        with self._cv:
+            st = self._state
+            com = st.ckpt_committed
+            if com is not None and step <= int(com["step"]):
+                return {"ok": False, "reason": "already_committed"}
+            p = st.ckpt_pending
+            if p is not None and int(p["step"]) == step:
+                return {"ok": True, "seq": p["seq"]}
+            if p is not None and step < int(p["step"]):
+                return {"ok": False, "reason": "superseded"}
+            if p is not None:
+                # a newer intent supersedes a stuck window
+                old = int(p["step"])
+                self._apply("ckpt_abort", step=old)
+                self._ckpt_times.pop(old, None)
+                self._obs.event("ckpt.abort",
+                                {"step": old, "reason": "superseded"})
+            self._apply("ckpt_intent", step=step, epoch=epoch,
+                        seq=st.ckpt_seq + 1, workers=sorted(st.workers))
+            self._ckpt_times[step] = {"t0": time.monotonic(), "acks": {}}
+            self._obs.event("ckpt.intent",
+                            {"step": step, "epoch": epoch,
+                             "workers": sorted(st.workers)})
+            return {"ok": True, "seq": st.ckpt_seq}
+
+    def _ckpt_ack(self, host: str, step: int, path: str, sha256: str,
+                  cursor: dict) -> dict:
+        """One worker's durable save; the last pinned ack commits the
+        manifest in the same journaled stream, so a window torn before
+        the commit leaves the previous commit the resume point."""
+        faults.crash_point("sched.ckpt_ack", host=host)
+        with self._cv:
+            st = self._state
+            p = st.ckpt_pending
+            if p is None or int(p["step"]) != step:
+                com = st.ckpt_committed
+                if com is not None and int(com["step"]) >= step:
+                    return {"committed": True}  # a retry after the commit
+                return {"committed": False, "stale": True}
+            if host not in p["acks"]:
+                self._apply("ckpt_ack", step=step, host=host, path=path,
+                            sha256=sha256, cursor=cursor)
+                times = self._ckpt_times.get(step)
+                if times is not None:
+                    times["acks"][host] = time.monotonic()
+                self._obs.event("ckpt.ack", {"host": host, "step": step})
+            committed = False
+            if set(p["workers"]) <= set(p["acks"]):
+                # every ack journaled, the commit not yet: a crash here
+                # must resume from the previous commit
+                faults.crash_point("sched.ckpt_commit", host=host)
+                manifest = {"step": int(p["step"]),
+                            "epoch": int(p["epoch"]),
+                            "seq": int(p["seq"]),
+                            "workers": list(p["workers"]),
+                            "files": {h: dict(a) for h, a in
+                                      sorted(p["acks"].items())}}
+                self._apply("ckpt_commit", step=step, manifest=manifest)
+                committed = True
+                times = self._ckpt_times.pop(step, None)
+                attrs = {"step": step, "epoch": manifest["epoch"],
+                         "workers": manifest["workers"]}
+                if times is not None:
+                    ats = sorted(times["acks"].values())
+                    attrs["dur_ms"] = round(
+                        (time.monotonic() - times["t0"]) * 1e3, 3)
+                    attrs["spread_ms"] = round(
+                        (ats[-1] - ats[0]) * 1e3, 3) if len(ats) > 1 \
+                        else 0.0
+                self._obs.event("ckpt.commit", attrs)
+                self._cv.notify_all()
+            return {"committed": committed}
+
+    def _ckpt_manifest(self) -> dict:
+        """The read-only view of the committed and pending windows."""
+        with self._lock:
+            st = self._state
+            pend = None
+            if st.ckpt_pending is not None:
+                p = st.ckpt_pending
+                pend = {"step": p["step"], "epoch": p["epoch"],
+                        "workers": list(p["workers"]),
+                        "acks": sorted(p["acks"])}
+            com = None
+            if st.ckpt_committed is not None:
+                c = st.ckpt_committed
+                com = {"step": c["step"], "epoch": c["epoch"],
+                       "workers": list(c["workers"]),
+                       "files": {h: dict(a)
+                                 for h, a in c["files"].items()}}
+            return {"committed": com, "pending": pend,
+                    "resume": bool(self._resume_boot)}
+
+    def request_fleet_checkpoint(self) -> None:
+        """The scheduler drain (SIGTERM on ``scheduler_main``): every
+        heartbeat reply carries ``ckpt_epoch_end`` from now on, so the
+        fleet checkpoints at its next epoch boundary, where every worker's
+        step agrees."""
+        self._ckpt_epoch_end = True
+        self._obs.event("drain.requested", {"host": "scheduler"})
 
     def _drain(self, host: str) -> dict:
         """Graceful departure (SIGTERM, then the current step, then this):

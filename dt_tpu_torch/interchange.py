@@ -207,13 +207,25 @@ def export_jax_train_state(state, bn_name: str = "BatchNorm"
                            ) -> Dict[str, Any]:
     """The inverse of :func:`load_jax_train_state`: ``{"step", "params",
     "batch_stats", "opt_state"}`` as float32 numpy (``step`` and ``count``
-    int32; bfloat16 params as ``torch.bfloat16`` tensors) in the JAX
+    0-d int32 arrays; bfloat16 params as ``torch.bfloat16`` tensors) in the JAX
     package's layout, its BN modules named ``bn_name``
     (``"BatchNorm"``, the JAX default, or ``"FusedBatchNorm"``)."""
-    opt = {"count": np.int32(state.opt_state["count"])}
-    if "mom" in state.opt_state:
-        opt["mom"] = _jax_tree(state.opt_state["mom"].items(), bn_name)
-    return {"step": np.int32(state.step),
-            "params": _jax_tree(state.module.named_parameters(), bn_name),
-            "batch_stats": _jax_tree(state.module.named_buffers(), bn_name),
+    return export_jax_tree(state.step, state.module.named_parameters(),
+                           state.module.named_buffers(), state.opt_state,
+                           bn_name)
+
+
+def export_jax_tree(step: int, params, buffers, opt_state: Mapping,
+                    bn_name: str = "BatchNorm") -> Dict[str, Any]:
+    """:func:`export_jax_train_state` from its parts: ``(name, tensor)``
+    pairs of the params and the BN stats, and ``{"count"[, "mom"]}``
+    (a checkpoint's host copy is exported this way)."""
+    # 0-d arrays, as the JAX package's state holds them (msgpack encodes
+    # a 0-d array and a numpy scalar differently)
+    opt = {"count": np.asarray(opt_state["count"], np.int32)}
+    if "mom" in opt_state:
+        opt["mom"] = _jax_tree(opt_state["mom"].items(), bn_name)
+    return {"step": np.asarray(step, np.int32),
+            "params": _jax_tree(params, bn_name),
+            "batch_stats": _jax_tree(buffers, bn_name),
             "opt_state": opt}

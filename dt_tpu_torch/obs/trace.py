@@ -182,6 +182,37 @@ class Tracer:
                     "dropped": self._dropped}
 
 
+#: names of the HA and fleet-checkpoint records, with their kinds and
+#: meaning as the JAX package's name registry defines them
+#: (``dt_tpu/obs/names.py:41-42, 58-63, 183-200``)
+NAMES: Dict[str, Tuple[str, str]] = {
+    "scheduler.failover": ("span", "warm-standby takeover (docs/ha.md)"),
+    "leader.elected": ("event", "leadership assumed (start or takeover)"),
+    "leader.fenced": ("event", "this leader was deposed by a newer fence"),
+    "client.failover": ("event|counter", "scheduler endpoint rotation"),
+    "client.reattached": ("event",
+                          "re-registered under a new leader fence"),
+    "ckpt.save": ("span", "one worker's fleet-checkpoint save: device_get "
+                          "+ msgpack + atomic write (async tail included "
+                          "— the span closes when the blob is on disk)"),
+    "ckpt.intent": ("event", "scheduler journaled a fleet-checkpoint "
+                             "intent (attrs: step, epoch, workers)"),
+    "ckpt.ack": ("event", "scheduler recorded one worker's save ack "
+                          "(attrs: host, step)"),
+    "ckpt.commit": ("event", "all acks in — the manifest is journaled and "
+                             "the checkpoint is durable (attrs: step, "
+                             "epoch, workers, dur_ms, spread_ms)"),
+    "ckpt.abort": ("event", "a pending intent was abandoned (superseded "
+                            "or its worker set changed before commit)"),
+    "ckpt.resume": ("event", "cold-restart resume: the newest committed "
+                             "manifest was adopted (scheduler) / restored "
+                             "(worker)"),
+    "ckpt.save_errors": ("counter", "background checkpoint writes that "
+                                    "failed (surfaced on the next save / "
+                                    "fit exit)"),
+}
+
+
 _DEFAULT: Optional[Tracer] = None
 _DEFAULT_LOCK = threading.Lock()
 

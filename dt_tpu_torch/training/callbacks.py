@@ -4,8 +4,7 @@
 Reference: ``python/mxnet/callback.py`` (Speedometer, do_checkpoint,
 LogValidationMetricsCallback) and the elastic-aware Speedometer of
 ``example/dynamic-training/train_resnet.py:381-390``, which rescales the
-throughput by the live worker count.  ``do_checkpoint`` saves synchronously;
-the JAX package's ``async_save`` is ROADMAP Queue 1 item 4.
+throughput by the live worker count.
 """
 
 from __future__ import annotations
@@ -79,17 +78,38 @@ class Speedometer:
             self.tic = time.time()
 
 
-def do_checkpoint(prefix: str, period: int = 1, meta: Optional[dict] = None):
+def do_checkpoint(prefix: str, period: int = 1, meta: Optional[dict] = None,
+                  async_save: bool = False):
     """Epoch-end callback saving the whole train state every ``period``
     epochs (reference ``mx.callback.do_checkpoint``, with the optimizer
-    state), synchronously, as ``prefix-%04d.state`` in the JAX package's
-    format."""
+    state) as ``prefix-%04d.state`` in the JAX package's format.
+    ``async_save=True`` overlaps the encoding and the write with the next
+    epoch (``dt_tpu/training/callbacks.py:78-100``); a failed background
+    write re-raises from the next call."""
     period = max(period, 1)
+    failed: list = []
 
     def _callback(epoch: int, state, metrics=None):
+        if failed:
+            raise RuntimeError(
+                "previous async checkpoint write failed") from failed[0]
         if (epoch + 1) % period == 0:
-            out = ckpt_lib.save_checkpoint(prefix, epoch, state, meta)
-            logger.info("Saved checkpoint to \"%s\"", out)
+            out = ckpt_lib.save_checkpoint(prefix, epoch, state, meta,
+                                           async_save=async_save)
+            if async_save:
+                def _report(f):
+                    err = f.exception()
+                    if err is not None:
+                        logger.error("ASYNC CHECKPOINT WRITE FAILED (%s): "
+                                     "later restores will miss this "
+                                     "epoch", err)
+                        failed.append(err)
+                    else:
+                        logger.info("Saved checkpoint to \"%s\"",
+                                    f.result())
+                out.add_done_callback(_report)
+            else:
+                logger.info("Saved checkpoint to \"%s\"", out)
     return _callback
 
 

@@ -29,6 +29,12 @@ across workers (bucketed and overlapped by ``training.overlap``, or
 serial; 2-bit words on the wire under ``set_gradient_compression``), the
 graceful drain after a step and rank 0's snapshot at each epoch end, from
 which joiners bootstrap (``init_params(initialize_from_kvstore=True)``).
+With ``DT_CKPT_DIR`` set the fleet checkpoints through
+``training.fleet_ckpt`` every ``DT_CKPT_EVERY`` steps and when a draining
+scheduler asks at an epoch end; a ``DT_RESUME=1`` worker handed a
+committed manifest restores the state, replays the data schedule to the
+checkpointed batch and goes on from there (``module.py:710-745, 822-832,
+1083-1090, 1112-1115``; not under ``dist_async``, as in the JAX package).
 
 Over a ``dist_async`` kvstore (``module.py:682-698, 864-915``) the master
 weights live on the scheduler or the range servers: ``fit`` ships the
@@ -153,6 +159,18 @@ def _update_metric(pending, metric) -> None:
     lab = label.numpy() if isinstance(label, _HostCopy) \
         else np.asarray(label)
     metric.update(lab[:n_real], _softmax_np(fetched.numpy())[:n_real])
+
+
+def _peek_batch(data_iter) -> None:
+    """What the JAX fit's init-time peek does to the iterator
+    (``module.py:1288-1293``: reset, one batch, reset).  The port's init
+    needs no sample, but a shuffling iterator draws a new order at each
+    reset, so a fit that initializes lazily consumes these resets as the
+    JAX one does and feeds the same batches (the data schedule a fleet
+    checkpoint's cursor replays across the packages)."""
+    data_iter.reset()
+    data_iter.next()
+    data_iter.reset()
 
 
 def _compute_dtype(model) -> torch.dtype:
@@ -288,6 +306,8 @@ class Module:
         self._sentinel = False
         self._halt = False
         self.health_halted = False
+        # the committed fleet-checkpoint step a resumed fit restored
+        self.resumed_from_step: Optional[int] = None
         self._dtype = _compute_dtype(self.model)
         takes = inspect.signature(self.model.forward).parameters
         self._generator = None
@@ -622,6 +642,8 @@ class Module:
         eval-end callback.  Returns the train metric."""
         from dt_tpu_torch.elastic import drain as drain_lib
         from dt_tpu_torch.elastic import faults as faults_lib
+        from dt_tpu_torch.training import checkpoint as checkpoint_lib
+        from dt_tpu_torch.training import fleet_ckpt
         # the elastic env contract (base_module.py:503-506)
         is_new_worker = config_lib.env_flag(config_lib.ENV_NEW_WORKER)
         elastic_enabled = config_lib.env_flag(config_lib.ENV_ELASTIC_ENABLED)
@@ -635,6 +657,7 @@ class Module:
             # crash re-entry under the old name (van.cc:187-218): park
             # until a barrier re-admits us, then take the survivors' state
             begin_epoch = ctrl.wait_rejoin()
+            _peek_batch(train_data)
             self.init_params(initialize_from_kvstore=True)
             logger.info("recovered worker re-admitted; resuming at "
                         "epoch %d", begin_epoch)
@@ -648,6 +671,7 @@ class Module:
         validation_metric = metrics_lib.create(validation_metric) \
             if validation_metric is not None else eval_metric
         if self.state is None:
+            _peek_batch(train_data)
             self.init_params(initialize_from_kvstore=is_new_worker)
         self._sentinel = obs_metrics.sentinels_enabled()
         self._halt = obs_metrics.halt_enabled()
@@ -658,6 +682,25 @@ class Module:
         is_async = self.kv.type == "dist_async"
         if is_async:
             self._attach_async()
+        fc = fleet_ckpt.FleetCheckpointer.from_env(ctrl, host)
+        resume_skip = 0
+        manifest = fleet_ckpt.resume_manifest(ctrl)
+        if manifest is not None and not is_async:
+            # dying here must leave the committed checkpoint reusable
+            faults_lib.crash_point("worker.resume", host=host)
+            # restored in place, on the module's device
+            _, cursor = fleet_ckpt.restore_state(manifest, host, self.state)
+            begin_epoch = int(manifest["epoch"])
+            resume_skip = int(cursor.get("batches_done", 0))
+            self.resumed_from_step = int(manifest["step"])
+            # the completed epochs' data schedule, replayed through the
+            # iterator protocol, so the shuffle matches the killed run's
+            fleet_ckpt.fast_forward(train_data, begin_epoch)
+            tr.event("ckpt.resume", {"step": self.resumed_from_step,
+                                     "epoch": begin_epoch, "host": host})
+            logger.info("cold-restart resume: step %d, epoch %d, %d batches "
+                        "into the epoch", self.resumed_from_step,
+                        begin_epoch, resume_skip)
 
         for epoch in range(begin_epoch, num_epoch):
             t_epoch = tr.begin("epoch")
@@ -698,6 +741,13 @@ class Module:
             eval_metric.reset()
             nbatch = 0
             train_data.reset()
+            # steps applied this epoch: the fleet checkpoint's cursor
+            applied = 0
+            if resume_skip:
+                # resumed mid-epoch: the restored state holds these
+                # batches' updates already
+                applied = fleet_ckpt.skip_batches(train_data, resume_skip)
+                resume_skip = 0
             # (labels, real rows, logits' host copy) of the step whose
             # metric is not yet counted; the rows a batch pads are not real
             pending = None
@@ -734,6 +784,11 @@ class Module:
                 if health is not None and self._health_step(health, loss,
                                                             epoch):
                     break
+                applied += 1
+                if fc is not None:
+                    # the step agrees fleet-wide here (host-sync
+                    # lockstep): every worker opens or joins one window
+                    fc.maybe_step(self.state, epoch, applied)
                 if drain_lib.requested():
                     # SIGTERM: this step is applied; leave through the
                     # membership machinery, no collective error
@@ -773,6 +828,10 @@ class Module:
             # the epoch-end snapshot joiners bootstrap from
             # (store_aux_params analog, base_module.py:601-605)
             self._publish_snapshot()
+            if fc is not None:
+                # a draining scheduler's forced checkpoint; the cursor
+                # points at the next epoch's first batch
+                fc.epoch_end(self.state, epoch + 1, 0)
             if is_async and self.kv.rank == 0:
                 try:
                     sst = self.kv.staleness_stats()
@@ -792,6 +851,9 @@ class Module:
                                 val)
                 if eval_end_callback is not None:
                     eval_end_callback(epoch, validation_metric)
+        # the last background checkpoint write lands, and a failed one
+        # raises, before fit returns
+        checkpoint_lib.flush_saves(timeout=120.0)
         return eval_metric
 
     def _publish_snapshot(self) -> None:
@@ -806,9 +868,6 @@ class Module:
             return
         from dt_tpu_torch.interchange import export_jax_train_state
         snap = export_jax_train_state(self.state)
-        snap["step"] = np.asarray(snap["step"], np.int32)
-        snap["opt_state"]["count"] = np.asarray(snap["opt_state"]["count"],
-                                                np.int32)
         bad = _tensor_leaves(snap)
         if bad:
             raise NotImplementedError(

@@ -792,3 +792,52 @@ def test_elastic_job_on_card_matches_cpu_and_serial(cuda, tmp_path, size):
             [e["sha256"] for e in r["serial"][h][0]["epochs"]]
     assert r["card"]["w0"][0]["epochs"][-1]["sha256"] == \
         r["card"]["w1"][0]["epochs"][-1]["sha256"]
+
+
+def test_async_save_snapshots_before_the_next_in_place_update(cuda,
+                                                             tmp_path):
+    """``save_checkpoint(async_save=True)`` at step k, then a step (params,
+    momentum and BN stats updated in place on the card), then a load: the
+    file holds the step-k state, byte for byte a synchronous save of it
+    taken before the step."""
+    from dt_tpu_torch import optim
+    from dt_tpu_torch.interchange import export_jax_train_state
+    from dt_tpu_torch.training import checkpoint
+    from dt_tpu_torch.training.step import train_step
+    from dt_tpu_torch.training.train_state import TrainState
+    from dt_tpu_torch.utils import msgpack
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, (16, 32, 32, 3)).astype(
+        np.float32)).to(cuda).permute(0, 3, 1, 2)
+    y = torch.from_numpy(rng.randint(0, 10, 16)).to(cuda)
+    st = TrainState.create(models.create("resnet20", device=cuda,
+                                         num_classes=10),
+                           optim.create("sgd", learning_rate=0.1,
+                                        momentum=0.9, weight_decay=1e-4))
+    for _ in range(2):
+        train_step(st, x, y)
+    want = msgpack.pack(export_jax_train_state(st))  # the step-k state
+    sync = checkpoint.save_checkpoint(str(tmp_path / "sync"), st.step, st)
+    assert open(sync, "rb").read() == want
+    k = st.step
+    for _ in range(3):  # saves back to back reuse the pinned buffers
+        fut = checkpoint.save_checkpoint(str(tmp_path / "async"), k, st,
+                                         async_save=True)
+        train_step(st, x, y)  # in place, queued behind the copy
+        path = fut.result(timeout=60)
+        checkpoint.flush_saves(timeout=60)
+        got = open(path, "rb").read()
+        assert got == want
+        assert st.step == k + 1
+        want = msgpack.pack(export_jax_train_state(st))
+        k = st.step
+    # and the load lands the step-k state back on the card
+    fresh = TrainState.create(models.create("resnet20", device=cuda,
+                                            num_classes=10),
+                              optim.create("sgd", learning_rate=0.1,
+                                           momentum=0.9,
+                                           weight_decay=1e-4))
+    checkpoint.load_checkpoint_file(path, fresh)
+    assert all(p.is_cuda for p in fresh.module.parameters())
+    assert msgpack.pack(export_jax_train_state(fresh)) == got

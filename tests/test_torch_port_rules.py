@@ -86,7 +86,9 @@ def test_port_imports_no_jax_and_no_dt_tpu():
             "dt_tpu_torch.elastic.client", "dt_tpu_torch.elastic.drain",
             "dt_tpu_torch.training.overlap", "dt_tpu_torch.ops.sparse",
             "dt_tpu_torch.optim.sparse", "dt_tpu_torch.elastic.server_optim",
-            "dt_tpu_torch.elastic.range_server"} <= want
+            "dt_tpu_torch.elastic.range_server",
+            "dt_tpu_torch.training.fleet_ckpt",
+            "dt_tpu_torch.training.checkpoint"} <= want
 
 
 _FORBIDDEN = re.compile(r"import jax|from jax|flax|dt_tpu\.|"
@@ -110,9 +112,8 @@ def test_port_sources_name_no_jax_and_no_dt_tpu_module():
 #: ROADMAP Queue 1 items done, whose refusals must be gone, and items still
 #: open that the port refuses by name (3f, 3g and 9 add modules the port
 #: does not import, so nothing refuses them)
-_DONE_ITEMS = ("item 3a", "item 3b")
-_OPEN_ITEMS = ("item 3c", "item 3d", "item 3e", "item 4", "item 5",
-               "item 6", "item 7", "item 8")
+_DONE_ITEMS = ("item 3a", "item 3b", "item 3c", "item 3e")
+_OPEN_ITEMS = ("item 3d", "item 4", "item 5", "item 6", "item 7", "item 8")
 
 
 def test_done_items_refuse_nothing_and_open_items_still_refuse():
@@ -131,8 +132,89 @@ def test_done_items_refuse_nothing_and_open_items_still_refuse():
                  "async_push", "async_push_sparse", "async_stats",
                  "async_pull_rows", "refresh_servers"):
         assert callable(getattr(WorkerClient, name))
-    import pytest
-    with pytest.raises(NotImplementedError, match="item 3e"):
-        Scheduler(resume=True, initial_workers=["w0"])
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        WorkerClient("127.0.0.1", 1, endpoints=[("a", 1), ("b", 2)])
+    assert not {"ckpt_intent", "ckpt_ack", "ckpt_manifest",
+                "ha_round"} & set(UNPORTED)
+    for name in ("ckpt_begin", "ckpt_ack", "ckpt_manifest",
+                 "_req_failover", "_rotate_leader", "_reattach"):
+        assert callable(getattr(WorkerClient, name))
+    import inspect
+    params = inspect.signature(Scheduler).parameters
+    for name in ("journal_path", "lease_path", "lease_s", "standby", "peer",
+                 "resume"):
+        assert name in params, name
+
+
+def test_port_journal_records_unpickle_without_the_port(tmp_path):
+    """The port's journal records and snapshot sidecars hold builtin types
+    and numpy only: a process that never imported ``dt_tpu_torch`` reads
+    them (the JAX scheduler replays a port journal that way)."""
+    import numpy as np
+
+    from dt_tpu_torch.elastic import journal
+    jp = str(tmp_path / "ctrl.journal")
+    w = journal.JournalWriter(jp, fence=1)
+    w.append("init", {"workers": ["w0", "w1"], "expected": 2})
+    w.append("ckpt_intent", {"step": 8, "epoch": 1, "seq": 1,
+                             "workers": ["w0", "w1"]})
+    w.append("snapshot", {"blob": journal.write_snapshot_sidecar(
+        jp, {"step": np.int32(8),
+             "params": {"Dense_0": {"kernel": np.ones((2, 3),
+                                                      np.float32)}}})})
+    w.close()
+    probe = (
+        "import glob, json, pickle, struct, sys, zlib\n"
+        "jp = sys.argv[1]\n"
+        "data = open(jp, 'rb').read()\n"
+        "ops, off = [], 0\n"
+        "while off < len(data):\n"
+        "    n, crc = struct.unpack_from('<II', data, off)\n"
+        "    payload = data[off + 8:off + 8 + n]\n"
+        "    assert zlib.crc32(payload) == crc\n"
+        "    ops.append(pickle.loads(payload)[1])\n"
+        "    off += 8 + n\n"
+        "snaps = [pickle.loads(open(p, 'rb').read())\n"
+        "         for p in glob.glob(jp + '.snap.*')]\n"
+        "bad = sorted(m for m in sys.modules if m.startswith(\n"
+        "    ('dt_tpu', 'torch')))\n"
+        "print(json.dumps({'ops': ops, 'snaps': len(snaps),\n"
+        "                  'step': int(snaps[0]['step']), 'bad': bad}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe, jp], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True, timeout=60,
+                         check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"ops": ["init", "ckpt_intent", "snapshot"], "snaps": 1,
+                   "step": 8, "bad": []}
+
+
+def _literals(root, pattern):
+    """The string literals ``pattern`` captures in the ``.py`` files under
+    ``root``."""
+    found = set()
+    for f in Path(root).rglob("*.py"):
+        found.update(re.findall(pattern, f.read_text()))
+    return found
+
+
+def test_trace_names_and_crash_sites_are_the_jax_packages():
+    """The HA and fleet-checkpoint record names mean what the JAX
+    package's name registry says, and every one is recorded somewhere in
+    the port; every crash site the port hooks has the JAX package's name,
+    so one seeded fault plan means the same in both."""
+    import importlib.util
+
+    from dt_tpu_torch.obs import trace
+    spec = importlib.util.spec_from_file_location(
+        "_jax_names", ROOT / "dt_tpu" / "obs" / "names.py")
+    names = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(names)
+    for name, entry in trace.NAMES.items():
+        assert names.NAME_REGISTRY[name] == entry, name
+    recorded = _literals(PORT, r'(?:event|counter|begin|complete_span)\(\s*'
+                               r'"([\w.]+)"')
+    assert set(trace.NAMES) <= recorded, set(trace.NAMES) - recorded
+    port_sites = _literals(PORT, r'crash_point\(\s*"([\w.]+)"')
+    jax_sites = _literals(ROOT / "dt_tpu", r'crash_point\(\s*"([\w.]+)"')
+    assert {"sched.ckpt_intent", "sched.ckpt_ack", "sched.ckpt_commit",
+            "worker.resume", "worker.ckpt_save"} <= port_sites
+    assert port_sites <= jax_sites, port_sites - jax_sites

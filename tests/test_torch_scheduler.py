@@ -145,12 +145,10 @@ def test_scripted_sequence_matches_the_jax_scheduler(tmp_path):
     assert port[3] == [("w2", 1)]
 
 
-def test_unported_commands_name_their_item():
+def test_unported_commands_name_their_item(tmp_path):
     sched = TScheduler(initial_workers=["w0"])
     try:
-        for cmd, item in (("obs_dump", "item 7"), ("health", "item 7"),
-                          ("ckpt_manifest", "item 3e"),
-                          ("ha_round", "item 3c"),
+        for cmd, item in (("obs_push", "item 7"), ("health", "item 7"),
                           ("serve_endpoints", "item 5")):
             resp = jproto.request("127.0.0.1", sched.port, {"cmd": cmd},
                                   timeout=10)
@@ -164,7 +162,26 @@ def test_unported_commands_name_their_item():
                               {"cmd": "async_stats"}, timeout=10) == {
             "max_staleness": 0, "mean_staleness": 0.0,
             "measured_pushes": 0, "keys": 0}
+        # obs_dump answers with the control-plane track alone
+        dump = jproto.request("127.0.0.1", sched.port, {"cmd": "obs_dump"},
+                              timeout=10)["job"]
+        assert set(dump["tracks"]) == {"control-plane"}
+        assert {"records", "counters", "dropped"} <= \
+            set(dump["tracks"]["control-plane"])
+        # scheduler HA and the fleet checkpoint are served now
+        assert jproto.request("127.0.0.1", sched.port,
+                              {"cmd": "ckpt_manifest"}, timeout=10) == {
+            "committed": None, "pending": None, "resume": False}
+        assert jproto.request(
+            "127.0.0.1", sched.port,
+            {"cmd": "ha_round", "fence": 0, "key": "g", "gen": 1,
+             "seqs": {"w0": 0}, "value": np.zeros(2, np.float32)},
+            timeout=10) == {}
     finally:
         sched.close()
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        TScheduler(journal_path="j", initial_workers=["w0"])
+    journaled = TScheduler(journal_path=str(tmp_path / "j"),
+                           initial_workers=["w0"])
+    try:
+        assert journaled.incarnation == 1 and journaled.is_leader()
+    finally:
+        journaled.close()

@@ -1,11 +1,16 @@
 """Helpers of the port's elastic job tests: start worker processes of
-either package against a scheduler, wait for them with a time limit, and
-read their results.  Imports neither JAX nor the JAX package."""
+either package against a scheduler, start the port's scheduler as a
+process of its own (an HA primary or standby), wait for them with a time
+limit, and read their results.  Imports neither JAX nor the JAX
+package."""
 
+import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PORT_WORKER = os.path.join(HERE, "torch_elastic_worker.py")
@@ -67,3 +72,76 @@ def audit(hw):
     """``(action, host)`` of each ``<host_worker>_log`` line."""
     with open(hw + "_log") as f:
         return [tuple(ln.split()[1:3]) for ln in f if ln.strip()]
+
+
+def start_scheduler(tmp, name, args=(), env=None, timeout=60):
+    """``python -m dt_tpu_torch.elastic.scheduler_main`` with ``args``; waits
+    for its port file.  Returns ``(process, port)``; its log is
+    ``<tmp>/<name>.log``."""
+    port_file = os.path.join(tmp, name + ".port")
+    log_path = os.path.join(tmp, name + ".log")
+    penv = dict(os.environ)
+    penv.pop("XLA_FLAGS", None)
+    penv["PYTHONPATH"] = os.path.dirname(HERE)
+    penv.setdefault("OMP_NUM_THREADS", "1")
+    penv.update(env or {})
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dt_tpu_torch.elastic.scheduler_main",
+             "--port-file", port_file] + list(args),
+            cwd=os.path.dirname(HERE), env=penv, stdout=log,
+            stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(port_file):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            with open(log_path) as f:
+                raise AssertionError(f"scheduler {name} did not come up:\n"
+                                     f"{f.read()[-3000:]}")
+        time.sleep(0.02)
+    with open(port_file) as f:
+        return proc, int(f.read())
+
+
+def stop_scheduler(proc, port, timeout=10):
+    """The ``shutdown`` command (the process closes the connection
+    unanswered), then SIGKILL if it is still up after ``timeout``."""
+    from dt_tpu_torch.elastic import protocol
+    if proc.poll() is None:
+        try:
+            protocol.request("127.0.0.1", port, {"cmd": "shutdown"},
+                             timeout=5)
+        except (OSError, RuntimeError):
+            pass
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+
+
+def read_step(path):
+    """The global step a worker's ``--progress`` file holds (0 before
+    the first batch)."""
+    try:
+        with open(path) as f:
+            return int(f.read() or 0)
+    except (OSError, ValueError):
+        return 0
+
+
+@contextlib.contextmanager
+def deadline(seconds):
+    """A test's own time limit: past ``seconds`` a ``TimeoutError`` is
+    raised in the main thread (a blocked socket read included), so a hung
+    lease, standby or worker fails its test instead of the whole run."""
+    def _expire(signum, frame):
+        raise TimeoutError(f"the test ran past its {seconds} s limit")
+
+    old = signal.signal(signal.SIGALRM, _expire)
+    signal.alarm(int(seconds))
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)

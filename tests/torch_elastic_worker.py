@@ -15,8 +15,14 @@ snapshot, and writes a JSON result.  ``tinybn`` is the JAX harness's job
 (the same dataset, seeds, ``MultiFactorScheduler``, ``ResizeIter``), so a
 fleet may mix the two harnesses; ``--init-npz`` loads the JAX worker's
 initial variables (``params/<path>``, ``batch_stats/<path>`` arrays),
-since the two packages draw from different RNG streams.  It imports
-neither JAX nor the JAX package.
+since the two packages draw from different RNG streams.  The environment
+carries scheduler HA (``DT_CTRL_ENDPOINTS``: the client fails over across
+the endpoints) and the fleet checkpoint (``DT_CKPT_DIR``,
+``DT_CKPT_EVERY``, ``DT_RESUME``) into ``Module.fit``; the result records
+``resumed_from_step``, the fence the client ended under and its
+``client.failover`` count, and ``--progress F`` rewrites ``F`` with the
+global step after every batch.  It imports neither JAX nor the JAX
+package.
 """
 
 import argparse
@@ -41,7 +47,7 @@ from dt_tpu_torch.interchange import load_jax_variables  # noqa: E402
 from dt_tpu_torch.models.common import Conv, Dense, bn  # noqa: E402
 from dt_tpu_torch.obs import trace as obs_trace  # noqa: E402
 from dt_tpu_torch.optim import MultiFactorScheduler  # noqa: E402
-from dt_tpu_torch.ops import kernels  # noqa: E402
+from dt_tpu_torch.ops import attention, kernels  # noqa: E402
 from dt_tpu_torch.parallel import kvstore as kvstore_lib  # noqa: E402
 from dt_tpu_torch.training.module import Module  # noqa: E402
 
@@ -49,7 +55,7 @@ from dt_tpu_torch.training.module import Module  # noqa: E402
 #: training.overlap, elastic.client)
 SPANS = ("step", "step.grad", "pipeline.d2h", "pipeline.wire",
          "pipeline.h2d", "step.apply", "allreduce", "step.push",
-         "step.h2d")
+         "step.h2d", "ckpt.save")
 
 
 def make_dataset(n=256, seed=1234):
@@ -149,7 +155,7 @@ def state_digest(st) -> str:
 
 
 def launch_counts() -> dict:
-    """The kernel wrappers' launch counters, and (with tracing on) the
+    """Every kernel wrapper's launch counter, and (with tracing on) the
     gradient bytes the overlap engine put on the wire and every frame's
     bytes, sent and received."""
     tr = obs_trace.tracer()
@@ -157,6 +163,9 @@ def launch_counts() -> dict:
             "bn_act": kernels.bn_act.launches,
             "quantize_2bit": kernels.quantize_2bit.launches,
             "dequantize_2bit": kernels.dequantize_2bit.launches,
+            "flash_attention": attention.flash_fwd.launches,
+            "lstm_pointwise": kernels.lstm_point.launches,
+            "lstm_layer": kernels.lstm_layer.launches,
             "grad_bytes": tr.get_counter("pipeline.grad_bytes"),
             "wire_bytes": tr.get_counter("wire.bytes_sent"),
             "wire_recv_bytes": tr.get_counter("wire.bytes_recv")}
@@ -237,6 +246,9 @@ def main():
                     choices=("tpu_sync", "dist_async"))
     ap.add_argument("--fixed-batch", action="store_true",
                     help="--global-batch is each worker's batch")
+    ap.add_argument("--progress", default="",
+                    help="rewrite this file with the global step after "
+                         "every batch")
     args = ap.parse_args()
 
     dev = torch.device(args.device)
@@ -308,18 +320,21 @@ def main():
             os.environ.get("DT_RECOVERY") == "1":
         mod.init_params(initialize_from_kvstore=True)
         bootstrap_step = int(mod.state.step)
-    else:
+    elif args.init_npz:
         mod.init_params()
-        if args.init_npz:
-            load_npz_variables(mod.model, args.init_npz)
+        load_npz_variables(mod.model, args.init_npz)
+    # else fit initializes, as the JAX harness's does (its init-time peek
+    # draws the same shuffles)
 
     epochs = []
     marks = {"t": time.monotonic(), "launch": launch_counts(),
-             "step": int(mod.state.step)}
+             "step": int(mod.state.step) if mod.state is not None else 0}
 
     def record(epoch, state, metric):
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        if mod.resumed_from_step is not None and not epochs:
+            marks["step"] = mod.resumed_from_step  # fit restored the state
         now, counts = time.monotonic(), launch_counts()
         loss = dict(metric.get_name_value()).get("cross-entropy")
         epochs.append({
@@ -356,9 +371,17 @@ def main():
             marks["prof"].start()
             marks["t"] = time.monotonic()  # the window opens here
 
+    batch_end = None
+    if args.progress:
+        def batch_end(param):
+            tmp = args.progress + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(str(int(mod.state.step)))
+            os.replace(tmp, args.progress)
+
     mod.fit(train, num_epoch=args.num_epoch, begin_epoch=begin_epoch,
             elastic_data_iterator=eit, eval_metric="ce",
-            epoch_end_callback=record)
+            epoch_end_callback=record, batch_end_callback=batch_end)
 
     st = mod.state
     flat = torch.cat([st.layout.params.ravel(st.params),
@@ -370,10 +393,18 @@ def main():
         "param_hash": float(np.abs(flat).sum()),
         "num_workers_at_end": kv.num_workers,
         "bootstrap_step": bootstrap_step,
+        "resumed_from_step": mod.resumed_from_step,
+        "fence": ctrl.fence,
+        "failovers": obs_trace.tracer().get_counter("client.failover"),
         "attach": attach,
         "epochs": epochs,
         "spans": span_summary() if obs_trace.enabled() else None,
     }
+    if args.model == "tinybn":
+        # the JAX harness's final_loss: cross-entropy on its held-out set
+        result["final_loss"] = float(dict(mod.score(
+            io.NDArrayIter(val[0], val[1], batch_size=val[2]),
+            "ce"))["cross-entropy"])
     if args.bare_steps:
         from dt_tpu_torch.training.step import train_step
         xb = mod._place(x[:args.global_batch // max(kv.num_workers, 1)])
