@@ -11,7 +11,8 @@ JAX.  Phases, each fatal on failure:
    (``nvcc``, one process per source, all started together);
 2. kernels: every distinct BatchNorm shape of ResNet-50 v1 at 224x224,
    batch 32 and batch 21 (the elastic job's three workers), plus ragged
-   and misaligned cases, in float32 and bfloat16 with
+   and misaligned cases (and, held in bfloat16 but not timed, the policy
+   job's batches 13, 22, 25 and 26), in float32 and bfloat16 with
    ReLU on and off: the BN-inference kernel against its plain PyTorch
    version on the same inputs (max abs difference must be 0), and the times
    of the kernel, the plain version and ``F.batch_norm`` (a yardstick the
@@ -19,7 +20,9 @@ JAX.  Phases, each fatal on failure:
 3. training kernels: the BN-train pass 1 at the same shapes, held against
    its plain version (mean and var within 1e-5 of the largest E[x^2], two
    launches bit-identical, y bit-equal to the plain pass 2 on the kernel's
-   stats, one CUDA kernel a call in a ``torch.profiler`` window), and the
+   stats, one CUDA kernel a call in a ``torch.profiler`` window, a window
+   that recorded no device event taken again up to three times while the
+   wrapper counts one launch in each), and the
    2-bit quantize/dequantize pair at ResNet-50's parameter
    count and at 0, 1, 15, 17 and 1000 elements with values at +-t, +-0,
    +-inf and NaN, bit for bit; each timed beside its bound, its plain
@@ -97,7 +100,9 @@ JAX.  Phases, each fatal on failure:
    launches a scored batch, 6,389,260 bytes of packed words a step; each
    epoch's steps after its first timed as a window on worker 0's clock
    (2, 3, 2 workers), the step's parts from worker 0's spans beside the
-   bare step; then 2-worker f32 resnet20 jobs (8x8x3 and 32x32x3) on the
+   bare step, and the scheduler's straggler board (it traces here) at
+   every epoch's end; then 2-worker f32 resnet20 jobs (8x8x3 and
+   32x32x3) on the
    card, each step recorded and replayed on the CPU from the card's state
    (``tests/torch_elastic_drift.py``: loss, stats, update and, where no
    ReLU mask flipped, gradient within 1e-4; the applied average exact;
@@ -144,7 +149,21 @@ JAX.  Phases, each fatal on failure:
    50,000, dim 64, batch 256, window 8, adagrad lr 0.1), 2 workers and 2
    range servers, 50 steps of ``allreduce_sparse`` on the card with
    ``ops.sparse`` and ``optim.sparse``, the sparse table within 1e-3 of
-   the dense path's (the example's ``--dense`` check).
+   the dense path's (the example's ``--dense`` check);
+17. policy: the port's launcher (``python -m dt_tpu_torch.launcher.launch
+   -n 2 --standby --elastic-training-enabled True``, host file ``w0``,
+   ``w2``) runs phase 11's job (4 epochs of 4 steps, 32 images scored a
+   worker-epoch) under ``DT_POLICY=1``, every round of a step in flight
+   at once; ``w1``, added to the host file during epoch 0, is started by
+   the launcher at the epoch-1 barrier and sleeps 0.8 s before each
+   step's allreduce (scaled by its batch): its share halves at the
+   epoch-2 barrier and it is evicted at the epoch-3 one.  The decision
+   log rebuilt from the journal, the batches (32/32, 22/21/21, 26/25/13,
+   32/32), the gradient weights (summing to W), the live sha256 at every
+   epoch end, the launch counts, the dynamic mini-batch gain of epoch 2
+   over epoch 1 and epoch 3's recovery to epoch 0's rate, each gated;
+   the straggler boards at the barriers and where the wall time goes
+   printed.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -153,7 +172,8 @@ for Hopper carry ``redesigned_in``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every phase, timings
 included.  The kernels line carries, beside each kernel's own launches,
 its launches on ``fit`` and on the elastic, sharded, async, failover
-(``ha_launches``) and resumed (``resume_launches``) jobs, each read from
+(``ha_launches``), resumed (``resume_launches``) and policy
+(``policy_launches``, the three kernels of its path) jobs, each read from
 the counters of that job's workers (the f32 BatchNorm rows carry none:
 the jobs run bf16, and one counter serves both dtypes).
 """
@@ -297,6 +317,35 @@ TOL_ELASTIC_LOSS = 1e-4  # card against CPU, relative
 # delay measured under phase 11's load asks for more (3x its worst case)
 FAILOVER_KILL_STEP = ELASTIC_STEPS + 3
 LEASE_MIN_S = 2.0  # DT_CTRL_LEASE_S's default
+# the policy phase: the port's launcher (-n 2 --standby, host file w0 w2)
+# runs the elastic job's worker under DT_POLICY=1, 4 epochs of
+# POLICY_STEPS steps, 32 seeded images scored after every epoch; w1 joins
+# at the epoch-1 barrier and sleeps POLICY_DELAY_S before each step's
+# allreduce (scaled by its batch over the equal split), breaches
+# POLICY_THRESHOLD_MS at the epoch-2 barrier (its share halves) and again
+# at the epoch-3 one (evicted after POLICY_EVICT_AFTER breaches).  Every
+# round of a step is in flight at once (DT_AR_WINDOW 32 >= the 25 bucket
+# rounds and the stats round; staging for 2 x 32 buckets of 4 MiB), so
+# each round's lag is the step's and the board at a barrier is the last
+# step's: with the default window (4) a step's lag reaches only its first
+# window's rounds and the ~21 rounds after decay it by 0.7 each.  The
+# threshold is >= 3x the worst score of a worker that does not straggle
+# and <= the delay / 3 (on an H100 80GB HBM3 at 700 W: phase 11's board
+# at most 7.2 ms, this job's at most 55.4 ms).
+POLICY_STEPS = 4
+POLICY_ARGS = ["--model", "resnet50", "--dtype", "bfloat16",
+               "--global-batch", "64", "--images", "128", "--lr", "0.025",
+               "--wd", "1e-4", "--compress", "0.005", "--num-epoch", "4",
+               "--epoch-steps", str(POLICY_STEPS), "--val-images", "32"]
+POLICY_DELAY_S = 0.8
+POLICY_THRESHOLD_MS = 250.0
+POLICY_EVICT_AFTER = 2
+POLICY_ENV = {"DT_POLICY": "1",
+              "DT_POLICY_STRAGGLER_MS": str(POLICY_THRESHOLD_MS),
+              "DT_POLICY_EVICT_AFTER": str(POLICY_EVICT_AFTER),
+              "DT_AR_WINDOW": "32", "DT_AR_STAGING_MB": "256",
+              "DT_OBS": "1", "DT_OBS_RING": "65536"}
+POLICY_TIMEOUT = 240  # s, the whole launch
 # the outage phase: dense ResNet-50 v1 bf16, 2 workers x 32 images, 2
 # epochs of ELASTIC_STEPS steps, a fleet checkpoint every OUTAGE_EVERY
 # steps; the whole job SIGKILLed after the step-OUTAGE_KILL_STEP commit
@@ -409,11 +458,13 @@ def bn_shapes(model, x):
     return seen
 
 
-def kernel_phase(shapes, dev, also=()):
+def kernel_phase(shapes, dev, also=(), held=()):
     """Hold the kernel against its plain version at every shape, bit for
     bit, and time it; the shapes of ``also`` (``bn_shapes`` keys of another
-    batch) too, both ways of ReLU.  Returns one summary per dtype, with
-    times summed over the BatchNorm calls of one batch-32 forward."""
+    batch) too, both ways of ReLU; the shapes of ``held`` are held in
+    bfloat16 with their own ReLU flag (a bf16 job's calls), not timed.
+    Returns one summary per dtype, with times summed over the BatchNorm
+    calls of one batch-32 forward."""
     import torch
     import torch.nn.functional as F
     from dt_tpu_torch.ops import kernels
@@ -431,7 +482,9 @@ def kernel_phase(shapes, dev, also=()):
                "library_ms": 0.0, "max_abs_err": 0.0}
         runs = [(k[:4], k[4], m) for k, m in cases.items()] + \
             [(k[:4], r, 0) for k in also for r in (False, True)] + \
-            [(s, r, 0) for s, r in extra]
+            [(s, r, 0) for s, r in extra] + \
+            [(k[:4], k[4], None) for k in held
+             if dtype == torch.bfloat16]
         for shape, relu, per_fwd in runs:
             # a 2-D view one element into its storage is not 16-byte
             # aligned: it takes the kernel's scalar path
@@ -461,6 +514,10 @@ def kernel_phase(shapes, dev, also=()):
                         f"bn_act {tuple(shape)} {dtype} relu={relu} "
                         f"misaligned={offset}: max abs err {err} != 0")
                 tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                if per_fwd is None:  # held, not timed
+                    print(f"kernel bn_act {dtype} shape={tuple(shape)} "
+                          f"relu={relu} held max_abs_err={err}", flush=True)
+                    continue
                 nbytes = (2 * x2.numel() + 2 * c) * x.element_size()
                 bound = nbytes / H100_BYTES_PER_S * 1e3
                 # time on copies that together exceed the 50 MB L2, so each
@@ -594,28 +651,52 @@ def read_counts() -> dict:
     return {k: w.launches for k, w in counted().items()}
 
 
-def device_kernels(fn) -> list:
+#: profiler windows taken over one call before an empty trace fails
+PROFILE_WINDOWS = 3
+
+
+def device_kernels(fn, wrapper) -> list:
     """Names of the CUDA kernels (and memsets, copies) that one call of
     ``fn`` puts on the device, from a ``torch.profiler`` window over that
-    call alone."""
+    call alone, synchronized before the window closes.  ``wrapper`` is
+    the kernel wrapper ``fn`` calls: its launch counter must advance by
+    one in every window.  A window that recorded no device event at all
+    (the profiler missed the call: it happened once in one of PR 9's
+    runs) is taken again, up to :data:`PROFILE_WINDOWS` windows; three
+    empty windows fail, and the caller fails a window that recorded
+    anything but exactly one kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for window in range(1, PROFILE_WINDOWS + 1):
+        before = wrapper.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"profiler window {window}: the wrapper "
+                                 f"counted {wrapper.launches - before} "
+                                 "launches, not one")
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+        print(f"profiler window {window}: no device event recorded for "
+              "one launch; taking the window again", flush=True)
+    raise AssertionError(f"{PROFILE_WINDOWS} profiler windows in a row "
+                         "recorded no device event")
 
 
-def bn_train_phase(shapes, dev, also=()):
+def bn_train_phase(shapes, dev, also=(), held=()):
     """Hold the BN-train pass 1 against its plain version at every shape of
     a batch-32 forward, of ``also`` (``bn_shapes`` keys of another batch),
     and ragged and misaligned ones, check that two
     launches agree bit for bit and that y is the plain pass 2 on the
-    kernel's stats, and time pass 1 + pass 2.  Returns one summary per
-    dtype, times summed over the BatchNorm calls of one forward."""
+    kernel's stats, and time pass 1 + pass 2; the shapes of ``held`` are
+    held the same ways in bfloat16 (a bf16 job's calls), not profiled or
+    timed.  Returns one summary per dtype, times summed over the
+    BatchNorm calls of one forward."""
     import torch
     import torch.nn.functional as F
     from dt_tpu_torch.ops import kernels
@@ -628,7 +709,8 @@ def bn_train_phase(shapes, dev, also=()):
                "kernels_a_call": 0}
         runs = [(k[:4], k[4], m) for k, m in shapes.items()] + \
             [(k[:4], k[4], 0) for k in also] + \
-            [(sh, r, 0) for sh, r in extra]
+            [(sh, r, 0) for sh, r in extra] + \
+            [(k[:4], k[4], None) for k in held if dtype == torch.bfloat16]
         for shape, relu, per_fwd in runs:
             for offset in [False, True] if shape == (1001, 64) else [False]:
                 numel = int(np.prod(shape))
@@ -668,7 +750,13 @@ def bn_train_phase(shapes, dev, also=()):
                 if not torch.equal(kernels.rows_view(y), want):
                     raise AssertionError(f"fused_bn_train {tag}: y differs "
                                          "from the plain pass 2")
-                launched = device_kernels(lambda: kernels.bn_stats(x))
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                if per_fwd is None:  # held, not profiled or timed
+                    print(f"kernel bn_train {tag} held stats_max_abs_err="
+                          f"{err:.3e} ex2={ex2:.3f}", flush=True)
+                    continue
+                launched = device_kernels(lambda: kernels.bn_stats(x),
+                                          kernels.bn_stats)
                 print(f"kernel bn_train {tag} kernels_a_bn_stats_call="
                       f"{len(launched)} {launched}", flush=True)
                 if len(launched) != 1:
@@ -677,7 +765,6 @@ def bn_train_phase(shapes, dev, also=()):
                                          "one kernel")
                 tot["kernels_a_call"] = max(tot["kernels_a_call"],
                                             len(launched))
-                tot["max_abs_err"] = max(tot["max_abs_err"], err)
                 nbytes = x2.numel() * x.element_size()
                 b1 = (nbytes + 2 * c * 4) / H100_BYTES_PER_S * 1e3
                 b2 = (2 * nbytes + 2 * c * x.element_size()) \
@@ -1868,13 +1955,29 @@ def elastic_phase(gpu) -> dict:
     bare step, and MB on the wire a step (two or three processes share
     the card)."""
     import tempfile
-    with _RenewalProbe(tempfile.mkdtemp(prefix="dt_probe_")) as probe:
-        r, audit, launched, wall = _elastic_job()
+
+    from dt_tpu_torch.obs import trace as obs_trace
+    # the scheduler here stamps round arrivals with tracing on (DT_OBS on a
+    # scheduler), so its straggler board exists without the policy engine
+    obs_trace.set_enabled(True)
+    try:
+        with _RenewalProbe(tempfile.mkdtemp(prefix="dt_probe_")) as probe:
+            r, audit, launched, wall = _elastic_job()
+    finally:
+        obs_trace.set_enabled(None)
     shas, launches = _elastic_gates("elastic", r, audit, launched, wall,
                                     gpu)
     out = _elastic_report("elastic", r, gpu)
+    # the board at each epoch's end (what the next barrier would read),
+    # no worker straggling: the policy phase's threshold comes from it
+    boards = [e["board"] for e in r["w0"]["epochs"]]
     out.update(launches=launches, wall_s=wall, shas=shas,
-               renewal=probe.summary())
+               renewal=probe.summary(), boards=boards,
+               board_max_ms=max((v for b in boards for v in b.values()),
+                                default=None))
+    print(f"elastic straggler board (round-lag EWMA ms at each epoch's "
+          f"end, 4 MiB buckets, no straggler): {json.dumps(boards)} "
+          f"worst={out['board_max_ms']}; gpu={gpu}", flush=True)
     return out
 
 
@@ -3022,6 +3125,199 @@ def elastic_small_jobs(gpu) -> dict:
     return out
 
 
+def policy_phase(gpu) -> dict:
+    """The policy engine's closed loop through the port's launcher (see
+    ``POLICY_*``): ``python -m dt_tpu_torch.launcher.launch -n 2 -H hw
+    --standby --elastic-training-enabled True -- tests/torch_elastic_
+    worker.py ...``; ``w1`` is added to the host file during epoch 0 and
+    the launcher starts it at the epoch-1 barrier.  Gates: the launcher
+    returns 0 (every worker it started exited 0, the evicted one through
+    ``WorkerRemoved``), it started ``w1`` once; the decision log rebuilt
+    from the journal is ``PolicyEngine.decide``'s for ``w1`` breaching
+    every epoch it trains and nobody else; every epoch's batches are the
+    shares' ``batch_map`` and sum to 64; the workers' gradient weights sum
+    to W within 1e-6; the live sha256 agree at every epoch end; 53 + 53
+    BN-train and 1 ``quantize_2bit`` launches a worker-step, 53 ``bn_act``
+    a scored batch, nothing else; on worker 0's clock epoch 2's median
+    step (its steps after the first) is >= 0.25 x the delay under epoch
+    1's, and epoch 3's rate >= 80 % of epoch 0's."""
+    import hashlib
+    import os
+    import signal
+    import tempfile
+
+    from torch_elastic_job import (load, policy_drill_log, read_step,
+                                   write_hosts)
+
+    from dt_tpu_torch.elastic import journal
+    from dt_tpu_torch.policy import PolicyEngine, rescale
+    tmp = tempfile.mkdtemp(prefix="dt_policy_")
+    hw = os.path.join(tmp, "host_worker")
+    write_hosts(hw, ["w0", "w2"])
+    had = os.path.join(tmp, "ha")
+    plan = {"rules": [{"kind": "delay", "site": "worker.step", "host": "w1",
+                       "delay_s": POLICY_DELAY_S}], "seed": 0}
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               DT_FAULT_PLAN=json.dumps(plan), **POLICY_ENV)
+    cmd = [sys.executable, "-m", "dt_tpu_torch.launcher.launch", "-n", "2",
+           "-H", hw, "--standby", "--ha-dir", had,
+           "--elastic-training-enabled", "True", "--", sys.executable,
+           str(ROOT / "tests" / "torch_elastic_worker.py"), *POLICY_ARGS,
+           "--out", os.path.join(tmp, "{host}.json"),
+           "--progress", os.path.join(tmp, "{host}.step")]
+    log_path = os.path.join(tmp, "launcher.log")
+    t0 = time.monotonic()
+    wall0_ms = time.time() * 1e3  # the spans' clock
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    added_at = None
+    try:
+        while proc.poll() is None:
+            if time.monotonic() - t0 > POLICY_TIMEOUT:
+                raise AssertionError(f"policy launch past {POLICY_TIMEOUT} s")
+            step = read_step(os.path.join(tmp, "w0.step"))
+            if added_at is None and step >= 1:
+                if step >= POLICY_STEPS:
+                    raise AssertionError("w0 left epoch 0 before w1 was "
+                                         "added")
+                write_hosts(hw, ["w0", "w2", "w1"])
+                added_at = step
+            time.sleep(0.02)
+    finally:
+        if proc.poll() is None:  # the launcher, its workers and standby
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    wall = time.monotonic() - t0
+    text = open(log_path).read()
+    started = text.count("launching elastic worker w1 (EPOCH_BEGIN=1)")
+    if proc.returncode != 0 or started != 1 or \
+            text.count("launching elastic worker") != 1:
+        raise AssertionError(f"policy launch rc {proc.returncode}, w1 "
+                             f"started {started}x:\n{text[-4000:]}")
+    r = {h: load(os.path.join(tmp, f"{h}.json")) for h in ("w0", "w1", "w2")}
+    engine = PolicyEngine(threshold_ms=POLICY_THRESHOLD_MS,
+                          evict_after=POLICY_EVICT_AFTER)
+    want_log, want_batches = policy_drill_log(engine, rescale)
+    got_log = journal.ControlState.rebuild(
+        os.path.join(had, "ctrl.journal")).policy_log
+    log_sha = hashlib.sha256(json.dumps(got_log, sort_keys=True)
+                             .encode()).hexdigest()
+    audit = [ln.split()[1:3] for ln in open(hw + "_log")]
+    boards = [e["board"] for e in r["w0"]["epochs"]]
+    print(f"policy launch wall_s={wall:.1f} w1 added at w0 step {added_at}; "
+          f"audit={audit}; decision log sha256={log_sha} "
+          f"{json.dumps(got_log)}; boards at the barriers of epochs 1-4 "
+          f"(ms): {json.dumps(boards)}; gpu={gpu}", flush=True)
+    if got_log != want_log:
+        raise AssertionError(f"policy decision log {got_log}, want "
+                             f"{want_log}")
+    if audit != [["ADDED", "w1"], ["REMOVED", "w1"]] or \
+            r["w1"]["bootstrap_step"] != POLICY_STEPS:
+        raise AssertionError(f"policy audit {audit}, w1 bootstrapped at "
+                             f"{r['w1']['bootstrap_step']}")
+    by_epoch = {}
+    for h, res in r.items():
+        for e in res["epochs"]:
+            by_epoch.setdefault(e["epoch"], {})[h] = e
+    launches = {"bn_stats": 0, "bn_act": 0, "quantize_2bit": 0,
+                "dequantize_2bit": 0, **dict.fromkeys(LM_KERNELS, 0),
+                "score_bn_act": 0}
+    score_want = {"bn_stats": 0, "bn_act": BN_PER_FORWARD}
+    for epoch, want in enumerate(want_batches):
+        got = by_epoch.get(epoch, {})
+        batches = {h: got[h]["batch"] for h in got}
+        weights = {h: got[h]["grad_scale"] for h in got}
+        short = {h: got[h]["sha256"][:16] for h in got}
+        print(f"policy epoch {epoch} batches={batches} grad_weights="
+              f"{weights} sha256={short} train_ce="
+              f"{ {h: got[h]['loss'] for h in got} }", flush=True)
+        if batches != want or sum(batches.values()) != 64:
+            raise AssertionError(f"policy epoch {epoch}: batches {batches}, "
+                                 f"want {want}")
+        wsum = sum(weights.values())
+        if abs(wsum - len(want)) > 1e-6 or any(
+                weights[h] != rescale.grad_weight(want[h], len(want), 64)
+                for h in want):
+            raise AssertionError(f"policy epoch {epoch}: gradient weights "
+                                 f"{weights} (sum {wsum})")
+        if len(set(short.values())) != 1:
+            raise AssertionError(f"policy epoch {epoch}: digests {short}")
+        for h, e in got.items():
+            n, la = e["steps"], e["launches"]
+            lwant = {"bn_stats": BN_PER_FORWARD * n,
+                     "bn_act": BN_PER_FORWARD * n, "quantize_2bit": n,
+                     "dequantize_2bit": 0, **dict.fromkeys(LM_KERNELS, 0)}
+            got_la = {k: la[k] for k in lwant}
+            if n != POLICY_STEPS or got_la != lwant or \
+                    e["score_launches"] != score_want or \
+                    not np.isfinite(e["loss"]):
+                raise AssertionError(f"policy epoch {epoch} {h}: steps {n}, "
+                                     f"launches {got_la} want {lwant}, score "
+                                     f"{e['score_launches']}, loss "
+                                     f"{e['loss']}")
+            for k in lwant:
+                launches[k] += la[k]
+            launches["score_bn_act"] += e["score_launches"]["bn_act"]
+    spans, k = r["w0"]["spans"], POLICY_STEPS
+    if len(spans["step"]) != len(want_batches) * k:
+        raise AssertionError(f"worker 0 recorded {len(spans['step'])} "
+                             "steps")
+    windows = []
+    for epoch, want in enumerate(want_batches):
+        lo, hi = epoch * k + 1, epoch * k + k  # the steps after the first
+        span = spans["step_start"][hi - 1] + spans["step"][hi - 1] - \
+            spans["step_start"][lo]
+        windows.append({"epoch": epoch, "batches": want, "steps": hi - lo,
+                        "wall_ms": span, "ms_a_step": span / (hi - lo),
+                        "median_step_ms": float(np.median(
+                            spans["step"][lo:hi])),
+                        "images_s": 64 * (hi - lo) / span * 1e3,
+                        "step_ms": spans["step"][lo:hi]})
+        w = windows[-1]
+        print(f"policy window epoch {epoch} batches={want} wall_ms="
+              f"{span:.3f} median_step_ms={w['median_step_ms']:.3f} "
+              f"fleet_images_s={w['images_s']:.2f} step_ms="
+              f"{json.dumps([round(t, 3) for t in w['step_ms']])} (worker "
+              f"0's clock); gpu={gpu}", flush=True)
+    # where the launch's wall time goes, on the spans' wall clock
+    starts, ends = spans["step_start"], [
+        a + d for a, d in zip(spans["step_start"], spans["step"])]
+    w0 = r["w0"]
+    parts = {"launch_to_standby_up": os.path.getmtime(
+                 os.path.join(had, "standby.port")) * 1e3 - wall0_ms,
+             "launch_to_w0_imported": w0["start_ms"]["main"] - wall0_ms,
+             "w0_model_built": w0["start_ms"]["built"]
+             - w0["start_ms"]["main"],
+             "w0_built_to_first_barrier": w0["spans"]["mc_barrier_start"][0]
+             - w0["start_ms"]["built"],
+             "w0_first_barrier": w0["spans"]["mc_barrier"][0],
+             "startup_to_w0_first_step": starts[0] - wall0_ms,
+             "w1_join_to_first_step": r["w1"]["spans"]["step_start"][0]
+             - starts[k],
+             "epochs": [ends[e * k + k - 1] - starts[e * k]
+                        for e in range(len(want_batches))],
+             "between_epochs": [starts[e * k] - ends[e * k - 1]
+                                for e in range(1, len(want_batches))],
+             "after_w0_last_step": wall * 1e3 - (ends[-1] - wall0_ms)}
+    print(f"policy wall parts_ms={json.dumps(parts)}; gpu={gpu}",
+          flush=True)
+    gain = windows[1]["median_step_ms"] - windows[2]["median_step_ms"]
+    recovery = windows[3]["images_s"] / windows[0]["images_s"]
+    print(f"policy dynamic mini-batch: epoch 2's median step "
+          f"{gain:.3f} ms under epoch 1's (gate >= "
+          f"{0.25 * POLICY_DELAY_S * 1e3:.1f}); epoch 3's rate "
+          f"{recovery:.3f} of epoch 0's (gate >= 0.8); wall_s={wall:.1f} "
+          f"gpu={gpu}", flush=True)
+    if gain < 0.25 * POLICY_DELAY_S * 1e3 or recovery < 0.8:
+        raise AssertionError(f"policy: step gain {gain} ms, recovery "
+                             f"{recovery}")
+    return {"launches": launches, "windows": windows, "boards": boards,
+            "log_sha256": log_sha, "wall_s": wall, "gain_ms": gain,
+            "recovery": recovery, "wall_parts_ms": parts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3065,14 +3361,27 @@ def main() -> int:
         raise AssertionError(f"{sum(shapes.values())}, "
                              f"{sum(shapes21.values())} BatchNorms in one "
                              f"forward, expected {BN_PER_FORWARD}")
-    summary = kernel_phase(shapes, dev, also=list(shapes21))
+    # the policy phase's other per-worker batches (22, 25, 26 and 13),
+    # held against the plain versions, not timed
+    from torch_elastic_job import policy_drill_log
+    from dt_tpu_torch.policy import PolicyEngine, rescale
+    _, drill = policy_drill_log(PolicyEngine(
+        threshold_ms=POLICY_THRESHOLD_MS, evict_after=POLICY_EVICT_AFTER),
+        rescale)
+    held = [key for b in sorted({b for m in drill for b in m.values()}
+                                - {BATCH, 21})
+            for key in bn_shapes(model, torch.zeros(b, 224, 224, 3,
+                                                    device=dev)
+                                 .permute(0, 3, 1, 2))]
+    summary = kernel_phase(shapes, dev, also=list(shapes21), held=held)
     print(f"phase kernels done at {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # --- training kernels -----------------------------------------------
     n_params = sum(p.numel() for p in model.parameters())
     del model, x32
-    train_kernels = bn_train_phase(shapes, dev, also=list(shapes21))
+    train_kernels = bn_train_phase(shapes, dev, also=list(shapes21),
+                                   held=held)
     codec = codec_phase(n_params, dev)
     print(f"phase training kernels done at {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -3148,6 +3457,9 @@ def main() -> int:
     elastic_small_jobs(gpu)
     print(f"phase elastic small jobs done at "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    policy = policy_phase(gpu)
+    print(f"phase policy done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -3192,6 +3504,8 @@ def main() -> int:
             # the resumed job scores nothing: pass 2 alone past pass 1
             kernels[-1]["resume_launches"] = (outage["launches"]["bn_act"]
                                               - outage["launches"]["bn_stats"])
+            kernels[-1]["policy_launches"] = \
+                policy["launches"]["score_bn_act"]
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -3221,6 +3535,7 @@ def main() -> int:
             kernels[-1]["sharded_launches"] = sharded["launches"]["bn_stats"]
             kernels[-1]["ha_launches"] = failover["launches"]["bn_stats"]
             kernels[-1]["resume_launches"] = outage["launches"]["bn_stats"]
+            kernels[-1]["policy_launches"] = policy["launches"]["bn_stats"]
     for name, line in (("quantize_2bit", 233), ("dequantize_2bit", 284)):
         kernels.append({
             "name": name, "route": "cuda",
@@ -3236,6 +3551,8 @@ def main() -> int:
             "async_launches": async_run["launches"][name],
             "ha_launches": failover["launches"][name],
             "resume_launches": outage["launches"][name]})
+        if name == "quantize_2bit":  # the scheduler decodes in numpy
+            kernels[-1]["policy_launches"] = policy["launches"][name]
     fb = flash["lm", "bfloat16"]
     kernels.append({
         "name": "flash_attention[bfloat16]", "route": "cuda",

@@ -12,7 +12,8 @@ the initializers of ``initializer`` and the imperative
 from ``optim``, the 2-bit gradient codec of ``parallel.compression``).
 Worker processes train one elastic job through ``Module.fit(sync_mode=
 "host")`` over ``elastic`` (the worker client, the scheduler's host-sync
-core, the wire) and ``training.overlap``, beside JAX workers.  Its
+core, the wire) and ``training.overlap``, beside JAX workers, started by
+``launcher`` and steered by the ``policy`` engine's batch shares.  Its
 BatchNorms, attention, LSTM cells and the codec run the hand-written CUDA
 kernels of ``csrc/`` (``ops.kernels``, ``ops.attention``).
 
@@ -25,8 +26,8 @@ import importlib
 __version__ = "0.1.0"
 
 _SUBMODULES = ("config", "data", "elastic", "initializer", "interchange",
-               "models", "obs", "ops", "optim", "parallel", "policy",
-               "predictor", "training", "utils")
+               "launcher", "models", "obs", "ops", "optim", "parallel",
+               "policy", "predictor", "training", "utils")
 
 
 def __getattr__(name):

@@ -10,12 +10,18 @@ which only moves to the CPU when asked).
 from __future__ import annotations
 
 import os
-from typing import Optional, Union
+from typing import TYPE_CHECKING, Optional, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 
-def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
+def resolve_device(device: Union[str, "torch.device"] = "cuda"
+                   ) -> "torch.device":
+    # torch is imported here, not with the module: the scheduler, the
+    # standby and the launcher read the environment table below and never
+    # touch a tensor, and a process that imports torch starts seconds later
+    import torch
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -29,7 +35,7 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 # ---------------------------------------------------------------------------
 # The environment the elastic host-sync path reads, with the JAX package's
-# defaults (``dt_tpu/config.py:65-86, 131`` and the fit contract of
+# defaults (``dt_tpu/config.py:59-116, 131`` and the fit contract of
 # ``dt_tpu/training/module.py:612-617``).  Read through :func:`env`, which
 # raises for a name not declared here, so a mistyped knob fails loudly.
 # ---------------------------------------------------------------------------
@@ -40,7 +46,8 @@ ENV_ELASTIC_ENABLED = "ELASTIC_TRAINING_ENABLED"
 
 ENV_REGISTRY = {
     # the control plane and its wire
-    "DT_ELASTIC_SECRET": ("", "HMAC secret authenticating control frames"),
+    "DT_ELASTIC_SECRET": ("", "HMAC secret authenticating control frames (launcher generates per-job)"),
+    "DT_ELASTIC_INSECURE": ("", "1 = explicit opt-out of frame authentication (trusted single host)"),
     "DT_ELASTIC_BIND": ("0.0.0.0", "interface the scheduler listens on"),
     "DT_ELASTIC_ADVERTISE": ("", "address peers dial to reach a server bound here (DMLC_NODE_HOST analog)"),
     "DT_WIRE_SOCKBUF": (str(4 << 20), "SO_SNDBUF/SO_RCVBUF of data-plane sockets (bytes)"),
@@ -69,6 +76,14 @@ ENV_REGISTRY = {
     # tracing
     "DT_OBS": ("", "1 = record spans and events in the process tracer"),
     "DT_OBS_RING": (str(4096), "tracer ring capacity (records)"),
+    "DT_STRAGGLER_MS": ("500", "round-contribution-lag EWMA threshold (ms) that fires the worker.straggler event"),
+    # the policy engine (straggler-adaptive dynamic mini-batch + autoscaling)
+    "DT_POLICY": ("", "1 = enable the scheduler-side policy engine (batch-share rebalancing, auto-eviction, scale proposals)"),
+    "DT_POLICY_STRAGGLER_MS": ("", "breach threshold (ms) for policy decisions (default: DT_STRAGGLER_MS)"),
+    "DT_POLICY_SHRINK": ("0.5", "per-breach-streak geometric batch-share shrink factor"),
+    "DT_POLICY_MIN_FRAC": ("0.25", "floor on a straggler's relative share weight before eviction"),
+    "DT_POLICY_EVICT_AFTER": ("0", "consecutive breaches before a non-base straggler is evicted (0 = off)"),
+    "DT_POLICY_TARGET_WORKERS": ("", "autoscale target worker count for scale proposals (empty = off)"),
     # fault injection
     "DT_FAULT_PLAN": ("", "fault-plan JSON (or @/path) for subprocess workers"),
     "DT_DROP_MSG": ("", "percent of received control messages the scheduler drops"),

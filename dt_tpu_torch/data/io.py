@@ -601,14 +601,15 @@ class ElasticDataIterator:
     set ``fixed_per_worker_batch=True`` for the alternative policy shipped in
     ``fit.py:28-44``.
 
-    Under an elastic controller the shards follow ``kv.num_workers`` and
-    ``kv.rank``.  The JAX package's share-aware path (``dt_tpu/policy``:
-    per-worker batches from the policy shares an elastic controller
-    carries) is ROADMAP Queue 1 item 3d: a controller with policy shares
-    raises ``NotImplementedError`` here (neither scheduler sends shares
-    with the policy engine off).  A factory that
-    takes a 4th ``weights`` argument is recognised as the JAX package
-    recognises it (:meth:`_factory_takes_weights`).
+    The share-aware path (``dt_tpu/data/io.py:575-646``): when the
+    kvstore's elastic controller carries policy shares (from the
+    membership barrier's reply), the per-worker batch comes from
+    ``policy.rescale.batch_map`` (summing exactly to
+    ``global_batch_size`` fleet-wide), and a factory with an explicit
+    ``weights`` parameter gets the rank-ordered batches as weights for a
+    weighted shard (``NDArrayIter(part_weights=...)``).  A three-argument
+    factory keeps the weighted batch over an equal shard.
+    ``fixed_per_worker_batch`` ignores the shares.
     """
 
     def __init__(self, factory: Callable[..., tuple],
@@ -648,14 +649,23 @@ class ElasticDataIterator:
 
     def get_data_iterator(self, kv) -> tuple:
         """``kv`` exposes ``num_workers`` and ``rank`` (KVStore facade):
-        ``factory(num_workers, rank, global_batch // num_workers)`` (or the
-        global batch under ``fixed_per_worker_batch``)."""
+        ``factory(num_workers, rank, batch[, weights])`` with the batch
+        from the controller's policy shares, else ``global_batch //
+        num_workers`` (the global batch under
+        ``fixed_per_worker_batch``)."""
         ctrl = getattr(kv, "_controller", None)
-        if getattr(ctrl, "policy_shares", None):
-            raise NotImplementedError(
-                "share-weighted re-sharding (policy shares on an elastic "
-                "controller) is not ported yet; see ROADMAP.md, Queue 1 "
-                "item 3d (the policy engine and share-weighted "
-                "re-sharding)")
+        shares = getattr(ctrl, "policy_shares", None)
+        workers = list(getattr(ctrl, "workers", None) or [])
+        if shares and workers and not self.fixed_per_worker_batch:
+            from dt_tpu_torch.policy import rescale
+            bmap = rescale.batch_map(shares, workers,
+                                     self.global_batch_size)
+            bs = bmap.get(getattr(ctrl, "host", None))
+            if bs is not None:
+                weights = [float(bmap[h]) for h in workers]
+                if self._factory_takes_weights():
+                    return self.factory(kv.num_workers, kv.rank, bs,
+                                        weights)
+                return self.factory(kv.num_workers, kv.rank, bs)
         bs = self.per_worker_batch(kv.num_workers)
         return self.factory(kv.num_workers, kv.rank, bs)

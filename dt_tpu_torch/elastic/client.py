@@ -150,11 +150,12 @@ class WorkerClient:
         # a draining scheduler's request for an epoch-boundary
         # checkpoint (the heartbeat thread sets it; a write-once bool)
         self.ckpt_epoch_end: bool = False
-        # the policy engine is not ported: a barrier carrying shares
-        # raises in _adopt_policy_locked
-        self.policy_shares: Dict[str, int] = {}
-        self.policy_lr_scale: float = 1.0
-        self.policy_seq: int = 0
+        # the policy engine's applied decision (share units, LR scale,
+        # seq), adopted from barrier replies; the elastic data iterator
+        # and the fit loop read it after the barrier
+        self.policy_shares: Dict[str, int] = {}  # guarded-by: _lock
+        self.policy_lr_scale: float = 1.0  # guarded-by: _lock
+        self.policy_seq: int = 0  # guarded-by: _lock
         # the range-server fleet: with servers, bulk data goes to them
         # instead of the scheduler's embedded plane
         self.servers: List[Tuple[str, int]] = [
@@ -381,13 +382,20 @@ class WorkerClient:
                 self.recovery_pending = False  # re-admitted as ourselves
 
     def _adopt_policy_locked(self, resp: dict) -> None:
-        """A barrier response's policy payload: shares never come from a
-        scheduler with the policy engine off.  Caller holds the lock."""
+        """Adopt a barrier reply's policy payload (share units of
+        ``policy.rescale.UNITS``, LR scale, decision seq).  A seq below
+        the adopted one (a cached reply replayed after a newer decision)
+        is ignored.  Caller holds the lock."""
         pol = resp.get("policy")
-        if pol and pol.get("shares"):
-            raise NotImplementedError(
-                f"policy batch shares {_ITEM}item 3d (the policy engine "
-                "and share-weighted re-sharding)")
+        if not pol:
+            return
+        seq = int(pol.get("seq", 0))
+        if seq < self.policy_seq:
+            return
+        self.policy_seq = seq
+        self.policy_shares = {h: int(u) for h, u in
+                              (pol.get("shares") or {}).items()}
+        self.policy_lr_scale = float(pol.get("lr_scale", 1.0))
 
     def wait_rejoin(self, timeout_s: float = 600.0) -> int:
         """Recovery re-entry (``van.cc:187-218``): park at the next
@@ -582,8 +590,8 @@ class WorkerClient:
         ``(crc32(key) + i) % R``."""
         nsrv = len(self.servers)
         if isinstance(value, dict) and "packed" in value:
-            from dt_tpu_torch.parallel.compression import (CODES_PER_WORD,
-                                                           packed_chunks)
+            from dt_tpu_torch.parallel.codec_np import (CODES_PER_WORD,
+                                                        packed_chunks)
             n = int(value["n"])
             per = self._ar_chunk_elems(n, 4, _route, n * 4,
                                        quantum=CODES_PER_WORD)

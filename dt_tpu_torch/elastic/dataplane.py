@@ -20,19 +20,32 @@ With scheduler HA, the primary's plane replicates each completed round to
 the warm standby before any waiter sees it (``replicate_fn``), and the
 standby installs it (:meth:`DataPlane.install_round`), so a retry that
 lands on the successor after a failover is served the identical average.
-The JAX plane's straggler EWMA (``worker.straggler``,
-``DT_STRAGGLER_MS``) is not here: ROADMAP.md, Queue 1 item 7.
+
+The straggler board (``dataplane.py:29-34, 345-409``): each host's first
+arrival at a round is stamped, and when the round completes its lag behind
+the round's first arrival folds into a per-host EWMA (ms), the policy
+engine's input; crossing ``DT_STRAGGLER_MS`` fires one
+``worker.straggler`` event an excursion.  Stamps are taken with tracing on
+(``DT_OBS``) or with ``track_lag`` (the scheduler's policy engine).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Callable, Dict, Optional, Set
 
 import numpy as np
 
+from dt_tpu_torch import config
+
 logger = logging.getLogger("dt_tpu_torch.elastic")
+
+#: EWMA smoothing of the straggler score: ~0.3 weights the last ~5 rounds,
+#: quick to catch a worker going slow, smooth enough that one noisy round
+#: does not cross the threshold
+_STRAGGLER_ALPHA = 0.3
 
 
 class DataPlane:
@@ -55,10 +68,12 @@ class DataPlane:
 
     def __init__(self, expected_fn: Callable[[], Set[str]],
                  confirm_fn: Optional[Callable[[], Set[str]]] = None,
-                 tracer=None, replicate_fn=None):
+                 tracer=None, replicate_fn=None, track_lag: bool = False):
         from dt_tpu_torch.obs import trace as obs_trace
         self._obs = tracer if tracer is not None else obs_trace.tracer()
         self.expected_fn = expected_fn
+        # the policy engine needs the lag stamps with tracing off too
+        self._track_lag = bool(track_lag)
         # HA: called with (key, gen, {host: seq}, result) after a round's
         # result is computed and before any waiter is released;
         # best-effort (a dead standby degrades HA, never the round)
@@ -69,6 +84,10 @@ class DataPlane:
         # key -> {vals: {host: (seq, arr)}, gen, result, served: {host:
         # (seq, result)}, t0, lag0, arrive: {host: mono_ns}, meta}
         self._reduce: Dict[str, dict] = {}  # guarded-by: _cv
+        # the straggler board: host -> round-lag EWMA (ms), and the hosts
+        # above DT_STRAGGLER_MS (one event an excursion, not one a round)
+        self._straggler: Dict[str, float] = {}  # guarded-by: _cv
+        self._straggler_over: Set[str] = set()  # guarded-by: _cv
         self._async_lock = threading.Lock()
         self._async_live: Set[str] = set()  # guarded-by: _async_lock
         self._async_store: Dict[str, np.ndarray] = {}  # guarded-by: _async_lock
@@ -121,6 +140,11 @@ class DataPlane:
             self._async_live -= set(hosts)
             for key in [k for k in self._async_last_seen if k[0] in hosts]:
                 del self._async_last_seen[key]
+        with self._cv:
+            # a departed host's frozen score would shadow live lag
+            for h in hosts:
+                self._straggler.pop(h, None)
+                self._straggler_over.discard(h)
 
     @staticmethod
     def _new_slot() -> dict:
@@ -170,7 +194,7 @@ class DataPlane:
         ``:606-673``).  A re-sent ``(host, seq)`` whose round completed is
         served the cached result."""
         if isinstance(value, dict) and "packed" in value:
-            from dt_tpu_torch.parallel.compression import np_dequantize_2bit
+            from dt_tpu_torch.parallel.codec_np import np_dequantize_2bit
             arr = np_dequantize_2bit(np.asarray(value["packed"]),
                                      int(value["n"]),
                                      float(value["threshold"]))
@@ -188,13 +212,16 @@ class DataPlane:
             if seq >= 0 and served is not None and served[0] == seq:
                 return {"value": served[1]}  # retry of a completed round
             gen = slot["gen"]
-            if tnow is not None:  # round-lag stamps ride the trace gate
+            lag_ns = tnow[1] if tnow is not None else \
+                (time.monotonic_ns() if self._track_lag else None)
+            if lag_ns is not None:
                 if not slot["vals"]:
-                    slot["t0"] = tnow
-                    slot["lag0"] = tnow[1]
+                    slot["t0"] = tnow  # the span's start; None untraced
+                    slot["lag0"] = lag_ns
                     slot["arrive"] = {}
                 # setdefault: a retried contribution keeps its first stamp
-                slot["arrive"].setdefault(host, tnow[1])
+                # and cannot take the blame from the host everyone waits on
+                slot["arrive"].setdefault(host, lag_ns)
             slot["vals"][host] = (seq, arr)
             expected = self.expected_fn()
             if expected and set(slot["vals"]) >= set(expected):
@@ -271,6 +298,7 @@ class DataPlane:
                     last_host, last_t = h, t
             wait_ms = round(max(last_t - lag0, 0) / 1e6, 3)
             slot["meta"] = (slot["gen"] + 1, last_host, wait_ms)
+            self._update_straggler_locked(arrive, lag0)
             self._obs.complete_span(
                 "dataplane.round", slot.get("t0"),
                 {"key": key, "gen": slot["gen"] + 1,
@@ -284,6 +312,35 @@ class DataPlane:
         self._obs.counter("dataplane.rounds")
         if "#b" in key:  # an overlap-pipeline bucket round
             self._obs.counter("dataplane.bucket_rounds")
+
+    def _update_straggler_locked(self, arrive: Dict[str, int],
+                                 first: int) -> None:
+        """Fold one round's per-host arrival lags into the board; an
+        edge-triggered ``worker.straggler`` event at ``DT_STRAGGLER_MS``.
+        Caller holds the lock."""
+        threshold = float(config.env("DT_STRAGGLER_MS"))
+        for h, t in arrive.items():
+            lag = max(t - first, 0) / 1e6
+            prev = self._straggler.get(h)
+            score = lag if prev is None else \
+                (1.0 - _STRAGGLER_ALPHA) * prev + _STRAGGLER_ALPHA * lag
+            self._straggler[h] = score
+            if score >= threshold:
+                if h not in self._straggler_over:
+                    self._straggler_over.add(h)
+                    self._obs.event("worker.straggler",
+                                    {"host": h,
+                                     "score_ms": round(score, 3)})
+            else:
+                self._straggler_over.discard(h)
+
+    def straggler_scores(self) -> Dict[str, float]:
+        """The straggler board: each host's round-lag EWMA (ms, rounded to
+        the µs), empty unless stamps are taken (tracing or
+        ``track_lag``)."""
+        with self._cv:
+            return {h: round(v, 3)
+                    for h, v in sorted(self._straggler.items())}
 
     @staticmethod
     def _merge_sparse(stacked) -> dict:

@@ -324,9 +324,8 @@ class ControlState:
     it and each applied remove/recover/add lands in it, so a leader killed
     inside a change leaves a prefix the successor finishes in the same
     direction (one kind of change per barrier, ``elastic_training.cc:
-    91-157``).  The policy fields replay the JAX scheduler's
-    ``policy_decide`` records (the port runs no policy engine, ROADMAP
-    Queue 1 item 3d).  The fleet checkpoint journals intent, per-worker
+    91-157``).  The policy fields hold the applied ``policy_decide``
+    records of either package's scheduler.  The fleet checkpoint journals intent, per-worker
     acks and commit; only ``ckpt_committed`` is ever resumed from.
     """
 
@@ -495,9 +494,8 @@ class ControlState:
                           lr_scale: float = 1.0,
                           evicted: Optional[List[str]] = None,
                           proposals: Optional[List[dict]] = None) -> None:
-        """One applied policy decision of the JAX scheduler: absolute
-        streaks and shares ride in the record, ``seq`` makes a replay a
-        no-op."""
+        """One applied policy decision: absolute streaks and shares ride
+        in the record, ``seq`` makes a replay a no-op."""
         if int(seq) <= self.policy_seq:
             return
         self.policy_seq = int(seq)

@@ -78,7 +78,22 @@ def _tune_sock(sock: socket.socket) -> None:
                 pass
 
 
+_SECRET_OVERRIDE: Optional[str] = None
+
+
+def set_secret(secret: Optional[str]) -> None:
+    """Process-local secret that takes precedence over
+    ``DT_ELASTIC_SECRET`` (``protocol.py:123-137``).  The launcher hands
+    its in-process scheduler the job's generated secret this way, so the
+    secret never enters ``os.environ``, which every later subprocess of
+    the host program would inherit."""
+    global _SECRET_OVERRIDE
+    _SECRET_OVERRIDE = secret or None
+
+
 def _secret() -> Optional[bytes]:
+    if _SECRET_OVERRIDE:
+        return _SECRET_OVERRIDE.encode()
     s = config.env("DT_ELASTIC_SECRET")
     return s.encode() if s else None
 

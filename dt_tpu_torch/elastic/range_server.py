@@ -19,8 +19,9 @@ before a round completes, and by a poll that completes the rounds the
 survivors satisfy when a worker leaves.  The server count is fixed at
 launch (the reference's ``DMLC_NUM_SERVER``).
 
-The ``stats`` answer has no ``straggler`` entry: the port's data plane has
-no straggler EWMA yet (ROADMAP.md, Queue 1 item 7).
+The ``stats`` answer carries this shard's straggler board (``straggler``,
+the round-lag EWMAs; stamped with ``DT_OBS`` on): every shard sees the same
+workers, so the shards' scores agree up to per-round noise.
 
     python -m dt_tpu_torch.elastic.range_server --scheduler-host H \\
         --scheduler-port P --index I
@@ -222,7 +223,8 @@ class RangeServer:
                     "data_bytes_in": self._obs.get_counter("data.bytes_in"),
                     "data_requests": self._obs.get_counter("data.requests"),
                     "bucket_rounds": self._obs.get_counter(
-                        "dataplane.bucket_rounds")}
+                        "dataplane.bucket_rounds"),
+                    "straggler": self._dp.straggler_scores()}
         if cmd == "shutdown":
             self.close()
             return {}

@@ -46,7 +46,15 @@ job, a thread a connection over the pooled transport
   cold-restart resume (``resume=True``/``DT_RESUME``): the journal
   replayed, the dead incarnation cleared by a journaled ``resume`` op, and
   the committed manifest handed to registering workers until the fleet
-  passes the checkpointed epoch.
+  passes the checkpointed epoch;
+- the policy engine (``DT_POLICY=1``, ``scheduler.py:215-220, 2088-2264``):
+  at each membership barrier, before the diff, ``PolicyEngine.decide`` over
+  the data plane's straggler board; evictions (and accepted scale-downs)
+  leave the host_worker file so the diff removes them (without a host file
+  they become advisory proposals); after the diff, one journaled
+  ``policy_decide`` op and the ``policy`` payload (share units, LR scale,
+  seq) in the barrier reply; ``status`` and ``obs_dump`` carry the
+  ``policy`` and ``straggler`` sections.
 
 Every other command of the JAX scheduler answers an error naming its
 ROADMAP item (:data:`UNPORTED`), never a silent no-op.
@@ -54,6 +62,7 @@ ROADMAP item (:data:`UNPORTED`), never a silent no-op.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import random
@@ -63,6 +72,7 @@ import time
 from typing import Callable, Dict, List, Optional, Set
 
 from dt_tpu_torch import config
+from dt_tpu_torch import policy as policy_lib
 from dt_tpu_torch.elastic import faults, journal, protocol
 from dt_tpu_torch.elastic.dataplane import DataPlane
 from dt_tpu_torch.obs import trace as obs_trace
@@ -210,9 +220,15 @@ class Scheduler:
             self._obs.event("ckpt.resume",
                             {"step": int(m["step"]), "epoch": int(m["epoch"]),
                              "workers": list(m["workers"])})
+        # the policy engine (DT_POLICY=1): straggler board -> journaled
+        # share rebalances, evictions through the host_worker diff, scale
+        # proposals; fixed after init
+        self._policy = policy_lib.PolicyEngine.from_env() \
+            if policy_lib.enabled() else None
         self._dp = DataPlane(
             expected_fn=lambda: list(self._state.workers), tracer=self._obs,
-            replicate_fn=self._make_replicator() if self.peer else None)
+            replicate_fn=self._make_replicator() if self.peer else None,
+            track_lag=self._policy is not None)
         # the range-server fleet, index -> (host, port); its own lock:
         # _server_list() is read from inside _register under _lock
         self._servers: Dict[int, tuple] = {}  # guarded-by: _servers_lock
@@ -538,12 +554,7 @@ class Scheduler:
                        "incarnation": self._incarnation,
                        "workers": list(st.workers),
                        "last_completed_epoch": st.last_completed_epoch,
-                       "policy": {"enabled": False,
-                                  "shares": dict(st.policy_shares),
-                                  "streaks": dict(st.policy_streaks),
-                                  "lr_scale": st.policy_lr_scale,
-                                  "seq": st.policy_seq,
-                                  "log": list(st.policy_log)},
+                       "policy": self._policy_view_locked(),
                        "ckpt": {
                            "committed_step":
                                int(st.ckpt_committed["step"])
@@ -552,6 +563,7 @@ class Scheduler:
                                int(st.ckpt_pending["step"])
                                if st.ckpt_pending else None,
                            "draining": sorted(st.draining)}}
+            out["straggler"] = self._dp.straggler_scores()
             return out
         if cmd in DataPlane.CMDS:
             if cmd == "allreduce":
@@ -626,14 +638,18 @@ class Scheduler:
     def obs_dump(self) -> dict:
         """The job dump (``scheduler.py:904``) with its control-plane
         track alone: this instance's records (the ``scheduler.failover``
-        span, ``leader.*`` and ``ckpt.*`` events) merged with the process
-        tracer's.  Worker tracks come with ``obs_push`` (item 7)."""
+        span, ``leader.*``, ``ckpt.*`` and ``policy.*`` events) merged with
+        the process tracer's, beside the straggler board and the policy
+        view.  Worker tracks come with ``obs_push`` (item 7)."""
         own = self._obs.snapshot()
         proc = obs_trace.tracer().snapshot()
+        with self._lock:
+            pol = self._policy_view_locked()
         return {"tracks": {"control-plane": {
             "records": own["records"] + proc["records"],
             "counters": {**proc["counters"], **own["counters"]},
-            "dropped": own["dropped"] + proc["dropped"]}}}
+            "dropped": own["dropped"] + proc["dropped"]}},
+            "straggler": self._dp.straggler_scores(), "policy": pol}
 
     def _ha_round(self, msg: dict) -> dict:
         """Install a completed round the live primary replicated; a
@@ -996,8 +1012,10 @@ class Scheduler:
         """Diff host_worker against the live set; removals beat adds
         (``elastic_training.cc:91-157``): one barrier applies removals or
         additions, never both, so a removal always changes the worker
-        count.  Base workers are never removed by the diff.  Caller holds
-        the lock."""
+        count.  Base workers are never removed by the diff.  With the
+        policy engine, its decision comes first (evictions leave the file,
+        so this diff removes them) and its shares, over the final workers,
+        ride the result.  Caller holds the lock."""
         t0 = self._obs.now()
         st = self._state
         if self._pre_change_hook is not None:
@@ -1005,6 +1023,33 @@ class Scheduler:
                 self._pre_change_hook(epoch)
             except Exception:
                 logger.exception("pre_change_hook failed")
+        decision = None
+        if self._policy is not None:
+            # phase 1, before the diff: chronic stragglers leave host_worker
+            # here and the diff below removes them, as the reference's EC2
+            # daemon did (launch.py:218-224).  A leader killed between this
+            # rewrite and the journaled decision leaves the rewritten file,
+            # so its successor removes them too.
+            decision = self._policy.decide(
+                epoch, list(st.workers), set(st.base),
+                dict(st.policy_streaks), self._dp.straggler_scores())
+            # evictions and scale-down proposals act through the file;
+            # scale-up stays advisory (the engine invents no host)
+            drop = list(decision.evict) + [
+                p["host"] for p in decision.proposals
+                if p.get("kind") == "scale_down" and "host" in p]
+            if drop and not (self.host_worker_file and
+                             os.path.exists(self.host_worker_file)):
+                # no file, no removal through the diff: the evictions
+                # become advisory proposals (deduplicated in
+                # _policy_apply_locked, so not journaled every epoch)
+                decision = dataclasses.replace(
+                    decision, evict=[],
+                    proposals=list(decision.proposals) + [
+                        {"kind": "evict", "host": h} for h in drop])
+                drop = []
+            if drop:
+                self._rewrite_host_file(drop)
         desired = set(st.workers)
         if self.host_worker_file and os.path.exists(self.host_worker_file):
             desired = set(_read_hosts(self.host_worker_file))
@@ -1058,8 +1103,72 @@ class Scheduler:
             logger.info("Epoch[%d] membership change: removed=%s added=%s "
                         "recovered=%s -> %s", epoch, removed, added,
                         recovered, st.workers)
-        return {"workers": list(st.workers), "removed": removed,
-                "added": added, "recovered": recovered, "epoch": epoch}
+        result = {"workers": list(st.workers), "removed": removed,
+                  "added": added, "recovered": recovered, "epoch": epoch}
+        if decision is not None:
+            # phase 2, after the diff: shares over the final workers, in
+            # the result barrier_complete journals, so every arrival and a
+            # successor serve the same payload
+            result["policy"] = self._policy_apply_locked(epoch, decision)
+        return result
+
+    def _policy_apply_locked(self, epoch: int, decision) -> dict:
+        """Share units over the post-diff rank-ordered workers, journaled
+        as one idempotent ``policy_decide`` op when anything changed.
+        Returns the barrier reply's ``policy`` payload.  Caller holds the
+        lock."""
+        st = self._state
+        live = set(st.workers)
+        streaks = {h: s for h, s in decision.streaks.items() if h in live}
+        shares = self._policy.shares(list(st.workers), streaks)
+        last_props = st.policy_log[-1].get("proposals", []) \
+            if st.policy_log else []
+        if (shares != st.policy_shares or streaks != st.policy_streaks
+                or decision.evict
+                or list(decision.proposals) != list(last_props)):
+            self._apply("policy_decide", epoch=epoch,
+                        seq=st.policy_seq + 1,
+                        breached=list(decision.breached),
+                        streaks=streaks, shares=shares,
+                        lr_scale=decision.lr_scale,
+                        evicted=list(decision.evict),
+                        proposals=list(decision.proposals))
+            self._obs.counter("policy.decisions")
+            self._obs.event("policy.rebalance",
+                            {"epoch": epoch, "seq": st.policy_seq,
+                             "breached": list(decision.breached),
+                             "shares": dict(shares)})
+            for h in decision.evict:
+                self._obs.event("policy.evict", {"epoch": epoch, "host": h})
+            # only new proposals become events; a demoted eviction is an
+            # eviction (advisory), not a scale proposal
+            for p in decision.proposals:
+                if p in last_props:
+                    continue
+                if p.get("kind") == "evict":
+                    self._obs.event("policy.evict",
+                                    {"epoch": epoch, "host": p.get("host"),
+                                     "advisory": True})
+                else:
+                    self._obs.event("policy.scale", {"epoch": epoch, **p})
+            logger.info(
+                "Epoch[%d] policy decision %d: breached=%s shares=%s "
+                "evicted=%s proposals=%s", epoch, st.policy_seq,
+                decision.breached, shares, decision.evict,
+                decision.proposals)
+        return {"shares": dict(st.policy_shares),
+                "lr_scale": st.policy_lr_scale, "seq": st.policy_seq}
+
+    def _policy_view_locked(self) -> dict:
+        """The policy section of ``status`` and ``obs_dump``.  Caller
+        holds the lock."""
+        st = self._state
+        return {"enabled": self._policy is not None,
+                "shares": dict(st.policy_shares),
+                "streaks": dict(st.policy_streaks),
+                "lr_scale": st.policy_lr_scale,
+                "seq": st.policy_seq,
+                "log": list(st.policy_log[-32:])}
 
     def _audit_locked(self, action: str, host: str):
         """``SEQ ACTION HOST TIME`` (``elastic_training.cc:108-126``);

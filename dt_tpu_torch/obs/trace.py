@@ -182,10 +182,19 @@ class Tracer:
                     "dropped": self._dropped}
 
 
-#: names of the HA and fleet-checkpoint records, with their kinds and
-#: meaning as the JAX package's name registry defines them
-#: (``dt_tpu/obs/names.py:41-42, 58-63, 183-200``)
+#: names of the HA, fleet-checkpoint, straggler and policy records, with
+#: their kinds and meaning as the JAX package's name registry defines them
+#: (``dt_tpu/obs/names.py:41-42, 58-63, 76-77, 91-98, 183-200``)
 NAMES: Dict[str, Tuple[str, str]] = {
+    "worker.straggler": ("event", "a worker's round-lag EWMA crossed "
+                                  "DT_STRAGGLER_MS"),
+    "policy.rebalance": ("event", "one applied policy decision: breach "
+                                  "set + the journaled batch-share units"),
+    "policy.evict": ("event", "a chronic straggler dropped from "
+                              "host_worker by the policy engine"),
+    "policy.scale": ("event", "a scale-up/down proposal toward "
+                              "DT_POLICY_TARGET_WORKERS"),
+    "policy.decisions": ("counter", "journaled policy_decide ops"),
     "scheduler.failover": ("span", "warm-standby takeover (docs/ha.md)"),
     "leader.elected": ("event", "leadership assumed (start or takeover)"),
     "leader.fenced": ("event", "this leader was deposed by a newer fence"),

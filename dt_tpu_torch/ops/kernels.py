@@ -44,9 +44,9 @@ from typing import NamedTuple
 import torch
 
 from dt_tpu_torch.ops import _build
+from dt_tpu_torch.parallel.codec_np import CODES_PER_WORD
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-CODES_PER_WORD = 16  # 2-bit codes in one 32-bit word
 
 _V, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # library -> C function -> argument types (every function returns a

@@ -14,18 +14,22 @@ format:
 - numpy, for the host data plane: :func:`np_quantize_2bit` /
   :func:`np_dequantize_2bit`, the port's own copies of the JAX package's
   oracles (``compression.py:75-119``), which both torch paths match bit for
-  bit.
+  bit; they live in ``parallel.codec_np``, which imports no torch, so the
+  scheduler's process never loads it.
 
 Code values: 0 -> 0.0, 1 -> +threshold, 2 -> -threshold (code 3 unused).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import numpy as np
 import torch
 
+from dt_tpu_torch.parallel.codec_np import (
+    np_dequantize_2bit as np_dequantize_2bit,
+    np_quantize_2bit as np_quantize_2bit,
+    packed_chunks as packed_chunks,
+)
 from dt_tpu_torch.ops.kernels import (
     CODES_PER_WORD as CODES_PER_WORD,
     dequantize_2bit as dequantize_2bit,
@@ -33,54 +37,6 @@ from dt_tpu_torch.ops.kernels import (
     quantize_2bit as quantize_2bit,
     quantize_2bit_plain as quantize_2bit_plain,
 )
-
-
-def _padded_words(n: int) -> int:
-    return -(-n // CODES_PER_WORD)
-
-
-def np_quantize_2bit(grad: np.ndarray, residual: np.ndarray,
-                     threshold: float = 0.5) -> Tuple[np.ndarray, np.ndarray]:
-    flat = (grad + residual).ravel()
-    n = flat.shape[0]
-    codes = np.zeros(n, np.uint32)
-    codes[flat >= threshold] = 1
-    codes[flat <= -threshold] = 2
-    decoded = np.zeros(n, np.float32)
-    decoded[codes == 1] = threshold
-    decoded[codes == 2] = -threshold
-    new_residual = (flat - decoded).reshape(grad.shape).astype(residual.dtype)
-    pad = _padded_words(n) * CODES_PER_WORD - n
-    codes = np.pad(codes, (0, pad)).reshape(-1, CODES_PER_WORD)
-    shifts = (np.arange(CODES_PER_WORD, dtype=np.uint32) * 2)
-    packed = np.bitwise_or.reduce(codes << shifts[None, :], axis=1) \
-        .astype(np.uint32)
-    return packed, new_residual
-
-
-def packed_chunks(packed: np.ndarray, n: int, per_elems: int):
-    """Split a packed 2-bit stream into per-chunk (words, n_chunk) pairs on
-    the element grid; ``per_elems`` must be a multiple of ``CODES_PER_WORD``
-    so every chunk is whole words.  The slices are views."""
-    if per_elems % CODES_PER_WORD:
-        raise ValueError(f"per_elems {per_elems} must be a multiple of "
-                         f"{CODES_PER_WORD}")
-    words_per = per_elems // CODES_PER_WORD
-    out = []
-    for start in range(0, n, per_elems):
-        w0 = start // CODES_PER_WORD
-        out.append((packed[w0:w0 + words_per], min(per_elems, n - start)))
-    return out
-
-
-def np_dequantize_2bit(packed: np.ndarray, n: int, threshold: float = 0.5,
-                       dtype=np.float32) -> np.ndarray:
-    shifts = (np.arange(CODES_PER_WORD, dtype=np.uint32) * 2)
-    codes = (packed[:, None] >> shifts[None, :]) & np.uint32(3)
-    vals = np.zeros(codes.shape, dtype)
-    vals[codes == 1] = threshold
-    vals[codes == 2] = -threshold
-    return vals.ravel()[:n]
 
 
 class GradientCompression:

@@ -35,6 +35,11 @@ scheduler asks at an epoch end; a ``DT_RESUME=1`` worker handed a
 committed manifest restores the state, replays the data schedule to the
 checkpointed batch and goes on from there (``module.py:710-745, 822-832,
 1083-1090, 1112-1115``; not under ``dist_async``, as in the JAX package).
+Under the policy engine the barrier reply carries batch shares: the
+iterators are rebuilt with the share-weighted batches, and each worker
+weights its gradient by ``b_i * W / B`` (:attr:`Module.grad_scale`) before
+the wire, so the plain average is the fixed global batch's gradient
+(``module.py:929-950, 1188-1218``).
 
 Over a ``dist_async`` kvstore (``module.py:682-698, 864-915``) the master
 weights live on the scheduler or the range servers: ``fit`` ships the
@@ -48,8 +53,7 @@ epoch-end snapshots; rank 0 logs the staleness each epoch.
 
 What the port does not have raises ``NotImplementedError`` naming its
 ROADMAP item: a ``mesh_manager`` and the mesh sync mode across processes
-(Queue 1 item 4), policy batch shares (item 3d) and ``remat=True`` (item
-6).  ``shard_opt_state``/``shard_params`` shard
+(Queue 1 item 4) and ``remat=True`` (item 6).  ``shard_opt_state``/``shard_params`` shard
 nothing on one device, as in the JAX package, so they are accepted and
 ``sharding_report`` stays empty.
 """
@@ -303,6 +307,9 @@ class Module:
         # controller (the two-phase step of module.py:916-991)
         self.sync_mode = "mesh"
         self._overlap = None  # training.overlap.GradSyncEngine, lazy
+        # the policy's gradient pre-weight b_i*W/B; fit sets it from the
+        # controller's shares (exactly 1.0 without them: no multiply)
+        self.grad_scale = 1.0
         self._sentinel = False
         self._halt = False
         self.health_halted = False
@@ -438,6 +445,11 @@ class Module:
         if faults_lib.nan_point("worker.grad", host=getattr(ctrl, "host",
                                                             None)):
             flat_g[0] = float("nan")  # the seeded poison (chaos --plan nan)
+        if self.grad_scale != 1.0:
+            # the policy's share weight: the f32 multiply by the weight
+            # rounded to f32, as the JAX package's weak-typed float does,
+            # so 2-bit words agree word for word in a mixed fleet
+            flat_g = flat_g * float(np.float32(self.grad_scale))
         if t0 is not None and flat_g.is_cuda:  # the span ends with the work
             torch.cuda.current_stream(flat_g.device).synchronize()
         tr.complete_span("step.grad", t0, {"epoch": epoch})
@@ -606,19 +618,33 @@ class Module:
             return (tuple(members), ctrl.rank, pol)
         return (self.kv.num_workers, self.kv.rank, pol)
 
-    def _refuse_policy_shares(self, elastic_data_iterator) -> None:
-        """The share-aware gradient weight of ``module.py:1188-1218`` is
-        exactly 1.0 (no multiply) without policy shares, which is always
-        with the policy engine off; shares would weigh it and raise here
-        (ROADMAP Queue 1 item 3d)."""
+    def _policy_grad_scale(self, elastic_data_iterator) -> float:
+        """The share-aware gradient pre-weight (``module.py:1188-1218``):
+        ``b_i * W / B`` from the controller's share units, times the
+        decision's LR scale.  Exactly 1.0 without shares (the policy
+        engine off, or no decision yet), without an elastic iterator to
+        define the global batch, outside the host-sync mode, and under
+        ``fixed_per_worker_batch`` (whose batches the shares never
+        reshape)."""
         ctrl = getattr(self.kv, "_controller", None)
-        if getattr(ctrl, "policy_shares", None) and \
-                elastic_data_iterator is not None and \
-                self.sync_mode == "host" and not getattr(
-                    elastic_data_iterator, "fixed_per_worker_batch", False):
-            raise NotImplementedError(
-                f"share-weighted gradients {_ITEM}item 3d (the policy "
-                "engine and share-weighted re-sharding)")
+        shares = getattr(ctrl, "policy_shares", None)
+        if not shares or elastic_data_iterator is None or \
+                self.sync_mode != "host":
+            return 1.0
+        if getattr(elastic_data_iterator, "fixed_per_worker_batch", False):
+            return 1.0
+        workers = list(getattr(ctrl, "workers", None) or [])
+        b_global = int(getattr(elastic_data_iterator,
+                               "global_batch_size", 0) or 0)
+        if not workers or b_global <= 0:
+            return 1.0
+        from dt_tpu_torch.policy import rescale
+        bmap = rescale.batch_map(shares, workers, b_global)
+        b = bmap.get(getattr(ctrl, "host", None))
+        if b is None:
+            return 1.0
+        return rescale.grad_weight(b, len(workers), sum(bmap.values())) \
+            * float(getattr(ctrl, "policy_lr_scale", 1.0))
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             num_epoch: int = 1, begin_epoch: int = 0,
@@ -676,7 +702,7 @@ class Module:
         self._sentinel = obs_metrics.sentinels_enabled()
         self._halt = obs_metrics.halt_enabled()
         members = self._membership_sig()
-        self._refuse_policy_shares(elastic_data_iterator)
+        self.grad_scale = self._policy_grad_scale(elastic_data_iterator)
         tr = obs_trace.tracer()
         drain_lib.install(host)
         is_async = self.kv.type == "dist_async"
@@ -730,7 +756,10 @@ class Module:
                             elastic_data_iterator.get_data_iterator(self.kv)
                         if new_eval is not None:
                             eval_data = new_eval
-                    self._refuse_policy_shares(elastic_data_iterator)
+                    # a share-only rebalance (the policy seq moved) lands
+                    # here too: new batches, a new weight
+                    self.grad_scale = self._policy_grad_scale(
+                        elastic_data_iterator)
             host_sync = not is_async and self.sync_mode == "host" and \
                 self.kv.num_workers > 1
             if host_sync and ctrl is None:

@@ -185,17 +185,22 @@ def test_elastic_data_iterator_matches(workers, rank, fixed):
 
 
 def test_elastic_data_iterator_refuses_policy_shares():
-    """Share-weighted re-sharding needs the elastic controller, which the
-    port does not have yet: it says so instead of splitting evenly."""
+    """Policy shares on the controller no longer raise (the policy engine
+    is ported): the factory gets the JAX package's share-weighted batch,
+    and an equal batch too few for the workers still raises."""
 
     class Ctrl:
         policy_shares = {"w0": 6000, "w1": 4000}
         workers = ["w0", "w1"]
         host = "w0"
 
-    it = tio.ElasticDataIterator(lambda p, i, b: (None, None), 16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    got = {}
+    for mod in (jio, tio):
+        it = mod.ElasticDataIterator(
+            lambda p, i, b, mod=mod: (got.setdefault(mod.__name__,
+                                                     (p, i, b)), None), 16)
         it.get_data_iterator(_StubKV(2, 0, Ctrl()))
+    assert got[tio.__name__] == got[jio.__name__] == (2, 0, 10)
     with pytest.raises(ValueError, match="workers"):
         it.per_worker_batch(32)
 

@@ -277,9 +277,15 @@ def test_unported_features_raise(monkeypatch):
     kv.set_controller(Ctrl())
     mod = TModule(model, device="cpu", kvstore=kv)
     mod.sync_mode = "host"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3d"):
-        mod.fit(it, elastic_data_iterator=tio.ElasticDataIterator(
-            lambda p, i, b: (it, None), 16))
+    # policy shares are ported (item 3d): they weight the gradient as the
+    # JAX Module weights it, and fixed per-worker batches ignore them
+    import types
+    for fixed, want in ((False, 1.25), (True, 1.0)):
+        eit = tio.ElasticDataIterator(lambda p, i, b: (it, None), 16, fixed)
+        jeit = jio.ElasticDataIterator(lambda p, i, b: (it, None), 16, fixed)
+        got = mod._policy_grad_scale(eit)
+        assert got == want == JModule._policy_grad_scale(
+            types.SimpleNamespace(kv=kv, sync_mode="host"), jeit)
     mod = TModule(model, device="cpu", shard_opt_state=True,
                   shard_params=True)
     mod.fit(it, num_epoch=1, elastic_data_iterator=tio.ElasticDataIterator(

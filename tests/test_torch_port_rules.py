@@ -88,7 +88,10 @@ def test_port_imports_no_jax_and_no_dt_tpu():
             "dt_tpu_torch.optim.sparse", "dt_tpu_torch.elastic.server_optim",
             "dt_tpu_torch.elastic.range_server",
             "dt_tpu_torch.training.fleet_ckpt",
-            "dt_tpu_torch.training.checkpoint"} <= want
+            "dt_tpu_torch.training.checkpoint",
+            "dt_tpu_torch.policy", "dt_tpu_torch.policy.engine",
+            "dt_tpu_torch.launcher",
+            "dt_tpu_torch.launcher.launch"} <= want
 
 
 _FORBIDDEN = re.compile(r"import jax|from jax|flax|dt_tpu\.|"
@@ -110,10 +113,11 @@ def test_port_sources_name_no_jax_and_no_dt_tpu_module():
 
 
 #: ROADMAP Queue 1 items done, whose refusals must be gone, and items still
-#: open that the port refuses by name (3f, 3g and 9 add modules the port
-#: does not import, so nothing refuses them)
-_DONE_ITEMS = ("item 3a", "item 3b", "item 3c", "item 3e")
-_OPEN_ITEMS = ("item 3d", "item 4", "item 5", "item 6", "item 7", "item 8")
+#: open that the port refuses by name (3g and 9 add modules the port does
+#: not import, so nothing refuses them)
+_DONE_ITEMS = ("item 3a", "item 3b", "item 3c", "item 3d", "item 3e",
+               "item 3f")
+_OPEN_ITEMS = ("item 4", "item 5", "item 6", "item 7", "item 8")
 
 
 def test_done_items_refuse_nothing_and_open_items_still_refuse():
@@ -142,6 +146,13 @@ def test_done_items_refuse_nothing_and_open_items_still_refuse():
     for name in ("journal_path", "lease_path", "lease_s", "standby", "peer",
                  "resume"):
         assert name in params, name
+    from dt_tpu_torch import launcher, policy
+    from dt_tpu_torch.elastic import protocol
+    assert callable(protocol.set_secret)
+    for name in ("launch_local", "launch_ssh", "main"):
+        assert callable(getattr(launcher, name))
+    for name in ("Decision", "PolicyEngine", "enabled", "rescale"):
+        assert hasattr(policy, name)
 
 
 def test_port_journal_records_unpickle_without_the_port(tmp_path):

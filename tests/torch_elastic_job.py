@@ -130,6 +130,43 @@ def read_step(path):
         return 0
 
 
+def policy_drill_log(engine, rescale, global_batch=64, epochs=4):
+    """The policy drill's decision log as the scheduler journals it
+    (``ControlState.policy_log`` rows), and each epoch's per-worker
+    batches: base workers ``w0`` and ``w2``, ``w1`` added to the host file
+    for the epoch-1 barrier, ``w1`` breaching at every barrier after an
+    epoch it trained and nobody else ever breaching.  ``engine`` is either
+    package's ``PolicyEngine``, ``rescale`` its ``policy.rescale``; the
+    barrier's order is the scheduler's: decide on the board, the diff
+    (evictions first, else the add), shares over the final workers."""
+    workers, base = ["w0", "w2"], {"w0", "w2"}
+    streaks, shares, log, batches = {}, {}, [], []
+    hot = engine.threshold_ms + 1.0
+    for epoch in range(epochs):
+        scores = {} if epoch == 0 else \
+            {h: hot if h == "w1" else 0.0 for h in workers}
+        d = engine.decide(epoch, workers, base, streaks, scores)
+        if d.evict:
+            workers = [h for h in workers if h not in d.evict]
+        elif epoch == 1:
+            workers = workers + ["w1"]
+        new_streaks = {h: s for h, s in d.streaks.items() if h in workers}
+        new_shares = engine.shares(workers, new_streaks)
+        last_props = log[-1]["proposals"] if log else []
+        if new_shares != shares or new_streaks != streaks or d.evict or \
+                list(d.proposals) != list(last_props):
+            streaks = dict(sorted(new_streaks.items()))
+            shares = dict(sorted(new_shares.items()))
+            log.append({"seq": len(log) + 1, "epoch": epoch,
+                        "breached": sorted(d.breached),
+                        "streaks": dict(streaks), "shares": dict(shares),
+                        "lr_scale": float(d.lr_scale),
+                        "evicted": sorted(d.evict),
+                        "proposals": list(d.proposals)})
+        batches.append(rescale.batch_map(shares, workers, global_batch))
+    return log, batches
+
+
 @contextlib.contextmanager
 def deadline(seconds):
     """A test's own time limit: past ``seconds`` a ``TimeoutError`` is

@@ -4,14 +4,22 @@ mirror of ``tests/elastic_worker.py``).
     python tests/torch_elastic_worker.py --scheduler-port P --host w0 \\
         --out w0.json [--model tinybn|resnet20|resnet50] [--device cpu]
 
+Under the port's launcher (``python -m dt_tpu_torch.launcher.launch``) the
+scheduler's port and the host come from the env contract
+(``DMLC_PS_ROOT_PORT``, ``DT_WORKER_ID``) and ``--out`` may name the host
+as ``{host}``, so one command serves every worker and the joiners.
+
 It registers with the scheduler at ``127.0.0.1:P`` (the JAX package's
 ``Scheduler`` or the port's), trains through ``Module.fit`` with
 ``sync_mode="host"`` over a ``tpu_sync`` kvstore (or, with ``--kvstore
 dist_async``, pushing to the scheduler-side optimizer; ``--fixed-batch``
 keeps ``--global-batch`` a worker), the elastic contract
 (``NEW_WORKER``/``EPOCH_BEGIN``, ``DT_RECOVERY`` re-entry, the membership
-barrier, re-sharding through ``ElasticDataIterator``) and the joiners'
-snapshot, and writes a JSON result.  ``tinybn`` is the JAX harness's job
+barrier, re-sharding through ``ElasticDataIterator``, with the shard
+weighted by the policy engine's batch shares) and the joiners' snapshot,
+and writes a JSON result; each epoch records its batch, the gradient
+weight and the scheduler's straggler board at the epoch's end, which is
+the board the next barrier's policy decision reads.  ``tinybn`` is the JAX harness's job
 (the same dataset, seeds, ``MultiFactorScheduler``, ``ResizeIter``), so a
 fleet may mix the two harnesses; ``--init-npz`` loads the JAX worker's
 initial variables (``params/<path>``, ``batch_stats/<path>`` arrays),
@@ -55,7 +63,7 @@ from dt_tpu_torch.training.module import Module  # noqa: E402
 #: training.overlap, elastic.client)
 SPANS = ("step", "step.grad", "pipeline.d2h", "pipeline.wire",
          "pipeline.h2d", "step.apply", "allreduce", "step.push",
-         "step.h2d", "ckpt.save")
+         "step.h2d", "ckpt.save", "mc_barrier")
 
 
 def make_dataset(n=256, seed=1234):
@@ -86,23 +94,25 @@ def make_images(n, size, classes, seed=4321):
 
 
 class SlowIter:
-    """Pass-through iterator firing the ``worker.step`` delay hook after
-    each batch, scaled by the batch's share of the equal split (the JAX
-    harness's straggler probe)."""
+    """Pass-through iterator firing the ``worker.step`` delay hook before
+    each fetch, the one that ends the epoch included, scaled by the
+    iterator's batch over the equal split.  ``fit`` fetches the next batch
+    between a step's gradient and its allreduce, so each step's rounds
+    wait for the delay, the epoch's last step too (the JAX harness's probe
+    fires after a batch arrives, which leaves the last step undelayed and
+    lets its rounds decay a straggler's score before the barrier)."""
 
-    def __init__(self, it, host, equal_batch):
+    def __init__(self, it, host, batch, equal_batch):
         self._it = it
         self._host = host
-        self._equal = max(int(equal_batch), 1)
+        self._scale = int(batch) / max(int(equal_batch), 1)
 
     def reset(self):
         self._it.reset()
 
     def next(self):
-        batch = self._it.next()
-        faults.delay_point("worker.step", host=self._host,
-                           scale=batch.data.shape[0] / self._equal)
-        return batch
+        faults.delay_point("worker.step", host=self._host, scale=self._scale)
+        return self._it.next()
 
     def __getattr__(self, name):
         return getattr(self._it, name)
@@ -173,14 +183,15 @@ def launch_counts() -> dict:
 
 def span_summary() -> dict:
     """Durations (ms) of this process's :data:`SPANS`, in record order, and
-    each step's start (ms, wall clock) as ``step_start``."""
+    each step's and membership barrier's start (ms, wall clock) as
+    ``step_start`` and ``mc_barrier_start``."""
     out = {k: [] for k in SPANS}
-    out["step_start"] = []
+    out["step_start"], out["mc_barrier_start"] = [], []
     for rec in obs_trace.tracer().snapshot()["records"]:
         if rec[0] == "X" and rec[2] in SPANS:
             out[rec[2]].append(rec[4] / 1e3)
-            if rec[2] == "step":
-                out["step_start"].append(rec[3] / 1e3)
+            if rec[2] in ("step", "mc_barrier"):
+                out[rec[2] + "_start"].append(rec[3] / 1e3)
     return out
 
 
@@ -209,12 +220,15 @@ def build(args, dev):
 
 
 def main():
+    t_main = time.time() * 1e3  # the imports done (wall clock, ms)
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scheduler-port", type=int, required=True)
-    ap.add_argument("--host", required=True)
+    ap.add_argument("--scheduler-port", type=int,
+                    default=int(os.environ.get("DMLC_PS_ROOT_PORT") or 0))
+    ap.add_argument("--host", default=os.environ.get("DT_WORKER_ID", ""))
     ap.add_argument("--num-epoch", type=int, default=6)
     ap.add_argument("--global-batch", type=int, default=32)
-    ap.add_argument("--out", required=True)
+    ap.add_argument("--out", required=True,
+                    help="result file; {host} is replaced by the host")
     ap.add_argument("--heartbeat", type=float, default=1.0)
     ap.add_argument("--model", default="tinybn",
                     choices=("tinybn", "resnet20", "resnet50"))
@@ -248,8 +262,13 @@ def main():
                     help="--global-batch is each worker's batch")
     ap.add_argument("--progress", default="",
                     help="rewrite this file with the global step after "
-                         "every batch")
+                         "every batch; {host} is replaced by the host")
     args = ap.parse_args()
+    if not args.scheduler_port or not args.host:
+        ap.error("--scheduler-port and --host (or the launcher's "
+                 "DMLC_PS_ROOT_PORT and DT_WORKER_ID) are needed")
+    args.out = args.out.format(host=args.host)
+    args.progress = args.progress.format(host=args.host)
 
     dev = torch.device(args.device)
     if dev.type == "cuda":
@@ -265,6 +284,7 @@ def main():
     if wait_file:
         while not os.path.exists(wait_file):
             time.sleep(0.05)
+    t_built = time.time() * 1e3  # the model and data built
     ctrl = WorkerClient("127.0.0.1", args.scheduler_port, host=args.host,
                         heartbeat_interval_s=args.heartbeat)
     begin_epoch = 0
@@ -287,13 +307,18 @@ def main():
         kv.set_gradient_compression({"type": "2bit",
                                      "threshold": args.compress})
 
-    def factory(num_parts, part_index, batch_size):
+    live = {}  # the batch of the iterators fit trains on now
+
+    def factory(num_parts, part_index, batch_size, weights=None):
+        # ``weights``: the policy's rank-ordered batches, a weighted
+        # contiguous shard (None: the equal strided split)
+        live["batch"] = batch_size
         it = io.NDArrayIter(x, y, batch_size=batch_size, shuffle=True,
                             num_parts=num_parts, part_index=part_index,
-                            seed=99)
+                            seed=99, part_weights=weights)
         resized = io.ResizeIter(
             it, size=args.epoch_steps or len(x) // args.global_batch)
-        return SlowIter(resized, args.host,
+        return SlowIter(resized, args.host, batch_size,
                         args.global_batch // max(num_parts, 1)), None
 
     eit = io.ElasticDataIterator(factory, args.global_batch,
@@ -342,6 +367,10 @@ def main():
             "steps": int(state.step) - marks["step"],
             "sha256": state_digest(state), "loss": loss,
             "num_workers": kv.num_workers, "rank": kv.rank,
+            "batch": live["batch"], "grad_scale": mod.grad_scale,
+            "policy_seq": ctrl.policy_seq,
+            "policy_shares": dict(ctrl.policy_shares),
+            "board": ctrl._req({"cmd": "status"}).get("straggler"),
             "seconds": now - marks["t"],
             "launches": {k: counts[k] - marks["launch"][k] for k in counts}})
         marks.update(t=now, launch=counts, step=int(state.step))
@@ -399,6 +428,7 @@ def main():
         "attach": attach,
         "epochs": epochs,
         "spans": span_summary() if obs_trace.enabled() else None,
+        "start_ms": {"main": t_main, "built": t_built},
     }
     if args.model == "tinybn":
         # the JAX harness's final_loss: cross-entropy on its held-out set
