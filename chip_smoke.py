@@ -163,7 +163,19 @@ JAX.  Phases, each fatal on failure:
    epoch end, the launch counts, the dynamic mini-batch gain of epoch 2
    over epoch 1 and epoch 3's recovery to epoch 0's rate, each gated;
    the straggler boards at the barriers and where the wall time goes
-   printed.
+   printed;
+18. obs: phase 11's job (2 workers, 2 epochs of 8 steps) with the trace,
+   metrics, blackbox and device planes armed: the epoch-0 sha256 equal to
+   phase 11's, both worker tracks in ``obs_dump`` (16 steps each, their
+   pipeline spans, every name in the catalog), the exported trace's
+   critical path naming a worker, each worker's ``device.hbm_bytes`` in
+   the scheduler's ``/metrics`` (non-zero, within the card), no SLO
+   breach, and a 2-step ``profile_capture`` on ``w1`` holding exactly
+   2 x 53 ``bn_stats`` and 2 ``quantize_2bit`` kernels; then the health
+   halt (a ``nan`` on ``w1``'s 4th gradient: both workers halted at step
+   3 with one sha256 and a valid bundle each) and the hang (a ``stall`` at
+   ``w1``'s third step: its watchdog's bundle names ``stall_at`` within
+   ``DT_HANG_S`` + 10 s and ``blackbox_index`` blames ``w1``).
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -172,8 +184,9 @@ for Hopper carry ``redesigned_in``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every phase, timings
 included.  The kernels line carries, beside each kernel's own launches,
 its launches on ``fit`` and on the elastic, sharded, async, failover
-(``ha_launches``), resumed (``resume_launches``) and policy
-(``policy_launches``, the three kernels of its path) jobs, each read from
+(``ha_launches``), resumed (``resume_launches``), policy
+(``policy_launches``, the three kernels of its path) and obs
+(``obs_launches``, phase 18's armed job, the same three) jobs, each read from
 the counters of that job's workers (the f32 BatchNorm rows carry none:
 the jobs run bf16, and one counter serves both dtypes).
 """
@@ -185,6 +198,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -1822,13 +1836,20 @@ def _stop_procs(procs) -> None:
             p.wait(timeout=30)
 
 
-def _elastic_job(servers: int = 0):
+def _elastic_job(servers: int = 0, armed: Optional[dict] = None):
     """The elastic ResNet-50 job (see :func:`elastic_phase`) against the
     port's ``Scheduler`` in this process, with ``servers`` port
     ``RangeServer`` processes carrying the data plane (0: the scheduler's
-    own).  Returns ``(results by host, audit, launched, wall_s)``."""
+    own).  With ``armed`` (phase 18) the job is ``w0`` and ``w1`` alone,
+    no operator: ``armed["args"]`` follow ``ELASTIC_ARGS``, ``armed["env"]``
+    joins the workers' environment, ``armed["probe"](sched, tmp)`` runs on
+    a thread while they train (with ``armed["kill"]`` the workers are
+    killed once it returns) and ``armed["final"](sched, tmp)`` before the
+    scheduler closes.  Returns ``(results by host, audit, launched,
+    wall_s, {"probe": ..., "final": ..., "tmp": ...})``."""
     import os
     import tempfile
+    import threading
 
     import torch_elastic_drift as drift
     from torch_elastic_job import write_hosts
@@ -1851,30 +1872,64 @@ def _elastic_job(servers: int = 0):
         launched.append((host, epoch))
         open(go, "w").close()
 
-    sched = Scheduler(host_worker_file=hw, launch_callback=launch,
-                      pre_change_hook=operator)
-    procs, rs = {}, []
+    if armed is None:
+        sched = Scheduler(host_worker_file=hw, launch_callback=launch,
+                          pre_change_hook=operator)
+    else:
+        sched = Scheduler(host_worker_file=hw)
+        del stems["w2"]
+    procs, rs, extra = {}, [], {"tmp": tmp}
     t0 = time.monotonic()
     try:
         if servers:
             rs = _range_servers(sched.port, servers, tmp, sched)
         env = {"DT_OBS": "1", "DT_OBS_RING": "65536"}
-        for h in ("w0", "w1"):
-            procs[h] = drift.spawn(
-                sched.port, h, stems[h],
-                ELASTIC_ARGS + ["--bare-steps", "6", "--profile-epoch", "2"],
-                env)
-        procs["w2"] = drift.spawn(  # no bare steps: w0, w1 still train
-            sched.port, "w2", stems["w2"], ELASTIC_ARGS,
-            dict(env, NEW_WORKER="1", EPOCH_BEGIN="1", DT_WAIT_FILE=go))
-        drift.wait_all(procs, stems, t0 + ELASTIC_TIMEOUT)
+        if armed is not None:
+            env.update({k: v.replace("{tmp}", tmp)
+                        for k, v in armed["env"].items()})
+            for h in stems:
+                procs[h] = drift.spawn(
+                    sched.port, h, stems[h], ELASTIC_ARGS + [
+                        a.replace("{tmp}", tmp).replace("{host}", h)
+                        for a in armed["args"]], env)
+            probe = threading.Thread(target=lambda: extra.update(
+                probe=armed["probe"](sched, tmp)), daemon=True)
+            probe.start()
+            if armed.get("kill"):
+                # a stalled fleet never ends (and the first SIGTERM only
+                # asks for a drain): killed once the probe has its answer
+                probe.join(ELASTIC_TIMEOUT)
+                for p in procs.values():
+                    p.kill()
+                    p.wait(timeout=30)
+            else:
+                drift.wait_all(procs, stems, t0 + ELASTIC_TIMEOUT)
+                probe.join(60)
+            if probe.is_alive() or "probe" not in extra:
+                raise AssertionError("phase 18's probe did not finish: "
+                                     + " | ".join(open(stems[h] + ".log")
+                                                  .read()[-1500:]
+                                                  for h in stems))
+            extra["final"] = armed["final"](sched, tmp)
+        else:
+            for h in ("w0", "w1"):
+                procs[h] = drift.spawn(
+                    sched.port, h, stems[h],
+                    ELASTIC_ARGS + ["--bare-steps", "6", "--profile-epoch",
+                                    "2"], env)
+            procs["w2"] = drift.spawn(  # no bare steps: w0, w1 still train
+                sched.port, "w2", stems["w2"], ELASTIC_ARGS,
+                dict(env, NEW_WORKER="1", EPOCH_BEGIN="1", DT_WAIT_FILE=go))
+            drift.wait_all(procs, stems, t0 + ELASTIC_TIMEOUT)
     finally:
-        _stop_procs(rs)
+        _stop_procs(rs + list(procs.values()))
         sched.close()
     wall = time.monotonic() - t0
-    r = {h: json.load(open(stems[h] + ".json")) for h in stems}
-    audit = [ln.split()[1:3] for ln in open(hw + "_log")]
-    return r, audit, launched, wall
+    r = {h: json.load(open(stems[h] + ".json")) for h in stems
+         if os.path.exists(stems[h] + ".json")}
+    audit = [ln.split()[1:3] for ln in open(hw + "_log")] \
+        if os.path.exists(hw + "_log") else []
+    return r, audit, launched, wall, extra
 
 
 def _elastic_gates(tag, r, audit, launched, wall, gpu):
@@ -1962,7 +2017,7 @@ def elastic_phase(gpu) -> dict:
     obs_trace.set_enabled(True)
     try:
         with _RenewalProbe(tempfile.mkdtemp(prefix="dt_probe_")) as probe:
-            r, audit, launched, wall = _elastic_job()
+            r, audit, launched, wall, _ = _elastic_job()
     finally:
         obs_trace.set_enabled(None)
     shas, launches = _elastic_gates("elastic", r, audit, launched, wall,
@@ -1971,6 +2026,9 @@ def elastic_phase(gpu) -> dict:
     # the board at each epoch's end (what the next barrier would read),
     # no worker straggling: the policy phase's threshold comes from it
     boards = [e["board"] for e in r["w0"]["epochs"]]
+    w1 = r["w1"]["epochs"][0]  # phase 18 sets the export's bytes beside it
+    out["w1_epoch0_wire_bytes_a_step"] = \
+        w1["launches"]["wire_bytes"] / w1["steps"]
     out.update(launches=launches, wall_s=wall, shas=shas,
                renewal=probe.summary(), boards=boards,
                board_max_ms=max((v for b in boards for v in b.values()),
@@ -2057,7 +2115,7 @@ def sharded_phase(gpu, funnel: dict) -> dict:
     params, stats and optimizer state at every epoch end equal to the
     single-funnel job's (the same seeds, cuDNN deterministic).  Prints its
     windows and parts beside the funnel's; claims no gain."""
-    r, audit, launched, wall = _elastic_job(servers=SHARDED_SERVERS)
+    r, audit, launched, wall, _ = _elastic_job(servers=SHARDED_SERVERS)
     shas, launches = _elastic_gates("sharded", r, audit, launched, wall,
                                     gpu)
     if shas != funnel["shas"]:
@@ -3318,6 +3376,398 @@ def policy_phase(gpu) -> dict:
             "recovery": recovery, "wall_parts_ms": parts}
 
 
+# Phase 18, the obs planes: phase 11's job at full width (ResNet-50 v1
+# bf16, 2 workers x 32, 2-bit at 0.005, overlapped) with every plane armed,
+# then the health-halt and hang drills on the same job.
+OBS_EPOCHS = 2
+OBS_PLANES = {"DT_OBS": "1", "DT_METRICS": "1", "DT_METRICS_PORT": "0",
+              "DT_METRICS_INTERVAL_S": "0.5", "DT_BLACKBOX": "1",
+              "DT_DEVICE_OBS": "1"}
+OBS_CAPTURE_STEPS = 2
+OBS_HANG_S = 8.0
+OBS_NAN_AFTER = 3  # w1's 4th gradient is poisoned: both halt at step 3
+
+
+class _PlanesArmed:
+    """This process's side of phase 18: the scheduler built here reads the
+    planes' gates and knobs (``env``) from the environment, so they are set
+    for the phase and restored after."""
+
+    def __init__(self, env: dict):
+        self.env = env
+
+    def __enter__(self):
+        import os
+
+        from dt_tpu_torch.obs import blackbox, metrics
+        from dt_tpu_torch.obs import trace as obs_trace
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        self.mods = (obs_trace, metrics, blackbox)
+        for m in self.mods:
+            m.set_enabled(True)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for m in self.mods:
+            m.set_enabled(None)
+
+
+def _sched_bundles() -> str:
+    """A directory of its own for the bundles of the scheduler in this
+    process (its hang detector's)."""
+    import tempfile
+    return tempfile.mkdtemp(prefix="dt_obs_sched_")
+
+
+def _scrape(port: int):
+    """``/metrics`` of the scheduler's ``HealthServer``: the text and the
+    ms the GET took."""
+    import urllib.request
+    t0 = time.perf_counter()
+    text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                  timeout=30).read().decode()
+    return text, (time.perf_counter() - t0) * 1e3
+
+
+def _hbm_by_worker(text: str) -> dict:
+    """``dt_device_hbm_bytes`` of each worker in a scrape."""
+    import re
+    out = {}
+    for m in re.finditer(r'^dt_device_hbm_bytes\{([^}]*)\} (\S+)$', text,
+                         re.M):
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1)))
+        if "worker" in labels:
+            out[labels["worker"]] = float(m.group(2))
+    return out
+
+
+def _capture_kernels(path: str) -> dict:
+    """The device kernels of a ``torch.profiler`` chrome trace, counted by
+    the port's BN-train pass 1 and 2-bit quantize kernels."""
+    import re
+    events = json.load(open(path))["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"kernels": len(names),
+            "bn_stats": sum("bn_stats_kernel" in n for n in names),
+            "quantize_2bit": sum(bool(re.search(r"(?<!de)quantize_kernel",
+                                                n)) for n in names)}
+
+
+def _armed_drill(gpu, elastic) -> dict:
+    """Drill (a): the job with every plane armed (see :func:`obs_phase`)."""
+    import os
+
+    from dt_tpu_torch.elastic import protocol
+    from dt_tpu_torch.obs import blackbox, export, names
+
+    def probe(sched, tmp):
+        # one bounded capture on w1, queued at once: it rides w1's next
+        # heartbeat and starts at the step after
+        return protocol.request(
+            "127.0.0.1", sched.port,
+            {"cmd": "profile_capture", "target": "w1",
+             "steps": OBS_CAPTURE_STEPS, "host": "chip_smoke",
+             "post_seq": 1}, timeout=30)
+
+    def final(sched, tmp):
+        text, scrape_ms = _scrape(sched.metrics_port)
+        return {"dump": sched.obs_dump(), "health": sched.health_view(),
+                "scrape": text, "scrape_ms": scrape_ms}
+
+    with _PlanesArmed({"DT_OBS_RING": "65536", "DT_METRICS_PORT": "0",
+                       "DT_METRICS_INTERVAL_S": "0.5",
+                       "DT_BLACKBOX_DIR": _sched_bundles()}):
+        r, _, _, wall, extra = _elastic_job(armed={
+            "args": ["--num-epoch", str(OBS_EPOCHS)],
+            "env": dict(OBS_PLANES, DT_BLACKBOX_DIR="{tmp}/bb"),
+            "probe": probe, "final": final})
+    tmp = extra["tmp"]
+    fin = extra["final"]
+    tag = "obs (a)"
+    # the planes change no bit: epoch 0 is phase 11's epoch 0
+    want = elastic["shas"][0]["w0"]
+    shas = {h: res["epochs"][0]["sha256"] for h, res in r.items()}
+    short = {h: v[:16] for h, v in shas.items()}
+    print(f"{tag} epoch-0 sha256 {json.dumps(short)} phase 11's "
+          f"{want[:16]}; wall_s={wall:.1f}; gpu={gpu}", flush=True)
+    if set(shas) != {"w0", "w1"} or set(shas.values()) != {want}:
+        raise AssertionError(f"{tag}: epoch-0 digests {shas}, phase 11's "
+                             f"{want}")
+    launches = {"bn_stats": 0, "score_bn_act": 0, "quantize_2bit": 0}
+    for res in r.values():
+        if len(res["epochs"]) != OBS_EPOCHS:
+            raise AssertionError(f"{tag}: {len(res['epochs'])} epochs")
+        for e in res["epochs"]:
+            launches["bn_stats"] += e["launches"]["bn_stats"]
+            launches["quantize_2bit"] += e["launches"]["quantize_2bit"]
+            launches["score_bn_act"] += e["score_launches"]["bn_act"]
+    n = 2 * OBS_EPOCHS * ELASTIC_STEPS
+    if launches != {"bn_stats": BN_PER_FORWARD * n, "quantize_2bit": n,
+                    "score_bn_act": 2 * OBS_EPOCHS * BN_PER_FORWARD
+                    * ELASTIC_VAL_FORWARDS}:
+        raise AssertionError(f"{tag}: launches {launches}")
+    # obs_dump: both worker tracks and the control plane's, 16 steps each
+    # with their pipeline spans, every name in the catalog
+    dump = fin["dump"]
+    tracks = sorted(dump["tracks"])
+    workers = [k for k in tracks if k != "control-plane"]
+    steps = {k: sum(rec[2] == "step" and rec[0] == "X"
+                    for rec in dump["tracks"][k]["records"])
+             for k in workers}
+    pipe = {k: sorted({rec[2] for rec in dump["tracks"][k]["records"]
+                       if rec[2].startswith("pipeline.")})
+            for k in workers}
+    unknown = set()
+    for k in tracks:
+        for rec in dump["tracks"][k]["records"]:
+            try:
+                names.lookup(rec[2])
+            except KeyError:
+                unknown.add(rec[2])
+    nrec = {k: len(v["records"]) for k, v in dump["tracks"].items()}
+    print(f"{tag} obs_dump tracks={tracks} steps={steps} pipeline={pipe} "
+          f"records={nrec} unknown_names={sorted(unknown)}", flush=True)
+    if sorted(k.split("#")[0] for k in workers) != ["w0", "w1"] or \
+            "control-plane" not in tracks or \
+            set(steps.values()) != {n // 2} or unknown or \
+            any(not {"pipeline.d2h", "pipeline.wire", "pipeline.h2d"}
+                <= set(v) for v in pipe.values()):
+        raise AssertionError(f"{tag}: obs_dump {tracks} {steps} {pipe} "
+                             f"{unknown}")
+    # the export: a chrome trace and a summary naming a worker
+    path = os.path.join(tmp, "obs_trace.json")
+    summary = export.write(path, dump)
+    blame = summary["straggler_blame"]
+    crit = {k: v["steps"] for k, v in summary["critical_path"].items()}
+    print(f"{tag} export {path}: {os.path.getsize(path)} B trace, "
+          f"{os.path.getsize(export.metrics_path(path))} B summary; "
+          f"critical_path steps={crit} straggler_blame_ms={blame}",
+          flush=True)
+    if not blame or not set(blame) <= {"w0", "w1"} or \
+            {k for k, v in crit.items() if v == n // 2} != set(workers):
+        raise AssertionError(f"{tag}: critical path {crit}, blame {blame}")
+    # the Prometheus scrape: each worker's HBM in use, within the card
+    import torch
+    card = torch.cuda.mem_get_info()[1]
+    hbm = _hbm_by_worker(fin["scrape"])
+    print(f"{tag} /metrics scrape {len(fin['scrape'])} B in "
+          f"{fin['scrape_ms']:.3f} ms; device.hbm_bytes by worker "
+          f"{json.dumps(hbm)} card_bytes={card}; gpu={gpu}", flush=True)
+    if set(hbm) != {"w0", "w1"} or not all(0 < v <= card
+                                           for v in hbm.values()):
+        raise AssertionError(f"{tag}: HBM gauges {hbm}")
+    # the SLOs: no breach stands at the job's end (the transitions on the
+    # way, e.g. the first round's lag while a worker still starts, are
+    # printed)
+    slo = fin["health"]["slo"]
+    print(f"{tag} health: slo active={slo['active']} transitions="
+          f"{json.dumps(slo['history'])}", flush=True)
+    if slo["active"]:
+        raise AssertionError(f"{tag}: SLO breach {slo}")
+    # the capture: 2 steps of w1, 53 bn_stats and one quantize a step
+    if "seq" not in extra["probe"]:
+        raise AssertionError(f"{tag}: profile_capture {extra['probe']}")
+    bbdir = os.path.join(tmp, "bb")
+    rows = [row for row in blackbox.read_manifest(bbdir)
+            if row["kind"] == "profile_capture"]
+    ok = [row for row in rows if row.get("host") == "w1"
+          and row.get("steps") == OBS_CAPTURE_STEPS
+          and not row.get("error") and not row.get("aborted")]
+    if len(ok) != 1:
+        raise AssertionError(f"{tag}: capture rows {rows}")
+    trace = os.path.join(ok[0]["dir"], "trace.json")
+    got = _capture_kernels(trace)
+    bundles = [row for row in blackbox.read_manifest(bbdir)
+               if row["kind"] == "bundle"]
+    print(f"{tag} capture on w1: {json.dumps(got)} in "
+          f"{os.path.getsize(trace)} B ({trace}); bundles={len(bundles)} "
+          f"({sum(b['size'] for b in bundles)} B); gpu={gpu}", flush=True)
+    if (got["bn_stats"], got["quantize_2bit"]) != \
+            (OBS_CAPTURE_STEPS * BN_PER_FORWARD, OBS_CAPTURE_STEPS):
+        raise AssertionError(f"{tag}: capture kernels {got}")
+    # printed, not gated: the armed epoch-1 window beside phase 11's
+    # 2-worker window, and the bytes the export adds a worker-step
+    sp = r["w0"]["spans"]
+    k = ELASTIC_STEPS
+    lo, hi = k + 1, 2 * k
+    span = sp["step_start"][hi - 1] + sp["step"][hi - 1] - sp["step_start"][lo]
+    armed_ms = span / (hi - lo)
+    w1 = r["w1"]["epochs"]
+    wire = sum(e["launches"]["wire_bytes"] for e in w1) / \
+        sum(e["steps"] for e in w1)
+    plain = elastic["w1_epoch0_wire_bytes_a_step"]
+    print(f"{tag} epoch-1 window ms_a_step={armed_ms:.3f} beside phase "
+          f"11's epoch-0 window {elastic['step_ms']:.3f} (one run each, "
+          f"not a measure of overhead); w1 sent {wire:.0f} B a step against "
+          f"phase 11's {plain:.0f} (+{wire - plain:.0f} B a worker-step: "
+          f"the heartbeat export); gpu={gpu}", flush=True)
+    return {"launches": launches, "armed_step_ms": armed_ms,
+            "export_bytes_a_step": wire - plain,
+            "scrape_ms": fin["scrape_ms"], "capture": got,
+            "trace_bytes": os.path.getsize(path),
+            "capture_bytes": os.path.getsize(trace)}
+
+
+def _halt_drill(gpu) -> dict:
+    """Drill (b): the health halt (see :func:`obs_phase`)."""
+    import os
+
+    from dt_tpu_torch.obs import blackbox
+
+    def final(sched, tmp):
+        return {"dump": sched.obs_dump(), "health": sched.health_view()}
+
+    plan = {"seed": 0, "rules": [{"kind": "nan", "site": "worker.grad",
+                                  "host": ["w1"], "after": OBS_NAN_AFTER,
+                                  "times": 1}]}
+    with _PlanesArmed({"DT_OBS_RING": "65536",
+                       "DT_BLACKBOX_DIR": _sched_bundles()}):
+        r, _, _, wall, extra = _elastic_job(armed={
+            "args": ["--num-epoch", "1"],
+            "env": {"DT_HEALTH_HALT": "1", "DT_BLACKBOX": "1",
+                    "DT_BLACKBOX_DIR": "{tmp}/bb", "DT_METRICS": "1",
+                    "DT_FAULT_PLAN": json.dumps(plan)},
+            "probe": lambda sched, tmp: {}, "final": final})
+    tag = "obs (b)"
+    got = {h: (res["final_step"], res["health_halted"],
+               res["final_sha256"][:16]) for h, res in r.items()}
+    bbdir = os.path.join(extra["tmp"], "bb")
+    halts = [row for row in blackbox.read_manifest(bbdir)
+             if row["kind"] == "bundle" and row["trigger"] == "health.halt"]
+    problems = {row["host"]: blackbox.validate_bundle(json.load(open(
+        os.path.join(bbdir, row["file"])))) for row in halts}
+    dump, health = extra["final"]["dump"], extra["final"]["health"]
+    events = {k.split("#")[0]: [rec[2] for rec in v["records"]
+                                if rec[2].startswith("health.")]
+              for k, v in dump["tracks"].items() if k != "control-plane"}
+    steps = {k.split("#")[0]: v["gauges"].get("train.steps")
+             for k, v in health["workers"].items()}
+    print(f"{tag} (final_step, health_halted, sha256)={json.dumps(got)} "
+          f"halt bundles={ {h: p for h, p in problems.items()} } "
+          f"worker events={json.dumps(events)} health train.steps="
+          f"{json.dumps(steps)} wall_s={wall:.1f}; gpu={gpu}", flush=True)
+    shas = {v[2] for v in got.values()}
+    if set(got) != {"w0", "w1"} or len(shas) != 1 or \
+            {v[:2] for v in got.values()} != {(OBS_NAN_AFTER, True)} or \
+            sorted(problems) != ["w0", "w1"] or \
+            any(problems.values()) or \
+            any("health.halt" not in ev for ev in events.values()) or \
+            sorted(events) != ["w0", "w1"] or \
+            set(steps.values()) != {float(OBS_NAN_AFTER)}:
+        raise AssertionError(f"{tag}: {got} {problems} {events} {steps}")
+    return {"final_step": OBS_NAN_AFTER, "wall_s": wall}
+
+
+def _hang_drill(gpu) -> dict:
+    """Drill (c): the hang (see :func:`obs_phase`)."""
+    import os
+
+    import torch_elastic_job
+    from dt_tpu_torch.elastic import protocol
+    from dt_tpu_torch.obs import blackbox
+
+    def stalled_bundle(bbdir):
+        for row in blackbox.read_manifest(bbdir):
+            if row["kind"] != "bundle" or row["host"] != "w1" or \
+                    row["trigger"] != "hang":
+                continue
+            b = json.load(open(os.path.join(bbdir, row["file"])))
+            if any(fr[2] == "stall_at" for t in b["threads"]
+                   for fr in t["frames"]):
+                return b
+        return None
+
+    def probe(sched, tmp):
+        prog = os.path.join(tmp, "w1.progress")
+        end = time.monotonic() + ELASTIC_TIMEOUT
+        while torch_elastic_job.read_step(prog) < 2:
+            if time.monotonic() > end:
+                return {"error": "w1 never reached step 2"}
+            time.sleep(0.1)
+        t_stall = time.monotonic()
+        out = {}
+        while time.monotonic() < t_stall + OBS_HANG_S + 10.0:
+            if "bundle_s" not in out:
+                b = stalled_bundle(os.path.join(tmp, "bb"))
+                if b is not None:
+                    out["bundle_s"] = time.monotonic() - t_stall
+                    out["bundle"] = {"problems": blackbox.validate_bundle(b),
+                                     "stalled_s": b["extra"]["stalled_s"]}
+            if "suspect" not in out:
+                idx = protocol.request("127.0.0.1", sched.port,
+                                       {"cmd": "blackbox_index"},
+                                       timeout=10)
+                if idx["suspect"]:
+                    out["suspect_s"] = time.monotonic() - t_stall
+                    out["suspect"] = idx["suspect"]
+            if "bundle_s" in out and "suspect" in out:
+                break
+            time.sleep(0.25)
+        return out
+
+    plan = {"seed": 0, "rules": [{"kind": "stall", "site": "worker.step",
+                                  "host": ["w1"], "after": 2}]}
+    with _PlanesArmed({"DT_HANG_S": str(OBS_HANG_S),
+                       "DT_BLACKBOX_DIR": _sched_bundles()}):
+        r, _, _, wall, extra = _elastic_job(armed={
+            "args": ["--num-epoch", "1", "--progress",
+                     "{tmp}/{host}.progress"],
+            "env": {"DT_BLACKBOX": "1", "DT_BLACKBOX_DIR": "{tmp}/bb",
+                    "DT_HANG_S": str(OBS_HANG_S),
+                    "DT_FAULT_PLAN": json.dumps(plan)},
+            "probe": probe, "final": lambda sched, tmp: {}, "kill": True})
+    tag = "obs (c)"
+    out = extra["probe"]
+    sus = out.get("suspect") or {}
+    print(f"{tag} w1's hang bundle {out.get('bundle')} at "
+          f"{out.get('bundle_s', float('nan')):.1f} s after its step 2, "
+          f"suspect {json.dumps(sus)} at "
+          f"{out.get('suspect_s', float('nan')):.1f} s (DT_HANG_S "
+          f"{OBS_HANG_S}); wall_s={wall:.1f}; gpu={gpu}", flush=True)
+    if "bundle_s" not in out or out["bundle"]["problems"] or \
+            out["bundle_s"] > OBS_HANG_S + 10.0 or \
+            sus.get("blamed") != "w1" or sus.get("waiting") != ["w1"]:
+        raise AssertionError(f"{tag}: {out}")
+    return {"bundle_s": out["bundle_s"], "suspect_s": out["suspect_s"]}
+
+
+def obs_phase(gpu, elastic) -> dict:
+    """Phase 18, the obs planes, on phase 11's job (ResNet-50 v1 bf16 on
+    f32 params, 2 workers x 32, 2-bit at 0.005, overlapped, lr 0.025,
+    momentum 0.9, wd 1e-4, the seeded weights), three drills:
+
+    (a) 2 epochs of ``ELASTIC_STEPS`` with every plane armed
+        (``OBS_PLANES``): the epoch-0 sha256 of both workers equal to
+        phase 11's; ``obs_dump`` holds both worker tracks and the control
+        plane's, 16 ``step`` spans a worker with their ``pipeline.*``
+        spans, every name in the port's catalog; ``export.write`` gives a
+        chrome trace and a summary whose critical path names a worker; the
+        scheduler's ``/metrics`` shows each worker's ``device.hbm_bytes``,
+        non-zero and within the card; no SLO breach; one
+        ``profile_capture`` on ``w1`` for 2 steps writes a
+        ``torch.profiler`` trace with exactly 2 x 53 ``bn_stats`` and 2
+        ``quantize_2bit`` kernels;
+    (b) ``DT_HEALTH_HALT=1`` and a ``nan`` rule on ``w1``'s
+        ``worker.grad`` after 3: both workers exit 0 halted at step 3 with
+        one sha256, each leaves a valid ``health.halt`` bundle, and the
+        scheduler holds their ``health.halt`` events and ``train.steps``;
+    (c) ``DT_HANG_S=8`` and a ``stall`` rule on ``w1``'s ``worker.step``
+        after 2: within ``DT_HANG_S`` + 10 s ``w1``'s watchdog writes a
+        live bundle whose stacks name ``stall_at``, and ``blackbox_index``
+        names ``w1`` the suspect; the fleet is then killed."""
+    out = {"armed": _armed_drill(gpu, elastic)}
+    out["halt"] = _halt_drill(gpu)
+    out["hang"] = _hang_drill(gpu)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3460,6 +3910,8 @@ def main() -> int:
     policy = policy_phase(gpu)
     print(f"phase policy done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    obs = obs_phase(gpu, elastic)
+    print(f"phase obs done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -3506,6 +3958,8 @@ def main() -> int:
                                               - outage["launches"]["bn_stats"])
             kernels[-1]["policy_launches"] = \
                 policy["launches"]["score_bn_act"]
+            kernels[-1]["obs_launches"] = \
+                obs["armed"]["launches"]["score_bn_act"]
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -3536,6 +3990,7 @@ def main() -> int:
             kernels[-1]["ha_launches"] = failover["launches"]["bn_stats"]
             kernels[-1]["resume_launches"] = outage["launches"]["bn_stats"]
             kernels[-1]["policy_launches"] = policy["launches"]["bn_stats"]
+            kernels[-1]["obs_launches"] = obs["armed"]["launches"]["bn_stats"]
     for name, line in (("quantize_2bit", 233), ("dequantize_2bit", 284)):
         kernels.append({
             "name": name, "route": "cuda",
@@ -3553,6 +4008,7 @@ def main() -> int:
             "resume_launches": outage["launches"][name]})
         if name == "quantize_2bit":  # the scheduler decodes in numpy
             kernels[-1]["policy_launches"] = policy["launches"][name]
+            kernels[-1]["obs_launches"] = obs["armed"]["launches"][name]
     fb = flash["lm", "bfloat16"]
     kernels.append({
         "name": "flash_attention[bfloat16]", "route": "cuda",

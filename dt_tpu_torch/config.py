@@ -77,6 +77,22 @@ ENV_REGISTRY = {
     "DT_OBS": ("", "1 = record spans and events in the process tracer"),
     "DT_OBS_RING": (str(4096), "tracer ring capacity (records)"),
     "DT_STRAGGLER_MS": ("500", "round-contribution-lag EWMA threshold (ms) that fires the worker.straggler event"),
+    # the metrics / health plane (obs/metrics.py)
+    "DT_METRICS": ("", "1 = enable the metrics plane (gauges/histograms, time-series sampling, heartbeat export, health RPC)"),
+    "DT_METRICS_INTERVAL_S": ("2.0", "wall-clock cadence of the per-process time-series sampler"),
+    "DT_METRICS_RING": ("360", "time-series ring capacity (samples per process; overflow drops oldest)"),
+    "DT_METRICS_PORT": ("", "scheduler Prometheus/health HTTP port (empty = no endpoint; 0 = ephemeral for tests)"),
+    "DT_HEALTH_HALT": ("", "1 = training-health sentinel stops cleanly BEFORE a non-finite update is applied"),
+    "DT_SLO_RULES": ("", "JSON list (or @/path) overriding the default SLO rule set by rule name (obs.metrics.DEFAULT_SLO_RULES)"),
+    # the flight recorder and hang forensics (obs/blackbox.py)
+    "DT_BLACKBOX": ("", "1 = arm the flight-recorder plane: crash bundles, hang watchdog, manifest (works with DT_OBS=0)"),
+    "DT_BLACKBOX_DIR": (".blackbox", "bundle + manifest.jsonl output directory"),
+    "DT_BLACKBOX_RING": ("512", "flight-note ring capacity (last-N lifecycle notes per process; overflow drops oldest)"),
+    "DT_BLACKBOX_MAX_MB": ("8", "per-bundle size cap (MiB), best-effort: ring tails trimmed first, thread stacks truncated last"),
+    "DT_BLACKBOX_MAX_BUNDLES": ("64", "per-directory bundle retention cap: oldest bundles pruned on write (manifest rows are kept)"),
+    "DT_HANG_S": ("120", "step/fleet-progress stall threshold (seconds) before the hang watchdog dumps a live bundle"),
+    # the device plane (obs/device.py)
+    "DT_DEVICE_OBS": ("", "1 = arm the device plane: compile.* spans + first-launch ledger, device.hbm_* gauges, OOM census bundles, on-demand profile_capture (works with DT_OBS=0)"),
     # the policy engine (straggler-adaptive dynamic mini-batch + autoscaling)
     "DT_POLICY": ("", "1 = enable the scheduler-side policy engine (batch-share rebalancing, auto-eviction, scale proposals)"),
     "DT_POLICY_STRAGGLER_MS": ("", "breach threshold (ms) for policy decisions (default: DT_STRAGGLER_MS)"),

@@ -38,11 +38,23 @@ It also carries the fleet checkpoint (``ckpt_begin``, ``ckpt_ack``,
 (:attr:`WorkerClient.resume`) and a draining scheduler's
 ``ckpt_epoch_end``.
 
+The heartbeat carries the obs export (``client.py:440-610``): the
+process tracer's span batch (``obs``), the metrics plane's time-series
+batch with the gauge and histogram snapshots (``hm``) and the device
+plane's view (``dev``), each pending until the scheduler answers, with
+``rseq``/sample-``seq`` dedup and ``fseq``/``gseq``/``dseq`` ordering so a
+replayed or stale heartbeat changes nothing; :meth:`WorkerClient.
+obs_flush` pushes the tail synchronously (``obs_push``) on close and from
+an injected crash.  Its replies deliver the broadcast profiler commands
+(:meth:`WorkerClient.profile_command`, ``utils/profiler.py``) and the
+targeted ``profile_capture`` commands (``obs/device.py``).  With
+``DT_BLACKBOX`` the client arms the process's crash hooks and stamps every
+bundle with its membership view.
+
 Everything it sends is numpy or plain Python (the JAX package's processes
-unpickle it).  The heartbeat and comm threads touch no CUDA: only the
-training thread launches.  What it does not port raises, naming the
-ROADMAP item: the profiler commands and the obs export on the heartbeat
-(item 7).
+unpickle it).  The heartbeat and comm threads launch nothing on the card:
+only the training thread does (the device view reads the allocator's
+counters).
 """
 
 from __future__ import annotations
@@ -62,11 +74,20 @@ import numpy as np
 
 from dt_tpu_torch import config
 from dt_tpu_torch.elastic import faults, protocol
+from dt_tpu_torch.obs import blackbox as obs_blackbox
+from dt_tpu_torch.obs import device as obs_device
+from dt_tpu_torch.obs import metrics as obs_metrics
 from dt_tpu_torch.obs import trace as obs_trace
 
 logger = logging.getLogger("dt_tpu_torch.elastic")
 
-_ITEM = "is not ported yet; see ROADMAP.md, Queue 1 "
+#: span records a client keeps pending at most (past it the oldest are shed
+#: and counted), and records a heartbeat carries (the JAX client's bounds)
+_OBS_PENDING_MAX = 8192
+_OBS_FLUSH_MAX = 2048
+#: the same for metrics samples
+_HM_PENDING_MAX = 1024
+_HM_FLUSH_MAX = 256
 
 
 def _parse_endpoints(spec: str) -> List[Tuple[str, int]]:
@@ -130,8 +151,14 @@ class WorkerClient:
             # a restarted worker re-entering under its old name
             # (van.cc:187-218 is_recovery)
             is_recovery = config.env("DT_RECOVERY") in ("1", "true")
-        if obs_trace.enabled():
-            obs_trace.set_origin(f"{self.host}#{os.getpid()}")
+        # the track's identity and the export's eligibility, fixed before
+        # the first request (its span links to this track): the process
+        # tracer is shared, so a client built with tracing off never
+        # drains it later
+        self._obs_inc = os.getpid()
+        self._obs_export = obs_trace.enabled()
+        if self._obs_export:
+            obs_trace.set_origin(f"{self.host}#{self._obs_inc}")
         faults.crash_point("client.register", host=self.host)
         resp = self._req({"cmd": "register", "host": self.host,
                           "is_new": is_new, "is_recovery": is_recovery})
@@ -166,6 +193,58 @@ class WorkerClient:
         self._pool = None  # lazy executor for chunk windows and fan-outs
         self._pipe_pool = None  # lazy executor for bucket rounds
         self._announce_to_servers()
+        # the profiler commands: a joiner starts at the scheduler's current
+        # seq (no replay of a finished session)
+        self._prof_lock = threading.Lock()
+        self._prof_seq = int(resp.get("profile_seq", 0))  # guarded-by: _prof_lock
+        self._prof_post = 0  # the retry-dedup key of profile_command
+        # the span export: the tracer drains into a pending batch that
+        # rides the heartbeat, cleared only by the scheduler's answer
+        self._obs_lock = threading.Lock()
+        self._obs_pending: list = []  # guarded-by: _obs_lock
+        self._obs_shed = 0  # guarded-by: _obs_lock
+        self._obs_fseq = 0  # guarded-by: _obs_lock
+        self._obs_hook = None
+        if self._obs_export:
+            # an injected os._exit flushes through this hook; weak, so an
+            # abandoned client stays collectable
+            import weakref
+            _wm = weakref.WeakMethod(self.obs_flush)
+
+            def _flush_hook(_wm=_wm):
+                fn = _wm()
+                if fn is None:
+                    obs_trace.unregister_flush(_flush_hook)
+                    return
+                fn()
+            self._obs_hook = _flush_hook
+            obs_trace.register_flush(self._obs_hook)
+        # the metrics export, the same contract; the sampler takes the
+        # gauges every DT_METRICS_INTERVAL_S, the device plane's hook
+        # setting the device.* gauges first
+        self._hm_export = obs_metrics.enabled()
+        self._hm_lock = threading.Lock()
+        self._hm_pending: list = []  # guarded-by: _hm_lock
+        self._hm_shed = 0  # guarded-by: _hm_lock
+        self._hm_gseq = 0  # guarded-by: _hm_lock
+        self._dev_export = obs_device.enabled()
+        self._hm_sampler = obs_metrics.Sampler(
+            obs_metrics.registry(), hook=obs_device.metrics_hook()) \
+            if self._hm_export else None
+        # the flight recorder: the process's crash hooks, and this
+        # client's view in every bundle (weakly held)
+        self._bb_state_name = None
+        if obs_blackbox.enabled():
+            obs_blackbox.install(host=self.host)
+            import weakref
+            _wm_state = weakref.WeakMethod(self._bb_state)
+            self._bb_state_name = f"client:{self.host}"
+
+            def _bb_provider(_wm=_wm_state):
+                fn = _wm()
+                return fn() if fn is not None else {"gone": True}
+            self._bb_provider = _bb_provider
+            obs_blackbox.register_state(self._bb_state_name, _bb_provider)
         self._stop = threading.Event()
         self._hb_thread = threading.Thread(
             target=self._heartbeat_loop, args=(heartbeat_interval_s,),
@@ -343,16 +422,188 @@ class WorkerClient:
             except faults.CrashInjected:
                 return  # an injected heartbeat death: the thread stops
             try:
+                with self._prof_lock:
+                    pseq = self._prof_seq
+                msg = {"cmd": "heartbeat", "host": self.host, "pseq": pseq}
+                payload = self._obs_payload() if self._obs_export \
+                    and obs_trace.enabled() else None
+                if payload is not None:
+                    msg["obs"] = payload
+                hm = self._hm_payload() if self._hm_export \
+                    and obs_metrics.enabled() else None
+                if hm is not None:
+                    msg["hm"] = hm
+                dev = obs_device.wire_payload() if self._dev_export \
+                    and obs_device.enabled() else None
+                if dev is not None:
+                    msg["dev"] = dev
                 if obs_trace.enabled():
                     obs_trace.tracer().counter("heartbeat.sent")
                 # retries=1: a lost heartbeat is superseded by the next
-                resp = self._req({"cmd": "heartbeat", "host": self.host,
-                                  "pseq": 0}, timeout=10, retries=1)
+                resp = self._req(msg, timeout=10, retries=1)
+                if payload is not None:
+                    self._obs_ack(payload)
+                if hm is not None:
+                    self._hm_ack(hm)
                 if resp.get("ckpt_epoch_end"):
                     self.ckpt_epoch_end = True
+                for c in resp.get("profile_cmds", []):
+                    self._apply_profile_cmd(c)
+                if dev is not None:
+                    # targeted captures; seq-guarded in the device plane
+                    obs_device.handle_capture_cmds(
+                        resp.get("capture_cmds"), host=self.host)
             except (OSError, RuntimeError):
                 pass  # scheduler gone: dead-node detection is its problem
             self._stop.wait(interval)
+
+    # -- the obs export ---------------------------------------------------
+
+    def _obs_payload(self) -> Optional[dict]:
+        """Drain the process tracer into the pending batch and return the
+        next payload (``None`` when there is nothing to ship): the oldest
+        ``_OBS_FLUSH_MAX`` records, the counters and the drop count."""
+        tr = obs_trace.tracer()
+        with self._obs_lock:
+            self._obs_pending.extend(tr.drain())
+            over = len(self._obs_pending) - _OBS_PENDING_MAX
+            if over > 0:
+                self._obs_shed += over
+                del self._obs_pending[:over]
+            if not self._obs_pending:
+                return None
+            self._obs_fseq += 1
+            return {"inc": self._obs_inc, "fseq": self._obs_fseq,
+                    "records": list(self._obs_pending[:_OBS_FLUSH_MAX]),
+                    "counters": tr.counters(),
+                    "dropped": tr.dropped() + self._obs_shed}
+
+    def _obs_ack(self, payload: dict) -> None:
+        """The scheduler has ``payload``: drop its records (by rseq)."""
+        if not payload.get("records"):
+            return
+        last = payload["records"][-1][1]
+        with self._obs_lock:
+            self._obs_pending = [r for r in self._obs_pending
+                                 if r[1] > last]
+
+    def obs_flush(self, timeout: float = 2.0) -> None:
+        """Push what is pending over ``obs_push`` now (not a heartbeat, so
+        heartbeat fault rules cannot eat it), in bounded bites; the first
+        failure ends it.  Called from :meth:`close` and by an injected
+        crash's flush hook."""
+        if self._obs_export and obs_trace.enabled():
+            for _ in range(1 + _OBS_PENDING_MAX // _OBS_FLUSH_MAX):
+                payload = self._obs_payload()
+                if payload is None:
+                    break
+                try:
+                    self._req({"cmd": "obs_push", "host": self.host,
+                               "obs": payload}, timeout=timeout,
+                              retries=1)
+                    self._obs_ack(payload)
+                except (OSError, RuntimeError):
+                    return  # observability is never fatal
+        if self._hm_export and obs_metrics.enabled():
+            # a last sample takes the gauges set since the sampler's tick
+            obs_metrics.registry().sample()
+            for _ in range(1 + _HM_PENDING_MAX // _HM_FLUSH_MAX):
+                hm = self._hm_payload()
+                if hm is None:
+                    return
+                try:
+                    self._req({"cmd": "obs_push", "host": self.host,
+                               "hm": hm}, timeout=timeout, retries=1)
+                    self._hm_ack(hm)
+                except (OSError, RuntimeError):
+                    return
+                if not hm.get("samples"):
+                    return  # gauges only: nothing left to ack
+
+    def _hm_payload(self) -> Optional[dict]:
+        """Drain the registry's time series into the pending batch and
+        return the next payload (``None`` when empty); the cumulative
+        gauge and histogram snapshots ride every payload, ordered by
+        ``gseq``."""
+        reg = obs_metrics.registry()
+        with self._hm_lock:
+            self._hm_pending.extend(reg.drain_series())
+            over = len(self._hm_pending) - _HM_PENDING_MAX
+            if over > 0:
+                self._hm_shed += over
+                del self._hm_pending[:over]
+            gauges = reg.gauges_export()
+            hists = reg.hists_export()
+            if not self._hm_pending and not gauges and not hists:
+                return None
+            self._hm_gseq += 1
+            return {"inc": self._obs_inc, "gseq": self._hm_gseq,
+                    "samples": list(self._hm_pending[:_HM_FLUSH_MAX]),
+                    "gauges": gauges, "hists": hists,
+                    "dropped": reg.dropped() + self._hm_shed}
+
+    def _hm_ack(self, payload: dict) -> None:
+        """The scheduler has ``payload``: drop its samples (by seq)."""
+        if not payload.get("samples"):
+            return
+        last = payload["samples"][-1]["seq"]
+        with self._hm_lock:
+            self._hm_pending = [s for s in self._hm_pending
+                                if s["seq"] > last]
+
+    def _bb_state(self) -> dict:
+        """This worker's view in every bundle; bounded lock waits (a
+        bundle written from a signal handler must not deadlock on a lock
+        the interrupted thread holds)."""
+        out = {"role": "worker", "host": self.host,
+               "incarnation": self._obs_inc,
+               "recovery_pending": self.recovery_pending}
+        if self._addr_lock.acquire(timeout=0.5):
+            try:
+                out["fence"] = self.fence
+                out["leader"] = list(self.addrs[self._leader])
+            finally:
+                self._addr_lock.release()
+        if self._lock.acquire(timeout=0.5):
+            try:
+                out["rank"] = self.rank
+                out["workers"] = list(self.workers)
+                out["policy_seq"] = self.policy_seq
+                out["policy_shares"] = dict(self.policy_shares)
+            finally:
+                self._lock.release()
+        return out
+
+    def _apply_profile_cmd(self, c: dict) -> None:
+        """Apply one remote profiler command here (rank-prefixed output),
+        serialized with a monotonic seq guard: a stale heartbeat never
+        re-applies an older command."""
+        from dt_tpu_torch.utils import profiler
+        with self._prof_lock:
+            if c["seq"] <= self._prof_seq:
+                return
+            self._prof_seq = c["seq"]
+            try:
+                profiler.apply_remote(c["action"], c.get("params") or {},
+                                      rank=self.rank)
+            except Exception:  # profiler trouble must not kill heartbeats
+                logger.exception("remote profiler command %r failed", c)
+
+    def profile_command(self, action: str, params: Optional[dict] = None
+                        ) -> int:
+        """Broadcast a profiler command to every worker (reference
+        ``kv.set_server_profiler_command``): applied here at once, on the
+        others at their next heartbeat; ``post_seq`` dedups retries on
+        the scheduler.  Returns the command's seq."""
+        self._prof_post += 1
+        if obs_trace.enabled():
+            obs_trace.tracer().counter("profiler.posts")
+        seq = self._req({"cmd": "profile", "action": action,
+                         "params": params or {}, "host": self.host,
+                         "post_seq": self._prof_post})["seq"]
+        self._apply_profile_cmd({"seq": seq, "action": action,
+                                 "params": params or {}})
+        return seq
 
     # ------------------------------------------------------------------
     # the kvstore-controller surface
@@ -479,11 +730,6 @@ class WorkerClient:
         """Leave the job through the eviction machinery (no recovery
         window)."""
         return self._req({"cmd": "drain", "host": self.host})
-
-    def profile_command(self, action: str, params: Optional[dict] = None):
-        raise NotImplementedError(
-            f"remote profiler commands {_ITEM}item 7 (the obs, metrics and "
-            "device planes)")
 
     # -- dense allreduce -------------------------------------------------
 
@@ -855,6 +1101,16 @@ class WorkerClient:
             {"cmd": "async_pull_rows", "key": key, "ids": ids})
 
     def close(self):
+        # the last obs flush comes before the heartbeat stops: the ring's
+        # tail would never reach the job's timeline otherwise
+        if self._obs_hook is not None:
+            obs_trace.unregister_flush(self._obs_hook)
+        if self._bb_state_name is not None:
+            obs_blackbox.unregister_state(self._bb_state_name,
+                                          fn=self._bb_provider)
+        if self._hm_sampler is not None:
+            self._hm_sampler.stop()
+        self.obs_flush()
         self._stop.set()
         # bounded: an in-flight heartbeat must not return its channel to
         # the pool after the purge below

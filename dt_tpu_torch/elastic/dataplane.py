@@ -39,6 +39,8 @@ from typing import Callable, Dict, Optional, Set
 import numpy as np
 
 from dt_tpu_torch import config
+from dt_tpu_torch.obs import blackbox as obs_blackbox
+from dt_tpu_torch.obs import metrics as obs_metrics
 
 logger = logging.getLogger("dt_tpu_torch.elastic")
 
@@ -212,8 +214,13 @@ class DataPlane:
             if seq >= 0 and served is not None and served[0] == seq:
                 return {"value": served[1]}  # retry of a completed round
             gen = slot["gen"]
+            # arrival stamps ride the trace gate, the policy engine, the
+            # metrics plane (round.wait_ms and its SLO) and the flight
+            # recorder (the scheduler's hang detector ages rounds by them)
             lag_ns = tnow[1] if tnow is not None else \
-                (time.monotonic_ns() if self._track_lag else None)
+                (time.monotonic_ns()
+                 if self._track_lag or obs_metrics.enabled()
+                 or obs_blackbox.enabled() else None)
             if lag_ns is not None:
                 if not slot["vals"]:
                     slot["t0"] = tnow  # the span's start; None untraced
@@ -299,6 +306,7 @@ class DataPlane:
             wait_ms = round(max(last_t - lag0, 0) / 1e6, 3)
             slot["meta"] = (slot["gen"] + 1, last_host, wait_ms)
             self._update_straggler_locked(arrive, lag0)
+            obs_metrics.registry().observe("round.wait_ms", wait_ms)
             self._obs.complete_span(
                 "dataplane.round", slot.get("t0"),
                 {"key": key, "gen": slot["gen"] + 1,
@@ -333,6 +341,29 @@ class DataPlane:
                                      "score_ms": round(score, 3)})
             else:
                 self._straggler_over.discard(h)
+
+    def pending_rounds(self) -> list:
+        """The incomplete rounds and the hosts each waits on, the
+        scheduler's hang detector's input; ``age_s`` from the round's
+        first contribution (``None`` when no plane stamps arrivals)."""
+        now = time.monotonic_ns()
+        out = []
+        with self._cv:
+            expected = set(self.expected_fn())
+            for key, slot in self._reduce.items():
+                if not slot["vals"]:
+                    continue
+                waiting = sorted(expected - set(slot["vals"]))
+                if not waiting:
+                    continue  # completing right now
+                lag0 = slot.get("lag0")
+                out.append({
+                    "key": key,
+                    "age_s": round(max(now - lag0, 0) / 1e9, 3)
+                    if lag0 is not None else None,
+                    "waiting": waiting,
+                    "contributed": sorted(slot["vals"])})
+        return out
 
     def straggler_scores(self) -> Dict[str, float]:
         """The straggler board: each host's round-lag EWMA (ms, rounded to

@@ -9,7 +9,12 @@ eviction machinery, and returns from ``fit``: no collective error and no
 recovery window.  A second SIGTERM gets the disposition from before
 :func:`install`, so a wedged drain stays killable.  Forked children die
 with the default disposition.  :func:`announce` records the one
-``drain.requested`` trace event.
+``drain.requested`` trace event and, with the flight recorder armed, a
+``kind="drain"`` manifest row (a drained worker leaves no crash bundle).
+
+Install it after ``obs_blackbox.install`` (``WorkerClient`` construction
+does that): the first SIGTERM then drains and the second reaches the
+blackbox handler, which writes its fatal bundle and dies.
 """
 
 import os
@@ -18,6 +23,7 @@ import threading
 import time
 from typing import Optional
 
+from dt_tpu_torch.obs import blackbox as obs_blackbox
 from dt_tpu_torch.obs import trace as obs_trace
 
 _LOCK = threading.Lock()
@@ -79,7 +85,7 @@ def _mark_requested() -> None:
 
 
 def requested() -> bool:
-    """Has a drain been requested (SIGTERM seen, or :func:`request`)?"""
+    """Has a drain been requested (a SIGTERM seen)?"""
     return _REQUESTED.is_set()
 
 
@@ -95,4 +101,9 @@ def announce(host: Optional[str] = None) -> bool:
     ts = _REQUESTED_MS or int(time.time() * 1000)
     obs_trace.tracer().event("drain.requested",
                              {"host": host, "ts_ms": ts})
+    obs_blackbox.note("drain.requested", host=host)
+    if obs_blackbox.enabled():
+        obs_blackbox.manifest_append(
+            {"kind": "drain", "ts_ms": ts, "pid": os.getpid(),
+             "host": host, "trigger": "SIGTERM", "fatal": False})
     return True

@@ -315,6 +315,8 @@ class FaultPlan:
             if not self._fire(idx, r, host):
                 continue
             _obs_fault("stall", "site", idx, host=host, site=site)
+            from dt_tpu_torch.obs import blackbox as obs_blackbox
+            obs_blackbox.note("fault.stall", site=site, host=host)
             while True:  # deliberate: an injected hang does not end
                 time.sleep(1.0)
 
@@ -337,6 +339,15 @@ class FaultPlan:
                 # best-effort and obs-gated, so the exit stays
                 # SIGKILL-equivalent for everything but the trace
                 obs_trace.flush()
+                # the dying process's flight-recorder bundle (stacks, open
+                # spans, ring tails) goes to disk before the exit; a no-op
+                # unless DT_BLACKBOX, and it never raises
+                from dt_tpu_torch.obs import blackbox as obs_blackbox
+                obs_blackbox.write_bundle(
+                    f"crash.{site}", host=host, fatal=True,
+                    extra={"site": site, "action": "exit",
+                           **{k: v for k, v in ctx.items()
+                              if k in ("epoch", "step")}})
                 os._exit(137)  # SIGKILL-equivalent: no cleanup, no goodbye
             raise CrashInjected(
                 f"fault injection: crash at {site} (host={host}, {ctx})")

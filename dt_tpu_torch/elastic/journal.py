@@ -36,6 +36,7 @@ import zlib
 from typing import Any, Dict, Iterator, List, Optional, Set, Tuple
 
 from dt_tpu_torch import config
+from dt_tpu_torch.obs import metrics as obs_metrics
 
 try:  # posix-only; the HA pair runs on linux hosts
     import fcntl
@@ -90,6 +91,8 @@ class JournalWriter:
                                protocol=pickle.HIGHEST_PROTOCOL)
         if len(payload) > MAX_RECORD:
             raise JournalError(f"journal record too large: {len(payload)}")
+        # the fsync-append latency histogram (the journal_append_p99 SLO)
+        t0 = time.monotonic() if obs_metrics.enabled() else None
         with self._wlock:
             # cross-process writer exclusion: a deposed leader and its
             # successor both hold append handles, and the withdrawal below
@@ -120,6 +123,9 @@ class JournalWriter:
             finally:
                 if fcntl is not None:
                     fcntl.flock(self._f.fileno(), fcntl.LOCK_UN)
+        if t0 is not None:
+            obs_metrics.registry().observe(
+                "journal.append_ms", (time.monotonic() - t0) * 1000.0)
 
     def close(self) -> None:
         try:

@@ -27,8 +27,17 @@ job, a thread a connection over the pooled transport
   route their bulk data to (``elastic.range_server``; the register reply
   carries the fleet);
 - ``publish_snapshot``/``fetch_snapshot``; ``drain``; ``membership``,
-  ``status`` and ``shutdown``; ``obs_dump`` with the control-plane track
-  alone (worker tracks arrive by ``obs_push``, item 7);
+  ``status`` and ``shutdown``;
+- the obs planes (``scheduler.py:333, 498-636, 859-1045, 1174-1300,
+  1375-1520``): worker span, metrics and device payloads ingested from
+  the heartbeat and ``obs_push`` (rseq, sample-seq and dseq dedup, a
+  bounded LRU of ``(host, incarnation)`` tracks), ``obs_dump`` with every
+  worker track beside the control plane's, ``health`` (the SLO engine over
+  the scheduler-derived gauges, ``DT_METRICS``) and the Prometheus
+  ``HealthServer`` (``DT_METRICS_PORT``), ``blackbox_index`` with the
+  fleet-progress hang detector's suspect (``DT_BLACKBOX``), and the
+  broadcast ``profile`` and targeted ``profile_capture`` commands with
+  their ``(host, post_seq)`` dedup, delivered on the heartbeat;
 - scheduler HA (``scheduler.py:118-250, 418-750``): every state change is
   a ``journal.ControlState`` op appended to a fsync'd write-ahead journal
   (``journal_path``/``DT_CTRL_JOURNAL``) before it applies; leadership is
@@ -57,7 +66,8 @@ job, a thread a connection over the pooled transport
   ``policy`` and ``straggler`` sections.
 
 Every other command of the JAX scheduler answers an error naming its
-ROADMAP item (:data:`UNPORTED`), never a silent no-op.
+ROADMAP item (:data:`UNPORTED`), never a silent no-op.  The scheduler
+imports no torch.
 """
 
 from __future__ import annotations
@@ -75,6 +85,8 @@ from dt_tpu_torch import config
 from dt_tpu_torch import policy as policy_lib
 from dt_tpu_torch.elastic import faults, journal, protocol
 from dt_tpu_torch.elastic.dataplane import DataPlane
+from dt_tpu_torch.obs import blackbox as obs_blackbox
+from dt_tpu_torch.obs import metrics as obs_metrics
 from dt_tpu_torch.obs import trace as obs_trace
 
 logger = logging.getLogger("dt_tpu_torch.elastic")
@@ -97,12 +109,11 @@ _PASSIVE_CMDS = frozenset((
     "obs_push", "shutdown", "status"))
 
 _ITEM = "is not ported yet; see ROADMAP.md, Queue 1 "
+#: retained (host, incarnation) obs tracks, LRU-evicted past it
+_OBS_MAX_TRACKS = 64
 #: the JAX scheduler's commands this one does not serve, each with the
 #: ROADMAP item that brings it
 UNPORTED = {
-    **dict.fromkeys(("obs_push", "health", "blackbox_index",
-                     "profile", "profile_capture"),
-                    "item 7 (the obs, metrics and device planes)"),
     **dict.fromkeys(("serve_register", "serve_heartbeat",
                      "serve_endpoints"),
                     "item 5 (the serve gateway and replica)"),
@@ -142,7 +153,12 @@ class Scheduler:
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._state = journal.ControlState()  # guarded-by: _lock
+        # this instance's control-plane track; worker tracks arrive on the
+        # heartbeat and obs_push, one a (host, incarnation)
         self._obs = obs_trace.Tracer(name="control-plane")
+        self._obs_lock = threading.Lock()
+        self._obs_tracks: Dict[str, dict] = {}  # guarded-by: _obs_lock
+        self._obs_cap = self._obs._cap
 
         # -- the journal, the lease and fencing ---------------------------
         self.journal_path = journal_path or \
@@ -233,8 +249,48 @@ class Scheduler:
         # _server_list() is read from inside _register under _lock
         self._servers: Dict[int, tuple] = {}  # guarded-by: _servers_lock
         self._servers_lock = threading.Lock()
+        # the broadcast profiler commands (rank 0 drives every worker)
+        self._profile_cmds: List[dict] = []  # guarded-by: _lock
+        self._profile_seq = 0  # guarded-by: _lock
+        self._profile_posted: Dict[tuple, int] = {}  # guarded-by: _lock
+        # the device plane: each host's newest heartbeat `dev` view, and
+        # the targeted profile_capture queue
+        self._dev_lock = threading.Lock()
+        self._dev_tracks: Dict[str, dict] = {}  # guarded-by: _dev_lock
+        self._capture_cmds: List[dict] = []  # guarded-by: _lock
+        self._capture_seq = 0  # guarded-by: _lock
+        self._capture_posted: Dict[tuple, int] = {}  # guarded-by: _lock
         self._tokens = protocol.TokenCache(
             ttl_s=float(config.env("DT_CTRL_TOKEN_TTL_S")))
+        # the metrics plane (DT_METRICS): the scheduler-derived gauges,
+        # the workers' time-series tracks, the SLO engine on every sample
+        # and health read, and the Prometheus endpoint (DT_METRICS_PORT)
+        self._metrics = obs_metrics.registry() \
+            if obs_metrics.enabled() else None
+        self._slo = obs_metrics.SLOEngine.from_env() \
+            if self._metrics is not None else None
+        self._hm_lock = threading.Lock()
+        self._hm_tracks: Dict[str, dict] = {}  # guarded-by: _hm_lock
+        self._hm_sampler: Optional[obs_metrics.Sampler] = None
+        self._http: Optional[obs_metrics.HealthServer] = None
+        self.metrics_port: Optional[int] = None
+        if self._metrics is not None:
+            self._hm_sampler = obs_metrics.Sampler(
+                self._metrics, hook=self._health_refresh, tracer=self._obs)
+            port_spec = config.env("DT_METRICS_PORT")
+            if port_spec != "":
+                try:
+                    self._http = obs_metrics.HealthServer(
+                        int(port_spec), self.metrics_text, self.health_view)
+                    self.metrics_port = self._http.port
+                    logger.info("metrics/health endpoint on :%d",
+                                self.metrics_port)
+                except (OSError, ValueError) as e:
+                    # never fatal: a same-host standby loses the bind to
+                    # its primary and must still come up
+                    logger.warning("metrics/health endpoint on :%s "
+                                   "unavailable (%s); continuing without "
+                                   "it", port_spec, e)
 
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -256,6 +312,14 @@ class Scheduler:
         self._evict_thread: Optional[threading.Thread] = None
         self._lease_thread: Optional[threading.Thread] = None
         self._monitor_thread: Optional[threading.Thread] = None
+        # the flight recorder (DT_BLACKBOX): the fleet-progress hang
+        # detector, and the control state in every bundle (the active
+        # instance owns the provider slot; a standby takes it over)
+        self._bb_lock = threading.Lock()
+        self._bb_suspect: Optional[dict] = None  # guarded-by: _bb_lock
+        self._bb_thread: Optional[threading.Thread] = None
+        if obs_blackbox.enabled() and not standby:
+            obs_blackbox.register_state("scheduler", self._bb_state)
         if standby:
             self._monitor_thread = threading.Thread(
                 target=self._monitor_loop, daemon=True)
@@ -271,6 +335,7 @@ class Scheduler:
                 self._start_thread("_lease_thread", self._lease_loop)
             if auto_evict_dead_s:
                 self._start_thread("_evict_thread", self._evict_loop)
+            self._start_hang_thread()
             logger.info("scheduler listening on :%d (incarnation %d), base "
                         "workers %s", self.port, self._incarnation,
                         self._state.workers)
@@ -385,6 +450,9 @@ class Scheduler:
                 self._start_thread("_evict_thread", self._evict_loop)
             if self._lease is not None:
                 self._start_thread("_lease_thread", self._lease_loop)
+            self._start_hang_thread()
+            if obs_blackbox.enabled():
+                obs_blackbox.register_state("scheduler", self._bb_state)
             self._obs.complete_span(
                 "scheduler.failover", t0,
                 {"incarnation": inc, "reason": reason,
@@ -511,9 +579,15 @@ class Scheduler:
                     pass
         me = threading.current_thread()
         for t in (self._evict_thread, self._monitor_thread,
-                  self._lease_thread, self._thread):
+                  self._lease_thread, self._bb_thread, self._thread):
             if t is not None and t is not me and t.is_alive():
                 t.join(timeout=5.0)
+        # identity-guarded: a closing standby keeps the leader's provider
+        obs_blackbox.unregister_state("scheduler", fn=self._bb_state)
+        if self._hm_sampler is not None:
+            self._hm_sampler.stop()
+        if self._http is not None:
+            self._http.close()
         if self._journal is not None:
             self._journal.close()
 
@@ -532,21 +606,57 @@ class Scheduler:
                                   bool(msg.get("is_recovery")),
                                   reattach=bool(msg.get("reattach")))
         if cmd == "heartbeat":
-            # a JAX worker's span/metrics/device payloads ride here; their
-            # ingest is the obs plane (ROADMAP Queue 1 item 7) and is
-            # counted, not stored
-            for k in ("obs", "hm", "dev"):
-                if msg.get(k) is not None:
-                    self._obs.counter(f"heartbeat.{k}_ignored")
+            # a worker's span, metrics and device payloads ride here
+            if msg.get("obs") is not None:
+                self._obs_ingest(msg["host"], msg["obs"])
+            if msg.get("hm") is not None:
+                self._hm_ingest(msg["host"], msg["hm"])
+            dev = msg.get("dev")
+            if dev is not None:
+                self._dev_ingest(msg["host"], dev)
             with self._lock:
                 self._heartbeats[msg["host"]] = time.time()
+                pseq = int(msg.get("pseq", 0))
+                newer = [c for c in self._profile_cmds if c["seq"] > pseq]
+                caps = []
+                if dev is not None:
+                    cseq = int(dev.get("cseq", 0))
+                    caps = [c for c in self._capture_cmds
+                            if c["target"] == msg["host"]
+                            and c["seq"] > cseq]
+            out = {}
+            if newer:
+                out["profile_cmds"] = newer
+            if caps:
+                out["capture_cmds"] = caps
             if self._ckpt_epoch_end:
                 # a draining scheduler asks the fleet for an
                 # epoch-boundary checkpoint
-                return {"ckpt_epoch_end": True}
+                out["ckpt_epoch_end"] = True
+            return out
+        if cmd == "obs_push":
+            # a synchronous flush (a worker's close, an injected crash);
+            # the rseq and sample-seq dedup make a replay a no-op
+            if msg.get("obs") is not None:
+                self._obs_ingest(msg["host"], msg["obs"])
+            if msg.get("hm") is not None:
+                self._hm_ingest(msg["host"], msg["hm"])
             return {}
+        if cmd == "health":
+            self._health_refresh()
+            return {"health": self.health_view()}
         if cmd == "ha_round":
             return self._ha_round(msg)
+        if cmd == "blackbox_index":
+            # the bundle manifest and the fleet-hang suspect (the bundles
+            # stay on disk)
+            with self._bb_lock:
+                suspect = dict(self._bb_suspect) \
+                    if self._bb_suspect else None
+            return {"enabled": obs_blackbox.enabled(),
+                    "dir": obs_blackbox.bundle_dir(),
+                    "bundles": obs_blackbox.read_manifest(),
+                    "suspect": suspect}
         if cmd == "status":
             with self._lock:
                 st = self._state
@@ -565,6 +675,48 @@ class Scheduler:
                            "draining": sorted(st.draining)}}
             out["straggler"] = self._dp.straggler_scores()
             return out
+        if cmd == "profile":
+            # recorded; every worker takes it on its next heartbeat, and a
+            # retried post (host, post_seq) gets its first seq back
+            with self._lock:
+                key = (msg.get("host"), msg.get("post_seq"))
+                if key[0] is not None and key in self._profile_posted:
+                    return {"seq": self._profile_posted[key]}
+                self._profile_seq += 1
+                self._profile_cmds.append(
+                    {"seq": self._profile_seq, "action": msg["action"],
+                     "params": msg.get("params") or {}})
+                del self._profile_cmds[:-32]  # bounded history
+                if key[0] is not None:
+                    self._profile_posted[key] = self._profile_seq
+                    while len(self._profile_posted) > 128:
+                        self._profile_posted.pop(
+                            next(iter(self._profile_posted)))
+                return {"seq": self._profile_seq}
+        if cmd == "profile_capture":
+            # a bounded capture on one worker, delivered on its next
+            # heartbeat (dev.cseq dedups); retries dedup as "profile"'s
+            with self._lock:
+                key = (msg.get("host"), msg.get("post_seq"))
+                if key[0] is not None and key in self._capture_posted:
+                    return {"seq": self._capture_posted[key]}
+                if msg["target"] not in self._state.workers:
+                    return {"error":
+                            f"profile_capture target {msg['target']!r} "
+                            f"is not a live worker (live: "
+                            f"{sorted(self._state.workers)}); note the "
+                            f"target must run with DT_DEVICE_OBS=1"}
+                self._capture_seq += 1
+                self._capture_cmds.append(
+                    {"seq": self._capture_seq, "target": msg["target"],
+                     "steps": int(msg.get("steps", 8))})
+                del self._capture_cmds[:-16]  # bounded history
+                if key[0] is not None:
+                    self._capture_posted[key] = self._capture_seq
+                    while len(self._capture_posted) > 128:
+                        self._capture_posted.pop(
+                            next(iter(self._capture_posted)))
+                return {"seq": self._capture_seq}
         if cmd in DataPlane.CMDS:
             if cmd == "allreduce":
                 faults.crash_point("sched.allreduce", host=msg.get("host"))
@@ -635,21 +787,378 @@ class Scheduler:
             return {"error": f"{cmd} {_ITEM}{UNPORTED[cmd]}"}
         return {"error": f"unknown cmd {cmd!r}"}
 
+    # ------------------------------------------------------------------
+    # the obs planes: ingest and export (scheduler.py:859-1045)
+    # ------------------------------------------------------------------
+
+    def _obs_ingest(self, host: str, payload: dict) -> None:
+        """Fold one worker's span batch into its (host, incarnation)
+        track.  At-least-once safe: records carry a strictly rising
+        ``rseq`` and a replayed prefix is skipped; the counters and the
+        drop count apply only from a newer ``fseq``."""
+        key = f"{host}#{payload.get('inc', 0)}"
+        records = payload.get("records") or ()
+        with self._obs_lock:
+            tr = self._obs_tracks.setdefault(
+                key, {"records": [], "counters": {}, "dropped": 0,
+                      "trunc": 0, "rseq": -1, "fseq": -1})
+            # LRU by update order, a bounded count: restart churn mints a
+            # track an incarnation
+            self._obs_tracks.pop(key)
+            self._obs_tracks[key] = tr
+            while len(self._obs_tracks) > _OBS_MAX_TRACKS:
+                evicted = next(iter(self._obs_tracks))
+                del self._obs_tracks[evicted]
+                logger.info("obs: evicted stale track %s (track cap %d)",
+                            evicted, _OBS_MAX_TRACKS)
+            fresh = [r for r in records if r[1] > tr["rseq"]]
+            if fresh:
+                tr["records"].extend(fresh)
+                tr["rseq"] = max(r[1] for r in fresh)
+                over = len(tr["records"]) - self._obs_cap
+                if over > 0:
+                    tr["trunc"] += over  # counted, never silent
+                    del tr["records"][:over]
+            fseq = int(payload.get("fseq", 0))
+            if fseq > tr["fseq"]:
+                tr["fseq"] = fseq
+                if payload.get("counters"):
+                    tr["counters"] = dict(payload["counters"])
+                tr["dropped"] = int(payload.get("dropped", tr["dropped"]))
+
     def obs_dump(self) -> dict:
-        """The job dump (``scheduler.py:904``) with its control-plane
-        track alone: this instance's records (the ``scheduler.failover``
-        span, ``leader.*``, ``ckpt.*`` and ``policy.*`` events) merged with
-        the process tracer's, beside the straggler board and the policy
-        view.  Worker tracks come with ``obs_push`` (item 7)."""
+        """The merged job dump (``scheduler.py:904``): every worker
+        incarnation's track plus the control-plane track (this instance's
+        records merged with the process tracer's), the straggler board,
+        the policy view and, when they hold anything, the device and
+        health sections and the metrics tracks."""
+        with self._obs_lock:
+            tracks = {k: {"records": list(v["records"]),
+                          "counters": dict(v["counters"]),
+                          "dropped": v["dropped"] + v.get("trunc", 0)}
+                      for k, v in self._obs_tracks.items()}
         own = self._obs.snapshot()
         proc = obs_trace.tracer().snapshot()
-        with self._lock:
-            pol = self._policy_view_locked()
-        return {"tracks": {"control-plane": {
+        tracks["control-plane"] = {
             "records": own["records"] + proc["records"],
             "counters": {**proc["counters"], **own["counters"]},
-            "dropped": own["dropped"] + proc["dropped"]}},
-            "straggler": self._dp.straggler_scores(), "policy": pol}
+            "dropped": own["dropped"] + proc["dropped"]}
+        with self._lock:
+            pol = self._policy_view_locked()
+        out = {"tracks": tracks, "straggler": self._dp.straggler_scores(),
+               "policy": pol}
+        dev = self._dev_view()
+        if dev["workers"]:
+            out["device"] = dev
+        if self._metrics is not None:
+            self._health_refresh()
+            out["health"] = self.health_view()
+            with self._hm_lock:
+                mtracks = {
+                    k: {"samples": list(t["samples"]),
+                        "gauges": [list(g) for g in t["gauges"]],
+                        "dropped": t["dropped"] + t.get("trunc", 0)}
+                    for k, t in self._hm_tracks.items()}
+            mtracks["control-plane"] = {
+                "samples": self._metrics.series(),
+                "gauges": self._metrics.gauges_export(),
+                "dropped": self._metrics.dropped()}
+            out["metrics"] = {"tracks": mtracks}
+        return out
+
+    def _hm_ingest(self, host: str, payload: dict) -> None:
+        """Fold one worker's metrics batch into its (host, incarnation)
+        track: samples dedup by ``seq``, the gauge and histogram snapshots
+        apply only from a newer ``gseq``."""
+        if self._metrics is None:
+            return
+        key = f"{host}#{payload.get('inc', 0)}"
+        cap = self._metrics._cap
+        with self._hm_lock:
+            tr = self._hm_tracks.setdefault(
+                key, {"samples": [], "sseq": -1, "gseq": -1,
+                      "gauges": [], "hists": [], "dropped": 0,
+                      "trunc": 0})
+            self._hm_tracks.pop(key)
+            self._hm_tracks[key] = tr
+            while len(self._hm_tracks) > _OBS_MAX_TRACKS:
+                del self._hm_tracks[next(iter(self._hm_tracks))]
+            fresh = [s for s in (payload.get("samples") or ())
+                     if s.get("seq", 0) > tr["sseq"]]
+            if fresh:
+                tr["samples"].extend(fresh)
+                tr["sseq"] = max(s["seq"] for s in fresh)
+                over = len(tr["samples"]) - cap
+                if over > 0:
+                    tr["trunc"] += over
+                    del tr["samples"][:over]
+            gseq = int(payload.get("gseq", 0))
+            if gseq > tr["gseq"]:
+                tr["gseq"] = gseq
+                tr["gauges"] = [list(g) for g in
+                                (payload.get("gauges") or ())]
+                tr["hists"] = [list(h) for h in
+                               (payload.get("hists") or ())]
+                tr["dropped"] = int(payload.get("dropped", tr["dropped"]))
+
+    def _dev_ingest(self, host: str, payload: dict) -> None:
+        """Keep each host's newest device view (``dseq`` orders them; the
+        ingest time rides as ``_ts``, so the hang detector can tell a
+        fresh view)."""
+        with self._dev_lock:
+            tr = self._dev_tracks.get(host)
+            dseq = int(payload.get("dseq", 0))
+            if tr is not None and dseq and int(tr.get("dseq", 0)) >= dseq:
+                return  # stale or duplicated beat
+            self._dev_tracks.pop(host, None)
+            entry = dict(payload)
+            entry["_ts"] = time.time()
+            self._dev_tracks[host] = entry
+            while len(self._dev_tracks) > _OBS_MAX_TRACKS:
+                del self._dev_tracks[next(iter(self._dev_tracks))]
+
+    def _dev_forget(self, hosts) -> None:
+        """A removed host's device view goes with it."""
+        with self._dev_lock:
+            for h in set(hosts):
+                self._dev_tracks.pop(h, None)
+
+    def _dev_view(self) -> dict:
+        """The device section: each host's view, and who is compiling."""
+        with self._dev_lock:
+            workers = {h: dict(v) for h, v in self._dev_tracks.items()}
+        return {"workers": workers,
+                "compiling": sorted(h for h, v in workers.items()
+                                    if v.get("compiling"))}
+
+    def _metrics_forget(self, hosts) -> None:
+        """A removed host's metrics tracks and worker-labeled gauges go
+        with it."""
+        if self._metrics is None:
+            return
+        hosts = set(hosts)
+        with self._hm_lock:
+            for key in [k for k in self._hm_tracks
+                        if k.split("#")[0] in hosts]:
+                del self._hm_tracks[key]
+        for h in sorted(hosts):
+            self._metrics.forget_label("worker", h)
+
+    def _worker_step_rates(self) -> Dict[str, float]:
+        """Steps/s a worker, from its last shipped ``train.steps``
+        samples (the freshest incarnation wins)."""
+        out: Dict[str, float] = {}
+        with self._hm_lock:
+            for key, tr in self._hm_tracks.items():
+                host = key.split("#")[0]
+                pts = [(s["ts_ms"], s["gauges"].get("train.steps"))
+                       for s in tr["samples"][-8:]
+                       if s.get("gauges", {}).get("train.steps")
+                       is not None]
+                if len(pts) >= 2 and pts[-1][0] > pts[0][0]:
+                    out[host] = round(
+                        max(pts[-1][1] - pts[0][1], 0) * 1000.0
+                        / (pts[-1][0] - pts[0][0]), 4)
+        return out
+
+    def _health_refresh(self) -> None:
+        """One health pass: the scheduler-derived gauges, then the SLO
+        rules.  Takes ``_lock``, ``_obs_lock`` and ``_hm_lock`` one at a
+        time; a passive instance skips it (it gets no heartbeats, so its
+        staleness would breach for every healthy worker)."""
+        if self._metrics is None or not self._active.is_set():
+            return
+        reg = self._metrics
+        now = time.time()
+        with self._lock:
+            stale = {h: round(now - self._heartbeats.get(h, now), 3)
+                     for h in self._state.workers}
+        for h, v in sorted(stale.items()):
+            reg.gauge("sched.heartbeat_staleness_s", v,
+                      labels={"worker": h})
+        rates = self._worker_step_rates()
+        for h, r in sorted(rates.items()):
+            reg.gauge("worker.step_rate", r, labels={"worker": h})
+        with self._obs_lock:
+            drops = sum(t["dropped"] + t.get("trunc", 0)
+                        for t in self._obs_tracks.values())
+        drops += self._obs.dropped() + obs_trace.tracer().dropped()
+        reg.gauge("obs.ring_dropped", drops)
+        inputs: Dict[str, object] = {
+            "worker.step_rate": rates,
+            "round.wait_ms": self._dp.straggler_scores(),
+            "sched.heartbeat_staleness_s": stale,
+            "obs.ring_dropped": float(drops),
+        }
+        p99 = reg.hist_quantile("journal.append_ms", 0.99)
+        if p99 is not None:
+            inputs["journal.append_ms.p99"] = p99
+        self._slo.evaluate(inputs, tracer=self._obs)
+
+    def health_view(self) -> dict:
+        """The ``health`` reply: the SLO state, the scheduler's gauges and
+        histograms, each worker incarnation's latest gauges, and the
+        device section."""
+        if self._metrics is None:
+            return {"enabled": False}
+        with self._hm_lock:
+            workers = {
+                k: {"samples": len(t["samples"]),
+                    "dropped": t["dropped"] + t.get("trunc", 0),
+                    "gauges": dict(t["samples"][-1].get("gauges") or {})
+                    if t["samples"] else {}}
+                for k, t in sorted(self._hm_tracks.items())}
+        out = {"enabled": True,
+               "interval_s": obs_metrics.interval_s(),
+               "slo": self._slo.state(),
+               "gauges": self._metrics.gauges_export(),
+               "hists": self._metrics.hists_export(),
+               "workers": workers}
+        dev = self._dev_view()
+        if dev["workers"]:
+            out["device"] = dev
+        return out
+
+    def metrics_text(self) -> str:
+        """The Prometheus exposition: the scheduler's registry and
+        counters under ``role="scheduler"``, each worker incarnation's
+        gauges, histograms and counters under ``worker``/``inc``; empty
+        when the plane is off."""
+        if self._metrics is None:
+            return ""
+        self._health_refresh()
+        jobs = [({"role": "scheduler"},
+                 {"gauges": self._metrics.gauges_export(),
+                  "hists": self._metrics.hists_export()},
+                 {**obs_trace.tracer().counters(),
+                  **self._obs.counters()})]
+        with self._obs_lock:
+            ctrs = {k: dict(v["counters"])
+                    for k, v in self._obs_tracks.items()}
+        with self._hm_lock:
+            tracks = [(k, [list(g) for g in t["gauges"]],
+                       [list(h) for h in t["hists"]])
+                      for k, t in sorted(self._hm_tracks.items())]
+        for key, gauges, hists in tracks:
+            host, _, inc = key.partition("#")
+            jobs.append(({"worker": host, "inc": inc},
+                         {"gauges": gauges, "hists": hists},
+                         ctrs.get(key, {})))
+        return obs_metrics.render_prometheus(jobs)
+
+    # ------------------------------------------------------------------
+    # the fleet-hang detector (scheduler.py:498-636)
+    # ------------------------------------------------------------------
+
+    def _start_hang_thread(self) -> None:
+        if not obs_blackbox.enabled() or self._bb_thread is not None:
+            return
+        self._bb_thread = threading.Thread(target=self._hang_loop,
+                                           daemon=True, name="dt-sched-hang")
+        self._bb_thread.start()
+
+    def _hang_loop(self) -> None:
+        period = max(min(obs_blackbox.hang_s() / 4.0, 5.0), 0.05)
+        while not self._stop.wait(period):
+            if not self._active.is_set():
+                continue
+            try:
+                self._hang_tick()
+            except Exception:  # noqa: BLE001 — the detector must not die
+                logger.exception("fleet-hang detector pass failed")
+
+    def _hang_tick(self, hang_seconds: Optional[float] = None
+                   ) -> Optional[dict]:
+        """One fleet-progress check: when the oldest pending round has
+        aged past ``DT_HANG_S``, blame the worker it waits on (the worst
+        straggler among the missing contributors; one whose device view
+        says it is compiling is demoted, while that view is fresh and the
+        compile younger than max(10x the threshold, 5 min)) and fire an
+        edge-triggered ``hang.suspect`` with one live bundle; the round's
+        completion clears it.  Returns the suspect view."""
+        threshold = float(hang_seconds if hang_seconds is not None
+                          else obs_blackbox.hang_s())
+        stalled = [p for p in self._dp.pending_rounds()
+                   if p["age_s"] is not None and p["age_s"] > threshold
+                   and p["waiting"]]
+        fired = None
+        cleared = False
+        with self._bb_lock:
+            was = self._bb_suspect
+            if stalled:
+                oldest = max(stalled, key=lambda p: p["age_s"])
+                scores = self._dp.straggler_scores()
+                demote_max = max(10.0 * threshold, 300.0)
+                now = time.time()
+                with self._dev_lock:
+                    compiling = {
+                        h for h, v in self._dev_tracks.items()
+                        if v.get("compiling")
+                        and now - v.get("_ts", 0.0) <= 2.0 * threshold
+                        and float(v.get("compiling_age_s", 0.0))
+                        <= demote_max}
+                    labeled = {h for h, v in self._dev_tracks.items()
+                               if v.get("compiling")}
+                blamed = max(oldest["waiting"],
+                             key=lambda h: (h not in compiling,
+                                            scores.get(h, 0.0)))
+                cur = {"round": oldest["key"], "age_s": oldest["age_s"],
+                       "waiting": oldest["waiting"],
+                       "contributed": oldest["contributed"],
+                       "blamed": blamed,
+                       "straggler_ms": round(scores.get(blamed, 0.0), 3)}
+                if blamed in labeled:
+                    cur["compile_in_progress"] = True
+                if labeled & set(oldest["waiting"]):
+                    cur["compiling"] = sorted(
+                        labeled & set(oldest["waiting"]))
+                if was is None:
+                    self._bb_suspect = cur
+                    fired = cur
+                else:
+                    was.update(cur)  # refresh, no re-fire
+                    for k in ("compile_in_progress", "compiling"):
+                        if k not in cur:
+                            was.pop(k, None)
+            elif was is not None:
+                self._bb_suspect = None
+                cleared = True
+        if fired is not None:
+            self._obs.event("hang.suspect", dict(fired))
+            obs_blackbox.note("hang.suspect", role="scheduler", **fired)
+            obs_blackbox.write_bundle("hang", host="scheduler", fatal=False,
+                                      extra=dict(fired), tracer=self._obs)
+        if cleared:
+            self._obs.event("hang.clear", {"role": "scheduler"})
+            obs_blackbox.note("hang.clear", role="scheduler")
+        with self._bb_lock:
+            return dict(self._bb_suspect) if self._bb_suspect else None
+
+    def _bb_state(self) -> dict:
+        """The control state in every bundle this process writes; bounded
+        lock waits (a signal-handler bundle must not deadlock)."""
+        out = {"role": "scheduler", "incarnation": self._incarnation,
+               "active": self._active.is_set(), "port": self.port}
+        if self._lock.acquire(timeout=0.5):
+            try:
+                out["workers"] = list(self._state.workers)
+                out["last_completed_epoch"] = \
+                    self._state.last_completed_epoch
+                out["pending_recovery"] = \
+                    sorted(self._state.pending_recovery)
+            finally:
+                self._lock.release()
+        if self._slo is not None:
+            try:
+                slo = self._slo.state()
+                out["slo_active"] = slo["active"]
+                out["slo_history"] = slo["history"][-8:]
+            except Exception:  # noqa: BLE001 — best-effort forensics
+                pass
+        with self._bb_lock:
+            if self._bb_suspect:
+                out["hang_suspect"] = dict(self._bb_suspect)
+        return out
 
     def _ha_round(self, msg: dict) -> dict:
         """Install a completed round the live primary replicated; a
@@ -689,6 +1198,8 @@ class Scheduler:
                 self._apply("quick_evict", host=host, seq=st.log_seq + 1)
                 self._audit_locked("REMOVED", host)
                 self._dp.hosts_removed({host})
+                self._metrics_forget({host})
+                self._dev_forget({host})
                 self._rewrite_host_file([host])
                 self._complete_pending_locked()
             if host in st.removed_hosts:
@@ -697,6 +1208,9 @@ class Scheduler:
                 self._apply("recovery_pending", host=host)
                 self._heartbeats[host] = time.time()
                 self._dp.host_registered(host)
+                for key in [k for k in self._profile_posted
+                            if k[0] == host]:
+                    del self._profile_posted[key]
                 self._cv.notify_all()
                 self._obs.event("recovery.registered", {"host": host})
                 logger.info("recovery registration from %s: pending "
@@ -704,17 +1218,23 @@ class Scheduler:
                 return {"rank": -1, "workers": list(st.workers),
                         "recovery_pending": True,
                         "resume_epoch": st.last_completed_epoch + 1,
-                        "profile_seq": 0, "fence": self._incarnation,
+                        "profile_seq": self._profile_seq,
+                        "fence": self._incarnation,
                         "servers": self._server_list()}
             self._apply("worker_add", host=host, base=not is_new)
             self._heartbeats[host] = time.time()
             if not reattach:
-                # a (re)registering worker starts fresh push sequences
+                # a (re)registering worker starts fresh profiler-post and
+                # push sequences; a failover reattach continues its own
+                for key in [k for k in self._profile_posted
+                            if k[0] == host]:
+                    del self._profile_posted[key]
                 self._dp.host_registered(host)
             self._cv.notify_all()
             out = {"rank": st.workers.index(host),
                    "workers": list(st.workers),
-                   "profile_seq": 0, "fence": self._incarnation,
+                   "profile_seq": self._profile_seq,
+                   "fence": self._incarnation,
                    "servers": self._server_list()}
             # a resume boot short of its checkpointed epoch hands every
             # registrant the committed manifest (any member's blob
@@ -761,6 +1281,8 @@ class Scheduler:
                         self._apply("evict", host=h, seq=st.log_seq + 1)
                         self._audit_locked("REMOVED", h)
                     self._dp.hosts_removed(set(dead))
+                    self._metrics_forget(set(dead))
+                    self._dev_forget(set(dead))
                     self._rewrite_host_file(dead)
                     self._complete_pending_locked()
                 except journal.Fenced:
@@ -902,6 +1424,8 @@ class Scheduler:
                         (ats[-1] - ats[0]) * 1e3, 3) if len(ats) > 1 \
                         else 0.0
                 self._obs.event("ckpt.commit", attrs)
+                if self._metrics is not None:
+                    self._metrics.gauge("ckpt.committed_step", float(step))
                 self._cv.notify_all()
             return {"committed": committed}
 
@@ -946,6 +1470,8 @@ class Scheduler:
             self._apply("evict", host=host, seq=st.log_seq + 1)
             self._audit_locked("DRAINED", host)
             self._dp.hosts_removed({host})
+            self._metrics_forget({host})
+            self._dev_forget({host})
             self._rewrite_host_file([host])
             self._complete_pending_locked()
             self._cv.notify_all()
@@ -1069,6 +1595,8 @@ class Scheduler:
                 self._apply("mc_remove", host=h, seq=st.log_seq + 1)
                 self._audit_locked("REMOVED", h)
             self._dp.hosts_removed(removable)
+            self._metrics_forget(removable)
+            self._dev_forget(removable)
         else:
             # crashed-and-restarted hosts come back as themselves (audit
             # RECOVERED), only those that arrived at this barrier

@@ -22,7 +22,10 @@ serves until a ``shutdown`` command.  The HA pair runs two of them:
 replayed, the dead incarnation's fleet cleared, the committed fleet
 checkpoint handed to re-registering workers.  The first SIGTERM asks the
 fleet for an epoch-boundary checkpoint and keeps serving; a second ends
-the process.
+the process.  A primary with ``--peer`` that dies by an injected
+``os._exit`` first pushes its control-plane track to the peer over
+``obs_push`` (:func:`_relay_obs`), so the merged job dump keeps the dead
+incarnation's records.
 """
 
 from __future__ import annotations
@@ -38,6 +41,26 @@ from typing import Tuple
 def _parse_addr(spec: str) -> Tuple[str, int]:
     host, _, port = spec.rpartition(":")
     return (host or "127.0.0.1", int(port))
+
+
+def _relay_obs(sched, peer: Tuple[str, int]) -> None:
+    """The crash-path flush hook (``scheduler_main.py:43-64``): this
+    process's control-plane track to the peer scheduler, as
+    ``sched-primary``; never raises."""
+    from dt_tpu_torch.elastic import protocol
+    from dt_tpu_torch.obs import trace as obs_trace
+    own = sched._obs.snapshot()
+    proc = obs_trace.tracer().snapshot()
+    payload = {"inc": os.getpid(), "fseq": 1,
+               "records": own["records"] + proc["records"],
+               "counters": {**proc["counters"], **own["counters"]},
+               "dropped": own["dropped"] + proc["dropped"]}
+    try:
+        protocol.request(peer[0], peer[1],
+                         {"cmd": "obs_push", "host": "sched-primary",
+                          "obs": payload}, timeout=2.0)
+    except (OSError, RuntimeError):
+        pass  # observability is never fatal, least of all mid-crash
 
 
 def _write_atomic(path: str, text: str) -> None:
@@ -79,7 +102,9 @@ def main(argv=None) -> int:
         format="%(asctime)s sched[%(process)d] %(levelname)s %(message)s")
     from dt_tpu_torch import config
     from dt_tpu_torch.elastic.scheduler import Scheduler
+    from dt_tpu_torch.obs import trace as obs_trace
 
+    peer = _parse_addr(args.peer) if args.peer else None
     sched = Scheduler(host_worker_file=args.host_worker_file,
                       port=args.port,
                       expected_workers=args.expected_workers,
@@ -88,8 +113,10 @@ def main(argv=None) -> int:
                       lease_path=args.lease,
                       lease_s=args.lease_s,
                       standby=args.standby,
-                      peer=_parse_addr(args.peer) if args.peer else None,
+                      peer=peer,
                       resume=bool(args.resume or config.env("DT_RESUME")))
+    if peer is not None:
+        obs_trace.register_flush(lambda: _relay_obs(sched, peer))
     if args.port_file:
         _write_atomic(args.port_file, str(sched.port))
     logging.getLogger("dt_tpu_torch.elastic").info(

@@ -52,7 +52,7 @@ def create(name: str, device: Union[str, torch.device] = "cuda", **kwargs):
     if key == "transformer_lm_pipelined":
         raise NotImplementedError(
             "PipelinedTransformerLM comes with the parallel layer (ROADMAP "
-            "slice 8)")
+            "Queue 1 item 6)")
     if key not in _REGISTRY:
         raise NotImplementedError(
             f"model {name!r} is not ported yet; ported: {sorted(_REGISTRY)}")

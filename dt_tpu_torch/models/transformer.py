@@ -18,7 +18,7 @@ Attention, by ``seq_parallel``:
 The port reads no environment variable here (the JAX package's ``None``
 turns into flash under ``DT_PALLAS_ATTN=1``).  ``"ring"``, ``"ulysses"``,
 ``moe_experts > 0``, ``remat=True`` and the pipelined model come with the
-parallel layer (ROADMAP slice 8) and raise ``NotImplementedError``.
+parallel layer (ROADMAP Queue 1 item 6) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from dt_tpu_torch.ops.attention import DEFAULT_BLOCK, flash_attention
 from dt_tpu_torch.parallel.ring_attention import full_attention
 
 SEQ_PARALLEL = (None, "flash")
-_LATER = "comes with the parallel layer (ROADMAP slice 8)"
+_LATER = "comes with the parallel layer (ROADMAP Queue 1 item 6)"
 
 
 class MultiHeadAttention(nn.Module):

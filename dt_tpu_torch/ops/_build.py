@@ -7,6 +7,10 @@ Libraries go under ``build/dt_tpu_torch/`` beside the package, named by a
 hash of the sources and flags, and are written under a temporary name and
 renamed, so a stale or half-written library is never loaded.  A failed build
 raises with nvcc's output; there is no fallback.
+
+With the device plane armed (``DT_DEVICE_OBS``) the builds run inside a
+``compile.nvcc`` span and land in its compile ledger, a library found
+already built as a cache hit (``obs/device.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List
+
+from dt_tpu_torch.obs import device as obs_device
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dt_tpu_torch"
@@ -60,6 +66,11 @@ def build_all() -> Dict[str, float]:
         return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with obs_device.compile_span("nvcc", {"sources": todo}):
+        return _build(nvcc, todo)
+
+
+def _build(nvcc: str, todo: List[str]) -> Dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
@@ -77,6 +88,8 @@ def build_all() -> Dict[str, float]:
                           f"{out}")
             continue
         os.replace(tmp, library_path(name))
+        obs_device.record_build(name, took[name] * 1e3, "miss",
+                                library_path(name).stem.split("-")[-1])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took
@@ -87,4 +100,9 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     if not library_path(name).exists():
         build_all()
-    return ctypes.CDLL(str(library_path(name)))
+        return ctypes.CDLL(str(library_path(name)))
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(library_path(name)))
+    obs_device.record_build(name, (time.perf_counter() - t0) * 1e3, "hit",
+                            library_path(name).stem.split("-")[-1])
+    return lib

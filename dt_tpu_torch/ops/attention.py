@@ -163,7 +163,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _launch("flash_attention", "flash_attn", "dt_flash_attn_fwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, sq, sk, d, *strides, float(scale),
-            int(causal), _DTYPE_CODES[q.dtype])
+            int(causal), _DTYPE_CODES[q.dtype], sig=(q,))
     flash_fwd.launches += 1
     return out, lse
 

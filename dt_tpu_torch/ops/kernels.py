@@ -39,10 +39,12 @@ signature here.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import NamedTuple
 
 import torch
 
+from dt_tpu_torch.obs import device as obs_device
 from dt_tpu_torch.ops import _build
 from dt_tpu_torch.parallel.codec_np import CODES_PER_WORD
 
@@ -82,9 +84,12 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _launch(what: str, name: str, fn: str, device: torch.device,
-            *args) -> None:
+            *args, sig=()) -> None:
     """Call ``fn`` of library ``name`` on ``device``'s current stream (the
-    stream is appended to ``args``); raise if the launch failed."""
+    stream is appended to ``args``); raise if the launch failed.  With the
+    device plane armed, the first launch of each shape and dtype of the
+    tensors ``sig`` enters its compile ledger."""
+    t0 = time.perf_counter() if obs_device.enabled() else None
     lib = _lib(name)
     with torch.cuda.device(device):
         err = getattr(lib, fn)(*args,
@@ -92,6 +97,9 @@ def _launch(what: str, name: str, fn: str, device: torch.device,
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed: "
                            + lib.dt_cuda_error_string(err).decode())
+    if t0 is not None:
+        obs_device.note_launch(what, sig,
+                               (time.perf_counter() - t0) * 1e3)
 
 
 def _on_cuda(what: str, t: torch.Tensor) -> bool:
@@ -177,7 +185,7 @@ def bn_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return _like_input(y2, x)
     _launch("fused_bn_inference", "bn_act", "dt_bn_act", x.device,
             x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), y2.data_ptr(),
-            rows, c, _DTYPE_CODES[x.dtype], int(relu))
+            rows, c, _DTYPE_CODES[x.dtype], int(relu), sig=(x2,))
     bn_act.launches += 1
     return _like_input(y2, x)
 
@@ -332,7 +340,7 @@ def bn_stats(x: torch.Tensor):
     _launch("fused_bn_train", "bn_train", "dt_bn_stats", x.device,
             x2.data_ptr(), scratch.data_ptr(),
             _stats_tickets(x.device).data_ptr(), mean.data_ptr(),
-            var.data_ptr(), rows, c, _DTYPE_CODES[x.dtype], *geo)
+            var.data_ptr(), rows, c, _DTYPE_CODES[x.dtype], *geo, sig=(x2,))
     bn_stats.launches += 1
     return mean, var
 
@@ -464,7 +472,7 @@ def quantize_2bit(grad: torch.Tensor, residual: torch.Tensor,
         return words, new_residual
     _launch("quantize_2bit", "quant2", "dt_quantize_2bit", grad.device,
             grad.data_ptr(), residual.data_ptr(), words.data_ptr(),
-            new_residual.data_ptr(), n, float(threshold))
+            new_residual.data_ptr(), n, float(threshold), sig=(grad,))
     quantize_2bit.launches += 1
     return words, new_residual
 
@@ -504,7 +512,8 @@ def dequantize_2bit(words: torch.Tensor, n: int,
     if n == 0:
         return out
     _launch("dequantize_2bit", "quant2", "dt_dequantize_2bit", words.device,
-            words.data_ptr(), out.data_ptr(), n, float(threshold))
+            words.data_ptr(), out.data_ptr(), n, float(threshold),
+            sig=(words,))
     dequantize_2bit.launches += 1
     return out
 
@@ -563,7 +572,8 @@ def lstm_point(gates: torch.Tensor, c: torch.Tensor):
         return h_out, c_out
     _launch("lstm_pointwise", "lstm_point", "dt_lstm_point", c.device,
             gates.data_ptr(), c.data_ptr(), h_out.data_ptr(),
-            c_out.data_ptr(), rows, hidden, _DTYPE_CODES[c.dtype])
+            c_out.data_ptr(), rows, hidden, _DTYPE_CODES[c.dtype],
+            sig=(gates,))
     lstm_point.launches += 1
     return h_out, c_out
 
@@ -771,7 +781,7 @@ def lstm_layer(xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
             xw.data_ptr(), h0.data_ptr(), c0.data_ptr(), wh.data_ptr(),
             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, b, hidden,
             geo.n, geo.rows, geo.ks, geo.clusters, int(geo.wsm),
-            int(reverse), geo.smem)
+            int(reverse), geo.smem, sig=(xw,))
     lstm_layer.launches += 1
     return hs, cs, gates
 

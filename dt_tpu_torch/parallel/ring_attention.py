@@ -3,7 +3,7 @@
 
 It is the attention of ``TransformerLM`` with ``seq_parallel=None`` and the
 oracle of the flash kernel.  Ring and Ulysses attention over a mesh come
-with the parallel layer (ROADMAP slice 8).
+with the parallel layer (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations

@@ -71,6 +71,8 @@ import torch
 from dt_tpu_torch import config as config_lib
 from dt_tpu_torch import models as models_lib
 from dt_tpu_torch.config import resolve_device
+from dt_tpu_torch.obs import blackbox as obs_blackbox
+from dt_tpu_torch.obs import device as obs_device
 from dt_tpu_torch.obs import metrics as obs_metrics
 from dt_tpu_torch.obs import trace as obs_trace
 from dt_tpu_torch.ops.losses import softmax_cross_entropy
@@ -313,6 +315,7 @@ class Module:
         self._sentinel = False
         self._halt = False
         self.health_halted = False
+        self._bb_dog = None  # the flight recorder's watchdog during fit
         # the committed fleet-checkpoint step a resumed fit restored
         self.resumed_from_step: Optional[int] = None
         self._dtype = _compute_dtype(self.model)
@@ -665,7 +668,51 @@ class Module:
         snapshot (rank 0), calls the epoch-end callbacks with ``(epoch,
         state, metric)``, and scores ``eval_data`` with
         ``validation_metric`` (default: the train metric) before the
-        eval-end callback.  Returns the train metric."""
+        eval-end callback.  Returns the train metric.
+
+        The obs planes (``module.py:700-1130``): each step a ``step`` span
+        and ``step.ms`` sample, the health vector's gauges and events (one
+        host read), the flight recorder's watchdog beat (``DT_BLACKBOX``;
+        the halt leaves a bundle) and the device plane's capture tick
+        (``DT_DEVICE_OBS``); an OOM leaves its census bundle."""
+        host = getattr(getattr(self.kv, "_controller", None), "host", None)
+        # the hang watchdog runs for the whole fit, stopped on every exit
+        self._bb_dog = obs_blackbox.Watchdog(
+            host=host, tracer=obs_trace.tracer()) \
+            if obs_blackbox.enabled() else None
+        if obs_blackbox.enabled():
+            obs_blackbox.register_state("module", self._bb_state)
+        try:
+            if obs_device.enabled():
+                obs_device.register_device(self.device)
+                obs_device.register_provenance(
+                    "params", lambda: {obs_device.shape_key(p)
+                                       for p in self.model.parameters()})
+            return self._fit(train_data, eval_data, eval_metric, num_epoch,
+                             begin_epoch, batch_end_callback,
+                             epoch_end_callback, eval_end_callback,
+                             elastic_data_iterator, validation_metric)
+        except Exception as e:
+            obs_device.maybe_oom_bundle(e, host=host)
+            raise
+        finally:
+            if self._bb_dog is not None:
+                self._bb_dog.stop()
+                self._bb_dog = None
+            obs_blackbox.unregister_state("module", fn=self._bb_state)
+            # a capture the loop could not finish is closed, never left
+            obs_device.capture_abort()
+
+    def _bb_state(self) -> dict:
+        """The module's view in every bundle written during a fit."""
+        st = self.state
+        return {"device": str(self.device), "sync_mode": self.sync_mode,
+                "step": int(st.step) if st is not None else None,
+                "health_halted": self.health_halted}
+
+    def _fit(self, train_data, eval_data, eval_metric, num_epoch,
+             begin_epoch, batch_end_callback, epoch_end_callback,
+             eval_end_callback, elastic_data_iterator, validation_metric):
         from dt_tpu_torch.elastic import drain as drain_lib
         from dt_tpu_torch.elastic import faults as faults_lib
         from dt_tpu_torch.training import checkpoint as checkpoint_lib
@@ -797,7 +844,9 @@ class Module:
                     data = self._place(batch.data)
                     labels = self._place(batch.label, label=True)
                 faults_lib.stall_point("worker.step", host=host)
-                t_step = tr.now()
+                # named: the flight recorder's open-span table sees it
+                t_step = tr.begin("step")
+                mt0 = time.monotonic() if obs_metrics.enabled() else None
                 if is_async:
                     loss, logits, health, prefetched = self._async_step(
                         data, labels, train_data, epoch)
@@ -808,6 +857,12 @@ class Module:
                     loss, logits, health = self._step(data, labels)
                     prefetched = self._prefetch_batch(train_data)
                 tr.complete_span("step", t_step, {"epoch": epoch})
+                if self._bb_dog is not None:
+                    self._bb_dog.beat(step=nbatch)
+                obs_device.capture_tick()
+                if mt0 is not None:
+                    obs_metrics.registry().observe(
+                        "step.ms", (time.monotonic() - mt0) * 1000.0)
                 fetched = (_host_labels(batch.label), batch.data.shape[0]
                            - batch.pad, _HostCopy(logits))
                 if health is not None and self._health_step(health, loss,
@@ -842,11 +897,15 @@ class Module:
                 nbatch = self._flush_metric(pending, eval_metric, epoch,
                                             nbatch, batch_end_callback)
             if self.health_halted:
+                tr.complete_span("epoch", t_epoch,
+                                 {"epoch": epoch, "halted": True})
+                # the halt is a crash site: the flight recorder's bundle
+                obs_blackbox.write_bundle(
+                    "health.halt", host=host, fatal=False,
+                    extra={"epoch": epoch, "step": int(self.state.step)})
                 logger.warning(
                     "Epoch[%d] training halted by the health sentinel "
                     "(non-finite gradient; update not applied)", epoch)
-                tr.complete_span("epoch", t_epoch,
-                                 {"epoch": epoch, "halted": True})
                 break
             if eval_metric.num_inst > 0:  # empty after a Speedometer reset
                 for name, val in eval_metric.get_name_value():
@@ -905,19 +964,39 @@ class Module:
         ctrl.publish_snapshot(snap)
 
     def _health_step(self, health, loss, epoch) -> bool:
-        """Account one step's health vector (one host read): a non-finite
-        gradient is logged, and under ``DT_HEALTH_HALT`` (the step already
-        skipped its update) ends the fit.  The metrics plane's gauges are
-        ROADMAP Queue 1 item 7."""
-        h = health.cpu().numpy()
-        nonfinite = int(h[0])
+        """Account one step's health vector and loss in one host read
+        (``module.py:1144-1186``): the ``train.*`` and ``health.*`` gauges
+        under the metrics plane, a ``health.nonfinite`` event when the
+        sentinel fired (a non-finite local loss alone only observes), and
+        under ``DT_HEALTH_HALT`` (the step already skipped its update) a
+        ``health.halt`` event and the end of the fit."""
+        h = torch.cat([health.detach().float().reshape(-1),
+                       torch.as_tensor(loss).detach().float().reshape(1)
+                       .to(health.device)]).cpu().numpy()
+        nonfinite, lv = int(h[0]), float(h[3])
+        step = int(self.state.step)
+        if obs_metrics.enabled():
+            reg = obs_metrics.registry()
+            reg.gauge("train.loss", lv)
+            reg.gauge("train.steps", step)
+            reg.gauge("health.grad_norm", float(h[1]))
+            reg.gauge("health.param_norm", float(h[2]))
+        tr = obs_trace.tracer()
         if nonfinite <= 0:
+            if not np.isfinite(lv):
+                tr.event("health.nonfinite",
+                         {"epoch": epoch, "step": step, "nonfinite": 0,
+                          "loss": lv, "local_loss_only": True})
             return False
+        tr.event("health.nonfinite", {"epoch": epoch, "step": step,
+                                      "nonfinite": nonfinite, "loss": lv})
+        obs_blackbox.note("health.nonfinite", step=step)
         logger.warning("Epoch[%d] step %d: %d non-finite gradient entries "
-                       "(grad_norm %g, param_norm %g)", epoch,
-                       int(self.state.step), nonfinite, h[1], h[2])
+                       "(grad_norm %g, param_norm %g)", epoch, step,
+                       nonfinite, h[1], h[2])
         if not self._halt:
             return False
+        tr.event("health.halt", {"epoch": epoch, "step": step})
         self.health_halted = True
         return True
 

@@ -14,9 +14,10 @@ hands ``step`` gradients of the same structure (from ``torch.autograd``):
 
 The states file is the JAX package's: msgpack of ``{"count", "mom"}`` with
 ``mom`` shaped like the params, so either package reads the other's.  With
-``DT_METRICS`` or ``DT_HEALTH_HALT`` set a step computes the health vector;
-under the halt a non-finite gradient raises ``obs.metrics.HealthHalt``
-before the update.
+``DT_METRICS`` or ``DT_HEALTH_HALT`` set a step computes the health vector
+(the ``health.*`` gauges, a ``health.nonfinite`` event); under the halt a
+non-finite gradient records ``health.halt``, leaves the flight recorder's
+bundle and raises ``obs.metrics.HealthHalt`` before the update.
 
 Under an elastic controller with more than one worker, ``step`` averages
 the gradients across the workers first (``allreduce_grads``: one flat f32
@@ -35,6 +36,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from dt_tpu_torch.obs import blackbox as obs_blackbox
+from dt_tpu_torch.obs import device as obs_device
 from dt_tpu_torch.obs import metrics as obs_metrics
 from dt_tpu_torch.obs import trace as obs_trace
 from dt_tpu_torch.parallel import kvstore as kvstore_lib
@@ -166,10 +169,8 @@ class Trainer:
         g_host = self._ravel(self._by_name(grads), rescale).cpu().numpy()
         if obs_metrics.sentinels_enabled():
             nonfinite = int(g_host.size - np.isfinite(g_host).sum())
-            if nonfinite > 0 and obs_metrics.halt_enabled():
-                raise obs_metrics.HealthHalt(
-                    f"non-finite gradient ({nonfinite} entries); "
-                    f"dist_async push withheld (DT_HEALTH_HALT=1)")
+            if nonfinite > 0:
+                self._nonfinite(nonfinite)
         self._load_flat(kv.push_flat(self._async_key, g_host))
         return self.params
 
@@ -188,6 +189,10 @@ class Trainer:
             if self.kv.type == "dist_async":
                 return self._async_step(grads, 1.0 / batch_size)
             return self._sync_step(grads, batch_size)
+        except Exception as e:
+            # an OOM leaves its census bundle (a no-op otherwise)
+            obs_device.maybe_oom_bundle(e)
+            raise
         finally:
             tr.complete_span("trainer.step", t0)
 
@@ -206,14 +211,36 @@ class Trainer:
         return self.params
 
     def _health_check(self, health: torch.Tensor) -> None:
-        """Under ``DT_HEALTH_HALT`` a non-finite gradient raises
-        ``HealthHalt`` before the update (params and optimizer state stay
-        the pre-fault values)."""
-        nonfinite = int(float(health[0]))
-        if nonfinite > 0 and obs_metrics.halt_enabled():
-            raise obs_metrics.HealthHalt(
-                f"non-finite gradient ({nonfinite} entries); update "
-                f"skipped (DT_HEALTH_HALT=1)")
+        """One step's health vector (one host read): the ``health.*``
+        gauges under the metrics plane; a non-finite gradient is
+        :meth:`_nonfinite`."""
+        h = health.cpu().numpy()
+        if obs_metrics.enabled():
+            reg = obs_metrics.registry()
+            reg.gauge("health.grad_norm", float(h[1]))
+            reg.gauge("health.param_norm", float(h[2]))
+        if int(h[0]) > 0:
+            self._nonfinite(int(h[0]))
+
+    def _nonfinite(self, nonfinite: int) -> None:
+        """A ``health.nonfinite`` event; under ``DT_HEALTH_HALT`` also
+        ``health.halt``, the halt's bundle, and ``HealthHalt`` raised
+        before the update (params and optimizer state stay the pre-fault
+        values; over ``dist_async`` the push is withheld)."""
+        obs_trace.tracer().event("health.nonfinite",
+                                 {"nonfinite": nonfinite,
+                                  "surface": "trainer"})
+        if not obs_metrics.halt_enabled():
+            return
+        obs_trace.tracer().event("health.halt", {"surface": "trainer"})
+        obs_blackbox.write_bundle(
+            "health.halt", fatal=False,
+            extra={"surface": "trainer", "nonfinite": nonfinite})
+        what = "dist_async push withheld" \
+            if self.kv.type == "dist_async" else "update skipped"
+        raise obs_metrics.HealthHalt(
+            f"non-finite gradient ({nonfinite} entries); {what} "
+            f"(DT_HEALTH_HALT=1)")
 
     @property
     def learning_rate(self):

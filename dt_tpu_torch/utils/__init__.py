@@ -1,1 +1,2 @@
-"""Helpers with no counterpart module in ``dt_tpu`` (``msgpack``)."""
+"""Helpers: ``msgpack`` (no counterpart module in the JAX package) and
+``profiler`` (``dt_tpu/utils/profiler.py`` on ``torch.profiler``)."""

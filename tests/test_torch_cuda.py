@@ -841,3 +841,63 @@ def test_async_save_snapshots_before_the_next_in_place_update(cuda,
     checkpoint.load_checkpoint_file(path, fresh)
     assert all(p.is_cuda for p in fresh.module.parameters())
     assert msgpack.pack(export_jax_train_state(fresh)) == got
+
+
+def test_hbm_gauges_read_the_allocator(cuda, monkeypatch, tmp_path):
+    """The device plane's ``device.hbm_*`` gauges: bytes in use equal to
+    ``torch.cuda.memory_allocated`` of the worker's device, a peak at
+    least that, the capacity ``mem_get_info``'s total."""
+    from dt_tpu_torch.obs import device as obs_device
+    from dt_tpu_torch.obs import metrics as obs_metrics
+    obs_device._reset_for_tests()
+    obs_device.set_enabled(True)
+    try:
+        obs_device.register_device(cuda)
+        x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+        reg = obs_metrics.MetricsRegistry(enabled=True)
+        snap = obs_device.sample_into(reg)
+        (d,) = snap["devices"]
+        assert d["bytes_in_use"] == torch.cuda.memory_allocated(cuda)
+        assert d["peak_bytes_in_use"] >= d["bytes_in_use"] >= x.numel()
+        assert d["bytes_limit"] == torch.cuda.mem_get_info(cuda)[1]
+        gauges = {g[0]: g[2] for g in reg.gauges_export()}
+        assert gauges["device.hbm_bytes"] == d["bytes_in_use"]
+        assert 0 < gauges["device.hbm_bytes"] <= \
+            gauges["device.hbm_limit_bytes"]
+        del x
+    finally:
+        obs_device._reset_for_tests()
+        obs_device.set_enabled(None)
+
+
+def test_oom_leaves_a_census_bundle(cuda, monkeypatch, tmp_path):
+    """A deliberately oversized ``torch.empty`` raises
+    ``torch.cuda.OutOfMemoryError``; with the device and blackbox planes
+    armed its bundle's census names the largest live tensors first."""
+    import json
+
+    from dt_tpu_torch.obs import blackbox, device as obs_device
+    monkeypatch.setenv("DT_BLACKBOX_DIR", str(tmp_path))
+    for m in (obs_device, blackbox):
+        m._reset_for_tests()
+        m.set_enabled(True)
+    try:
+        big = torch.empty(3, 1 << 30, dtype=torch.uint8, device=cuda)
+        small = torch.empty(1 << 20, dtype=torch.float32, device=cuda)
+        total = torch.cuda.mem_get_info(cuda)[1]
+        with pytest.raises(torch.cuda.OutOfMemoryError) as e:
+            torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+        path = obs_device.maybe_oom_bundle(e.value, host="w0")
+        b = json.load(open(path))
+        assert blackbox.validate_bundle(b) == [] and b["trigger"] == "oom"
+        census = b["extra"]["census"]
+        assert census[0]["shape"] == "(3, 1073741824)" and \
+            census[0]["bytes"] >= big.numel()
+        assert [g["bytes"] for g in census] == \
+            sorted((g["bytes"] for g in census), reverse=True)
+        assert any(g["shape"] == "(1048576,)" for g in census)
+        del big, small
+    finally:
+        for m in (obs_device, blackbox):
+            m._reset_for_tests()
+            m.set_enabled(None)

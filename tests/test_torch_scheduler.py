@@ -148,11 +148,23 @@ def test_scripted_sequence_matches_the_jax_scheduler(tmp_path):
 def test_unported_commands_name_their_item(tmp_path):
     sched = TScheduler(initial_workers=["w0"])
     try:
-        for cmd, item in (("obs_push", "item 7"), ("health", "item 7"),
+        for cmd, item in (("serve_register", "item 5"),
+                          ("serve_heartbeat", "item 5"),
                           ("serve_endpoints", "item 5")):
             resp = jproto.request("127.0.0.1", sched.port, {"cmd": cmd},
                                   timeout=10)
             assert item in resp["error"] and "ROADMAP" in resp["error"]
+        # the obs planes' commands are served (held against the JAX
+        # scheduler's replies in tests/test_torch_obs_wire.py)
+        assert jproto.request("127.0.0.1", sched.port,
+                              {"cmd": "obs_push", "host": "w0"},
+                              timeout=10) == {}
+        assert jproto.request("127.0.0.1", sched.port, {"cmd": "health"},
+                              timeout=10) == {"health": {"enabled": False}}
+        assert jproto.request("127.0.0.1", sched.port,
+                              {"cmd": "profile", "action": "dump",
+                               "host": "w0", "post_seq": 1},
+                              timeout=10) == {"seq": 1}
         assert "unknown cmd" in jproto.request(
             "127.0.0.1", sched.port, {"cmd": "bogus"}, timeout=10)["error"]
         # the range-server registry and the dist_async store are served

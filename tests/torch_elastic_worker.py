@@ -29,8 +29,13 @@ the endpoints) and the fleet checkpoint (``DT_CKPT_DIR``,
 ``DT_CKPT_EVERY``, ``DT_RESUME``) into ``Module.fit``; the result records
 ``resumed_from_step``, the fence the client ended under and its
 ``client.failover`` count, and ``--progress F`` rewrites ``F`` with the
-global step after every batch.  It imports neither JAX nor the JAX
-package.
+global step after every batch.  The obs planes arm from the environment
+as the JAX harness's do (``DT_OBS``, ``DT_METRICS``, ``DT_BLACKBOX``,
+``DT_DEVICE_OBS``, ``DT_HEALTH_HALT``, ``DT_HANG_S``): the client ships
+the heartbeat export and installs the flight recorder's hooks, and the
+result records ``health_halted`` beside ``final_step``, the device
+plane's ledger (``device_plane``) and ``faults_applied``.  It imports
+neither JAX nor the JAX package.
 """
 
 import argparse
@@ -181,13 +186,31 @@ def launch_counts() -> dict:
             "wire_recv_bytes": tr.get_counter("wire.bytes_recv")}
 
 
+#: the records the heartbeat export drained from the process tracer (the
+#: client ships them to the scheduler); :func:`keep_drained` collects them
+_DRAINED: list = []
+
+
+def keep_drained() -> None:
+    """Keep a copy of every record the export drains, so
+    :func:`span_summary` reads the whole run."""
+    tr = obs_trace.tracer()
+    drain = tr.drain
+
+    def keeping(max_records=None):
+        out = drain(max_records)
+        _DRAINED.extend(out)
+        return out
+    tr.drain = keeping
+
+
 def span_summary() -> dict:
     """Durations (ms) of this process's :data:`SPANS`, in record order, and
     each step's and membership barrier's start (ms, wall clock) as
     ``step_start`` and ``mc_barrier_start``."""
     out = {k: [] for k in SPANS}
     out["step_start"], out["mc_barrier_start"] = [], []
-    for rec in obs_trace.tracer().snapshot()["records"]:
+    for rec in _DRAINED + obs_trace.tracer().snapshot()["records"]:
         if rec[0] == "X" and rec[2] in SPANS:
             out[rec[2]].append(rec[4] / 1e3)
             if rec[2] in ("step", "mc_barrier"):
@@ -285,6 +308,7 @@ def main():
         while not os.path.exists(wait_file):
             time.sleep(0.05)
     t_built = time.time() * 1e3  # the model and data built
+    keep_drained()
     ctrl = WorkerClient("127.0.0.1", args.scheduler_port, host=args.host,
                         heartbeat_interval_s=args.heartbeat)
     begin_epoch = 0
@@ -418,6 +442,10 @@ def main():
     result = {
         "host": args.host, "model": args.model, "device": str(dev),
         "final_step": int(st.step),
+        "final_sha256": state_digest(st),
+        # the health sentinel stopped the fit before a poisoned update
+        # (DT_HEALTH_HALT): final_step is then the pre-fault prefix
+        "health_halted": bool(mod.health_halted),
         "param_sum": float(flat.sum()),
         "param_hash": float(np.abs(flat).sum()),
         "num_workers_at_end": kv.num_workers,
@@ -430,6 +458,16 @@ def main():
         "spans": span_summary() if obs_trace.enabled() else None,
         "start_ms": {"main": t_main, "built": t_built},
     }
+    # the device plane's compile ledger (DT_DEVICE_OBS), and the faults
+    # this incarnation applied (kind, host, count), as the JAX harness
+    # records them
+    from dt_tpu_torch.obs import device as obs_device
+    if obs_device.enabled():
+        result["device_plane"] = obs_device.summary()
+    plan = faults.active_plan()
+    result["faults_applied"] = (
+        [[plan.rules[i].kind, h, n] for i, h, n in plan.applied_summary()]
+        if plan else [])
     if args.model == "tinybn":
         # the JAX harness's final_loss: cross-entropy on its held-out set
         result["final_loss"] = float(dict(mod.score(
