@@ -175,7 +175,20 @@ JAX.  Phases, each fatal on failure:
    halt (a ``nan`` on ``w1``'s 4th gradient: both workers halted at step
    3 with one sha256 and a valid bundle each) and the hang (a ``stall`` at
    ``w1``'s third step: its watchdog's bundle names ``stall_at`` within
-   ``DT_HANG_S`` + 10 s and ``blackbox_index`` blames ``w1``).
+   ``DT_HANG_S`` + 10 s and ``blackbox_index`` blames ``w1``);
+19. gateway (after obs): the serving plane in this process, the port's
+   ``Scheduler`` and two ``Replica``s, each a ``Predictor`` of ResNet-50 v1
+   at full width in bf16 (a checkpoint of the seeded weights, buckets
+   1-64, all warmed) on the one card, and 8 closed-loop ``InferClient``
+   threads sending requests of 1-4 seeded images: (a) 400 requests, every
+   answer a result, requests coalesced, nothing shed, client p50/p99,
+   requests/s, rows/s and batches by bucket; (b) ``RollingRefresher.
+   poll_once`` of a committed fleet-checkpoint manifest (the seed-1 state)
+   under that load, both replicas applied and every later answer at the
+   new step; (c) one replica closed under load, every request still
+   answered and the replica pruned by the scheduler; 53
+   ``fused_bn_inference`` launches a bucket forward, and every answer
+   within bf16 tolerance of a direct ``predict`` at its step; at most 45 s.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -188,7 +201,8 @@ its launches on ``fit`` and on the elastic, sharded, async, failover
 (``policy_launches``, the three kernels of its path) and obs
 (``obs_launches``, phase 18's armed job, the same three) jobs, each read from
 the counters of that job's workers (the f32 BatchNorm rows carry none:
-the jobs run bf16, and one counter serves both dtypes).
+the jobs run bf16, and one counter serves both dtypes); the bf16
+BN-inference row also carries ``gateway_launches``, phase 19's.
 """
 
 from __future__ import annotations
@@ -3768,6 +3782,344 @@ def obs_phase(gpu, elastic) -> dict:
     return out
 
 
+# phase 19, the serve gateway: two replicas of ResNet-50 v1 bf16 behind the
+# port's scheduler, closed-loop InferClient threads on them
+GATEWAY_MODEL = "resnet50"
+GATEWAY_THREADS = 8
+GATEWAY_LOAD = 400  # requests of drill (a)
+GATEWAY_AFTER = 48  # requests sent after the wave (b) or the prune (c)
+GATEWAY_POOL = 64  # seeded images the requests draw their 1-4 rows from
+GATEWAY_STEP = 1  # the step of the refreshed (seed 1) checkpoint
+GATEWAY_PRUNE_S = 15.0  # the scheduler drops a replica silent for 3 s
+GATEWAY_LIMIT_S = 45.0  # the whole phase
+
+
+class _Load:
+    """``GATEWAY_THREADS`` closed-loop ``InferClient`` threads.  Thread i
+    draws requests of 1-4 rows of ``pool`` from ``RandomState(seed + i)``
+    and sends them one at a time until it sent ``count /
+    GATEWAY_THREADS`` or :attr:`stop` is set.  Every answer is kept with
+    its rows' indices, its send and answer times and its step; an answer
+    that is not a result (shed) and an exception are kept as errors."""
+
+    def __init__(self, eps: str, pool, seed: int,
+                 count: Optional[int] = None):
+        import threading
+
+        from dt_tpu_torch.serve import InferClient
+        self.answers = []  # (t_sent, t_done, idx, y, weights_step)
+        self.errors = []
+        self.stop = threading.Event()
+        self._lock = threading.Lock()
+        per = None if count is None else -(-count // GATEWAY_THREADS)
+        self.threads = [
+            threading.Thread(target=self._run, daemon=True,
+                             args=(InferClient(scheduler=eps), pool,
+                                   seed + i, per))
+            for i in range(GATEWAY_THREADS)]
+
+    def _run(self, client, pool, seed, per):
+        rng = np.random.RandomState(seed)
+        sent = 0
+        try:
+            while not self.stop.is_set() and (per is None or sent < per):
+                idx = rng.randint(0, len(pool), rng.randint(1, 5))
+                t0 = time.perf_counter()
+                out = client.infer(pool[idx])
+                t1 = time.perf_counter()
+                sent += 1
+                with self._lock:
+                    if "y" not in out:
+                        self.errors.append(repr(out))
+                    else:
+                        self.answers.append((t0, t1, idx, out["y"],
+                                             int(out["weights_step"])))
+        except Exception as e:  # noqa: BLE001 (the phase fails on it)
+            with self._lock:
+                self.errors.append(repr(e))
+
+    def start(self) -> "_Load":
+        for t in self.threads:
+            t.start()
+        return self
+
+    def sent_after(self, t: float) -> int:
+        with self._lock:
+            return sum(1 for a in self.answers if a[0] >= t)
+
+    def join(self, tag: str, timeout: float = 120.0) -> None:
+        for t in self.threads:
+            t.join(timeout)
+            if t.is_alive():
+                raise AssertionError(f"gateway {tag}: a client thread "
+                                     f"is still waiting after {timeout} s")
+        if self.errors:
+            raise AssertionError(f"gateway {tag}: {len(self.errors)} "
+                                 f"requests failed, e.g. {self.errors[:3]}")
+
+
+def _wait_for(what: str, cond, timeout: float) -> float:
+    """Poll ``cond`` every 20 ms; the time it took, or fail naming
+    ``what``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"gateway: {what} not seen within "
+                                 f"{timeout} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def gateway_phase(gpu) -> dict:
+    """Phase 19, the serve gateway (``dt_tpu_torch.serve``), in this
+    process: the port's ``Scheduler`` and two ``Replica``s, each serving a
+    ``Predictor`` of ResNet-50 v1 at full width in bf16 from a checkpoint
+    the port wrote of ``seeded_variables(seed=0)``, buckets 1-64, all
+    warmed, both on the one card.  ``GATEWAY_THREADS`` closed-loop
+    ``InferClient`` threads send requests of 1-4 rows of a seeded
+    64-image pool, through discovery (``serve_endpoints``), round-robin.
+    Three drills:
+
+    (a) ``GATEWAY_LOAD`` requests: every answer a result; requests
+        coalesced (``serve.batches`` < ``serve.requests``); nothing shed;
+        client p50/p99 latency, requests/s and rows/s, batches by bucket;
+    (b) a committed fleet-checkpoint manifest of ``seeded_variables(seed=
+        1)`` (the port's checkpoint writer, then ``ckpt_intent``/
+        ``ckpt_ack`` on the scheduler) rolled by ``RollingRefresher.
+        poll_once`` while the threads run: both replicas applied, every
+        request sent after the wave answered at the new step, and
+        ``serve_endpoints`` shows the new step on both;
+    (c) one replica closed while the threads run: every request still
+        answered (``InferClient``'s same-token retry), the scheduler prunes
+        the lost replica.
+
+    Across the three, ``fused_bn_inference`` launches 53 times each bucket
+    forward the gateways ran (``serve.batches``) and no other kernel runs.
+    Then every answer is held against a direct ``Predictor.predict`` of its
+    rows on the card at the step it names: within ``TOL_BF16`` x the
+    largest |logit| of that reference, top-1 equal where the reference's
+    margin exceeds twice that (the gateway's buckets may take other cuDNN
+    algorithms than the reference's 64-row one).  Prints the poll_once wall
+    time, one ``swap_params`` (a deep copy of the model), the phase's
+    seconds (at most ``GATEWAY_LIMIT_S``).  Two gateways' socket and
+    executor threads and the client threads share this process's GIL, so
+    the latencies include host contention."""
+    import collections
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dt_tpu_torch import models, optim
+    from dt_tpu_torch.elastic import protocol
+    from dt_tpu_torch.elastic.scheduler import Scheduler
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.obs import trace as obs_trace
+    from dt_tpu_torch.predictor import Predictor
+    from dt_tpu_torch.serve import Replica, RollingRefresher
+    from dt_tpu_torch.serve.refresh import manifest_loader
+    from dt_tpu_torch.training import checkpoint
+    from dt_tpu_torch.training.train_state import TrainState
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dt_gateway_")
+    row = (IMAGE, IMAGE, 3)
+
+    def cpu_state(seed=None, step=0):
+        model = models.create(GATEWAY_MODEL, device="cpu")
+        if seed is not None:
+            load_jax_variables(model, seeded_variables(model, seed))
+        state = TrainState.create(model, optim.create("sgd"))
+        state.step = step
+        return state
+
+    def predictor():
+        p = Predictor(GATEWAY_MODEL, prefix, 0, np.zeros((1,) + row,
+                                                          np.float32),
+                      dtype=torch.bfloat16, max_batch=BUCKET_MAX,
+                      device="cuda")
+        p.warmup(feature_shape=row)
+        return p
+
+    prefix = os.path.join(tmp, "served")
+    checkpoint.save_checkpoint(prefix, 0, cpu_state(seed=0))
+    sched = Scheduler(initial_workers=["trainer"])
+    eps = f"127.0.0.1:{sched.port}"
+
+    def req(msg):
+        return protocol.request("127.0.0.1", sched.port, msg, timeout=30)
+
+    reps = []
+    obs_trace.set_enabled(True)  # the gateways' serve.batch spans
+    try:
+        # the seed-1 state as a committed fleet checkpoint
+        fleet = os.path.join(tmp, "ckpt", "trainer", "fleet")
+        path = checkpoint.save_checkpoint(
+            fleet, GATEWAY_STEP, cpu_state(seed=1, step=GATEWAY_STEP))
+        sha = checkpoint.checkpoint_info(fleet, GATEWAY_STEP)["sha256"]
+        r = req({"cmd": "ckpt_intent", "host": "trainer",
+                 "step": GATEWAY_STEP, "epoch": 0})
+        if not r.get("ok"):
+            raise AssertionError(f"gateway: ckpt_intent {r}")
+        r = req({"cmd": "ckpt_ack", "host": "trainer", "step": GATEWAY_STEP,
+                 "path": path, "sha256": sha, "cursor": {}})
+        if not r.get("committed"):
+            raise AssertionError(f"gateway: ckpt_ack {r}")
+        manifest = req({"cmd": "ckpt_manifest"})["committed"]
+
+        reps = [Replica(predictor(), host, eps, advertise_host="127.0.0.1",
+                        refresh_loader=manifest_loader(cpu_state()))
+                for host in ("s0", "s1")]
+        ref = predictor()
+        _wait_for("two registered replicas", lambda: sorted(req(
+            {"cmd": "serve_endpoints"})["replicas"]) == ["s0", "s1"], 10.0)
+        pool = np.random.RandomState(19).uniform(
+            -1, 1, (GATEWAY_POOL,) + row).astype(np.float32)
+        torch.cuda.synchronize()
+        print(f"gateway setup_s={time.perf_counter() - t_phase:.1f} "
+              f"gpu={gpu}", flush=True)
+
+        # (a) steady load --------------------------------------------------
+        reset_counts()  # the main path's run starts here
+        t0 = time.perf_counter()
+        load_a = _Load(eps, pool, 1900, GATEWAY_LOAD).start()
+        load_a.join("(a)")
+        wall = time.perf_counter() - t0
+        st = [rp.gateway.stats() for rp in reps]
+        requests = sum(s["requests"] for s in st)
+        batches = sum(s["batches"] for s in st)
+        lats = sorted((a[1] - a[0]) * 1e3 for a in load_a.answers)
+        rows = sum(len(a[2]) for a in load_a.answers)
+        buckets = collections.Counter(
+            rec[8]["bucket"] for rp in reps
+            for rec in rp.gateway._obs.snapshot()["records"]
+            if rec[2] == "serve.batch")
+        print(f"gateway (a) requests={len(lats)} rows={rows} "
+              f"batches={batches} p50_ms={lats[len(lats) // 2]:.2f} "
+              f"p99_ms={lats[int(len(lats) * 0.99)]:.2f} "
+              f"requests_per_s={len(lats) / wall:.1f} "
+              f"rows_per_s={rows / wall:.1f} wall_s={wall:.2f} gpu={gpu}",
+              flush=True)
+        print(f"gateway (a) batches_by_bucket="
+              f"{json.dumps(dict(sorted(buckets.items())))} gpu={gpu}",
+              flush=True)
+        if len(lats) != GATEWAY_LOAD or requests != GATEWAY_LOAD:
+            raise AssertionError(f"gateway (a): {len(lats)} answers, "
+                                 f"{requests} requests admitted, expected "
+                                 f"{GATEWAY_LOAD}")
+        if not batches < requests:
+            raise AssertionError(f"gateway (a): {batches} batches for "
+                                 f"{requests} requests: nothing coalesced")
+        if any(s["shed"] for s in st) or \
+                any(a[4] != 0 for a in load_a.answers):
+            raise AssertionError(f"gateway (a): shed or a refreshed step "
+                                 f"({[s['shed'] for s in st]})")
+
+        # (b) rolling refresh under load -----------------------------------
+        load_b = _Load(eps, pool, 1910).start()
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        wave = RollingRefresher(eps).poll_once(GATEWAY_STEP, manifest)
+        t_wave = time.perf_counter()
+        poll_ms = (t_wave - t0) * 1e3
+        _wait_for("requests after the wave",
+                  lambda: load_b.sent_after(t_wave) >= GATEWAY_AFTER, 60.0)
+        load_b.stop.set()
+        load_b.join("(b)")
+        steps = collections.Counter(a[4] for a in load_b.answers)
+        stale = sum(1 for a in load_b.answers
+                    if a[0] >= t_wave and a[4] != GATEWAY_STEP)
+        print(f"gateway (b) applied={wave['applied']} "
+              f"poll_once_ms={poll_ms:.1f} answers_by_step="
+              f"{json.dumps(dict(sorted(steps.items())))} "
+              f"after_wave={load_b.sent_after(t_wave)} gpu={gpu}",
+              flush=True)
+        if sorted(wave["applied"]) != ["s0", "s1"] or stale:
+            raise AssertionError(f"gateway (b): wave {wave}, {stale} "
+                                 f"answers after it at the old step")
+        _wait_for("the new step in serve_endpoints", lambda: all(
+            e["weights_step"] == GATEWAY_STEP for e in req(
+                {"cmd": "serve_endpoints"})["replicas"].values()), 10.0)
+
+        # (c) replica loss -------------------------------------------------
+        load_c = _Load(eps, pool, 1920).start()
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        reps[1].close()
+        prune_s = _wait_for("the lost replica pruned", lambda: "s1" not in
+                            req({"cmd": "serve_endpoints"})["replicas"],
+                            GATEWAY_PRUNE_S)
+        t_pruned = time.perf_counter()
+        _wait_for("requests after the prune",
+                  lambda: load_c.sent_after(t_pruned) >= GATEWAY_AFTER, 60.0)
+        load_c.stop.set()
+        load_c.join("(c)")
+        reps[1].gateway._exec_thread.join(30)
+        lats_c = sorted((a[1] - a[0]) * 1e3 for a in load_c.answers)
+        print(f"gateway (c) answers={len(lats_c)} prune_s={prune_s:.2f} "
+              f"max_latency_ms={lats_c[-1]:.1f} "
+              f"p50_ms={lats_c[len(lats_c) // 2]:.2f} gpu={gpu}",
+              flush=True)
+        if any(a[4] != GATEWAY_STEP for a in load_c.answers):
+            raise AssertionError("gateway (c): an answer at the old step")
+
+        counts = read_counts()  # ... and ends here
+        launches = counts.pop("bn_act")
+        batches = sum(rp.gateway.stats()["batches"] for rp in reps)
+        print(f"gateway launches={launches} bucket_forwards={batches} "
+              f"expected={BN_PER_FORWARD * batches}", flush=True)
+        if launches != BN_PER_FORWARD * batches or any(counts.values()):
+            raise AssertionError(f"gateway: {launches} fused_bn_inference "
+                                 f"launches for {batches} bucket forwards, "
+                                 f"others {counts}")
+
+        # every answer against a direct predict at its step ---------------
+        want = {0: ref.predict(pool)}
+        params, stats = manifest_loader(cpu_state())(GATEWAY_STEP, manifest)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref.swap_params(params, stats)
+        torch.cuda.synchronize()
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        want[GATEWAY_STEP] = ref.predict(pool)
+        errs = {0: 0.0, GATEWAY_STEP: 0.0}
+        tols = {s: TOL_BF16 * float(np.abs(w).max()) for s, w in want.items()}
+        checked = disagree = 0
+        for load in (load_a, load_b, load_c):
+            for _, _, idx, y, step in load.answers:
+                w = want[step][idx]
+                errs[step] = max(errs[step], float(np.abs(y - w).max()))
+                top = np.sort(w, axis=1)
+                clear = top[:, -1] - top[:, -2] > 2 * tols[step]
+                disagree += int((y.argmax(1) != w.argmax(1))[clear].sum())
+                checked += len(idx)
+        print(f"gateway check rows={checked} max_abs_err="
+              f"{json.dumps({s: round(e, 6) for s, e in errs.items()})} "
+              f"tol={json.dumps({s: round(t, 6) for s, t in tols.items()})} "
+              f"top1_disagree_where_clear={disagree} "
+              f"swap_params_ms={swap_ms:.1f} gpu={gpu}", flush=True)
+        if any(errs[s] > tols[s] for s in errs) or disagree:
+            raise AssertionError("gateway: answers disagree with the direct "
+                                 "predict at their step")
+        secs = time.perf_counter() - t_phase
+        print(f"gateway phase_s={secs:.1f} gpu={gpu}", flush=True)
+        if secs > GATEWAY_LIMIT_S:
+            raise AssertionError(f"gateway: phase took {secs:.1f} s, over "
+                                 f"{GATEWAY_LIMIT_S} s")
+        return {"launches": launches, "batches": batches,
+                "p50_ms": lats[len(lats) // 2],
+                "p99_ms": lats[int(len(lats) * 0.99)],
+                "poll_once_ms": poll_ms, "swap_ms": swap_ms,
+                "seconds": secs}
+    finally:
+        obs_trace.set_enabled(None)
+        for rp in reps:
+            rp.close()
+        sched.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3912,6 +4264,9 @@ def main() -> int:
           flush=True)
     obs = obs_phase(gpu, elastic)
     print(f"phase obs done at {time.perf_counter() - t0:.1f} s", flush=True)
+    gateway = gateway_phase(gpu)
+    print(f"phase gateway done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -3960,6 +4315,8 @@ def main() -> int:
                 policy["launches"]["score_bn_act"]
             kernels[-1]["obs_launches"] = \
                 obs["armed"]["launches"]["score_bn_act"]
+            # phase 19: every bucket forward behind the two gateways
+            kernels[-1]["gateway_launches"] = gateway["launches"]
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]

@@ -100,6 +100,18 @@ ENV_REGISTRY = {
     "DT_POLICY_MIN_FRAC": ("0.25", "floor on a straggler's relative share weight before eviction"),
     "DT_POLICY_EVICT_AFTER": ("0", "consecutive breaches before a non-base straggler is evicted (0 = off)"),
     "DT_POLICY_TARGET_WORKERS": ("", "autoscale target worker count for scale proposals (empty = off)"),
+    # the serving plane (serve/: the gateway, replicas and the serving
+    # autoscaler)
+    "DT_SERVE_DEADLINE_MS": ("50", "per-request latency budget (ms): the dynamic batcher launches a partial batch once the oldest queued request has spent half of it waiting"),
+    "DT_SERVE_MAX_BATCH": ("64", "largest dynamic-batch bucket the gateway coalesces into (Predictor batch_buckets cap)"),
+    "DT_SERVE_QUEUE_ROWS": ("256", "admission-control cap on queued rows per gateway; past it requests are shed with a counted serve.shed drop, never queued unbounded"),
+    "DT_SERVE_POLICY": ("", "1 = scheduler-side serving autoscale mode: the policy engine scales the replica set from live serve gauges (docs/serving.md)"),
+    "DT_SERVE_QHI": ("8.0", "mean queued rows per replica at/above which an overload streak accrues toward a scale_up decision"),
+    "DT_SERVE_QLO": ("0.5", "mean queued rows per replica at/below which an idle streak accrues toward a scale_down decision"),
+    "DT_SERVE_UP_AFTER": ("3", "consecutive overloaded serve-policy evaluations before a scale_up decision fires"),
+    "DT_SERVE_DOWN_AFTER": ("6", "consecutive idle serve-policy evaluations before a scale_down decision fires"),
+    "DT_SERVE_MIN_REPLICAS": ("1", "serving autoscale floor (scale_down never goes below it)"),
+    "DT_SERVE_MAX_REPLICAS": ("8", "serving autoscale ceiling (scale_up never goes above it)"),
     # fault injection
     "DT_FAULT_PLAN": ("", "fault-plan JSON (or @/path) for subprocess workers"),
     "DT_DROP_MSG": ("", "percent of received control messages the scheduler drops"),

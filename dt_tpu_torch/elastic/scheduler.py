@@ -63,11 +63,16 @@ job, a thread a connection over the pooled transport
   they become advisory proposals); after the diff, one journaled
   ``policy_decide`` op and the ``policy`` payload (share units, LR scale,
   seq) in the barrier reply; ``status`` and ``obs_dump`` carry the
-  ``policy`` and ``straggler`` sections.
+  ``policy`` and ``straggler`` sections;
+- the serving plane (``scheduler.py:283-302, 1044-1172, 1525-1545``): the
+  replica table that ``serve_register`` and ``serve_heartbeat`` fill and
+  ``serve_endpoints`` reads (ephemeral, not journaled: replicas register
+  again within a heartbeat after a failover), the ``ServePolicy``
+  autoscaler on the heartbeats (``DT_SERVE_POLICY=1``) with its decision
+  log, and the ``serving`` sections of ``status`` and ``obs_dump``.
 
-Every other command of the JAX scheduler answers an error naming its
-ROADMAP item (:data:`UNPORTED`), never a silent no-op.  The scheduler
-imports no torch.
+It serves every command of the JAX scheduler (:data:`UNPORTED` is empty).
+The scheduler imports no torch.
 """
 
 from __future__ import annotations
@@ -112,12 +117,8 @@ _ITEM = "is not ported yet; see ROADMAP.md, Queue 1 "
 #: retained (host, incarnation) obs tracks, LRU-evicted past it
 _OBS_MAX_TRACKS = 64
 #: the JAX scheduler's commands this one does not serve, each with the
-#: ROADMAP item that brings it
-UNPORTED = {
-    **dict.fromkeys(("serve_register", "serve_heartbeat",
-                     "serve_endpoints"),
-                    "item 5 (the serve gateway and replica)"),
-}
+#: ROADMAP item that brings it (none is left)
+UNPORTED: Dict[str, str] = {}
 
 
 class Scheduler:
@@ -260,6 +261,22 @@ class Scheduler:
         self._capture_cmds: List[dict] = []  # guarded-by: _lock
         self._capture_seq = 0  # guarded-by: _lock
         self._capture_posted: Dict[tuple, int] = {}  # guarded-by: _lock
+        # the serving plane: host -> {addr, ts, gauges, weights_step,
+        # refreshes, draining}.  Ephemeral like _dev_tracks, not
+        # ControlState: after a failover serve_heartbeat answers
+        # registered=false and the replicas register again.  Only non-hold
+        # ServePolicy decisions enter the log.
+        self._serve_lock = threading.Lock()
+        self._serve_replicas: Dict[str, dict] = {}  # guarded-by: _serve_lock
+        self._serve_order: List[str] = []  # guarded-by: _serve_lock
+        self._serve_policy = policy_lib.ServePolicy.from_env() \
+            if policy_lib.serving_enabled() else None
+        self._serve_hi = 0  # guarded-by: _serve_lock
+        self._serve_lo = 0  # guarded-by: _serve_lock
+        self._serve_want: Optional[int] = None  # guarded-by: _serve_lock
+        self._serve_decisions: List[dict] = []  # guarded-by: _serve_lock
+        self._serve_ttl = 3.0  # stale-heartbeat prune horizon (s)
+        self._serve_last_eval = 0.0  # guarded-by: _serve_lock
         self._tokens = protocol.TokenCache(
             ttl_s=float(config.env("DT_CTRL_TOKEN_TTL_S")))
         # the metrics plane (DT_METRICS): the scheduler-derived gauges,
@@ -674,6 +691,11 @@ class Scheduler:
                                if st.ckpt_pending else None,
                            "draining": sorted(st.draining)}}
             out["straggler"] = self._dp.straggler_scores()
+            srv = self._serve_view()
+            if srv["replicas"] or srv["decisions"]:
+                out["serving"] = {"replicas": sorted(srv["replicas"]),
+                                  "want": srv["want"],
+                                  "decisions": len(srv["decisions"])}
             return out
         if cmd == "profile":
             # recorded; every worker takes it on its next heartbeat, and a
@@ -721,6 +743,20 @@ class Scheduler:
             if cmd == "allreduce":
                 faults.crash_point("sched.allreduce", host=msg.get("host"))
             return self._dp.dispatch(msg)
+        if cmd == "serve_register":
+            return self._serve_register(msg["host"], msg["addr"],
+                                        int(msg.get("weights_step", 0)))
+        if cmd == "serve_heartbeat":
+            return self._serve_heartbeat(msg["host"],
+                                         msg.get("gauges") or {},
+                                         int(msg.get("weights_step", 0)),
+                                         int(msg.get("refreshes", 0)))
+        if cmd == "serve_endpoints":
+            # the read-only serving view: the InferClient's discovery, the
+            # refresher's walk order
+            srv = self._serve_view()
+            return {"replicas": srv["replicas"], "want": srv["want"],
+                    "decisions": srv["decisions"]}
         if cmd == "register_server":
             with self._servers_lock:
                 self._servers[int(msg["index"])] = (msg["host"],
@@ -788,6 +824,131 @@ class Scheduler:
         return {"error": f"unknown cmd {cmd!r}"}
 
     # ------------------------------------------------------------------
+    # the serving plane (scheduler.py:1044-1172)
+    # ------------------------------------------------------------------
+
+    def _serve_register(self, host: str, addr, weights_step: int) -> dict:
+        """Admit a serving replica, or admit it again after a failover.  A
+        second registration keeps the draining flag: a replica the
+        autoscaler chose to drain cannot reconnect its way back into
+        rotation."""
+        with self._serve_lock:
+            prev = self._serve_replicas.get(host)
+            self._serve_replicas[host] = {
+                "addr": (str(addr[0]), int(addr[1])),
+                "ts": time.monotonic(),
+                "gauges": dict(prev["gauges"]) if prev else {},
+                "weights_step": int(weights_step),
+                "refreshes": int(prev["refreshes"]) if prev else 0,
+                "draining": bool(prev["draining"]) if prev else False,
+            }
+            if host not in self._serve_order:
+                self._serve_order.append(host)
+            live = sum(1 for e in self._serve_replicas.values()
+                       if not e["draining"])
+            # want follows the largest fleet launched at it: the first
+            # registrations and a scale-up's launch settle live == want
+            self._serve_want = live if self._serve_want is None \
+                else max(self._serve_want, live)
+            n = len(self._serve_replicas)
+        self._obs.event("serve.scale", {"kind": "register", "host": host,
+                                        "replicas": n})
+        obs_metrics.registry().gauge("serve.replicas", float(n))
+        return {"registered": True}
+
+    def _serve_heartbeat(self, host: str, gauges: dict,
+                         weights_step: int, refreshes: int) -> dict:
+        """Fold one replica's liveness and gauges in, prune stale replicas
+        and run one autoscale evaluation.  An unknown host (a standby
+        promoted with an empty table) answers ``registered: false`` and
+        the replica registers again."""
+        now = time.monotonic()
+        with self._serve_lock:
+            ent = self._serve_replicas.get(host)
+            if ent is None:
+                return {"registered": False, "drain": False}
+            ent["ts"] = now
+            ent["gauges"] = dict(gauges)
+            ent["weights_step"] = int(weights_step)
+            ent["refreshes"] = int(refreshes)
+            drain = bool(ent["draining"])
+            dead = [h for h, e in self._serve_replicas.items()
+                    if now - e["ts"] > self._serve_ttl]
+            for h in dead:
+                del self._serve_replicas[h]
+            n = len(self._serve_replicas)
+            decision = self._serve_decide_locked()
+        for h in dead:
+            logger.warning("serving replica %s lost (stale heartbeat)", h)
+            self._obs.event("serve.scale", {"kind": "lost", "host": h,
+                                            "replicas": n})
+        if dead:
+            obs_metrics.registry().gauge("serve.replicas", float(n))
+        if decision is not None:
+            self._obs.event("serve.scale",
+                            {"kind": decision["kind"],
+                             "host": decision.get("host"),
+                             "replicas": decision["n_after"]})
+        return {"registered": True, "drain": drain}
+
+    def _serve_decide_locked(self):
+        """One ``ServePolicy`` evaluation, at most one every 0.25 s (every
+        replica's heartbeat lands here: unthrottled, the streaks would
+        scale with the fleet and the beat instead of with seconds of
+        pressure), and only while the live fleet equals the want (a launch
+        or drain in flight would fire twice on one pressure).  Returns the
+        decision-log row, or None."""
+        if self._serve_policy is None:
+            return None
+        now = time.monotonic()
+        if now - self._serve_last_eval < 0.25:
+            return None
+        self._serve_last_eval = now
+        live = sorted(h for h, e in self._serve_replicas.items()
+                      if not e["draining"])
+        if self._serve_want is None or len(live) != self._serve_want \
+                or not live:
+            return None
+        base = set(self._serve_order[:self._serve_policy.min_replicas])
+        depths = {h: float(self._serve_replicas[h]["gauges"]
+                           .get("serve.queue_depth", 0.0))
+                  for h in live}
+        d = self._serve_policy.decide(live, base, depths,
+                                      self._serve_hi, self._serve_lo)
+        self._serve_hi, self._serve_lo = d.hi_streak, d.lo_streak
+        if d.action == "hold":
+            return None
+        row = {"seq": len(self._serve_decisions), "kind": d.action,
+               "n_before": len(live)}
+        if d.action == "scale_up":
+            self._serve_want = len(live) + d.want
+            row["n_after"] = self._serve_want
+        else:
+            self._serve_want = len(live) - 1
+            self._serve_replicas[d.host]["draining"] = True
+            row["n_after"] = self._serve_want
+            row["host"] = d.host
+        self._serve_decisions.append(row)
+        logger.info("serve policy: %s -> want %d (%s)", d.action,
+                    self._serve_want, row.get("host", ""))
+        return row
+
+    def _serve_view(self) -> dict:
+        """The serving section of ``obs_dump``, ``status`` and
+        ``serve_endpoints``."""
+        with self._serve_lock:
+            reps = {h: {"addr": list(e["addr"]),
+                        "gauges": dict(e["gauges"]),
+                        "weights_step": int(e["weights_step"]),
+                        "refreshes": int(e["refreshes"]),
+                        "draining": bool(e["draining"])}
+                    for h, e in self._serve_replicas.items()}
+            return {"enabled": self._serve_policy is not None,
+                    "replicas": reps, "want": self._serve_want,
+                    "decisions": [dict(d)
+                                  for d in self._serve_decisions]}
+
+    # ------------------------------------------------------------------
     # the obs planes: ingest and export (scheduler.py:859-1045)
     # ------------------------------------------------------------------
 
@@ -831,7 +992,7 @@ class Scheduler:
         incarnation's track plus the control-plane track (this instance's
         records merged with the process tracer's), the straggler board,
         the policy view and, when they hold anything, the device and
-        health sections and the metrics tracks."""
+        health sections, the serving section and the metrics tracks."""
         with self._obs_lock:
             tracks = {k: {"records": list(v["records"]),
                           "counters": dict(v["counters"]),
@@ -850,6 +1011,9 @@ class Scheduler:
         dev = self._dev_view()
         if dev["workers"]:
             out["device"] = dev
+        srv = self._serve_view()
+        if srv["replicas"] or srv["decisions"]:
+            out["serving"] = srv
         if self._metrics is not None:
             self._health_refresh()
             out["health"] = self.health_view()

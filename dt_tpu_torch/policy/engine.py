@@ -1,6 +1,6 @@
 """The scheduler-side policy engine (counterpart of
-``dt_tpu/policy/engine.py:1-182``, copied since the port imports nothing of
-the JAX package).
+``dt_tpu/policy/engine.py``, copied since the port imports nothing of the
+JAX package).
 
 Inputs: the data plane's per-worker round-lag EWMAs (the straggler board of
 ``elastic.dataplane``).  Outputs: dynamic mini-batch shares (shrink a
@@ -19,7 +19,7 @@ scheduler's journaled ``ControlState`` (the ``policy_decide`` op).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Sequence, Set
+from typing import Dict, List, Mapping, Optional, Sequence, Set
 
 from dt_tpu_torch import config
 from dt_tpu_torch.policy import rescale
@@ -144,3 +144,106 @@ class PolicyEngine:
 def enabled() -> bool:
     """Whether the policy engine is on in this process (``DT_POLICY=1``)."""
     return config.env("DT_POLICY").strip().lower() in ("1", "true")
+
+
+# ---------------------------------------------------------------------------
+# The serving mode (``dt_tpu/policy/engine.py:176-285``): the same closed
+# loop, its inputs the live serve gauges the replicas heartbeat in (queue
+# depth), its outputs replica-set scaling instead of batch shares.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeDecision:
+    """One serving-policy evaluation.  ``action`` is ``"hold"``,
+    ``"scale_up"`` or ``"scale_down"``; only non-hold decisions enter the
+    scheduler's decision log, so the log is a function of the load pattern,
+    not of heartbeat timing."""
+
+    action: str
+    #: replicas whose queue gauge reached DT_SERVE_QHI this evaluation
+    breached: List[str]
+    #: the (hi, lo) streaks of consecutive evaluations after the decision
+    hi_streak: int
+    lo_streak: int
+    #: scale_down only: the replica to drain (the highest-sorted non-base
+    #: one: the last to join a conventionally named fleet leaves first)
+    host: Optional[str] = None
+    #: scale_up only: replicas to add (one a decision: the next evaluation
+    #: sees the grown fleet instead of overshooting)
+    want: int = 0
+
+
+class ServePolicy:
+    """Deterministic replica-autoscale rules over the serve gauges.
+
+    ``q_hi``/``q_lo``: the mean queued requests a replica at or above
+    (below) which an overload (idle) streak accrues; ``up_after``/
+    ``down_after``: the streak lengths that fire a decision;
+    ``min_replicas``/``max_replicas``: the fleet's bounds.
+    :meth:`decide` is pure, so the same load gives the same decision log."""
+
+    def __init__(self, q_hi: float = 8.0, q_lo: float = 0.5,
+                 up_after: int = 3, down_after: int = 6,
+                 min_replicas: int = 1, max_replicas: int = 8):
+        self.q_hi = float(q_hi)
+        self.q_lo = float(q_lo)
+        self.up_after = max(int(up_after), 1)
+        self.down_after = max(int(down_after), 1)
+        self.min_replicas = max(int(min_replicas), 1)
+        self.max_replicas = max(int(max_replicas), self.min_replicas)
+
+    @classmethod
+    def from_env(cls) -> "ServePolicy":
+        """From the ``DT_SERVE_*`` rows of ``config.ENV_REGISTRY``."""
+        return cls(
+            q_hi=float(config.env("DT_SERVE_QHI")),
+            q_lo=float(config.env("DT_SERVE_QLO")),
+            up_after=int(config.env("DT_SERVE_UP_AFTER")),
+            down_after=int(config.env("DT_SERVE_DOWN_AFTER")),
+            min_replicas=int(config.env("DT_SERVE_MIN_REPLICAS")),
+            max_replicas=int(config.env("DT_SERVE_MAX_REPLICAS")))
+
+    def decide(self, replicas: Sequence[str], base: Set[str],
+               queue_depths: Mapping[str, float], hi_streak: int,
+               lo_streak: int) -> ServeDecision:
+        """One evaluation.  ``replicas``: the live (non-draining) replica
+        set; ``queue_depths``: each one's newest ``serve.queue_depth``
+        gauge.  Overload is the fleet's MEAN queue depth at or above
+        ``q_hi`` (behind a balanced load generator one hot replica means an
+        undersized fleet, not a slow replica), idle the mean at or below
+        ``q_lo``.  A base replica is never drained."""
+        replicas = sorted(replicas)
+        mean_q = (sum(float(queue_depths.get(h, 0.0)) for h in replicas)
+                  / len(replicas)) if replicas else 0.0
+        breached = sorted(h for h in replicas
+                          if float(queue_depths.get(h, 0.0)) >= self.q_hi)
+        if mean_q >= self.q_hi:
+            hi_streak, lo_streak = hi_streak + 1, 0
+        elif mean_q <= self.q_lo:
+            hi_streak, lo_streak = 0, lo_streak + 1
+        else:
+            hi_streak = lo_streak = 0
+        # the streaks saturate at their thresholds: an uncapped streak
+        # would fire again every evaluation while the fleet is at a bound
+        hi_streak = min(hi_streak, self.up_after)
+        lo_streak = min(lo_streak, self.down_after)
+        if hi_streak >= self.up_after and \
+                len(replicas) < self.max_replicas:
+            return ServeDecision(action="scale_up", breached=breached,
+                                 hi_streak=0, lo_streak=0, want=1)
+        if lo_streak >= self.down_after and \
+                len(replicas) > self.min_replicas:
+            cands = [h for h in replicas if h not in base]
+            if cands:
+                return ServeDecision(action="scale_down",
+                                     breached=breached, hi_streak=0,
+                                     lo_streak=0, host=cands[-1])
+        return ServeDecision(action="hold", breached=breached,
+                             hi_streak=hi_streak, lo_streak=lo_streak)
+
+
+def serving_enabled() -> bool:
+    """Whether the serving autoscaler is on in this process
+    (``DT_SERVE_POLICY=1``)."""
+    return config.env("DT_SERVE_POLICY").strip().lower() in ("1", "true")

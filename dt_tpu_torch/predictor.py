@@ -8,6 +8,12 @@ is split into top-bucket chunks, and the padding is sliced off.  All chunks
 are dispatched before any result is copied back, so the card runs chunk k+1
 while chunk k's logits travel.  Requests are NHWC numpy at the boundary;
 inside, images are NCHW in ``torch.channels_last`` (NHWC in memory).
+
+``stats`` keeps the per-instance counts, and every increment also lands on
+the process's obs plane, as the JAX predictor's do: the ``predict.requests``,
+``predict.rows`` and ``predict.compiles`` counters and the ``predict.ms``
+histogram (``obs/names.py``), so the serving gateway's exports and the
+Prometheus endpoint see the same numbers.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from torch import nn
 from dt_tpu_torch import models as models_lib
 from dt_tpu_torch.config import resolve_device
 from dt_tpu_torch.interchange import export_jax_variables, load_jax_variables
+from dt_tpu_torch.obs import metrics as obs_metrics
+from dt_tpu_torch.obs import trace as obs_trace
 from dt_tpu_torch.training import checkpoint as ckpt_lib
 
 
@@ -163,6 +171,7 @@ class Predictor:
                     self._compiled.add(key)
                     if not _warmup:
                         self.stats["compiles"] += 1
+                        obs_trace.tracer().counter("predict.compiles")
                 if len(part) < b:  # pad up to the bucket, slice back after
                     pad = np.zeros((b - len(part),) + part.shape[1:],
                                    part.dtype)
@@ -173,9 +182,14 @@ class Predictor:
                              len(part)))
             chunks = [o[:keep].float().cpu().numpy() for o, keep in outs]
         if not _warmup:
+            dt = time.perf_counter() - t0
             self.stats["requests"] += 1
             self.stats["rows"] += n
-            self.stats["serve_s"] += time.perf_counter() - t0
+            self.stats["serve_s"] += dt
+            tr = obs_trace.tracer()
+            tr.counter("predict.requests")
+            tr.counter("predict.rows", n)
+            obs_metrics.registry().observe("predict.ms", dt * 1000.0)
         return chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
 
     def predict_proba(self, x: np.ndarray) -> np.ndarray:

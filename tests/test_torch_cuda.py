@@ -901,3 +901,57 @@ def test_oom_leaves_a_census_bundle(cuda, monkeypatch, tmp_path):
         for m in (obs_device, blackbox):
             m._reset_for_tests()
             m.set_enabled(None)
+
+
+def test_gateway_on_card_matches_direct_predict(cuda):
+    """One replica on the card (``resnet18``, 10 classes, 32x32, f32,
+    buckets 1-8) behind the port's scheduler: concurrent ``InferClient``
+    requests of 1-4 rows are coalesced, each answer within 1e-4 of a
+    direct ``Predictor.predict`` of its rows (another bucket may take
+    another cuDNN algorithm; TF32 off), and ``fused_bn_inference`` launches
+    20 times a batch the gateway ran."""
+    import threading
+
+    from dt_tpu_torch.elastic.scheduler import Scheduler
+    from dt_tpu_torch.predictor import Predictor
+    from dt_tpu_torch.serve import InferClient, Replica
+    torch.backends.cudnn.allow_tf32 = False
+    model = models.create("resnet18", device=cuda, num_classes=10)
+    pred = Predictor.from_fn(lambda m, _s, x: m(x), model, max_batch=8,
+                             device=cuda)
+    pred.warmup(feature_shape=(32, 32, 3))
+    rng = np.random.RandomState(0)
+    xs = [rng.uniform(-1, 1, (int(rng.randint(1, 5)), 32, 32, 3))
+          .astype(np.float32) for _ in range(24)]
+    want = [pred.predict(x) for x in xs]
+    sched = Scheduler(initial_workers=[])
+    rep = None
+    try:
+        rep = Replica(pred, "s0", f"127.0.0.1:{sched.port}",
+                      heartbeat_s=0.1, advertise_host="127.0.0.1")
+        client = InferClient(scheduler=f"127.0.0.1:{sched.port}")
+        outs = [None] * len(xs)
+        before = kernels.bn_act.launches
+
+        def ask(i0):
+            for i in range(i0, len(xs), 4):
+                outs[i] = client.infer(xs[i])
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        launches = kernels.bn_act.launches - before
+        st = rep.gateway.stats()
+        assert st["requests"] == len(xs) and st["shed"] == 0
+        assert st["batches"] < st["requests"]
+        assert launches == 20 * st["batches"]  # resnet18 v1: 20 BNs
+        for out, w in zip(outs, want):
+            assert out["weights_step"] == 0
+            np.testing.assert_allclose(out["y"], w, rtol=1e-4, atol=1e-4)
+    finally:
+        if rep is not None:
+            rep.close()
+        sched.close()

@@ -95,7 +95,10 @@ def test_port_imports_no_jax_and_no_dt_tpu():
             "dt_tpu_torch.obs.export", "dt_tpu_torch.obs.blackbox",
             "dt_tpu_torch.obs.device", "dt_tpu_torch.utils.profiler",
             "dt_tpu_torch.training.monitor",
-            "dt_tpu_torch.test_utils"} <= want
+            "dt_tpu_torch.test_utils", "dt_tpu_torch.serve",
+            "dt_tpu_torch.serve.gateway", "dt_tpu_torch.serve.replica",
+            "dt_tpu_torch.serve.refresh",
+            "dt_tpu_torch.serve.client"} <= want
 
 
 _FORBIDDEN = re.compile(r"import jax|from jax|flax|dt_tpu\.|"
@@ -120,8 +123,8 @@ def test_port_sources_name_no_jax_and_no_dt_tpu_module():
 #: open that the port refuses by name (3g and 9 add modules the port does
 #: not import, so nothing refuses them)
 _DONE_ITEMS = ("item 3a", "item 3b", "item 3c", "item 3d", "item 3e",
-               "item 3f", "item 7")
-_OPEN_ITEMS = ("item 4", "item 5", "item 6", "item 8")
+               "item 3f", "item 5", "item 7")
+_OPEN_ITEMS = ("item 4", "item 6", "item 8")
 
 
 def test_done_items_refuse_nothing_and_open_items_still_refuse():
@@ -146,10 +149,8 @@ def test_done_items_refuse_nothing_and_open_items_still_refuse():
         assert callable(getattr(WorkerClient, name))
     assert not {"ckpt_intent", "ckpt_ack", "ckpt_manifest",
                 "ha_round"} & set(UNPORTED)
-    # the obs planes are served; the serve gateway's commands stay item 5
-    assert UNPORTED == dict.fromkeys(
-        ("serve_register", "serve_heartbeat", "serve_endpoints"),
-        "item 5 (the serve gateway and replica)")
+    # the obs planes and the serving plane are served: nothing is left
+    assert UNPORTED == {}
     for name in ("profile_command", "obs_flush", "_obs_payload",
                  "_hm_payload", "_apply_profile_cmd"):
         assert callable(getattr(WorkerClient, name))
@@ -166,8 +167,13 @@ def test_done_items_refuse_nothing_and_open_items_still_refuse():
     assert callable(protocol.set_secret)
     for name in ("launch_local", "launch_ssh", "main"):
         assert callable(getattr(launcher, name))
-    for name in ("Decision", "PolicyEngine", "enabled", "rescale"):
+    for name in ("Decision", "PolicyEngine", "enabled", "rescale",
+                 "ServeDecision", "ServePolicy", "serving_enabled"):
         assert hasattr(policy, name)
+    from dt_tpu_torch import serve
+    for name in ("InferClient", "DynamicBatcher", "Gateway",
+                 "RollingRefresher", "Replica", "ServeClient"):
+        assert hasattr(serve, name)
 
 
 def test_port_journal_records_unpickle_without_the_port(tmp_path):
@@ -284,6 +290,13 @@ out = {"health": req({"cmd": "health"})["health"]["enabled"],
 text = urllib.request.urlopen(
     f"http://127.0.0.1:{sched.metrics_port}/metrics", timeout=10).read()
 out["scrape"] = b"dt_device_hbm_bytes" in text
+req({"cmd": "serve_register", "host": "s0", "addr": ["127.0.0.1", 1],
+     "weights_step": 0})
+beat = req({"cmd": "serve_heartbeat", "host": "s0", "weights_step": 0,
+            "refreshes": 0, "gauges": {"serve.queue_depth": 0.0}})
+view = req({"cmd": "serve_endpoints"})
+out["serving"] = [beat["registered"], sorted(view["replicas"]),
+                  sched.obs_dump()["serving"]["enabled"]]
 sched.close()
 out["torch"] = sorted(m for m in sys.modules
                       if m == "torch" or m.startswith("torch."))
@@ -293,19 +306,21 @@ print(json.dumps(out))
 
 def test_scheduler_imports_no_torch_with_every_plane_armed(tmp_path):
     """With the trace, metrics (and its HTTP endpoint), blackbox and
-    device planes armed, the port's scheduler ingests a worker's span,
-    metrics and device payloads, answers ``health``, ``blackbox_index``,
-    ``obs_dump`` and a ``/metrics`` scrape, and its process never imports
-    torch."""
+    device planes and the serving autoscaler (``DT_SERVE_POLICY=1``) armed,
+    the port's scheduler ingests a worker's span, metrics and device
+    payloads, answers ``health``, ``blackbox_index``, ``obs_dump``, a
+    ``/metrics`` scrape and a replica's ``serve_register``,
+    ``serve_heartbeat`` and ``serve_endpoints``, and its process never
+    imports torch."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=str(ROOT), DT_OBS="1", DT_METRICS="1",
                DT_METRICS_PORT="0", DT_BLACKBOX="1",
                DT_BLACKBOX_DIR=str(tmp_path / "bb"), DT_DEVICE_OBS="1",
-               DT_ELASTIC_INSECURE="1")
+               DT_SERVE_POLICY="1", DT_ELASTIC_INSECURE="1")
     out = subprocess.run([sys.executable, "-c", _SCHED_PROBE],
                          cwd=str(tmp_path), env=env, capture_output=True,
                          text=True, timeout=120, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"health": True, "bb": True,
                    "tracks": ["control-plane", "w0#7"], "scrape": True,
-                   "torch": []}
+                   "serving": [True, ["s0"], True], "torch": []}

@@ -13,6 +13,7 @@ import pytest
 from dt_tpu.elastic import Scheduler as JScheduler
 from dt_tpu.elastic import protocol as jproto
 from dt_tpu.parallel.compression import np_quantize_2bit
+from dt_tpu_torch.elastic.scheduler import UNPORTED
 from dt_tpu_torch.elastic.scheduler import Scheduler as TScheduler
 from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
@@ -148,12 +149,27 @@ def test_scripted_sequence_matches_the_jax_scheduler(tmp_path):
 def test_unported_commands_name_their_item(tmp_path):
     sched = TScheduler(initial_workers=["w0"])
     try:
-        for cmd, item in (("serve_register", "item 5"),
-                          ("serve_heartbeat", "item 5"),
-                          ("serve_endpoints", "item 5")):
-            resp = jproto.request("127.0.0.1", sched.port, {"cmd": cmd},
-                                  timeout=10)
-            assert item in resp["error"] and "ROADMAP" in resp["error"]
+        # the serving plane's three commands are answered now (held
+        # against the JAX scheduler's in tests/test_torch_serve_parity.py)
+        assert UNPORTED == {}
+        assert jproto.request(
+            "127.0.0.1", sched.port,
+            {"cmd": "serve_register", "host": "s0",
+             "addr": ["127.0.0.1", 1], "weights_step": 0},
+            timeout=10) == {"registered": True}
+        assert jproto.request(
+            "127.0.0.1", sched.port,
+            {"cmd": "serve_heartbeat", "host": "s0", "weights_step": 2,
+             "refreshes": 1, "gauges": {"serve.queue_depth": 1.0}},
+            timeout=10) == {"registered": True, "drain": False}
+        assert jproto.request(
+            "127.0.0.1", sched.port, {"cmd": "serve_endpoints"},
+            timeout=10) == {
+                "replicas": {"s0": {"addr": ["127.0.0.1", 1],
+                                    "gauges": {"serve.queue_depth": 1.0},
+                                    "weights_step": 2, "refreshes": 1,
+                                    "draining": False}},
+                "want": 1, "decisions": []}
         # the obs planes' commands are served (held against the JAX
         # scheduler's replies in tests/test_torch_obs_wire.py)
         assert jproto.request("127.0.0.1", sched.port,
