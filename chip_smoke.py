@@ -188,7 +188,23 @@ JAX.  Phases, each fatal on failure:
    new step; (c) one replica closed under load, every request still
    answered and the replica pruned by the scheduler; 53
    ``fused_bn_inference`` launches a bucket forward, and every answer
-   within bf16 tolerance of a direct ``predict`` at its step; at most 45 s.
+   within bf16 tolerance of a direct ``predict`` at its step; at most 45 s;
+20. mesh (after the gateway): the elastic mesh, ``Module.fit`` in the mesh
+   sync mode over ``torch.distributed`` with a ``MeshManager`` a worker
+   (``tests/torch_mesh_worker.py``): ResNet-50 v1 bf16 at full width,
+   ZeRO-1 + FSDP, cuDNN deterministic, global batch 64, 3 epochs of 4
+   steps, 2 -> 3 -> 2 ranks against the port's scheduler (the joiner
+   bootstraps from the snapshot, a non-coordinator departs), gloo on CUDA
+   tensors (the ranks share the card; NCCL refuses that): one sha256 of
+   the whole state over the live ranks at every epoch end, the survivors'
+   ``mesh_rebuilds`` 2, the joiner's first state rank 0's epoch-0 one,
+   53 ``bn_sums`` (pass 1 whose sums cross the ranks), no ``bn_stats`` and
+   53 ``bn_act`` a rank-step, 53 ``bn_act`` a rank's score of its part of
+   64 images, ``sharding_report`` the plain rule's at 2 and 3 ranks, 106
+   BN collectives a step; step ms per membership, the collectives' ms,
+   barrier-to-step ms after a rebuild, bytes held; then (b) one step of
+   the survivors' 2-rank mesh (bf16 plain and ZeRO-1 + FSDP, f32 plain)
+   against one process on the 64 rows.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -202,7 +218,9 @@ its launches on ``fit`` and on the elastic, sharded, async, failover
 (``obs_launches``, phase 18's armed job, the same three) jobs, each read from
 the counters of that job's workers (the f32 BatchNorm rows carry none:
 the jobs run bf16, and one counter serves both dtypes); the bf16
-BN-inference row also carries ``gateway_launches``, phase 19's.
+BN-inference row also carries ``gateway_launches``, phase 19's, and the
+bf16 BN rows ``mesh_launches``, phase 20's (pass 1 there is ``bn_sums``,
+whose own times sit in the BN-train rows' ``bn_sums``).
 """
 
 from __future__ import annotations
@@ -386,6 +404,28 @@ OUTAGE_ARGS = ["--model", "resnet50", "--dtype", "bfloat16",
 OUTAGE_EVERY = 4
 OUTAGE_KILL_STEP = 12
 OUTAGE_TIMEOUT = 300  # s, each of the three jobs
+
+# Phase 20, the elastic mesh: ResNet-50 v1 bf16 workers of
+# tests/torch_mesh_worker.py in the mesh sync mode (ZeRO-1 + FSDP, cuDNN's
+# deterministic algorithms) against the port's Scheduler, global batch 64
+# (2 x 32, 3 x 21), SGD lr 0.025 momentum 0.9 wd 1e-4, 3 epochs of
+# MESH_STEPS steps cycling over 128 seeded images, 64 seeded images scored
+# after every epoch (each rank its strided part); then one step of a fixed
+# 2-rank mesh (plain and ZeRO-1 + FSDP) against one process on the 64 rows.
+MESH_STEPS = 4
+MESH_MODEL, MESH_DTYPE, MESH_DEVICE = "resnet50", "bfloat16", "cuda"
+
+
+def mesh_args() -> list:
+    return ["--model", MESH_MODEL, "--dtype", MESH_DTYPE, "--device",
+            MESH_DEVICE, "--image-size", str(IMAGE), "--deterministic"]
+
+
+MESH_ARGS = ["--global-batch", "64", "--images", "128", "--lr", "0.025",
+             "--wd", "1e-4", "--num-epoch", "3", "--epoch-steps",
+             str(MESH_STEPS), "--val-images", "64", "--zero", "--fsdp"]
+MESH_TIMEOUT = 180  # s, the elastic mesh job
+MESH_BN_COLLECTIVES = 2 * BN_PER_FORWARD  # a step: forward and backward
 
 
 def gpu_line() -> str:
@@ -734,7 +774,9 @@ def bn_train_phase(shapes, dev, also=(), held=()):
         g = torch.Generator(device=dev).manual_seed(3)
         tot = {"ms": 0.0, "pass1_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "pass1_bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
-               "kernels_a_call": 0}
+               "kernels_a_call": 0, "sums_ms": 0.0, "sums_plain_ms": 0.0,
+               "sums_bound_ms": 0.0, "sums_max_abs_err": 0.0,
+               "sums_kernels_a_call": 0}
         runs = [(k[:4], k[4], m) for k, m in shapes.items()] + \
             [(k[:4], k[4], 0) for k in also] + \
             [(sh, r, 0) for sh, r in extra] + \
@@ -793,6 +835,28 @@ def bn_train_phase(shapes, dev, also=(), held=()):
                                          "one kernel")
                 tot["kernels_a_call"] = max(tot["kernels_a_call"],
                                             len(launched))
+                # bn_sums, the mesh's pass 1: the same launch, unfinalized;
+                # its error is taken over the rows, as pass 1's is
+                s1, q1 = kernels.bn_sums(x)
+                s2, q2 = kernels.bn_sums(x)
+                ps, pq = kernels.bn_sums_plain(x2)
+                torch.cuda.synchronize()
+                rows = x2.shape[0]
+                serr = max(float((s1 - ps).abs().max()),
+                           float((q1 - pq).abs().max())) / rows
+                if not (torch.equal(s1, s2) and torch.equal(q1, q2)) or \
+                        serr > TOL_STATS * ex2:
+                    raise AssertionError(f"bn_sums {tag}: launches agree "
+                                         f"{torch.equal(s1, s2)}, max abs "
+                                         f"err / rows {serr}")
+                slaunched = device_kernels(lambda: kernels.bn_sums(x),
+                                           kernels.bn_sums)
+                if len(slaunched) != 1:
+                    raise AssertionError(f"bn_sums {tag}: one call put "
+                                         f"{slaunched} on the device")
+                tot["sums_max_abs_err"] = max(tot["sums_max_abs_err"], serr)
+                tot["sums_kernels_a_call"] = max(tot["sums_kernels_a_call"],
+                                                 len(slaunched))
                 nbytes = x2.numel() * x.element_size()
                 b1 = (nbytes + 2 * c * 4) / H100_BYTES_PER_S * 1e3
                 b2 = (2 * nbytes + 2 * c * x.element_size()) \
@@ -810,6 +874,9 @@ def bn_train_phase(shapes, dev, also=(), held=()):
                              xs)
                 pl1 = cuda_ms(lambda a: kernels.bn_stats_plain(
                     kernels.rows_view(a)), xs)
+                ps1 = cuda_ms(kernels.bn_sums, xs)
+                psl = cuda_ms(lambda a: kernels.bn_sums_plain(
+                    kernels.rows_view(a)), xs)
                 pl2 = cuda_ms(lambda a: kernels.bn_act_plain(
                     kernels.rows_view(a), scale, bias, relu), xs)
                 lib = cuda_ms(library, xs) if len(shape) == 4 else None
@@ -820,6 +887,8 @@ def bn_train_phase(shapes, dev, also=(), held=()):
                       f"pass2_ms={p2:.5f} pass2_bound_ms={b2:.5f} "
                       f"fwd_ms={p1 + p2:.5f} fwd_plain_ms={pl1 + pl2:.5f} "
                       f"library_ms={lib and round(lib, 5)} "
+                      f"bn_sums_ms={ps1:.5f} bn_sums_plain_ms={psl:.5f} "
+                      f"bn_sums_err_over_rows={serr:.3e} "
                       f"per_forward={per_fwd}", flush=True)
                 if per_fwd:
                     tot["ms"] += per_fwd * (p1 + p2)
@@ -828,6 +897,9 @@ def bn_train_phase(shapes, dev, also=(), held=()):
                     tot["bound_ms"] += per_fwd * (b1 + b2)
                     tot["pass1_bound_ms"] += per_fwd * b1
                     tot["library_ms"] += per_fwd * lib
+                    tot["sums_ms"] += per_fwd * ps1
+                    tot["sums_plain_ms"] += per_fwd * psl
+                    tot["sums_bound_ms"] += per_fwd * b1
         print(f"kernel bn_train {dtype} per forward: " + " ".join(
             f"{k}={v:.5f}" for k, v in tot.items()), flush=True)
         summary[dtype] = tot
@@ -4120,6 +4192,367 @@ def gateway_phase(gpu) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _plain_coverage(shapes, n: int, extra: int = 0):
+    """``(fraction, sharded_bytes, total_bytes)`` of f32 leaves of JAX-layout
+    ``shapes`` under the JAX package's rule (a leaf splits when an axis of
+    at least ``n`` divides by ``n``), written out here apart from
+    ``parallel.zero``; ``extra`` bytes of replicated scalars."""
+    sharded = total = 0
+    for shape in shapes:
+        nbytes = 4 * int(np.prod(shape, dtype=np.int64))
+        total += nbytes
+        if any(d >= n and d % n == 0 for d in shape):
+            sharded += nbytes
+    total += extra
+    return [sharded / max(total, 1), sharded, total]
+
+
+def _mesh_gates(res, audit, launched, gpu) -> dict:
+    """The gates of phase 20's elastic job; returns the launch totals."""
+    import torch
+    from dt_tpu_torch import models
+    from dt_tpu_torch.training.flat import FlatLayout
+    print(f"mesh audit={audit} launched={launched}", flush=True)
+    if audit != [["ADDED", "w2"], ["REMOVED", "w2"]] or \
+            launched != [("w2", 1)]:
+        raise AssertionError(f"mesh audit log {audit}, launched {launched}")
+    shapes = FlatLayout(models.create(
+        MESH_MODEL, device="cpu", dtype=getattr(torch, MESH_DTYPE),
+        num_classes=10 if MESH_MODEL == "resnet20" else 1000)
+    ).params.jax_shapes
+    want_report = {n: {"opt_state": _plain_coverage(shapes, n, extra=4),
+                       "params": _plain_coverage(shapes, n)}
+                   for n in (2, 3)}
+    live = {0: {"w0", "w1"}, 1: {"w0", "w1", "w2"}, 2: {"w0", "w1"}}
+    tot = {"bn_sums": 0, "bn_stats": 0, "bn_act": 0, "score_bn_act": 0}
+    for epoch, hosts in live.items():
+        got = {h: e for h, r in res.items() for e in r["epochs"]
+               if e["epoch"] == epoch}
+        short = {h: e["sha256"][:16] for h, e in got.items()}
+        print(f"mesh epoch {epoch} workers={sorted(got)} sha256={short} "
+              f"train_ce={ {h: e['loss'] for h, e in got.items()} } "
+              f"batch={ {h: e['batch'] for h, e in got.items()} }",
+              flush=True)
+        if set(got) != hosts or len(set(short.values())) != 1:
+            raise AssertionError(f"mesh epoch {epoch}: live {sorted(got)}, "
+                                 f"digests {short}")
+        n = len(hosts)
+        for h, e in got.items():
+            k = e["steps"]
+            la = e["launches"]
+            want = {"bn_sums": BN_PER_FORWARD * k, "bn_stats": 0,
+                    "bn_act": BN_PER_FORWARD * k}
+            score = e["score_launches"]
+            report = {key: list(v) for key, v in
+                      e["sharding_report"].items()}
+            if k != MESH_STEPS or la != want or score != {
+                    "bn_sums": 0, "bn_stats": 0, "bn_act": BN_PER_FORWARD} \
+                    or report != want_report[n] or \
+                    e["batch"] != 64 // n or not np.isfinite(e["loss"]):
+                raise AssertionError(
+                    f"mesh epoch {epoch} {h}: steps {k}, launches {la} want "
+                    f"{want}, score {score}, report {report} want "
+                    f"{want_report[n]}, batch {e['batch']}, loss "
+                    f"{e['loss']}")
+            for key in want:
+                tot[key] += la[key]
+            tot["score_bn_act"] += score["bn_act"]
+    for h in ("w0", "w1"):
+        if (res[h]["mesh_rebuilds"], res[h]["resharded"]) != (2, 2):
+            raise AssertionError(f"mesh {h}: {res[h]['mesh_rebuilds']} "
+                                 f"rebuilds, {res[h]['resharded']} re-shards")
+    boot = res["w2"]["bootstrap"]
+    w0 = res["w0"]["epochs"][0]
+    if boot != {"step": w0["step"], "sha256": w0["sha256"]}:
+        raise AssertionError(f"mesh: the joiner bootstrapped from {boot}, "
+                             f"rank 0's epoch-0 state is {w0['step']} "
+                             f"{w0['sha256'][:16]}")
+    e0 = res["w0"]["epochs"]
+    print(f"mesh backend={e0[0]['backend']} ({e0[0]['backend_reason']}); "
+          f"sharding_report n=2 {e0[0]['sharding_report']} n=3 "
+          f"{e0[1]['sharding_report']} equal to the plain rule's; "
+          f"survivors' mesh_rebuilds=2 resharded=2; the joiner started at "
+          f"step {boot['step']} from sha256 {boot['sha256'][:16]}, rank 0's "
+          f"epoch-0 end; launches a rank-step bn_sums={BN_PER_FORWARD} "
+          f"bn_stats=0 bn_act={BN_PER_FORWARD}", flush=True)
+    return tot
+
+
+def _mesh_report(res, gpu) -> dict:
+    """Worker 0's step, collective and rebuild times and the bytes it held,
+    from its spans (the card's queue drained before each collective's
+    span)."""
+    sp = res["w0"]["spans"]
+    k = MESH_STEPS
+    steps = len(sp["step"])
+    if steps != 3 * k or len(sp["mesh.bn_allreduce"]) != \
+            MESH_BN_COLLECTIVES * steps or \
+            len(sp["mesh.grad_allreduce"]) != steps:
+        raise AssertionError(
+            f"mesh worker 0 recorded {steps} steps, "
+            f"{len(sp['mesh.bn_allreduce'])} BN and "
+            f"{len(sp['mesh.grad_allreduce'])} gradient collectives; "
+            f"expected {3 * k}, {MESH_BN_COLLECTIVES} and 1 a step")
+    bn = np.asarray(sp["mesh.bn_allreduce"]).reshape(steps, -1).sum(1)
+    out = {"epochs": []}
+    for epoch, workers in ((0, 2), (1, 3), (2, 2)):
+        lo, hi = epoch * k + 1, epoch * k + k  # past the epoch's first
+        row = {"epoch": epoch, "workers": workers,
+               "step_ms": float(np.median(sp["step"][lo:hi])),
+               "first_step_ms": sp["step"][epoch * k],
+               "grad_allreduce_ms": float(np.median(
+                   sp["mesh.grad_allreduce"][lo:hi])),
+               "bn_allreduce_ms": float(np.median(bn[lo:hi])),
+               "memory_allocated": res["w0"]["epochs"][epoch][
+                   "memory_allocated"]}
+        if epoch:
+            end = sp["mc_barrier_start"][epoch] + sp["mc_barrier"][epoch]
+            row["barrier_to_first_step_ms"] = sp["step_start"][epoch * k] \
+                - end
+            row["rebuild_ms"] = sp["mesh.rebuild"][epoch - 1]
+        out["epochs"].append(row)
+        print(f"mesh {MESH_MODEL} {MESH_DTYPE} zero1+fsdp epoch {epoch} "
+              f"workers={workers} step_ms={row['step_ms']:.3f} (median of "
+              f"steps 2-{k}) first_step_ms={row['first_step_ms']:.3f} "
+              f"grad_allreduce_ms={row['grad_allreduce_ms']:.3f} "
+              f"bn_allreduce_ms_a_step={row['bn_allreduce_ms']:.3f} "
+              f"({MESH_BN_COLLECTIVES} collectives) "
+              + (f"barrier_to_first_step_ms="
+                 f"{row['barrier_to_first_step_ms']:.3f} rebuild_ms="
+                 f"{row['rebuild_ms']:.3f} " if epoch else "")
+              + f"bytes_held_between_steps={row['memory_allocated']} "
+              f"(worker 0's clock, {workers} processes share the card, "
+              f"gloo); gpu={gpu}", flush=True)
+    return out
+
+
+def _mesh_pair_files(variables, tmp) -> list:
+    """The inputs of (b) and the worker arguments that run it: the seeded
+    weights (JAX layout), 64 seeded images, a rank's 32 rows each."""
+    from torch_mesh_worker import flat_tree
+    np.savez(f"{tmp}/init.npz", **flat_tree(variables))
+    rng = np.random.RandomState(21)
+    x = rng.uniform(-1, 1, (64, IMAGE, IMAGE, 3)).astype(np.float32)
+    classes = 10 if MESH_MODEL == "resnet20" else 1000
+    y = rng.randint(0, classes, 64).astype(np.int32)
+    np.savez(f"{tmp}/pair.npz", x=x, y=y)
+    for r in range(2):
+        np.savez(f"{tmp}/data{r}.npz", x=x[32 * r:32 * r + 32],
+                 y=y[32 * r:32 * r + 32])
+    return ["--modes", "dp,zero1_fsdp,dp_f32", "--batch", "32",
+            "--init-npz", f"{tmp}/init.npz", "--data-npz",
+            f"{tmp}/data{{rank}}.npz", "--state-out",
+            f"{tmp}/r{{rank}}_{{mode}}.npz"]
+
+
+def _one_process_module(variables, dtype):
+    """A ``MESH_MODEL`` ``Module`` in this process from the seeded weights,
+    with the job's SGD."""
+    import torch
+
+    from dt_tpu_torch import models
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.training.module import Module
+    dev = torch.device(MESH_DEVICE)
+    mod = Module(models.create(
+        MESH_MODEL, device=dev, dtype=getattr(torch, dtype),
+        num_classes=10 if MESH_MODEL == "resnet20" else 1000),
+        optimizer="sgd", optimizer_params=dict(
+            learning_rate=0.025, momentum=0.9, weight_decay=1e-4),
+        device=dev)
+    mod.init_params()
+    load_jax_variables(mod.model, variables)
+    return mod
+
+
+def _one_process_step(variables, x, y, dtype):
+    """One step of ``MESH_MODEL`` over all of ``x`` in this process (cuDNN
+    deterministic): ``(the state after it as flat JAX-layout numpy, the
+    step's cross-entropy)``."""
+    import torch
+    from torch_mesh_worker import flat_tree
+
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.elastic.mesh_manager import snapshot_state
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mod = _one_process_module(variables, dtype)
+        metric = mod.fit(io.NDArrayIter(x, y, batch_size=x.shape[0]),
+                         num_epoch=1, eval_metric="ce")
+        blob = snapshot_state(mod.state)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return flat_tree({"params": blob["params"],
+                      "batch_stats": blob["batch_stats"],
+                      "mom": blob["opt_state"]["mom"]}), \
+        dict(metric.get_name_value())["cross-entropy"]
+
+
+def _batch_split_control(variables, x) -> dict:
+    """The eval-mode ``MESH_DTYPE`` logits of the first half of ``x`` at
+    that batch against the same rows inside the whole batch (cuDNN
+    deterministic; BN from running stats, so the rows do not meet): how
+    many differ and by how much.  A difference is the convolutions'
+    arithmetic changing with the batch size."""
+    import torch
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mod = _one_process_module(variables, MESH_DTYPE)
+        half = len(x) // 2
+        whole = mod.predict(x)[:half]
+        part = mod.predict(x[:half])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return {"differ": float(np.mean(whole != part)),
+            "max_abs": float(np.abs(whole - part).max()),
+            "max_abs_logit": float(np.abs(whole).max())}
+
+
+def _mesh_pair(res, variables, tmp, gpu) -> dict:
+    """(b): one step of the job's last world (2 ranks x 32 rows) from the
+    seeded weights, in bf16 plain and ZeRO-1 + FSDP and in f32 plain,
+    against one process's step over the 64 rows.  f32: the update, the
+    momentum and the running stats within ``TOL_STEP``, the step's
+    cross-entropy (the ranks' mean) within its ``loss`` limit.  bf16: one
+    sha256 for both modes and ranks, params within ``TOL_STEP``, running
+    stats and the cross-entropy within ``TOL_ASYNC_BF16``.  The f32
+    comparison is the one that holds the update: bf16's update is printed
+    beside two controls and not gated (one bf16 process moves it that far
+    between two orders of the same rows and against f32)."""
+    from torch_mesh_worker import flat_tree
+    lines = [ln for h in ("w0", "w1") for ln in res[h]["pair"]]
+    shas = {(ln["rank"], ln["mode"]): ln["sha256"] for ln in lines}
+    if len({v for (r, m), v in shas.items() if m != "dp_f32"}) != 1 or \
+            len({v for (r, m), v in shas.items() if m == "dp_f32"}) != 1:
+        raise AssertionError(f"mesh pair: ranks or modes differ {shas}")
+    mesh = {m: dict(np.load(f"{tmp}/r0_{m}.npz"))
+            for m in ("dp", "zero1_fsdp", "dp_f32")}
+    for key in mesh["dp"]:
+        if not np.array_equal(mesh["dp"][key], mesh["zero1_fsdp"][key]):
+            raise AssertionError(f"mesh pair: ZeRO-1 + FSDP differs from "
+                                 f"plain data parallelism at {key}")
+    with np.load(f"{tmp}/pair.npz") as z:
+        x, y = z["x"], z["y"]
+    one, one_loss = {}, {}
+    for dt in (MESH_DTYPE, "float32"):
+        one[dt], one_loss[dt] = _one_process_step(variables, x, y, dt)
+    # the controls: one bf16 process over the same rows in another order,
+    # and the batch size's own effect on the bf16 forward
+    perm = np.random.RandomState(22).permutation(len(x))
+    again, _ = _one_process_step(variables, x[perm], y[perm], MESH_DTYPE)
+    split = _batch_split_control(variables, x)
+    w0 = {k: np.asarray(v, np.float64) for k, v in flat_tree(
+        {"params": variables["params"]}).items()}
+
+    def leaves(state, coll, update=False):
+        return {k: np.asarray(state[k], np.float64).ravel()
+                - (w0[k].ravel() if update else 0.0)
+                for k in sorted(one["float32"]) if k.startswith(coll + "/")}
+
+    def norm_rel(a, b):  # over dicts of leaves, as one vector
+        return float(np.sqrt(sum(np.square(a[k] - b[k]).sum() for k in b)
+                             / sum(np.square(b[k]).sum() for k in b)))
+
+    def max_rel(a, b):
+        return float(max(np.abs(a[k] - b[k]).max() for k in b)
+                     / max(np.abs(b[k]).max() for k in b))
+
+    e = {}
+    for key, dt, m in (("float32", "float32", "dp_f32"),
+                       ("bfloat16", MESH_DTYPE, "dp")):
+        a, b = mesh[m], one[dt]
+        sa, sb = leaves(a, "batch_stats"), leaves(b, "batch_stats")
+        loss = np.mean([ln["loss"] for ln in lines if ln["mode"] == m])
+        e[key] = {"update": norm_rel(leaves(a, "params", True),
+                                     leaves(b, "params", True)),
+                  "params": norm_rel(leaves(a, "params"),
+                                     leaves(b, "params")),
+                  "mom": norm_rel(leaves(a, "mom"), leaves(b, "mom")),
+                  "stats": norm_rel(sa, sb), "stats_max": max_rel(sa, sb),
+                  "loss": abs(loss - one_loss[dt]) / abs(one_loss[dt])}
+    u1 = leaves(one[MESH_DTYPE], "params", True)
+    ub = leaves(mesh["dp"], "params", True)
+    by_leaf = np.array([norm_rel({0: ub[k]}, {0: u1[k]}) for k in u1])
+    ctrl = {"reordered": norm_rel(leaves(again, "params", True), u1),
+            "vs_f32": norm_rel(u1, leaves(one["float32"], "params", True)),
+            "leaves": [float(by_leaf.min()), float(np.median(by_leaf)),
+                       float(by_leaf.max())]}
+    held = {ln["mode"]: ln["memory_allocated"] for ln in res["w0"]["pair"]}
+    print(f"mesh pair (b): one step of the job's last world, 2 ranks x 32 "
+          f"rows, against one process on the 64 rows, from the seeded "
+          f"weights: f32 update_rel_err={e['float32']['update']:.3e} (tol "
+          f"{TOL_STEP['flat_g']}) mom={e['float32']['mom']:.3e} (tol "
+          f"{TOL_STEP['mom']}) running_stats={e['float32']['stats']:.3e} "
+          f"(tol {TOL_STEP['stats']}) ce_rel={e['float32']['loss']:.3e} "
+          f"(tol {TOL_STEP['loss']}); bf16 (plain = ZeRO-1 + FSDP, one "
+          f"sha256) params={e['bfloat16']['params']:.3e} (tol "
+          f"{TOL_STEP['params']}) running_stats_max_rel="
+          f"{e['bfloat16']['stats_max']:.3e} (tol "
+          f"{TOL_ASYNC_BF16['stats']}) ce_rel={e['bfloat16']['loss']:.3e} "
+          f"(tol {TOL_ASYNC_BF16['loss']}) update_norm_rel="
+          f"{e['bfloat16']['update']:.3e} (a leaf's min / median / max "
+          f"{' / '.join(f'{v:.3e}' for v in ctrl['leaves'])} over "
+          f"{len(by_leaf)} leaves; not gated; one bf16 process "
+          f"moves its update {ctrl['reordered']:.3e} over the rows "
+          f"reordered and {ctrl['vs_f32']:.3e} against f32; the first "
+          f"{len(x) // 2} rows' eval logits at batch {len(x) // 2} against "
+          f"batch {len(x)}: {split['differ']:.3%} differ, max abs "
+          f"{split['max_abs']:.3e} of {split['max_abs_logit']:.3f}); bytes "
+          f"held after the step {json.dumps(held)}; gpu={gpu}", flush=True)
+    bad = []
+    if not (e["float32"]["update"] <= TOL_STEP["flat_g"]
+            and e["float32"]["mom"] <= TOL_STEP["mom"]
+            and e["float32"]["stats"] <= TOL_STEP["stats"]
+            and e["float32"]["loss"] <= TOL_STEP["loss"]):
+        bad.append(f"f32 {e['float32']}")
+    if not (e["bfloat16"]["params"] <= TOL_STEP["params"]
+            and e["bfloat16"]["stats_max"] <= TOL_ASYNC_BF16["stats"]
+            and e["bfloat16"]["loss"] <= TOL_ASYNC_BF16["loss"]):
+        bad.append(f"bf16 {e['bfloat16']}")
+    if bad:
+        raise AssertionError(f"mesh pair against one process: {bad}")
+    return {"errs": e, "controls": ctrl, "batch_split": split,
+            "held": held}
+
+
+def mesh_phase(gpu, variables) -> dict:
+    """Phase 20, the elastic mesh (see ``MESH_ARGS``): (a) the job 2 -> 3
+    -> 2 against the port's scheduler, the joiner released by the launch
+    callback and bootstrapping from rank 0's snapshot, the removed worker
+    leaving through ``depart``; gates: one sha256 of the whole state over
+    the live ranks at every epoch end, the survivors' ``mesh_rebuilds`` 2,
+    the joiner's first state rank 0's epoch-0 one, 53 ``bn_sums``, no
+    ``bn_stats`` and 53 ``bn_act`` a rank-step, 53 ``bn_act`` a rank's
+    score, ``sharding_report`` the plain rule's at n 2 and 3, 106 BN
+    collectives and one gradient collective a step on worker 0; (b)
+    :func:`_mesh_pair`.  Prints the backend, step ms per membership, the
+    collectives' ms, barrier-to-step ms after each rebuild and the bytes
+    held with ZeRO-1 + FSDP and without.  The survivors run (b) after the
+    job, over its last world."""
+    import shutil
+    import tempfile
+
+    import torch_mesh_job as mjob
+    tmp = tempfile.mkdtemp(prefix="dt_mesh_")
+    try:
+        pair = _mesh_pair_files(variables, tmp)
+        res, audit, launched, wall = mjob.elastic_job(
+            tmp, mesh_args() + MESH_ARGS + pair, MESH_TIMEOUT,
+            env={"DT_OBS": "1", "DT_OBS_RING": "65536"})
+        print(f"mesh job wall_s={wall:.1f} (with (b)'s steps: "
+              f"{sum(ln['seconds'] for ln in res['w0']['pair']):.1f} s) "
+              f"gpu={gpu}", flush=True)
+        launches = _mesh_gates(res, audit, launched, gpu)
+        out = _mesh_report(res, gpu)
+        out["pair"] = _mesh_pair(res, variables, tmp, gpu)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(launches=launches, wall_s=wall)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4267,6 +4700,10 @@ def main() -> int:
     gateway = gateway_phase(gpu)
     print(f"phase gateway done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()  # the mesh's ranks are processes on the card
+    mesh = mesh_phase(gpu, variables)
+    print(f"phase mesh done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -4317,6 +4754,8 @@ def main() -> int:
                 obs["armed"]["launches"]["score_bn_act"]
             # phase 19: every bucket forward behind the two gateways
             kernels[-1]["gateway_launches"] = gateway["launches"]
+            # phase 20: every rank's score over the mesh
+            kernels[-1]["mesh_launches"] = mesh["launches"]["score_bn_act"]
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -4337,7 +4776,16 @@ def main() -> int:
             "library_ms": tot["library_ms"],
             "redesigned_in": 4, "pass1_ms": tot["pass1_ms"],
             "pass1_bound_ms": tot["pass1_bound_ms"],
-            "pass1_kernels_a_call": tot["kernels_a_call"]})
+            "pass1_kernels_a_call": tot["kernels_a_call"],
+            # the mesh's pass 1 (dt_bn_sums of the same source), held and
+            # timed at the same shapes, summed over one forward's calls
+            "bn_sums": {"ms": tot["sums_ms"],
+                        "plain_ms": tot["sums_plain_ms"],
+                        "bound_ms": tot["sums_bound_ms"],
+                        "bound_by": "bytes",
+                        "max_abs_err": tot["sums_max_abs_err"],
+                        "library_ms": None,
+                        "kernels_a_call": tot["sums_kernels_a_call"]}})
         if dtype == torch.bfloat16:  # every BN of every fit step
             kernels[-1]["fit_launches"] = fit_counts["bn_stats"]
             kernels[-1]["elastic_launches"] = \
@@ -4348,6 +4796,21 @@ def main() -> int:
             kernels[-1]["resume_launches"] = outage["launches"]["bn_stats"]
             kernels[-1]["policy_launches"] = policy["launches"]["bn_stats"]
             kernels[-1]["obs_launches"] = obs["armed"]["launches"]["bn_stats"]
+            # phase 20: pass 1 is bn_sums on the mesh, never bn_stats
+            kernels[-1]["mesh_launches"] = {
+                k: mesh["launches"][k] for k in ("bn_sums", "bn_stats",
+                                                 "bn_act")}
+    sums = train_kernels[torch.bfloat16]
+    kernels.append({  # the mesh's pass 1 (phase 20), its own entry point
+        "name": "fused_bn_train.bn_sums[bfloat16]", "route": "cuda",
+        "source": "dt_tpu_torch/csrc/bn_train.cu",
+        "replaces": "dt_tpu/ops/pallas/kernels.py:101",
+        "launches": mesh["launches"]["bn_sums"],
+        "max_abs_err": sums["sums_max_abs_err"], "ms": sums["sums_ms"],
+        "plain_ms": sums["sums_plain_ms"], "bound_ms": sums["sums_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "path": "mesh (phase 20)",
+        "kernels_a_call": sums["sums_kernels_a_call"]})
     for name, line in (("quantize_2bit", 233), ("dequantize_2bit", 284)):
         kernels.append({
             "name": name, "route": "cuda",

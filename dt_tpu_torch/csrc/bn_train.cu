@@ -1,6 +1,11 @@
 // Training BatchNorm, pass 1: per-channel batch mean and variance over the
 // (rows, C) view of an NHWC activation, as float32:
 //   mean = sum(x) / n,  var = max(sum(x*x) / n - mean*mean, 0).
+// Its second entry point, dt_bn_sums, stops one step short: it writes each
+// channel's f32 sum and sum of squares over the local rows, the values the
+// last block would finalize, so that a batch sharded over processes is
+// normalized with the global batch's statistics once the sums of every
+// rank are added (ops/kernels.py `_SyncBNTrain`).
 //
 // Replaces the Pallas TPU kernel `_bn_partials_kernel` and the reduction
 // after it in `_bn_train_fwd_impl` (dt_tpu/ops/pallas/kernels.py:101,107-140),
@@ -131,7 +136,8 @@ __device__ __forceinline__ void load_partial(const float* p, bool valid,
 // = 0, 1, ...: the grid's blocks read neighbouring rows at the same time.
 // With more than one row block, part holds row_blocks x C sums, then as
 // many sums of squares, and tickets one zeroed counter a slice, left zeroed.
-template <typename T, int VEC>
+// SUMS: write sum(x) and sum(x*x) into mean and var instead of finalizing.
+template <typename T, int VEC, bool SUMS>
 __global__ void __launch_bounds__(kThreads)
     bn_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
                     unsigned* __restrict__ tickets, float* __restrict__ mean,
@@ -233,6 +239,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (threadIdx.y != 0 || !live) return;
+  if constexpr (SUMS) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      mean[cv * VEC + k] = a.s[k];
+      var[cv * VEC + k] = a.q[k];
+    }
+    return;
+  }
   const float n = (float)rows;
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
@@ -244,15 +258,48 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool SUMS>
 cudaError_t launch(const void* x, float* part, unsigned* tickets, float* mean,
                    float* var, int64_t rows, int64_t channels, int bx, int by,
                    int slices, int row_blocks, cudaStream_t stream) {
-  bn_stats_kernel<T, VEC><<<dim3((unsigned)slices, (unsigned)row_blocks),
+  bn_stats_kernel<T, VEC, SUMS><<<dim3((unsigned)slices, (unsigned)row_blocks),
                             dim3(bx, by), 0, stream>>>(
       static_cast<const T*>(x), part, tickets, mean, var, rows,
       (int)(channels / VEC));
   return cudaGetLastError();
+}
+
+template <bool SUMS>
+int dispatch(const void* x, void* scratch, void* tickets, void* out0,
+             void* out1, int64_t rows, int64_t channels, int dtype, int vec,
+             int bx, int by, int slices, int row_blocks, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(scratch);
+  unsigned* t = static_cast<unsigned*>(tickets);
+  float* m = static_cast<float*>(out0);
+  float* v = static_cast<float*>(out1);
+  const int want_vec = dtype == 0 ? 4 : 8;
+  if (rows < 1 || channels < 1 || bx < 1 || by < 1 || bx * by > kThreads ||
+      slices < 1 || row_blocks < 1 || row_blocks > 65535 ||
+      channels % vec != 0 || (int64_t)bx * slices * vec < channels ||
+      (vec != 1 && (vec != want_vec || !dt::aligned16(x))))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    return vec == 1
+               ? launch<float, 1, SUMS>(x, part, t, m, v, rows, channels, bx,
+                                        by, slices, row_blocks, s)
+               : launch<float, 4, SUMS>(x, part, t, m, v, rows, channels, bx,
+                                        by, slices, row_blocks, s);
+  }
+  if (dtype == 1) {
+    return vec == 1 ? launch<__nv_bfloat16, 1, SUMS>(x, part, t, m, v, rows,
+                                                     channels, bx, by, slices,
+                                                     row_blocks, s)
+                    : launch<__nv_bfloat16, 8, SUMS>(x, part, t, m, v, rows,
+                                                     channels, bx, by, slices,
+                                                     row_blocks, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -271,32 +318,18 @@ extern "C" {
 int dt_bn_stats(const void* x, void* scratch, void* tickets, void* mean,
                 void* var, int64_t rows, int64_t channels, int dtype, int vec,
                 int bx, int by, int slices, int row_blocks, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(scratch);
-  unsigned* t = static_cast<unsigned*>(tickets);
-  float* m = static_cast<float*>(mean);
-  float* v = static_cast<float*>(var);
-  const int want_vec = dtype == 0 ? 4 : 8;
-  if (rows < 1 || channels < 1 || bx < 1 || by < 1 || bx * by > kThreads ||
-      slices < 1 || row_blocks < 1 || row_blocks > 65535 ||
-      channels % vec != 0 || (int64_t)bx * slices * vec < channels ||
-      (vec != 1 && (vec != want_vec || !dt::aligned16(x))))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    return vec == 1 ? launch<float, 1>(x, part, t, m, v, rows, channels, bx,
-                                       by, slices, row_blocks, s)
-                    : launch<float, 4>(x, part, t, m, v, rows, channels, bx,
-                                       by, slices, row_blocks, s);
-  }
-  if (dtype == 1) {
-    return vec == 1 ? launch<__nv_bfloat16, 1>(x, part, t, m, v, rows,
-                                               channels, bx, by, slices,
-                                               row_blocks, s)
-                    : launch<__nv_bfloat16, 8>(x, part, t, m, v, rows,
-                                               channels, bx, by, slices,
-                                               row_blocks, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(x, scratch, tickets, mean, var, rows, channels,
+                         dtype, vec, bx, by, slices, row_blocks, stream);
+}
+
+// As dt_bn_stats, with the (channels,) float32 sum(x) and sum(x*x) over
+// the rows written into sum and sumsq, not finalized.
+int dt_bn_sums(const void* x, void* scratch, void* tickets, void* sum,
+               void* sumsq, int64_t rows, int64_t channels, int dtype,
+               int vec, int bx, int by, int slices, int row_blocks,
+               void* stream) {
+  return dispatch<true>(x, scratch, tickets, sum, sumsq, rows, channels,
+                        dtype, vec, bx, by, slices, row_blocks, stream);
 }
 
 }  // extern "C"

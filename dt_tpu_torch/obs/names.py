@@ -258,6 +258,13 @@ PORT_NAMES: Mapping[str, Tuple[str, str]] = {
                          "dist_async step"),
     "pipeline.grad_bytes": ("counter", "gradient bytes the overlap "
                                        "pipeline put on the wire"),
+    "mesh.bn_allreduce": ("span", "one cross-rank BN collective of a mesh "
+                                  "step (forward sums or backward sums), "
+                                  "the card's queue drained first"),
+    "mesh.grad_allreduce": ("span", "the gradient average of one mesh step "
+                                    "over the process group, all buckets"),
+    "mesh.rebuild": ("span", "one MeshManager.rebuild: snapshot, teardown, "
+                             "initialize, restore"),
 }
 
 

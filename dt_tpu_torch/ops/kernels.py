@@ -15,7 +15,10 @@ bound by bytes; their least time is the bytes they must move over the H100's
   the reduction after it (``kernels.py:101,107-140``): per-channel batch mean
   and ``E[x^2] - mean^2`` variance (clamped at 0), pass 1 of
   ``fused_bn_train``, in one launch whose geometry :func:`stats_geometry`
-  picks.  Deterministic: no float atomics.
+  picks.  Deterministic: no float atomics.  ``bn_sums``, the same launch
+  stopped short of the finalize, writes each channel's f32 sum and sum of
+  squares: pass 1 of a batch sharded over processes, whose sums cross the
+  ranks before the mean and variance are formed (:func:`cross_rank_bn`).
 - ``quantize_2bit`` and ``dequantize_2bit`` (``csrc/quant2.cu``) replace
   ``_quant2_kernel`` and ``_dequant2_kernel`` (``kernels.py:233,284``): the
   2-bit error-feedback gradient codec, 16 codes per 32-bit word, bit-exact
@@ -38,13 +41,16 @@ signature here.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from dt_tpu_torch.obs import device as obs_device
+from dt_tpu_torch.obs import trace as obs_trace
 from dt_tpu_torch.ops import _build
 from dt_tpu_torch.parallel.codec_np import CODES_PER_WORD
 
@@ -57,7 +63,8 @@ _SIGNATURES = {
     "bn_act": {"dt_bn_act": [_V, _V, _V, _V, _I64, _I64, _INT, _INT, _V]},
     # x, scratch, tickets, mean, var; rows, C; dtype, vec, bx, by, slices,
     # row blocks; stream
-    "bn_train": {"dt_bn_stats": [_V] * 5 + [_I64] * 2 + [_INT] * 6 + [_V]},
+    "bn_train": {"dt_bn_stats": [_V] * 5 + [_I64] * 2 + [_INT] * 6 + [_V],
+                 "dt_bn_sums": [_V] * 5 + [_I64] * 2 + [_INT] * 6 + [_V]},
     "quant2": {
         "dt_quantize_2bit": [_V, _V, _V, _V, _I64, ctypes.c_float, _V],
         "dt_dequantize_2bit": [_V, _V, _I64, ctypes.c_float, _V]},
@@ -308,6 +315,40 @@ def bn_stats_plain(x2: torch.Tensor):
     return mean, torch.where(var < 0, torch.zeros_like(var), var)
 
 
+def _pass1(x: torch.Tensor, fn: str):
+    """One pass-1 launch of ``fn`` (``dt_bn_stats`` or ``dt_bn_sums``) on a
+    CUDA ``x``'s ``(rows, C)`` view: its two ``(C,)`` f32 outputs."""
+    x2 = rows_view(x, "fused_bn_train")
+    rows, c = x2.shape
+    geo = stats_geometry(rows, c, x.element_size(), x2.data_ptr() % 16 == 0)
+    if geo.slices > _MAX_TICKETS:
+        raise ValueError(f"fused_bn_train: a ({rows}, {c}) input needs "
+                         f"{geo.slices} tickets, more than the "
+                         f"{_MAX_TICKETS} kept")
+    scratch = torch.empty(geo.partial_bytes(c) // 4, dtype=torch.float32,
+                          device=x.device)
+    out0 = torch.empty(c, dtype=torch.float32, device=x.device)
+    out1 = torch.empty(c, dtype=torch.float32, device=x.device)
+    _launch("fused_bn_train", "bn_train", fn, x.device,
+            x2.data_ptr(), scratch.data_ptr(),
+            _stats_tickets(x.device).data_ptr(), out0.data_ptr(),
+            out1.data_ptr(), rows, c, _DTYPE_CODES[x.dtype], *geo, sig=(x2,))
+    return out0, out1
+
+
+def _check_pass1(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s ``(rows, C)`` view; raises for a dtype or a shape pass 1
+    does not take."""
+    x2 = rows_view(x, "fused_bn_train")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError("fused_bn_train: dtype must be float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if x2.shape[0] == 0 or x2.shape[1] == 0:
+        raise ValueError("fused_bn_train: batch statistics of an empty "
+                         f"input {tuple(x.shape)}")
+    return x2
+
+
 def bn_stats(x: torch.Tensor):
     """Pass 1's wrapper: per-channel f32 batch ``(mean, var)`` of ``x``
     (channels_last NCHW or contiguous ``(rows, C)``, float32 or bfloat16).
@@ -318,29 +359,10 @@ def bn_stats(x: torch.Tensor):
     on another stream than the last call's waits for that stream first.
     Graph-safe once a call has run outside capture on the device; inside a
     capture the caller orders the streams."""
-    x2 = rows_view(x, "fused_bn_train")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError("fused_bn_train: dtype must be float32 or bfloat16, "
-                        f"got {x.dtype}")
-    rows, c = x2.shape
-    if rows == 0 or c == 0:
-        raise ValueError("fused_bn_train: batch statistics of an empty "
-                         f"input {tuple(x.shape)}")
+    x2 = _check_pass1(x)
     if not _on_cuda("fused_bn_train", x):
         return bn_stats_plain(x2)
-    geo = stats_geometry(rows, c, x.element_size(), x2.data_ptr() % 16 == 0)
-    if geo.slices > _MAX_TICKETS:
-        raise ValueError(f"fused_bn_train: a ({rows}, {c}) input needs "
-                         f"{geo.slices} tickets, more than the "
-                         f"{_MAX_TICKETS} kept")
-    scratch = torch.empty(geo.partial_bytes(c) // 4, dtype=torch.float32,
-                          device=x.device)
-    mean = torch.empty(c, dtype=torch.float32, device=x.device)
-    var = torch.empty(c, dtype=torch.float32, device=x.device)
-    _launch("fused_bn_train", "bn_train", "dt_bn_stats", x.device,
-            x2.data_ptr(), scratch.data_ptr(),
-            _stats_tickets(x.device).data_ptr(), mean.data_ptr(),
-            var.data_ptr(), rows, c, _DTYPE_CODES[x.dtype], *geo, sig=(x2,))
+    mean, var = _pass1(x, "dt_bn_stats")
     bn_stats.launches += 1
     return mean, var
 
@@ -348,11 +370,33 @@ def bn_stats(x: torch.Tensor):
 bn_stats.launches = 0
 
 
-def bn_train_backward(x, y, gy, gamma, mean, var, eps: float, relu: bool):
-    """The backward of training BN (``_bn_train_bwd``, ``kernels.py:201-219``)
-    in f32, with the ReLU's mask (``y > 0``) applied to ``gy`` first when the
-    ReLU was fused in.  Returns ``(dx in x's dtype and layout, dgamma,
-    dbeta)``."""
+def bn_sums_plain(x2: torch.Tensor):
+    """The plain version of :func:`bn_sums` on the ``(rows, C)`` view: f32
+    ``(sum(x), sum(x*x))`` over the rows."""
+    x32 = x2.float()
+    return x32.sum(0), (x32 * x32).sum(0)
+
+
+def bn_sums(x: torch.Tensor):
+    """Pass 1 stopped short of the finalize: per-channel f32 ``(sum(x),
+    sum(x*x))`` over ``x``'s rows (``x`` as for :func:`bn_stats`).  A CUDA
+    tensor launches ``csrc/bn_train.cu``'s ``dt_bn_sums`` once (the same
+    geometry and tickets as :func:`bn_stats`) and counts the launch in
+    ``bn_sums.launches``; a CPU tensor runs :func:`bn_sums_plain`."""
+    x2 = _check_pass1(x)
+    if not _on_cuda("fused_bn_train", x):
+        return bn_sums_plain(x2)
+    s, q = _pass1(x, "dt_bn_sums")
+    bn_sums.launches += 1
+    return s, q
+
+
+bn_sums.launches = 0
+
+
+def _bwd_sums(x, y, gy, mean, var, eps: float, relu: bool):
+    """The backward's local parts: ``(x2, gy32 with the ReLU's mask, x_hat,
+    inv, dbeta = sum(gy), dgamma = sum(gy * x_hat))`` over ``x``'s rows."""
     if gy.dim() == 4:
         gy = gy.contiguous(memory_format=torch.channels_last)
     else:
@@ -362,13 +406,27 @@ def bn_train_backward(x, y, gy, gamma, mean, var, eps: float, relu: bool):
     if relu:
         gy32 = torch.where(rows_view(y, "fused_bn_train") > 0, gy32,
                            torch.zeros_like(gy32))
-    n = x2.shape[0]
     inv = torch.rsqrt(var + eps)
     x_hat = (x2.float() - mean) * inv
-    dbeta = gy32.sum(0)
-    dgamma = (gy32 * x_hat).sum(0)
+    return x2, gy32, x_hat, inv, gy32.sum(0), (gy32 * x_hat).sum(0)
+
+
+def _bn_dx(x, gamma, gy32, x_hat, inv, dbeta, dgamma, n):
+    """``dx`` of training BN over ``n`` rows in all, from the sums over
+    those rows, in ``x``'s dtype and layout."""
     dx = (gamma.float() * inv / n) * (n * gy32 - dbeta - x_hat * dgamma)
-    return _like_input(dx.to(x.dtype), x), dgamma, dbeta
+    return _like_input(dx.to(x.dtype), x)
+
+
+def bn_train_backward(x, y, gy, gamma, mean, var, eps: float, relu: bool):
+    """The backward of training BN (``_bn_train_bwd``, ``kernels.py:201-219``)
+    in f32, with the ReLU's mask (``y > 0``) applied to ``gy`` first when the
+    ReLU was fused in.  Returns ``(dx in x's dtype and layout, dgamma,
+    dbeta)``."""
+    x2, gy32, x_hat, inv, dbeta, dgamma = _bwd_sums(x, y, gy, mean, var,
+                                                    eps, relu)
+    dx = _bn_dx(x, gamma, gy32, x_hat, inv, dbeta, dgamma, x2.shape[0])
+    return dx, dgamma, dbeta
 
 
 class _FusedBNTrain(torch.autograd.Function):
@@ -390,6 +448,86 @@ class _FusedBNTrain(torch.autograd.Function):
         return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None, None
 
 
+# the process group whose ranks hold the parts of one batch, inside
+# ``cross_rank_bn`` (None: every batch is this process's alone)
+_bn_group = None
+
+
+@contextlib.contextmanager
+def cross_rank_bn(group):
+    """Within the block, training BN (:func:`fused_bn_train`) normalizes
+    each rank's part of a batch sharded over ``group`` (a
+    ``torch.distributed`` process group) with the whole batch's statistics,
+    as GSPMD reduces the batch mean over the sharded axis.  ``None`` or a
+    group of one rank leaves the one-device path as it is."""
+    global _bn_group
+    prev = _bn_group
+    _bn_group = group if group is not None and \
+        dist.get_world_size(group) > 1 else None
+    try:
+        yield
+    finally:
+        _bn_group = prev
+
+
+def _group_sum(buf: torch.Tensor, group, span: str) -> None:
+    """Sum ``buf`` over ``group``'s ranks in place.  With tracing on, the
+    card's queue is drained first, so the span ``span`` times the
+    collective alone."""
+    tr = obs_trace.tracer()
+    t0 = None
+    if tr.on():
+        if buf.is_cuda:
+            torch.cuda.current_stream(buf.device).synchronize()
+        t0 = tr.now()
+    dist.all_reduce(buf, group=group)
+    if t0 is not None:
+        tr.complete_span(span, t0)
+
+
+class _SyncBNTrain(torch.autograd.Function):
+    """Training BN over a batch whose rows are spread over a process
+    group's ranks.  Forward: :func:`bn_sums`, one all-reduce of ``[S, Q,
+    n]``, then ``mean = S / N`` and ``var = max(Q / N - mean^2, 0)`` over
+    the global count ``N`` (``kernels.py:135-140``) and pass 2
+    (:func:`bn_act`) as on one device.  Backward: the local ``sum(gy)`` and
+    ``sum(gy * x_hat)``, one all-reduce, then ``dx`` with the global sums
+    and ``N``; ``dgamma``/``dbeta`` stay the local sums, which the mean of
+    the ranks' gradients turns into the global batch's."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, relu, group):
+        s, q = bn_sums(x)
+        rows = rows_view(x, "fused_bn_train").shape[0]
+        buf = torch.cat([s, q, torch.full((1,), float(rows),
+                                          dtype=torch.float32,
+                                          device=s.device)])
+        _group_sum(buf, group, "mesh.bn_allreduce")
+        c = s.shape[0]
+        n = buf[2 * c]
+        mean = buf[:c] / n
+        var = buf[c:2 * c] / n - mean * mean
+        var = torch.where(var < 0, torch.zeros_like(var), var)
+        scale, bias = bn_scale_bias(gamma, beta, mean, var, eps, x.dtype)
+        y = bn_act(x, scale, bias, relu)
+        ctx.save_for_backward(x, gamma, mean, var, y if relu else None, n)
+        ctx.eps, ctx.relu, ctx.group = eps, relu, group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, gamma, mean, var, y, n = ctx.saved_tensors
+        _, gy32, x_hat, inv, dbeta, dgamma = _bwd_sums(
+            x, y, gy, mean, var, ctx.eps, ctx.relu)
+        c = dbeta.shape[0]
+        buf = torch.cat([dbeta, dgamma])
+        _group_sum(buf, ctx.group, "mesh.bn_allreduce")
+        dx = _bn_dx(x, gamma, gy32, x_hat, inv, buf[:c], buf[c:], n)
+        return (dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None,
+                None, None)
+
+
 def fused_bn_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    running_mean: torch.Tensor, running_var: torch.Tensor, *,
                    momentum: float = 0.9, eps: float = 1e-5,
@@ -400,7 +538,9 @@ def fused_bn_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     (:func:`bn_act`), as the TPU wrapper does (``kernels.py:107-165``).
 
     ``x`` as for :func:`fused_bn_inference`; ``gamma``/``beta`` f32 ``(C,)``,
-    differentiable (backward: :func:`bn_train_backward`).  The running stats
+    differentiable (backward: :func:`bn_train_backward`).  Inside
+    :func:`cross_rank_bn` the statistics are those of the batch sharded over
+    the group's ranks (:class:`_SyncBNTrain`).  The running stats
     are updated in place, under no_grad, to ``momentum * old + (1 -
     momentum) * batch`` in f32.  Returns ``(y, running_mean, running_var)``.
     """
@@ -411,7 +551,11 @@ def fused_bn_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         if tuple(t.shape) != (c,):
             raise ValueError(f"fused_bn_train: {name} must have shape "
                              f"({c},), got {tuple(t.shape)}")
-    y, mean, var = _FusedBNTrain.apply(x, gamma, beta, eps, relu)
+    if _bn_group is None:
+        y, mean, var = _FusedBNTrain.apply(x, gamma, beta, eps, relu)
+    else:
+        y, mean, var = _SyncBNTrain.apply(x, gamma, beta, eps, relu,
+                                          _bn_group)
     with torch.no_grad():
         running_mean.copy_(running_mean * momentum + mean * (1.0 - momentum))
         running_var.copy_(running_var * momentum + var * (1.0 - momentum))

@@ -1,4 +1,4 @@
-"""Module: the high-level training loop, on one device (counterpart of
+"""Module: the high-level training loop (counterpart of
 ``dt_tpu/training/module.py``).
 
 Reference: ``python/mxnet/module/base_module.py:497-623`` (fit),
@@ -51,15 +51,34 @@ answers, through a pinned buffer and a side stream (the next step's work
 waits on that copy's event).  BN stats stay worker-local between the
 epoch-end snapshots; rank 0 logs the staleness each epoch.
 
+The mesh sync mode across processes (``module.py:755-810``, the JAX
+package's normal path): the Module trains over a ``parallel.mesh.Mesh``,
+the ranks of a ``torch.distributed`` process group, each rank's batch its
+part of the global batch.  ``Module(mesh=...)`` takes a formed mesh;
+``Module(mesh_manager=...)`` (``elastic.mesh_manager.MeshManager``) forms
+the world at the first membership barrier and rebuilds it, from a host
+snapshot, whenever the members or this worker's rank change (counted in
+``mesh_rebuilds``; a share-only policy rebalance re-shards the data,
+counted in ``resharded``, and rebuilds nothing); a removed worker attends
+the old world's last collective through ``depart``.  A mesh step runs the
+forward and backward inside ``ops.kernels.cross_rank_bn``, so every
+training BatchNorm normalizes with the global batch's statistics, then
+averages the flat gradient over the group in buckets and applies it:
+whole, or on this rank's slices under ``shard_opt_state`` (ZeRO-1) and
+``shard_params`` (FSDP) through ``parallel.zero.ShardPlan``, whose
+coverage is ``sharding_report``.  The ranks' local batches must be equal
+(the JAX package's global array needs equal parts): unequal ones raise on
+every rank.
+
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP item: a ``mesh_manager`` and the mesh sync mode across processes
-(Queue 1 item 4) and ``remat=True`` (item 6).  ``shard_opt_state``/``shard_params`` shard
-nothing on one device, as in the JAX package, so they are accepted and
-``sharding_report`` stays empty.
+ROADMAP item: a ``model`` axis and ``remat=True`` (Queue 1 item 6).  On one
+device ``shard_opt_state``/``shard_params`` shard nothing, as in the JAX
+package, and ``sharding_report`` stays empty.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import logging
 import time
@@ -71,20 +90,26 @@ import torch
 from dt_tpu_torch import config as config_lib
 from dt_tpu_torch import models as models_lib
 from dt_tpu_torch.config import resolve_device
+from dt_tpu_torch.elastic.mesh_manager import snapshot_state
 from dt_tpu_torch.obs import blackbox as obs_blackbox
 from dt_tpu_torch.obs import device as obs_device
 from dt_tpu_torch.obs import metrics as obs_metrics
 from dt_tpu_torch.obs import trace as obs_trace
+from dt_tpu_torch.ops import kernels
 from dt_tpu_torch.ops.losses import softmax_cross_entropy
 from dt_tpu_torch.parallel import kvstore as kvstore_lib
+from dt_tpu_torch.parallel import mesh as mesh_lib
 from dt_tpu_torch.training import callbacks as callbacks_lib
 from dt_tpu_torch.training import metrics as metrics_lib
 from dt_tpu_torch.training.step import apply_step, grad_step
+from dt_tpu_torch.training.step import load_stats
 from dt_tpu_torch.training.train_state import TrainState
 
 logger = logging.getLogger("dt_tpu_torch")
 
 _ITEM = "is not ported yet; see ROADMAP.md, Queue 1 "
+# bytes of the flat gradient one mesh all-reduce carries
+_MESH_BUCKET_BYTES = 25 << 20
 
 
 def softmax_ce_loss(logits, labels):
@@ -243,7 +268,7 @@ class _AsyncMaster:
 
 class Module:
     """Model + loss + optimizer + kvstore, with ``fit``/``score``/
-    ``predict``, on one device.
+    ``predict``, on one device or over a mesh of processes.
 
     ``model`` is a port model (``models.create``); it is moved to
     ``device`` (default ``"cuda"``; without a GPU that raises unless
@@ -269,14 +294,15 @@ class Module:
                 "Module(remat=True) is not ported yet (a recomputed forward "
                 "would move the BN running stats twice); see ROADMAP.md, "
                 "Queue 1 item 6")
-        if mesh_manager is not None:
-            raise NotImplementedError(
-                "Module(mesh_manager=...) is not ported yet; see ROADMAP.md, "
-                "Queue 1 item 4 (elastic mesh and survivability)")
         if mesh is not None:
-            raise NotImplementedError(
-                "Module(mesh=...): the port's Module runs on one device "
-                "(the parallel layer is ROADMAP.md, Queue 1 item 6)")
+            if dict(getattr(mesh, "shape", {})).get("model", 1) != 1:
+                raise NotImplementedError(
+                    "Module(mesh=...) with a model axis: tensor parallelism "
+                    "is not ported yet; see ROADMAP.md, Queue 1 item 6")
+            if not isinstance(mesh, mesh_lib.Mesh):
+                raise TypeError("Module(mesh=...) takes a "
+                                "dt_tpu_torch.parallel.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.device = resolve_device(device)
@@ -302,8 +328,19 @@ class Module:
         self.seed = seed
         self.grad_accum = int(grad_accum)
         self.state: Optional[TrainState] = None
-        # ZeRO/FSDP coverage; nothing is sharded on one device
+        self._mesh = mesh
+        self.mesh_manager = mesh_manager
+        self.shard_opt_state = shard_opt_state
+        self.shard_params = shard_params
+        # {"opt_state"|"params": (fraction, sharded_bytes, total_bytes)} of
+        # the ZeRO/FSDP plan over a mesh of more than one rank
         self.sharding_report: dict = {}
+        # how often fit rebuilt the world (members or rank changed) and
+        # re-sharded the data (any change, a share-only rebalance too)
+        self.mesh_rebuilds = 0
+        self.resharded = 0
+        # the local batch rows of the epoch's first mesh step
+        self._mesh_rows: Optional[int] = None
         # "mesh": the step on this device; "host": the gradient and BN
         # stats averaged across worker processes through the elastic
         # controller (the two-phase step of module.py:916-991)
@@ -328,6 +365,41 @@ class Module:
     # ------------------------------------------------------------------
     # Binding / init
     # ------------------------------------------------------------------
+
+    @property
+    def mesh(self) -> mesh_lib.Mesh:
+        """The data mesh this Module trains over: the one it was given or
+        its manager formed, else this process alone."""
+        if self._mesh is None:
+            return mesh_lib.Mesh(device=self.device)
+        return self._mesh
+
+    def _setup_mesh(self) -> None:
+        """Shard the state for the mesh (ZeRO-1/FSDP when asked and the
+        mesh has more than one rank; else whole) and fill
+        ``sharding_report`` (cleared first, as a rebuild onto one rank must
+        leave no stale report)."""
+        st = self.state
+        mesh = self.mesh
+        self.sharding_report = {}
+        if st.shards is not None:
+            if st.shards.mesh is not mesh:
+                raise RuntimeError("the state is sharded over another mesh; "
+                                   "MeshManager.rebuild re-places it")
+            self.sharding_report = dict(st.shards.report)
+            return
+        if mesh.data > 1 and (self.shard_opt_state or self.shard_params):
+            from dt_tpu_torch.parallel.zero import ShardPlan
+            plan = ShardPlan(st, mesh, self.shard_opt_state,
+                             self.shard_params)
+            plan.shard(st)
+            st.shards = plan
+            self.sharding_report = dict(plan.report)
+            for name, (frac, sh_b, tot_b) in plan.report.items():
+                logger.info(
+                    "%s sharding over data axis (n=%d): %.1f%% of bytes "
+                    "sharded (%.2f of %.2f MiB; rest replicated)", name,
+                    mesh.data, 100 * frac, sh_b / 2**20, tot_b / 2**20)
 
     def init_params(self, sample_data=None,
                     initialize_from_kvstore: bool = False) -> TrainState:
@@ -423,8 +495,14 @@ class Module:
                 flat_g, st.layout.params.ravel(st.params), loss)
             if self._halt and float(health[0]) > 0:  # the halt's host read
                 self._restore_stats(stats0)
+                if st.shards is not None and st.shards.params:
+                    st.shards.release_params(st)
                 return health
-        apply_step(st, flat_g, flat_s)
+        if st.shards is not None:
+            st.shards.apply_gradients(st, st.layout.params.unravel(flat_g))
+            load_stats(st, flat_s)
+        else:
+            apply_step(st, flat_g, flat_s)
         return health
 
     def _overlap_engine(self):
@@ -488,6 +566,79 @@ class Module:
         health = self._apply_synced(avg_g, avg_s, torch.zeros(()), stats0)
         tr.complete_span("step.apply", ta, {"epoch": epoch})
         return loss, logits, health, prefetched
+
+    def _mesh_step(self, data, labels, train_data, epoch):
+        """One step of the mesh over a process group (``module.py:352-
+        372``): FSDP's params gathered, the forward and backward with
+        cross-rank BN, the next batch placed, the gradient averaged over
+        the ranks, the update.  Returns ``(loss, logits, health,
+        prefetched)``."""
+        st, mesh = self.state, self.mesh
+        if self.grad_accum > 1:
+            raise NotImplementedError(
+                f"grad_accum={self.grad_accum} over a mesh of {mesh.data} "
+                "processes: the JAX step cuts the global batch's rows into "
+                "microbatches, which the ranks' local parts do not hold")
+        if st.shards is not None:
+            st.shards.gather_params(st)
+        rows = data.shape[0]
+        if rows != self._mesh_rows:
+            if self._mesh_rows is not None:
+                raise ValueError(
+                    f"a batch of {rows} rows after {self._mesh_rows} in one "
+                    "epoch: over a mesh every batch of an epoch holds the "
+                    "same rows (pad, discard or roll over the last)")
+            self._check_equal_parts(rows)
+            self._mesh_rows = rows
+        stats0 = self._stats_snapshot()
+        tr = obs_trace.tracer()
+        t0 = tr.now()
+        with kernels.cross_rank_bn(mesh.group):
+            flat_g, flat_s, loss, logits = self._grads(data, labels)
+        prefetched = self._prefetch_batch(train_data)
+        tr.complete_span("step.grad", t0, {"epoch": epoch})
+        flat_g = self._average_grads(flat_g)
+        ta = tr.now()
+        health = self._apply_synced(flat_g, flat_s, loss, stats0)
+        tr.complete_span("step.apply", ta, {"epoch": epoch})
+        return loss, logits, health, prefetched
+
+    def _check_equal_parts(self, rows: int) -> None:
+        """Raise on every rank when the ranks' local batches differ: the
+        global batch is their concatenation, split equally.  A collective
+        and a host read, so it runs at an epoch's first step only."""
+        mesh = self.mesh
+        c = torch.tensor([rows, rows * rows], dtype=torch.float64,
+                         device=mesh.device or self.device)
+        torch.distributed.all_reduce(c, group=mesh.group)
+        tot, sq = (float(v) for v in c.cpu())
+        if mesh.data * sq != tot * tot:
+            raise ValueError(
+                f"the mesh's {mesh.data} ranks hold local batches of "
+                f"unequal size (this rank {rows}, {tot:.0f} rows in all): "
+                "the global batch must split into equal parts")
+
+    def _average_grads(self, flat_g: torch.Tensor) -> torch.Tensor:
+        """The flat gradient's mean over the mesh's ranks, summed in place
+        in buckets of ``_MESH_BUCKET_BYTES``."""
+        mesh = self.mesh
+        tr = obs_trace.tracer()
+        t0 = None
+        if tr.on():  # the span times the collectives alone
+            if flat_g.is_cuda:
+                torch.cuda.current_stream(flat_g.device).synchronize()
+            t0 = tr.now()
+        flat_g = flat_g.contiguous()
+        step = _MESH_BUCKET_BYTES // flat_g.element_size()
+        for lo in range(0, flat_g.numel(), step):
+            torch.distributed.all_reduce(flat_g[lo:lo + step],
+                                         group=mesh.group)
+        flat_g.div_(mesh.data)
+        if t0 is not None:
+            if flat_g.is_cuda:
+                torch.cuda.current_stream(flat_g.device).synchronize()
+            tr.complete_span("mesh.grad_allreduce", t0)
+        return flat_g
 
     def _attach_async(self) -> None:
         """Ship the optimizer spec and init-or-get the flat master: the
@@ -603,12 +754,20 @@ class Module:
         if self.sync_mode not in ("mesh", "host"):
             raise ValueError(f"sync_mode must be 'mesh' or 'host', got "
                              f"{self.sync_mode!r}")
-        if self.sync_mode == "mesh" and self.kv.num_workers > 1 and \
-                self.kv.type != "dist_async":
-            raise NotImplementedError(
-                f"the mesh sync mode across {self.kv.num_workers} worker "
-                f"processes {_ITEM}item 4 (elastic mesh and survivability); "
-                "use sync_mode='host'")
+
+    def _check_mesh_world(self) -> None:
+        """The mesh sync mode across worker processes averages gradients
+        over their process group; a world the mesh does not span would
+        train each worker alone, so it raises."""
+        workers = self.kv.num_workers
+        if self.sync_mode == "mesh" and workers > 1 and \
+                self.mesh_manager is None and \
+                self.kv.type != "dist_async" and self.mesh.data != workers:
+            raise ValueError(
+                f"the mesh sync mode across {workers} worker processes "
+                f"needs their process group: a mesh of {self.mesh.data} "
+                "rank(s) would skip the gradient average; pass a "
+                "mesh_manager (or a Module(mesh=...) over the group)")
 
     def _membership_sig(self):
         """What re-shards the data: the member list, this worker's rank
@@ -774,6 +933,8 @@ class Module:
             logger.info("cold-restart resume: step %d, epoch %d, %d batches "
                         "into the epoch", self.resumed_from_step,
                         begin_epoch, resume_skip)
+        self._setup_mesh()
+        mm = self.mesh_manager
 
         for epoch in range(begin_epoch, num_epoch):
             t_epoch = tr.begin("epoch")
@@ -788,7 +949,11 @@ class Module:
                         {"EPOCH_BEGIN": epoch})
                 except WorkerRemoved:
                     # the reference terminates removed instances
-                    # (launch.py:196-199): leave the fit cleanly
+                    # (launch.py:196-199): leave the fit cleanly, after the
+                    # old world's last collective (the survivors' snapshot
+                    # gathers ZeRO/FSDP slices)
+                    if mm is not None:
+                        mm.depart(self.state)
                     logger.info("Epoch[%d] this worker was removed from "
                                 "the job; stopping", epoch)
                     tr.abandon(t_epoch)
@@ -797,16 +962,39 @@ class Module:
                 if sig != members:
                     logger.info("Epoch[%d] membership changed: %s -> %s",
                                 epoch, members, sig)
+                    # the world keys on the members and the rank; a
+                    # share-only rebalance (the policy seq, last) re-shards
+                    # the data and the weight alone
+                    core_changed = sig[:-1] != members[:-1]
                     members = sig
+                    self.resharded += 1
+                    if core_changed and mm is not None and \
+                            mm.mesh is not None:
+                        self.mesh_rebuilds += 1
+                        self._mesh, self.state = mm.rebuild(
+                            self.state, self.kv.num_workers, self.kv.rank,
+                            generation=f"e{epoch}")
+                        self._setup_mesh()
                     if elastic_data_iterator is not None:
                         train_data, new_eval = \
                             elastic_data_iterator.get_data_iterator(self.kv)
                         if new_eval is not None:
                             eval_data = new_eval
-                    # a share-only rebalance (the policy seq moved) lands
-                    # here too: new batches, a new weight
                     self.grad_scale = self._policy_grad_scale(
                         elastic_data_iterator)
+            if mm is not None and mm.mesh is None:
+                # the first world: at the first barrier (a joiner's too)
+                self._mesh = mm.initialize(self.kv.num_workers, self.kv.rank,
+                                           generation=f"e{epoch}")
+                self._setup_mesh()
+            self._check_mesh_world()
+            if fc is not None and self.state.shards is not None:
+                raise NotImplementedError(
+                    "fleet checkpoints of a ZeRO/FSDP-sharded mesh state are "
+                    "not ported; checkpoint with shard_opt_state and "
+                    "shard_params off")
+            mesh_sync = not is_async and self.sync_mode == "mesh" and \
+                self.mesh.data > 1
             host_sync = not is_async and self.sync_mode == "host" and \
                 self.kv.num_workers > 1
             if host_sync and ctrl is None:
@@ -827,6 +1015,9 @@ class Module:
             # (labels, real rows, logits' host copy) of the step whose
             # metric is not yet counted; the rows a batch pads are not real
             pending = None
+            # the mesh's local batch rows, checked equal across the ranks
+            # at the epoch's first step
+            self._mesh_rows = None
             # () nothing prefetched yet, None the epoch is done, else the
             # next batch already placed
             prefetched = ()
@@ -853,6 +1044,9 @@ class Module:
                 elif host_sync:
                     loss, logits, health, prefetched = self._host_sync_step(
                         ctrl, data, labels, train_data, epoch)
+                elif mesh_sync:
+                    loss, logits, health, prefetched = self._mesh_step(
+                        data, labels, train_data, epoch)
                 else:
                     loss, logits, health = self._step(data, labels)
                     prefetched = self._prefetch_batch(train_data)
@@ -951,11 +1145,14 @@ class Module:
         layout (HWIO kernels), so a JAX joiner restores it too.  Nothing of
         it is a ``torch.Tensor``."""
         ctrl = getattr(self.kv, "_controller", None)
-        if ctrl is None or not hasattr(ctrl, "publish_snapshot") or \
-                self.kv.rank != 0:
+        if ctrl is None or not hasattr(ctrl, "publish_snapshot"):
             return
-        from dt_tpu_torch.interchange import export_jax_train_state
-        snap = export_jax_train_state(self.state)
+        if self.state.shards is None and self.kv.rank != 0:
+            return
+        # ZeRO/FSDP slices are gathered by every rank (a collective)
+        snap = snapshot_state(self.state)
+        if self.kv.rank != 0:
+            return
         bad = _tensor_leaves(snap)
         if bad:
             raise NotImplementedError(
@@ -1031,6 +1228,27 @@ class Module:
         eval_metric = metrics_lib.create(eval_metric)
         eval_metric.reset()
         eval_data.reset()
+        # FSDP: the whole params for the whole pass, gathered once (ranks
+        # may hold different numbers of eval batches), released after
+        with self._whole_params():
+            self._score_batches(eval_data, eval_metric)
+        return eval_metric.get_name_value()
+
+    @contextlib.contextmanager
+    def _whole_params(self):
+        """Within the block the module holds its whole params (FSDP's
+        slices all-gathered: a collective every rank reaches)."""
+        plan = self.state.shards
+        released = plan is not None and plan.released
+        if released:
+            plan.gather_params(self.state)
+        try:
+            yield
+        finally:
+            if released:
+                plan.release_params(self.state)
+
+    def _score_batches(self, eval_data, eval_metric) -> None:
         pending = None
         while True:
             try:
@@ -1045,11 +1263,12 @@ class Module:
             pending = fetched
         if pending is not None:
             _update_metric(pending, eval_metric)
-        return eval_metric.get_name_value()
 
     def predict(self, data) -> np.ndarray:
-        """The eval-mode logits of ``data`` (NHWC images) as f32 numpy."""
+        """The eval-mode logits of ``data`` (NHWC images) as f32 numpy;
+        over a mesh, this rank's rows."""
         if self.state is None:
             self.init_params()
-        out = self._forward(self._place(np.asarray(data)))
+        with self._whole_params():
+            out = self._forward(self._place(np.asarray(data)))
         return out.float().cpu().numpy()

@@ -107,6 +107,12 @@ def apply_step(state: TrainState, flat_g: torch.Tensor,
     ``flat_s`` (skipped when it is empty, as for a model without BN).
     Updates ``state`` in place and returns it."""
     state.apply_gradients(state.layout.params.unravel(flat_g))
+    return load_stats(state, flat_s)
+
+
+@torch.no_grad()
+def load_stats(state: TrainState, flat_s: torch.Tensor) -> TrainState:
+    """Load the BN stats from ``flat_s`` (skipped when it is empty)."""
     if flat_s.numel():
         stats = state.batch_stats
         for name, t in state.layout.stats.unravel(flat_s).items():

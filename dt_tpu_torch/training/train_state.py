@@ -26,6 +26,9 @@ class TrainState:
     opt_state: Dict[str, Any]  # {"count": int, "mom": {name: f32 tensor}}
     tx: Any                    # the optimizer (``optim.create``)
     layout: FlatLayout         # flat-vector order of params and stats
+    # the ZeRO-1/FSDP plan over a mesh (``parallel.zero.ShardPlan``) when
+    # the momentum or the params are held in slices; None: all whole
+    shards: Any = None
 
     @classmethod
     def create(cls, module: nn.Module, tx,

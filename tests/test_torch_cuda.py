@@ -125,6 +125,57 @@ def test_bn_train_kernels_match_plain(cuda, shape, misaligned, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [32, 21])
+def test_bn_sums_kernel_matches_plain(cuda, batch, dtype):
+    """``bn_sums`` (pass 1 stopped short of the finalize) at every BN shape
+    of ResNet-50 (the 53 BatchNorms of a forward take these 12) at the
+    mesh phase's per-rank batches: the f32 sums against ``bn_sums_plain``
+    within 1e-5 of the sums of |x| and of x^2, two launches bit-identical,
+    one launch a call counted in ``bn_sums.launches`` (not in
+    ``bn_stats.launches``)."""
+    for c, h, w in RESNET50_BN_CHW:
+        x = _bn_input((batch, c, h, w), dtype, cuda)
+        before = (kernels.bn_sums.launches, kernels.bn_stats.launches)
+        s, q = kernels.bn_sums(x)
+        s2, q2 = kernels.bn_sums(x)
+        assert (kernels.bn_sums.launches, kernels.bn_stats.launches) == \
+            (before[0] + 2, before[1])
+        ps, pq = kernels.bn_sums_plain(kernels.rows_view(x))
+        a = kernels.rows_view(x).float().abs().sum(0)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s2) and torch.equal(q, q2)
+        torch.testing.assert_close(s, ps, rtol=0, atol=1e-5 * float(a.max()))
+        torch.testing.assert_close(q, pq, rtol=0, atol=1e-5 * float(pq.max()))
+
+
+def test_one_rank_nccl_world_through_two_rebuilds(cuda):
+    """The rebuild's cycle on one card (multi-rank NCCL needs two cards):
+    a one-rank group formed as ``MeshManager`` forms a world (its device
+    named under the generation's key prefix, the backend chosen from it:
+    NCCL, since the rank owns its device), an all-reduce, teardown, and
+    a new group under a fresh prefix of the same store, twice."""
+    import torch.distributed as dist
+
+    from dt_tpu_torch.elastic.mesh_manager import MeshManager
+    from torch_mesh_job import free_port
+    assert not dist.is_initialized()
+    mm = MeshManager(f"127.0.0.1:{free_port()}", device="cuda")
+    try:
+        for gen in ("e0", "e1", "e2"):
+            mm._form_group(1, 0, gen)
+            assert (mm.backend, dist.get_backend()) == ("nccl", "nccl")
+            t = torch.full((4,), 3.0, device=cuda)
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            assert t.tolist() == [3.0] * 4
+            mm.teardown()
+            assert not dist.is_initialized()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_stats_replays_in_a_cuda_graph(cuda, dtype):
     """20 calls on different inputs captured in one CUDA graph and replayed
     twice: every result bit-equal to the eager launch's, so the kernel's
@@ -642,35 +693,51 @@ def test_device_prefetch_iter_returns_the_inner_batches(cuda):
             np.testing.assert_array_equal(g.label.cpu().numpy(), w.label)
 
 
-def test_module_fit_on_card_matches_cpu(cuda):
+def test_module_fit_on_card_matches_cpu(cuda, monkeypatch):
     """A 2-epoch f32 ``Module.fit`` of ``resnet20`` (the port's own init,
     SGD momentum, shuffled batches through ``DevicePrefetchIter`` on the
     card) against the same fit on the CPU: per-epoch train cross-entropy
     within 1e-4 relative (f32 sums in another order; TF32 off), one
-    ``bn_stats`` launch a BatchNorm a step, and the eval scores alike."""
+    ``bn_stats`` launch a BatchNorm a step, and the eval scores alike.
+
+    Both sides are pinned (``tests/torch_fit_variance.py`` shows why):
+    cuDNN runs its deterministic algorithms (with the default ones the
+    card's fits differ from run to run, and a fit that scored 2.1215440
+    against the CPU's 2.1223911 failed this test), and the CPU runs one
+    thread (eight threads sum its convolutions in another order, 5.6e-6
+    off the one-thread score, which the card's matches)."""
     from dt_tpu_torch.data import io
     from dt_tpu_torch.training.module import Module
-    torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    threads = torch.get_num_threads()
     rng = np.random.RandomState(8)
     x = rng.uniform(-1, 1, (64, 8, 8, 3)).astype(np.float32)
     y = rng.randint(0, 10, 64).astype(np.int32)
     curves, scores = {}, {}
-    for dev in (cuda, torch.device("cpu")):
-        mod = Module(models.create("resnet20", device=dev, num_classes=10),
-                     optimizer="sgd", optimizer_params=dict(
-                         learning_rate=0.1, momentum=0.9), device=dev,
-                     seed=1)
-        it = io.NDArrayIter(x, y, batch_size=32, shuffle=True)
-        if dev.type == "cuda":
-            it = io.DevicePrefetchIter(it, device=dev)
-        ce = []
-        before = kernels.bn_stats.launches
-        mod.fit(it, eval_metric="ce", num_epoch=2,
-                epoch_end_callback=lambda e, s, m: ce.append(m.get()[1]))
-        if dev.type == "cuda":  # resnet20: 19 BatchNorms, 4 steps
-            assert kernels.bn_stats.launches - before == 19 * 4
-        curves[dev.type] = ce
-        scores[dev.type] = dict(mod.score(io.NDArrayIter(x, y, 32), "ce"))
+    torch.set_num_threads(1)
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            mod = Module(models.create("resnet20", device=dev,
+                                       num_classes=10),
+                         optimizer="sgd", optimizer_params=dict(
+                             learning_rate=0.1, momentum=0.9), device=dev,
+                         seed=1)
+            it = io.NDArrayIter(x, y, batch_size=32, shuffle=True)
+            if dev.type == "cuda":
+                it = io.DevicePrefetchIter(it, device=dev)
+            ce = []
+            before = kernels.bn_stats.launches
+            mod.fit(it, eval_metric="ce", num_epoch=2,
+                    epoch_end_callback=lambda e, s, m: ce.append(m.get()[1]))
+            if dev.type == "cuda":  # resnet20: 19 BatchNorms, 4 steps
+                assert kernels.bn_stats.launches - before == 19 * 4
+            curves[dev.type] = ce
+            scores[dev.type] = dict(mod.score(io.NDArrayIter(x, y, 32),
+                                              "ce"))
+    finally:
+        torch.set_num_threads(threads)
     for a, b in zip(curves["cuda"], curves["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b), curves
     a, b = scores["cuda"]["cross-entropy"], scores["cpu"]["cross-entropy"]

@@ -228,17 +228,24 @@ def test_fit_callbacks_checkpoint_and_begin_epoch(tmp_path):
 
 def test_unported_features_raise(monkeypatch):
     """What the port does not have raises ``NotImplementedError`` naming
-    its ROADMAP item; the elastic contract (the distributed kvstores, a
-    controller, the env variables, ``sync_mode="host"`` alone) runs;
-    ZeRO/FSDP flags are no-ops on one device."""
+    its ROADMAP item (a mesh's model axis, ``remat``); a ``mesh_manager``
+    is taken, and the mesh sync mode across worker processes without their
+    process group refuses to train each worker alone; the elastic contract
+    (the distributed kvstores, a controller, the env variables,
+    ``sync_mode="host"`` alone) runs; ZeRO/FSDP flags are no-ops on one
+    device."""
+    import types
     model = tmodels.create("mlp", device="cpu", in_shape=(4, 4, 1))
     x, y = _nan_dataset(poison_from=32)
     it = tio.NDArrayIter(x, y, batch_size=16)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         TModule(model, device="cpu", remat=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TModule(model, device="cpu", mesh_manager=object())
+    assert TModule(model, device="cpu",
+                   mesh_manager=object()).mesh_manager is not None
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        TModule(model, device="cpu", mesh=types.SimpleNamespace(
+            shape={"data": 1, "model": 2}))
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         TModule(model, device="cpu", mesh=object())
     for name in ("tpu_sync", "dist_sync", "dist_device_sync", "dist"):
         kv = tkv.create(name)
@@ -271,7 +278,7 @@ def test_unported_features_raise(monkeypatch):
         def membership_change_barrier(self, info):
             pass
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="mesh_manager"):
         TModule(model, device="cpu", kvstore=TwoWorkers()).fit(it)
     kv = tkv.create("tpu_sync")
     kv.set_controller(Ctrl())
@@ -279,7 +286,6 @@ def test_unported_features_raise(monkeypatch):
     mod.sync_mode = "host"
     # policy shares are ported (item 3d): they weight the gradient as the
     # JAX Module weights it, and fixed per-worker batches ignore them
-    import types
     for fixed, want in ((False, 1.25), (True, 1.0)):
         eit = tio.ElasticDataIterator(lambda p, i, b: (it, None), 16, fixed)
         jeit = jio.ElasticDataIterator(lambda p, i, b: (it, None), 16, fixed)
