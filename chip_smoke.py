@@ -204,7 +204,29 @@ JAX.  Phases, each fatal on failure:
    BN collectives a step; step ms per membership, the collectives' ms,
    barrier-to-step ms after a rebuild, bytes held; then (b) one step of
    the survivors' 2-rank mesh (bf16 plain and ZeRO-1 + FSDP, f32 plain)
-   against one process on the 64 rows.
+   against one process on the 64 rows;
+21. parallel (after the mesh): the parallel layer on the TransformerLM of
+   phase 7 at full width (vocab 8192, 512 wide, 6 layers, 8 heads, S 2048,
+   batch 8) from seeded weights carried in through ``load_jax_variables``,
+   SGD lr 0.1 momentum 0.9: (a) ring, then Ulysses attention over 2 ranks
+   of ``tests/torch_parallel_worker.py`` on the card (a ``model`` axis of
+   2, gloo; the K/V hops and all-to-alls staged through pinned host
+   memory): f32 logits within 1e-4 (of the largest) of one process's full
+   attention, 3 bf16 ``Module.fit`` steps of one batch with the loss
+   finite, falling and equal on both ranks, 3 more steps timed (median
+   ms) with the bytes each rank sent a step; (b) the MoE LM (4 experts,
+   flash attention, bf16) through ``Module.fit`` in this process, 3 steps:
+   loss falling, the aux term > 0, the router moved, 6 flash launches a
+   forward; then an f32 MoE layer of that width with its experts over the
+   2 ranks within 1e-5 of the one-process layer; (c) the TransformerLM
+   (flash, bf16) and ResNet-50 (bf16, batch 32) one step each without and
+   with ``remat=True`` (cuDNN deterministic): gradients bit-equal (else
+   within the bf16 gradient limit), ``max_memory_allocated`` of each, the
+   running stats moved once, and the launches (flash 6 -> 12, BN-train 53
+   -> 105: the recompute launches again); (d) the
+   ``PipelinedTransformerLM`` (2 stages, 4 microbatches) over the 2 ranks:
+   f32 logits within 1e-4 of the one-process sequential path and 3 bf16
+   fit steps with the loss falling.  Each part's time and the phase's.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -220,7 +242,8 @@ the counters of that job's workers (the f32 BatchNorm rows carry none:
 the jobs run bf16, and one counter serves both dtypes); the bf16
 BN-inference row also carries ``gateway_launches``, phase 19's, and the
 bf16 BN rows ``mesh_launches``, phase 20's (pass 1 there is ``bn_sums``,
-whose own times sit in the BN-train rows' ``bn_sums``).
+whose own times sit in the BN-train rows' ``bn_sums``); the flash rows
+and the bf16 BN rows carry ``parallel_launches``, phase 21's.
 """
 
 from __future__ import annotations
@@ -425,6 +448,17 @@ MESH_ARGS = ["--global-batch", "64", "--images", "128", "--lr", "0.025",
              "--wd", "1e-4", "--num-epoch", "3", "--epoch-steps",
              str(MESH_STEPS), "--val-images", "64", "--zero", "--fsdp"]
 MESH_TIMEOUT = 180  # s, the elastic mesh job
+# Phase 21, the parallel layer: the TransformerLM of LM at full width over
+# 2 ranks of tests/torch_parallel_worker.py on the card (gloo), PARALLEL_STEPS
+# fit steps (then as many timed) of one batch each; the MoE LM (flash, 4
+# experts) and the remat checks in this process
+PARALLEL_STEPS = 3
+PARALLEL_RANKS = 2
+PARALLEL_EXPERTS = 4
+PARALLEL_STAGES, PARALLEL_MICRO = 2, 4
+PARALLEL_TIMEOUT = 240  # s, the 2-rank world
+TOL_PARALLEL_F32 = 1e-4  # f32 logits against one process, of the largest
+TOL_EP_F32 = 1e-5  # the expert-parallel layer against one process
 MESH_BN_COLLECTIVES = 2 * BN_PER_FORWARD  # a step: forward and backward
 
 
@@ -1352,7 +1386,8 @@ def lstm_layer_phase(dev):
 
 def seeded_lm_variables(model, seed: int, head_std: float = 1.0):
     """Weights for an LM in the JAX layout from numpy with ``seed``:
-    LeCun-normal kernels (the LM head's times ``head_std``), N(0, 1)
+    LeCun-normal kernels and MoE experts (the LM head's times
+    ``head_std``; a pipelined model's stacked stages alike), N(0, 1)
     embeddings, N(0, 0.02) positions, LayerNorm scale 1 + N(0, 0.05), the
     LSTM's uniform(+-1/sqrt(H)), biases N(0, 0.02)."""
     from dt_tpu_torch.interchange import export_jax_variables
@@ -1365,8 +1400,8 @@ def seeded_lm_variables(model, seed: int, head_std: float = 1.0):
                 out[k] = fill(v, path + (k,))
                 continue
             shape = tuple(v.shape)
-            if k == "kernel":
-                std = 1.0 / np.sqrt(shape[0])
+            if k in ("kernel", "wi", "wo"):  # fan-in: the axis before last
+                std = 1.0 / np.sqrt(shape[-2])
                 if path and path[-1] in ("lm_head", "Dense_0"):
                     std *= head_std
                 w = rng.normal(0, std, shape)
@@ -4553,6 +4588,273 @@ def mesh_phase(gpu, variables) -> dict:
     return out
 
 
+def _parallel_world(gpu, tmp) -> list:
+    """Phase 21 (a), (b)'s expert parallelism and (d) on 2 ranks of the
+    card (``tests/torch_parallel_worker.py``'s ``card`` case): every gate
+    but the one-process ones below."""
+    import torch
+    from torch_parallel_worker import flat, run_world
+
+    from dt_tpu_torch import models
+    lm = models.create("transformer_lm", device="cpu", **LM)
+    pipe = models.create("transformer_lm_pipelined", device="cpu",
+                         num_stages=PARALLEL_STAGES,
+                         num_micro=PARALLEL_MICRO, **LM)
+    inputs = dict(
+        toks=np.random.RandomState(5).randint(
+            0, LM["vocab_size"], (LM_BATCH, LM_SEQ)),
+        steps=np.int64(PARALLEL_STEPS), moe_seed=np.int64(7),
+        moe_experts=np.int64(PARALLEL_EXPERTS),
+        stages=np.int64(PARALLEL_STAGES), micro=np.int64(PARALLEL_MICRO),
+        **flat(seeded_lm_variables(lm, seed=0)["params"], "lm"),
+        **flat(seeded_lm_variables(pipe, seed=1)["params"], "pipe"),
+        **{f"cfg/{k}": np.int64(v) for k, v in LM.items()})
+    del lm, pipe
+    torch.cuda.empty_cache()  # the ranks are processes on the card
+    ranks = run_world(tmp, "card", inputs, world=PARALLEL_RANKS,
+                      timeout=PARALLEL_TIMEOUT, device="cuda")
+    r0 = ranks[0]
+    for part in ("ring", "ulysses", "pipe"):
+        for r in ranks[1:]:  # the ranks compute the dense parts alike
+            if r[part]["losses"] != r0[part]["losses"]:
+                raise AssertionError(f"parallel {part}: the ranks' losses "
+                                     f"differ {r[part]['losses']} against "
+                                     f"{r0[part]['losses']}")
+        err = r0[part]["f32_rel_err"]
+        print(f"parallel {part} f32 logits against one process "
+              f"rel_err={err:.3e} (tol {TOL_PARALLEL_F32}); bf16 fit "
+              f"{PARALLEL_STEPS} steps; median step "
+              f"{r0[part]['median_ms']:.3f} ms (steps "
+              f"{[round(v, 3) for v in r0[part]['step_ms']]}); a rank "
+              f"sent {r0[part]['p2p_bytes_a_step']} B point-to-point and "
+              f"{r0[part]['a2a_bytes_a_step']} B all-to-all a step; "
+              f"{r0[part]['seconds']:.1f} s gpu={gpu}", flush=True)
+        _falling(f"parallel {part} bf16", r0[part]["losses"])
+        if not err <= TOL_PARALLEL_F32:
+            raise AssertionError(f"parallel {part}: f32 logits {err:.3e} "
+                                 "off one process's")
+    ep = r0["ep"]
+    print(f"parallel ep: {PARALLEL_EXPERTS} experts over "
+          f"{PARALLEL_RANKS} ranks ({ep['experts_here']} a rank), f32 "
+          f"output against the one-process layer rel_err="
+          f"{ep['rel_err']:.3e} (tol {TOL_EP_F32}) gpu={gpu}", flush=True)
+    if not ep["rel_err"] <= TOL_EP_F32:
+        raise AssertionError(f"parallel ep: {ep['rel_err']:.3e} off one "
+                             "process's layer")
+    print(f"parallel world launches a rank {[r['launches'] for r in ranks]}"
+          f" (plain attention: no kernel); peak GB a rank "
+          f"{[round(r.get('peak_mem_gb', 0), 3) for r in ranks]}",
+          flush=True)
+    return ranks
+
+
+def _moe_one_process(dev, gpu) -> dict:
+    """Phase 21 (b) in this process: the MoE LM (flash attention, 4
+    experts, bf16) through ``Module.fit``, ``PARALLEL_STEPS`` steps of one
+    batch: the loss finite and falling, the aux term positive, the router
+    moved, ``num_layers`` flash launches a forward (counts reset just
+    before the fit and read just after)."""
+    import torch
+    from torch_parallel_worker import shifted_loss
+
+    from dt_tpu_torch import models
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.parallel.moe import aux_losses
+    from dt_tpu_torch.training.module import Module
+    model = models.create("transformer_lm", device=dev, seq_parallel="flash",
+                          moe_experts=PARALLEL_EXPERTS, dtype=torch.bfloat16,
+                          **LM)
+    load_jax_variables(model, seeded_lm_variables(model, seed=3))
+    router = model.block0.moe.router.weight.detach().clone()
+    losses = []
+
+    def loss_fn(logits, labels):
+        loss = shifted_loss(logits, labels)
+        losses.append(loss.detach())
+        return loss
+
+    mod = Module(model, loss_fn=loss_fn, optimizer="sgd",
+                 optimizer_params=LM_SGD, device=dev)
+    mod.init_params()
+    load_jax_variables(model, seeded_lm_variables(model, seed=3))
+    toks = np.random.RandomState(6).randint(0, LM["vocab_size"],
+                                            (LM_BATCH, LM_SEQ))
+    x = np.concatenate([toks] * PARALLEL_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_counts()  # the main path's run starts here
+    mod.fit(io.NDArrayIter(x, x, batch_size=LM_BATCH), num_epoch=1,
+            eval_metric="ce")
+    counts = read_counts()  # ... and ends here
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = LM["num_layers"] * PARALLEL_STEPS
+    _check_counts("parallel moe bf16", counts, want)
+    losses = [float(v) for v in losses]
+    _falling("parallel moe bf16", losses)
+    aux = [float(a.detach()) for a in aux_losses(model)]
+    moved = float((model.block0.moe.router.weight.detach() - router)
+                  .abs().max())
+    print(f"parallel moe bf16 aux (pre-weighted, a block)="
+          f"{[round(a, 6) for a in aux]} router_moved_max={moved:.3e} "
+          f"fit_s={seconds:.2f} gpu={gpu}", flush=True)
+    if not (len(aux) == LM["num_layers"] and min(aux) > 0 and moved > 0):
+        raise AssertionError(f"parallel moe: aux {aux}, router moved "
+                             f"{moved}")
+    del mod, model
+    torch.cuda.empty_cache()
+    return {"launches": counts, "losses": losses, "aux": aux,
+            "seconds": seconds}
+
+
+def _remat_pair(tag, make, x, y, loss_fn) -> dict:
+    """One ``grad_step`` of ``make(remat)`` without and with remat from
+    the same weights and batch (cuDNN deterministic): the flat gradients
+    bit-equal, or their largest difference within the bf16 gradient
+    limit ``TOL_ASYNC_BF16``; the running stats moved, once; peak bytes
+    and launches of each."""
+    import torch
+    from dt_tpu_torch import optim
+    from dt_tpu_torch.training.step import grad_step
+    from dt_tpu_torch.training.train_state import TrainState
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            model = make(remat)
+            state = TrainState.create(model, optim.create("sgd", **LM_SGD))
+            s0 = (state.layout.stats.ravel(state.batch_stats)
+                  if state.layout.stats.size else None)
+            grad_step(state, x, y, loss_fn)  # warm up, then from the start
+            if s0 is not None:
+                for name, t in state.layout.stats.unravel(s0).items():
+                    state.batch_stats[name].copy_(t)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()  # the main path's run starts here
+            flat_g, flat_s, _, _ = grad_step(state, x, y, loss_fn)
+            counts = read_counts()  # ... and ends here
+            torch.cuda.synchronize()
+            out[remat] = {"g": flat_g, "s": flat_s, "s0": s0,
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "launches": counts}
+            del model, state
+    finally:
+        torch.backends.cudnn.deterministic = det
+    g0, g1 = out[False]["g"], out[True]["g"]
+    equal = bool(torch.equal(g0, g1))
+    diff = float((g0 - g1).abs().max() / g0.abs().max())
+    stats = None
+    if out[False]["s0"] is not None:
+        stats = {"equal": bool(torch.equal(out[False]["s"], out[True]["s"])),
+                 "moved": bool(not torch.equal(out[True]["s"],
+                                               out[True]["s0"]))}
+    res = {"grads_bit_equal": equal, "grad_max_rel_diff": diff,
+           "peak_bytes": {"plain": out[False]["peak"],
+                          "remat": out[True]["peak"]},
+           "launches": {"plain": out[False]["launches"],
+                        "remat": out[True]["launches"]},
+           "stats": stats}
+    print(f"parallel remat {tag}: grads bit_equal={equal} max_rel_diff="
+          f"{diff:.3e} (tol {TOL_ASYNC_BF16['grad']} unless equal) "
+          f"max_memory_allocated plain={out[False]['peak']} remat="
+          f"{out[True]['peak']} running_stats={stats} launches plain="
+          f"{json.dumps(out[False]['launches'])} remat="
+          f"{json.dumps(out[True]['launches'])}", flush=True)
+    if not (equal or diff <= TOL_ASYNC_BF16["grad"]):
+        raise AssertionError(f"parallel remat {tag}: gradients {diff:.3e} "
+                             "apart")
+    if stats is not None and not (stats["equal"] and stats["moved"]):
+        raise AssertionError(f"parallel remat {tag}: running stats {stats}")
+    return res
+
+
+def _remat_phase(dev, variables, gpu) -> dict:
+    """Phase 21 (c): the TransformerLM (flash, bf16) and ResNet-50 (bf16,
+    batch 32) one step each without and with ``remat=True``
+    (:func:`_remat_pair`); the recompute launches flash again in each of
+    the 6 blocks and BN-train (pass 1 and pass 2) again in each of the 52
+    BNs inside a residual block."""
+    import torch
+    from dt_tpu_torch import models
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.training.step import classification_loss, \
+        next_token_loss
+    lm_vars = None
+
+    def make_lm(remat):
+        nonlocal lm_vars
+        m = models.create("transformer_lm", device=dev, seq_parallel="flash",
+                          dtype=torch.bfloat16, remat=remat, **LM)
+        lm_vars = lm_vars or seeded_lm_variables(m, seed=0)
+        return load_jax_variables(m, lm_vars)
+
+    toks = torch.from_numpy(np.random.RandomState(8).randint(
+        0, LM["vocab_size"], (LM_BATCH, LM_SEQ))).to(dev)
+    lm = _remat_pair("lm", make_lm, toks, None, next_token_loss)
+    want = {k: 0 for k in lm["launches"]["plain"]}
+    _check_counts("parallel remat lm plain", lm["launches"]["plain"],
+                  dict(want, flash_attention=LM["num_layers"]))
+    _check_counts("parallel remat lm remat", lm["launches"]["remat"],
+                  dict(want, flash_attention=2 * LM["num_layers"]))
+
+    def make_resnet(remat):
+        return load_jax_variables(models.create(
+            "resnet50", device=dev, dtype=torch.bfloat16, remat=remat),
+            variables)
+
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.uniform(-1, 1, (BATCH, IMAGE, IMAGE, 3)).astype(
+        np.float32)).to(dev).permute(0, 3, 1, 2).to(torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, 1000, BATCH)).to(dev)
+    rn = _remat_pair("resnet50", make_resnet, x, y, classification_loss)
+    in_blocks = BN_PER_FORWARD - 1  # all but the stem's
+    _check_counts("parallel remat resnet50 plain", rn["launches"]["plain"],
+                  dict(want, bn_stats=BN_PER_FORWARD, bn_act=BN_PER_FORWARD))
+    _check_counts("parallel remat resnet50 remat", rn["launches"]["remat"],
+                  dict(want, bn_stats=BN_PER_FORWARD + in_blocks,
+                       bn_act=BN_PER_FORWARD + in_blocks))
+    torch.cuda.empty_cache()
+    return {"lm": lm, "resnet50": rn}
+
+
+def parallel_phase(gpu, dev, variables) -> dict:
+    """Phase 21, the parallel layer: (a) ring then Ulysses and (d) the
+    pipeline over 2 ranks of the card, with (b)'s expert parallelism
+    (:func:`_parallel_world`); (b) the MoE LM in this process
+    (:func:`_moe_one_process`); (c) remat (:func:`_remat_phase`)."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dt_parallel_")
+    try:
+        ranks = _parallel_world(gpu, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t_world = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    moe = _moe_one_process(dev, gpu)
+    t_moe = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    remat = _remat_phase(dev, variables, gpu)
+    t_remat = time.perf_counter() - t1
+    total = time.perf_counter() - t0
+    print(f"parallel phase: world (a, b's EP, d) {t_world:.1f} s, moe (b) "
+          f"{t_moe:.1f} s, remat (c) {t_remat:.1f} s, total {total:.1f} s "
+          f"gpu={gpu}", flush=True)
+    launches = {k: moe["launches"][k]
+                + remat["lm"]["launches"]["plain"][k]
+                + remat["lm"]["launches"]["remat"][k]
+                + remat["resnet50"]["launches"]["plain"][k]
+                + remat["resnet50"]["launches"]["remat"][k]
+                for k in moe["launches"]}
+    return {"world": ranks, "moe": moe, "remat": remat,
+            "launches": launches, "seconds": total}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4704,6 +5006,9 @@ def main() -> int:
     mesh = mesh_phase(gpu, variables)
     print(f"phase mesh done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    parallel = parallel_phase(gpu, dev, variables)
+    print(f"phase parallel done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -4756,6 +5061,10 @@ def main() -> int:
             kernels[-1]["gateway_launches"] = gateway["launches"]
             # phase 20: every rank's score over the mesh
             kernels[-1]["mesh_launches"] = mesh["launches"]["score_bn_act"]
+            # phase 21: pass 2 alone past pass 1 (no eval forward there)
+            kernels[-1]["parallel_launches"] = (
+                parallel["launches"]["bn_act"]
+                - parallel["launches"]["bn_stats"])
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -4800,6 +5109,10 @@ def main() -> int:
             kernels[-1]["mesh_launches"] = {
                 k: mesh["launches"][k] for k in ("bn_sums", "bn_stats",
                                                  "bn_act")}
+            # phase 21 (c): ResNet-50 without and with remat (the
+            # recompute launches pass 1 and pass 2 again)
+            kernels[-1]["parallel_launches"] = \
+                parallel["launches"]["bn_stats"]
     sums = train_kernels[torch.bfloat16]
     kernels.append({  # the mesh's pass 1 (phase 20), its own entry point
         "name": "fused_bn_train.bn_sums[bfloat16]", "route": "cuda",
@@ -4857,6 +5170,9 @@ def main() -> int:
     for k in kernels[-2:]:  # both dtypes share one counter
         k["ha_launches"] = failover["launches"]["flash_attention"]
         k["resume_launches"] = outage["launches"]["flash_attention"]
+        # phase 21: the MoE LM's fit (b) and the LM without and with
+        # remat (c)
+        k["parallel_launches"] = parallel["launches"]["flash_attention"]
     lp = lstm[200]
     kernels.append({
         "name": "lstm_pointwise", "route": "cuda",

@@ -60,7 +60,8 @@ def snapshot_state(state: Any) -> Any:
         else:
             params, opt = plan.full_params(state), plan.full_opt_state(state)
         return export_jax_tree(state.step, params.items(),
-                               state.module.named_buffers(), opt)
+                               state.module.named_buffers(), opt,
+                               module=state.module)
     if isinstance(state, dict):
         return {k: snapshot_state(v) for k, v in state.items()}
     if isinstance(state, torch.Tensor):
@@ -228,6 +229,12 @@ class MeshManager:
                 generation: Optional[str] = None):
         """Membership changed: snapshot, teardown, initialize the new
         world, restore.  Returns ``(new_mesh, restored_state)``."""
+        if self.mesh is not None and self.mesh.model > 1:
+            axis = self.mesh.axis_names[1]
+            raise NotImplementedError(
+                f"MeshManager.rebuild of a mesh with a {axis!r} axis of "
+                f"{self.mesh.model}: the manager's worlds are data axes "
+                "only, as the JAX package's MeshManager's are")
         tr = obs_trace.tracer()
         t0 = tr.now()
         host_state = snapshot_state(state)

@@ -20,7 +20,17 @@ models name their submodules as the JAX models are auto-named
   goes out as a ``torch.bfloat16`` tensor (numpy has no bfloat16 of its
   own);
 - ``FusedBatchNorm_<i>`` (the JAX name under ``DT_PALLAS_BN=1``) and
-  ``BatchNorm_<i>`` (the default) both name the port's ``BatchNorm_<i>``.
+  ``BatchNorm_<i>`` (the default) both name the port's ``BatchNorm_<i>``;
+- the MoE leaves ``moe/router/kernel`` (a dense kernel) and ``moe/wi``,
+  ``moe/wo`` (3-D, not kernels, copied as they are) need no rule of their
+  own; an expert-parallel rank's ``wi``/``wo`` hold rows ``[lo, lo + n)``
+  of the JAX leaf (the parameter's ``jax_rows = (lo, total)``), which a
+  load cuts out and an export gives as they are;
+- a module with ``jax_local_tree``/``jax_global_tree`` maps its JAX
+  subtree to and from the port's names: ``PipelinedTransformerLM`` cuts its
+  stage-stacked ``{"outer", "stages"}`` tree into the stages the process
+  holds (a stage rank takes its slice of the leading axis) and stacks them
+  again on the way out.
 
 A leaf with no port tensor, a port tensor left unfilled, a tensor filled
 twice and a shape mismatch all raise.  ``load_jax_train_state`` and
@@ -107,6 +117,30 @@ def _to_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _subtree_map(module: nn.Module, tree: Mapping, hook: str) -> Mapping:
+    """``tree`` with each module's ``hook`` (``jax_local_tree`` or
+    ``jax_global_tree``) applied to the subtree at that module's path."""
+    for name, sub in module.named_modules():
+        fn = getattr(sub, hook, None)
+        path = name.split(".") if name else []
+        node = tree
+        for k in path:
+            node = node.get(k) if isinstance(node, Mapping) else None
+        if fn is None or node is None:
+            continue
+        new = fn(node)
+        if not path:
+            tree = new
+            continue
+        tree = dict(tree)
+        parent = tree
+        for k in path[:-1]:
+            parent[k] = dict(parent[k])
+            parent = parent[k]
+        parent[path[-1]] = new
+    return tree
+
+
 def _load_tree(what: str, coll: str, tree: Mapping,
                targets: Dict[str, torch.Tensor]) -> None:
     """Copy every leaf of the JAX-side ``tree`` into the port tensor it
@@ -124,6 +158,9 @@ def _load_tree(what: str, coll: str, tree: Mapping,
                 raise KeyError(f"{what}: {where} fills {name!r} a second "
                                "time")
             src = from_jax_layout(_to_tensor(leaf), path[-1])
+            rows = getattr(targets[name], "jax_rows", None)
+            if rows is not None and src.shape[0] == rows[1]:
+                src = src[rows[0]:rows[0] + targets[name].shape[0]]
             if tuple(src.shape) != tuple(targets[name].shape):
                 raise ValueError(
                     f"{what}: {where} has shape {tuple(src.shape)} in port "
@@ -142,11 +179,15 @@ def load_jax_variables(module: nn.Module,
     dicts of arrays as the JAX package gives them (numpy, or torch tensors
     for bf16 leaves read from a checkpoint).  Copies keep each port
     tensor's dtype, device and memory format.  Returns ``module``."""
-    extra = set(variables) - {"params", "batch_stats"}
+    # ``aux_loss`` is what a MoE layer sowed while the JAX model was
+    # initialized: a value of that forward, not a variable
+    extra = set(variables) - {"params", "batch_stats", "aux_loss"}
     if extra:
         raise KeyError(f"load_jax_variables: unknown collections "
                        f"{sorted(extra)}")
-    _load_tree("load_jax_variables", "params", variables.get("params", {}),
+    _load_tree("load_jax_variables", "params",
+               _subtree_map(module, variables.get("params", {}),
+                            "jax_local_tree"),
                dict(module.named_parameters()))
     _load_tree("load_jax_variables", "batch_stats",
                variables.get("batch_stats", {}), dict(module.named_buffers()))
@@ -157,7 +198,8 @@ def export_jax_variables(module: nn.Module) -> Dict[str, Dict]:
     """The inverse of :func:`load_jax_variables`: the module's tensors as
     float32 numpy (bfloat16 ones as ``torch.bfloat16`` tensors) in the JAX
     package's layout and default names (``BatchNorm_<i>``)."""
-    return {"params": _jax_tree(module.named_parameters()),
+    return {"params": _subtree_map(module, _jax_tree(
+        module.named_parameters()), "jax_global_tree"),
             "batch_stats": _jax_tree(module.named_buffers())}
 
 
@@ -197,7 +239,9 @@ def load_jax_train_state(state, snapshot: Mapping[str, Any]):
     new_opt = {"count": int(np.asarray(opt["count"]))}
     if "mom" in opt:
         mom = state.opt_state["mom"]
-        _load_tree("load_jax_train_state", "opt_state/mom", opt["mom"], mom)
+        _load_tree("load_jax_train_state", "opt_state/mom",
+                   _subtree_map(state.module, opt["mom"], "jax_local_tree"),
+                   mom)
         new_opt["mom"] = mom
     state.opt_state = new_opt
     return state
@@ -212,20 +256,28 @@ def export_jax_train_state(state, bn_name: str = "BatchNorm"
     (``"BatchNorm"``, the JAX default, or ``"FusedBatchNorm"``)."""
     return export_jax_tree(state.step, state.module.named_parameters(),
                            state.module.named_buffers(), state.opt_state,
-                           bn_name)
+                           bn_name, module=state.module)
 
 
 def export_jax_tree(step: int, params, buffers, opt_state: Mapping,
-                    bn_name: str = "BatchNorm") -> Dict[str, Any]:
+                    bn_name: str = "BatchNorm",
+                    module: nn.Module = None) -> Dict[str, Any]:
     """:func:`export_jax_train_state` from its parts: ``(name, tensor)``
     pairs of the params and the BN stats, and ``{"count"[, "mom"]}``
-    (a checkpoint's host copy is exported this way)."""
+    (a checkpoint's host copy is exported this way); ``module``'s
+    ``jax_global_tree`` hooks, when given, map the params and the
+    momentum back to the JAX tree."""
+    def tree(named):
+        t = _jax_tree(named, bn_name)
+        return t if module is None else \
+            _subtree_map(module, t, "jax_global_tree")
+
     # 0-d arrays, as the JAX package's state holds them (msgpack encodes
     # a 0-d array and a numpy scalar differently)
     opt = {"count": np.asarray(opt_state["count"], np.int32)}
     if "mom" in opt_state:
-        opt["mom"] = _jax_tree(opt_state["mom"].items(), bn_name)
+        opt["mom"] = tree(opt_state["mom"].items())
     return {"step": np.asarray(step, np.int32),
-            "params": _jax_tree(params, bn_name),
+            "params": tree(params),
             "batch_stats": _jax_tree(buffers, bn_name),
             "opt_state": opt}

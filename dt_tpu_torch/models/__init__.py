@@ -3,7 +3,8 @@
 ``create(name, **kwargs)`` takes the JAX package's network names.  The port
 has ``mlp`` and ``lenet``, the ResNets: resnet18/34/50/101/152[_v2] and the
 CIFAR resnet20/56/110 (also as resnet20_cifar etc.), and the language models
-``transformer_lm`` and ``lstm_lm``; every other name raises
+``transformer_lm``, ``transformer_lm_pipelined`` and ``lstm_lm``; every other
+name raises
 ``NotImplementedError`` until its slice lands.  ``init_params(module,
 seed)`` gives a model the initial weights linen's defaults give the JAX
 model, drawn from a seeded ``torch.Generator``.
@@ -22,6 +23,8 @@ from dt_tpu_torch.models.lstm_lm import LSTMLanguageModel as LSTMLanguageModel
 from dt_tpu_torch.models.mlp import MLP as MLP
 from dt_tpu_torch.models.resnet import CifarResNet as CifarResNet
 from dt_tpu_torch.models.resnet import ResNet as ResNet
+from dt_tpu_torch.models.transformer import (
+    PipelinedTransformerLM as PipelinedTransformerLM)
 from dt_tpu_torch.models.transformer import TransformerLM as TransformerLM
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
@@ -34,6 +37,7 @@ for _d in (20, 56, 110):
     _REGISTRY[f"resnet{_d}"] = lambda d=_d, **kw: CifarResNet(depth=d, **kw)
     _REGISTRY[f"resnet{_d}_cifar"] = _REGISTRY[f"resnet{_d}"]
 _REGISTRY["transformer_lm"] = TransformerLM
+_REGISTRY["transformer_lm_pipelined"] = PipelinedTransformerLM
 _REGISTRY["lstm_lm"] = LSTMLanguageModel
 _REGISTRY["mlp"] = MLP
 _REGISTRY["lenet"] = LeNet
@@ -49,10 +53,6 @@ def create(name: str, device: Union[str, torch.device] = "cuda", **kwargs):
     ``dt_tpu_torch.interchange.load_jax_variables`` fills them."""
     dev = resolve_device(device)
     key = name.lower().replace("-", "_")
-    if key == "transformer_lm_pipelined":
-        raise NotImplementedError(
-            "PipelinedTransformerLM comes with the parallel layer (ROADMAP "
-            "Queue 1 item 6)")
     if key not in _REGISTRY:
         raise NotImplementedError(
             f"model {name!r} is not ported yet; ported: {sorted(_REGISTRY)}")
@@ -64,13 +64,14 @@ _LSTM_W = re.compile(r"^l\d+_w[xh]$")
 
 def _default_init(leaf: str, shape, hidden: int):
     """linen's default for the JAX leaf ``leaf`` of the JAX-layout
-    ``shape``: ``kernel`` lecun-normal (truncated normal, fan-in),
+    ``shape``: ``kernel`` and the MoE experts' ``wi``/``wo`` lecun-normal
+    (truncated normal, fan-in; ``dt_tpu/parallel/moe.py:95-98``),
     ``embedding`` normal 1/sqrt(D) (``linen.Embed``), ``pos_embed``
     normal(0.02) (``dt_tpu/models/transformer.py:146, 297``), the LSTM's
     ``l<i>_wx``/``l<i>_wh`` uniform +-1/sqrt(H) and ``l<i>_b`` zeros
     (``dt_tpu/models/lstm_lm.py:39-53``), ``scale`` ones, every ``bias``
     zeros."""
-    if leaf == "kernel":
+    if leaf in ("kernel", "wi", "wo"):
         return initializer.lecun_normal()
     if leaf == "embedding":
         return initializer.embed_normal()
@@ -94,13 +95,21 @@ def init_params(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     layout, then copied into the parameter (in place, keeping its device,
     dtype and memory format), so a model on the card and one on the CPU get
     the same values.  They are not the JAX package's values (the RNG
-    streams differ), only their distributions.  Returns ``module``."""
+    streams differ), only their distributions.  A parameter that holds rows
+    ``[lo, lo + n)`` of a JAX leaf of ``total`` rows (``jax_rows = (lo,
+    total)``: an expert-parallel rank's experts) draws the whole leaf and
+    keeps its rows, so every rank draws alike.  Returns ``module``."""
     gen = torch.Generator().manual_seed(int(seed))
     hidden = getattr(module, "hidden", 1)
     for name, p in module.named_parameters():
         leaf = jax_path(name)[-1]
         shape = tuple(to_jax_layout(p, leaf).shape)
+        rows = getattr(p, "jax_rows", None)
+        if rows is not None:
+            shape = (rows[1],) + shape[1:]
         value = _default_init(leaf, shape, hidden)(gen, shape, torch.float32)
+        if rows is not None:
+            value = value[rows[0]:rows[0] + p.shape[0]]
         p.copy_(from_jax_layout(value, leaf))
     for name, b in module.named_buffers():
         leaf = name.rsplit(".", 1)[-1]

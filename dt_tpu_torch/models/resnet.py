@@ -8,7 +8,11 @@ every name is the JAX variable path of the same layer (the order
 ReLU that follows a BatchNorm is fused into the BN kernels (in training, the
 BN's backward applies the ReLU's mask); the ReLU after a residual add stays a
 PyTorch call.  ``forward(x, training=True)`` runs training-mode BatchNorm,
-which moves the running stats in place.
+which moves the running stats in place.  ``remat=True`` recomputes each
+residual block in the backward instead of keeping its activations
+(``dt_tpu/models/resnet.py:137-158, 203-211``; ``ops.remat``: the recomputed
+BatchNorms launch their kernels again but move the running stats once), the
+param tree unchanged.
 """
 
 from __future__ import annotations
@@ -20,6 +24,14 @@ from torch import nn
 
 from dt_tpu_torch.models.common import Conv, Dense, bn
 from dt_tpu_torch.ops import nn as ops
+from dt_tpu_torch.ops import remat as remat_lib
+
+
+def _run_block(block, x, training: bool, remat: bool):
+    """One residual block, recomputed in the backward under ``remat``."""
+    if remat and torch.is_grad_enabled():
+        return remat_lib.checkpoint(block, x, training)
+    return block(x, training)
 
 
 class BasicBlockV1(nn.Module):
@@ -150,8 +162,9 @@ _FILTERS = [64, 128, 256, 512]
 class ResNet(nn.Module):
     def __init__(self, depth: int = 50, num_classes: int = 1000,
                  version: int = 1, dtype: torch.dtype = torch.float32,
-                 in_channels: int = 3):
+                 in_channels: int = 3, remat: bool = False):
         super().__init__()
+        self.remat = remat
         block_type, stages = _SPECS[depth]
         if version == 1:
             block = BasicBlockV1 if block_type == "basic" else BottleneckV1
@@ -185,7 +198,7 @@ class ResNet(nn.Module):
             x = self.BatchNorm_0(x, training)
         x = ops.max_pool2d(x, 3, 2, padding=1)
         for name in self.blocks:
-            x = getattr(self, name)(x, training)
+            x = _run_block(getattr(self, name), x, training, self.remat)
         if self.version == 2:
             x = self.BatchNorm_0(x, training)
         return self.Dense_0(ops.global_avg_pool2d(x))
@@ -203,8 +216,9 @@ class CifarResNet(nn.Module):
 
     def __init__(self, depth: int = 20, num_classes: int = 10,
                  dtype: torch.dtype = torch.float32, in_channels: int = 3,
-                 stochastic_depth: float = 0.0):
+                 stochastic_depth: float = 0.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if (depth - 2) % 6 != 0:
             raise ValueError("CIFAR ResNet depth must be 6n+2")
         n = (depth - 2) // 6
@@ -237,7 +251,7 @@ class CifarResNet(nn.Module):
                 "Queue 1 item 8")
         x = self.Conv_0(x)
         for name, keep in self.blocks:
-            y = getattr(self, name)(x, training)
+            y = _run_block(getattr(self, name), x, training, self.remat)
             # y == x + F(x) for identity-shortcut blocks: scale F(x) only
             x = y if keep is None else x + keep * (y - x)
         x = self.BatchNorm_0(x, training)

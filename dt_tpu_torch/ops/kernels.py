@@ -51,7 +51,7 @@ import torch.distributed as dist
 
 from dt_tpu_torch.obs import device as obs_device
 from dt_tpu_torch.obs import trace as obs_trace
-from dt_tpu_torch.ops import _build
+from dt_tpu_torch.ops import _build, remat
 from dt_tpu_torch.parallel.codec_np import CODES_PER_WORD
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -542,7 +542,8 @@ def fused_bn_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     :func:`cross_rank_bn` the statistics are those of the batch sharded over
     the group's ranks (:class:`_SyncBNTrain`).  The running stats
     are updated in place, under no_grad, to ``momentum * old + (1 -
-    momentum) * batch`` in f32.  Returns ``(y, running_mean, running_var)``.
+    momentum) * batch`` in f32, except in the forward an ``ops.remat``
+    checkpoint recomputes.  Returns ``(y, running_mean, running_var)``.
     """
     c = x.shape[1] if x.dim() == 4 else x.shape[-1]
     for name, t in (("gamma", gamma), ("beta", beta),
@@ -556,6 +557,8 @@ def fused_bn_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     else:
         y, mean, var = _SyncBNTrain.apply(x, gamma, beta, eps, relu,
                                           _bn_group)
+    if remat.replaying():  # a recomputed forward moves nothing twice
+        return y, running_mean, running_var
     with torch.no_grad():
         running_mean.copy_(running_mean * momentum + mean * (1.0 - momentum))
         running_var.copy_(running_var * momentum + var * (1.0 - momentum))

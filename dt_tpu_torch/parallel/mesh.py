@@ -1,14 +1,27 @@
-"""The data-axis mesh over a ``torch.distributed`` process group
-(counterpart of ``dt_tpu/parallel/mesh.py``).
+"""The device mesh over a ``torch.distributed`` process group (counterpart of
+``dt_tpu/parallel/mesh.py``).
 
-The JAX package's mesh is a grid of devices with a ``data`` axis (the
-workers: gradients are averaged over it) and a ``model`` axis (tensor
-parallelism).  The port's mesh is the ``data`` axis alone: the ranks of a
-process group, one device each, this process being ``rank``.  A batch
-sharded over it is the rank-ordered concatenation of the ranks' local
-parts, as ``jax.make_array_from_process_local_data`` assembles it
-(``dt_tpu/training/module.py:584-597``).  A ``model`` axis of more than one
-device raises: the parallel layer is ROADMAP.md, Queue 1 item 6.
+The JAX package's mesh is a 2-D grid of devices, data-major, with a
+``data`` axis (the workers: gradients are averaged over it) and a second
+axis, ``model`` by default (``pipe`` for the pipelined LM,
+``examples/train_transformer_lm.py:73-74``), over which the parallel layer
+shards sequences (ring and Ulysses attention), experts (MoE) and pipeline
+stages.  The port's mesh is the same grid of processes, one device each:
+rank ``r`` of the default group sits at ``(r // model, r % model)``, as
+the JAX reshape places device ``r``.  Each axis has its own process groups
+(``dist.new_group``): one along ``data`` a model column, one along the
+second axis a data row; every rank creates every group, in the same order,
+as ``new_group`` requires.
+
+A batch sharded over ``data`` is the rank-ordered concatenation of the
+ranks' local parts, as ``jax.make_array_from_process_local_data``
+assembles it (``dt_tpu/training/module.py:584-597``).  ``rank``, ``data``
+and ``group`` name the data axis (the one ``Module``, ZeRO/FSDP and
+cross-rank BN use); the second axis is ``model``, ``model_rank`` and
+``model_group``, and :meth:`Mesh.axis_size`, :meth:`Mesh.axis_index` and
+:meth:`Mesh.axis_group` read either axis by name.  Dense weights stay whole
+on every rank: the tensor-parallel sharding of the JAX example
+(``examples/train_transformer_lm.py:121-134``) is not in either package.
 
 A sharding here is the axis of a leaf split over ``data`` (``None``:
 replicated), the one fact of a ``NamedSharding`` the data-axis mesh needs.
@@ -19,76 +32,139 @@ last such axis on a tie, in the JAX layout.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-_MODEL_AXIS = ("a model axis of more than one device is not ported yet "
-               "(tensor parallelism); see ROADMAP.md, Queue 1 item 6")
-
 
 class Mesh:
-    """``size`` ranks of ``group`` (``None``: the default group, or no
-    group at all for one rank) along ``data``; this process is ``rank`` and
-    computes on ``device``.  ``shape`` reads as a JAX mesh's does."""
+    """A ``data`` x ``model`` grid of processes, this one at ``(rank,
+    model_rank)``, computing on ``device``.  ``group`` holds the ranks along
+    ``data`` that share this rank's model coordinate (``None``: the
+    default group, or no group at all for one rank); ``model_group`` those
+    along the second axis that share its data coordinate (``None`` when
+    that axis has one rank).  ``axis_names`` names the two axes; ``shape``
+    reads as a JAX mesh's does."""
 
     def __init__(self, rank: int = 0, size: int = 1, group=None,
                  device: Optional[torch.device] = None, model: int = 1,
-                 backend: Optional[str] = None):
-        if model != 1:
-            raise NotImplementedError(f"Mesh(model={model}): {_MODEL_AXIS}")
+                 backend: Optional[str] = None, *, model_rank: int = 0,
+                 model_group=None,
+                 axis_names: Tuple[str, str] = ("data", "model")):
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} outside a mesh of {size}")
+        if not 0 <= model_rank < model:
+            raise ValueError(f"model rank {model_rank} outside an axis of "
+                             f"{model}")
+        if len(axis_names) != 2 or axis_names[0] == axis_names[1]:
+            raise ValueError(f"a mesh has two distinct axis names, got "
+                             f"{axis_names!r}")
         self.rank, self.data, self.model = rank, size, model
-        self.group = group
+        self.model_rank = model_rank
+        self.group, self.model_group = group, model_group
+        self.axis_names = tuple(axis_names)
         self.device = torch.device(device) if device is not None else None
         self.backend = backend
 
     @property
     def shape(self) -> dict:
-        return {"data": self.data, "model": self.model}
+        return dict(zip(self.axis_names, (self.data, self.model)))
 
     @property
     def size(self) -> int:
         return self.data * self.model
 
+    def _axis(self, name: str) -> int:
+        if name not in self.axis_names:
+            raise ValueError(f"the mesh has axes {self.axis_names}, not "
+                             f"{name!r}")
+        return self.axis_names.index(name)
+
+    def axis_size(self, name: str) -> int:
+        return (self.data, self.model)[self._axis(name)]
+
+    def axis_index(self, name: str) -> int:
+        """This rank's coordinate along the axis ``name``."""
+        return (self.rank, self.model_rank)[self._axis(name)]
+
+    def axis_group(self, name: str):
+        """The process group along the axis ``name`` that holds this rank
+        (``None`` for an axis of one rank)."""
+        return (self.group, self.model_group)[self._axis(name)]
+
     def __repr__(self) -> str:
-        return (f"Mesh(rank={self.rank}, data={self.data}, "
-                f"backend={self.backend}, device={self.device})")
+        return (f"Mesh({self.axis_names[0]}={self.data}, "
+                f"{self.axis_names[1]}={self.model}, rank=({self.rank}, "
+                f"{self.model_rank}), backend={self.backend}, "
+                f"device={self.device})")
 
 
-def make_mesh(data: Optional[int] = None, model: int = 1,
-              devices: Optional[Sequence] = None, group=None) -> Mesh:
-    """The mesh of the process group ``group`` (default: the default group
-    when one is initialized, else this process alone).  ``data`` must be
-    the group's size when given; ``model`` must be 1.  ``devices``, one
-    device, is this process's (default: the current CUDA device where
-    there is one, else the CPU)."""
-    if model != 1:
-        raise NotImplementedError(f"make_mesh(model={model}): {_MODEL_AXIS}")
-    grouped = dist.is_available() and dist.is_initialized()
-    size = dist.get_world_size(group) if grouped else 1
-    rank = dist.get_rank(group) if grouped else 0
-    if data is not None and data != size:
-        raise ValueError(f"make_mesh(data={data}): the process group has "
-                         f"{size} rank(s)")
+def _device(devices) -> torch.device:
     if devices is not None:
         devs = list(devices)
         if len(devs) != 1:
             raise NotImplementedError(
                 f"{len(devs)} devices in one process: the port's mesh holds "
                 "one device a rank")
-        device = torch.device(devs[0])
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", torch.cuda.current_device())
-    else:
-        device = torch.device("cpu")
+        return torch.device(devs[0])
+    if torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1,
+              devices: Optional[Sequence] = None,
+              axis_names: Tuple[str, str] = ("data", "model"),
+              group=None) -> Mesh:
+    """The ``data`` x ``model`` mesh (data-major) of the process group
+    ``group`` (default: the default group when one is initialized, else
+    this process alone).  ``data=None`` takes the group's size over
+    ``model``; ``data * model`` must be the group's size.  A ``model``
+    axis of more than one rank needs the default group, whose ranks then
+    all call this, in the same order as their other ``new_group`` calls.
+    ``devices``, one device, is this process's (default: the current CUDA
+    device where there is one, else the CPU)."""
+    grouped = dist.is_available() and dist.is_initialized()
+    size = dist.get_world_size(group) if grouped else 1
+    if data is None:
+        if model < 1 or size % model:
+            raise ValueError(f"{size} devices not divisible by model={model}")
+        data = size // model
+    if data * model > size:
+        raise ValueError(f"mesh {data}x{model} needs {data * model} devices, "
+                         f"have {size}")
+    if data * model != size:
+        raise ValueError(f"make_mesh(data={data}, model={model}): the process "
+                         f"group has {size} rank(s); every rank is one "
+                         "position of the grid")
+    device = _device(devices)
     if not grouped:
-        return Mesh(0, 1, None, device)
-    group = group if group is not None else dist.group.WORLD
-    return Mesh(rank, size, group, device, backend=dist.get_backend(group))
+        return Mesh(0, 1, None, device, axis_names=axis_names)
+    backend = dist.get_backend(group)
+    if model == 1:
+        group = group if group is not None else dist.group.WORLD
+        return Mesh(dist.get_rank(group), size, group, device,
+                    backend=backend, axis_names=axis_names)
+    if group is not None and group is not dist.group.WORLD:
+        raise ValueError("a mesh with a model axis is made over the default "
+                         "process group")
+    r = dist.get_rank()
+    col_group = row_group = None
+    # every rank creates every group, columns (along data) then rows
+    if data > 1:
+        for j in range(model):
+            g = dist.new_group([i * model + j for i in range(data)])
+            if j == r % model:
+                col_group = g
+    for i in range(data):
+        g = dist.new_group([i * model + j for j in range(model)])
+        if i == r // model:
+            row_group = g
+    return Mesh(r // model, data, col_group, device, model, backend,
+                model_rank=r % model, model_group=row_group,
+                axis_names=axis_names)
 
 
 class Sharding(NamedTuple):

@@ -70,10 +70,21 @@ coverage is ``sharding_report``.  The ranks' local batches must be equal
 (the JAX package's global array needs equal parts): unequal ones raise on
 every rank.
 
-What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP item: a ``model`` axis and ``remat=True`` (Queue 1 item 6).  On one
-device ``shard_opt_state``/``shard_params`` shard nothing, as in the JAX
-package, and ``sharding_report`` stays empty.
+A mesh with a second axis (``model`` or ``pipe``; ``parallel.mesh``)
+splits the batch over ``data`` alone and leaves the second axis to the
+model's own parallel layers (ring or Ulysses attention, expert parallelism,
+the pipeline), which name the axes they use in ``mesh_axes``; the gradient
+is averaged over ``data`` only.  A second axis that none of the model's
+layers uses would be tensor parallelism of the dense weights, which lives in
+the JAX package's example, not in its package: it raises, naming its ROADMAP
+item.  The MoE layers' pre-weighted auxiliary losses are added to the
+objective, as the JAX ``forward_loss`` adds the ``aux_loss`` collection
+(``module.py:288-307``), so the routers get a gradient; ``remat=True``
+recomputes the whole forward and loss in the backward (one ``ops.remat``
+checkpoint, ``module.py:150-158, 310-311``: memory-neutral, as there; the
+models' own ``remat`` is per block).  On one device ``shard_opt_state``/
+``shard_params`` shard nothing, as in the JAX package, and
+``sharding_report`` stays empty.
 """
 
 from __future__ import annotations
@@ -96,9 +107,11 @@ from dt_tpu_torch.obs import device as obs_device
 from dt_tpu_torch.obs import metrics as obs_metrics
 from dt_tpu_torch.obs import trace as obs_trace
 from dt_tpu_torch.ops import kernels
+from dt_tpu_torch.ops import remat as remat_lib
 from dt_tpu_torch.ops.losses import softmax_cross_entropy
 from dt_tpu_torch.parallel import kvstore as kvstore_lib
 from dt_tpu_torch.parallel import mesh as mesh_lib
+from dt_tpu_torch.parallel.moe import aux_losses
 from dt_tpu_torch.training import callbacks as callbacks_lib
 from dt_tpu_torch.training import metrics as metrics_lib
 from dt_tpu_torch.training.step import apply_step, grad_step
@@ -204,6 +217,27 @@ def _peek_batch(data_iter) -> None:
     data_iter.reset()
 
 
+def _check_mesh_axes(mesh: mesh_lib.Mesh, model) -> None:
+    """A Module splits the batch over the mesh's ``data`` axis; its second
+    axis belongs to the model's parallel layers (their ``mesh_axes``)."""
+    if mesh.axis_names[0] != "data":
+        raise ValueError(f"Module(mesh=...) splits the batch over the mesh's "
+                         f"first axis, which must be 'data'; the mesh has "
+                         f"{mesh.axis_names}")
+    used = {a for m in model.modules() for a in getattr(m, "mesh_axes", ())}
+    if "data" in used and mesh.data > 1:
+        raise ValueError("the model's parallel layers use the 'data' axis, "
+                         "over which Module splits the batch; give them the "
+                         "mesh's second axis")
+    second = mesh.axis_names[1]
+    if mesh.model > 1 and second not in used:
+        raise NotImplementedError(
+            f"Module(mesh=...) with a {second!r} axis of {mesh.model} that no "
+            "layer of the model uses: tensor parallelism of the dense "
+            "weights (examples/train_transformer_lm.py --tensor-parallel) "
+            f"{_ITEM}item 8 (examples/)")
+
+
 def _compute_dtype(model) -> torch.dtype:
     """The model's compute dtype: its own ``dtype``, else its first
     layer's."""
@@ -289,20 +323,12 @@ class Module:
                  remat: bool = False, shard_opt_state: bool = False,
                  shard_params: bool = False, async_key: str = "params",
                  grad_accum: int = 1):
-        if remat:
-            raise NotImplementedError(
-                "Module(remat=True) is not ported yet (a recomputed forward "
-                "would move the BN running stats twice); see ROADMAP.md, "
-                "Queue 1 item 6")
         if mesh is not None:
-            if dict(getattr(mesh, "shape", {})).get("model", 1) != 1:
-                raise NotImplementedError(
-                    "Module(mesh=...) with a model axis: tensor parallelism "
-                    "is not ported yet; see ROADMAP.md, Queue 1 item 6")
             if not isinstance(mesh, mesh_lib.Mesh):
                 raise TypeError("Module(mesh=...) takes a "
                                 "dt_tpu_torch.parallel.mesh.Mesh, got "
                                 f"{type(mesh).__name__}")
+            _check_mesh_axes(mesh, model)
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.device = resolve_device(device)
@@ -326,6 +352,7 @@ class Module:
         self.async_key = async_key
         self._async = None  # _AsyncMaster on a card, lazy
         self.seed = seed
+        self.remat = remat
         self.grad_accum = int(grad_accum)
         self.state: Optional[TrainState] = None
         self._mesh = mesh
@@ -429,10 +456,20 @@ class Module:
     # ------------------------------------------------------------------
 
     def _forward_loss(self, module, x, y):
+        """``(loss, logits)``: the loss function's value plus the MoE
+        layers' auxiliary losses; under ``remat`` in one checkpoint."""
         kw = {} if self._generator is None else {"generator": self._generator}
-        out = module(x, training=True, **kw)
-        logits = out[0] if isinstance(out, tuple) else out
-        return self.loss_fn(logits, y), logits
+
+        def run(x):
+            out = module(x, training=True, **kw)
+            logits = out[0] if isinstance(out, tuple) else out
+            loss = self.loss_fn(logits, y)
+            aux = aux_losses(module)
+            return (loss + sum(aux, 0.0) if aux else loss), logits
+
+        if self.remat:
+            return remat_lib.checkpoint(run, x, generator=self._generator)
+        return run(x)
 
     def _stats_snapshot(self):
         """The BN stats before a step, when the halt gate may have to put

@@ -1022,3 +1022,100 @@ def test_gateway_on_card_matches_direct_predict(cuda):
         if rep is not None:
             rep.close()
         sched.close()
+
+
+def test_parallel_collectives_on_a_one_rank_nccl_group(cuda):
+    """The parallel layer's NCCL branch on one card (multi-rank NCCL needs
+    two): over a one-rank NCCL group every collective of
+    ``parallel.collectives`` runs on device tensors, none staged through
+    the host, and ring attention, Ulysses and the pipeline over it equal
+    their one-process versions."""
+    import torch.distributed as dist
+
+    from dt_tpu_torch.parallel import collectives as coll
+    from dt_tpu_torch.parallel.mesh import Mesh
+    from dt_tpu_torch.parallel.pipeline import pipeline_run
+    from dt_tpu_torch.parallel.ring_attention import (full_attention,
+                                                      ring_attention)
+    from dt_tpu_torch.parallel.ulysses import ulysses_attention
+    from torch_mesh_job import free_port
+    assert not dist.is_initialized()
+    store = dist.TCPStore("127.0.0.1", free_port(), is_master=True,
+                          wait_for_workers=False)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        world = dist.group.WORLD
+        g = torch.Generator(device=cuda).manual_seed(0)
+        q, k, v = (torch.randn(2, 64, 4, 16, generator=g, device=cuda)
+                   .requires_grad_() for _ in range(3))
+        assert not coll._staged(q.device, world)
+        got = coll.exchange([q.detach()], world, send_to=0, recv_from=0)[0]
+        assert got.is_cuda and torch.equal(got, q.detach())
+        assert torch.equal(coll.all_to_all(q, world, 2, 1), q)
+        assert torch.equal(coll.gather(coll.split(q, world, 1), world, 1), q)
+        assert torch.equal(coll.reduce_from(coll.copy_to(q, world), world), q)
+        mesh = Mesh(0, 1, None, cuda, model=1, model_group=world)
+        for fn in (ring_attention, ulysses_attention):
+            for causal in (False, True):
+                out = fn(q, k, v, mesh, axis_name="model", causal=causal)
+                want = full_attention(q, k, v, causal=causal)
+                torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+                out.sum().backward()
+                assert q.grad.isfinite().all()
+                q.grad = None
+        lin = torch.nn.Linear(16, 16).to(cuda)
+        x = torch.randn(4, 3, 16, generator=g, device=cuda)
+        y = pipeline_run(lambda h: torch.tanh(lin(h)),
+                         list(lin.parameters()), x, world)
+        torch.testing.assert_close(y, torch.tanh(lin(x)))
+        y.sum().backward()
+        assert lin.weight.grad is not None
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_inputs(case: str) -> dict:
+    """The inputs of ``tests/torch_parallel_worker.py``'s ``case`` at a
+    2-rank world, weights from the port's own seeded init."""
+    from torch_parallel_worker import flat
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, 64, (16, 16)).astype(np.int32)
+    cfg = dict(vocab_size=64, embed_dim=32, num_layers=2, num_heads=4,
+               max_len=16)
+    d = dict(x=toks, y=np.roll(toks, -1, 1), toks=toks[:8],
+             batch=np.int64(8))
+    if case == "pipe":
+        cfg.update(num_stages=2, num_micro=2)
+        d.update(w=rng.normal(0, 0.5, (2, 8, 8)).astype(np.float32),
+                 b=rng.normal(0, 0.1, (2, 8)).astype(np.float32),
+                 x_toy=rng.normal(0, 1, (4, 2, 8)).astype(np.float32))
+        name = "transformer_lm_pipelined"
+    else:
+        d.update({n: rng.normal(0, 1, (2, 32, 4, 8)).astype(np.float32)
+                  for n in ("q", "k", "v", "g")})
+        name = "transformer_lm"
+    model = models.init_params(models.create(name, device="cpu", **cfg), 0)
+    d.update(flat(export_jax_variables(model)["params"], "init"))
+    d.update({f"cfg/{k}": np.int64(v) for k, v in cfg.items()})
+    return d
+
+
+@pytest.mark.parametrize("case", ["ring", "ulysses", "pipe"])
+def test_parallel_layer_on_two_gloo_ranks_of_the_card(cuda, tmp_path, case):
+    """Two ranks on the card over gloo (the ring's K/V hops, Ulysses'
+    all-to-alls and the pipeline's sends staged through pinned host
+    memory) against the same world on the CPU: every output, gradient and
+    trained param within 1e-4 (TF32 off in the workers)."""
+    from torch_parallel_worker import run_world
+    d = _parallel_inputs(case)
+    for sub in ("card", "cpu"):
+        (tmp_path / sub).mkdir()
+    card = run_world(str(tmp_path / "card"), case, d, world=2, timeout=240,
+                     device="cuda")
+    cpu = run_world(str(tmp_path / "cpu"), case, d, world=2, timeout=240)
+    for c, h in zip(card, cpu):
+        assert set(c) == set(h)
+        for key in h:
+            np.testing.assert_allclose(c[key], h[key], rtol=1e-4, atol=1e-4,
+                                       err_msg=key)

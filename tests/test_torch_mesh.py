@@ -261,12 +261,37 @@ def test_shard_batch_takes_this_ranks_rows():
 
 
 def test_model_axis_refuses_naming_item_6():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    """The model axis is ported (Queue 1 item 6): one process cannot be a
+    grid of two, and a Module refuses a second axis that none of its
+    model's layers uses (tensor parallelism of the dense weights, Queue 1
+    item 8) or a mesh that is not a port mesh."""
+    with pytest.raises(ValueError, match="not divisible by model=2"):
         mesh_lib.make_mesh(model=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Module(models.create("mlp", device="cpu", in_shape=(4, 4, 1)),
-               device="cpu",
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        mesh_lib.make_mesh(data=1, model=2)
+    two = mesh_lib.Mesh(0, 2, None, "cpu", model=2)
+    assert two.shape == {"data": 2, "model": 2} and two.size == 4
+    assert (two.axis_size("model"), two.axis_index("model")) == (2, 0)
+    mlp = models.create("mlp", device="cpu", in_shape=(4, 4, 1))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        Module(mlp, device="cpu", mesh=two)
+    with pytest.raises(ValueError, match="must be 'data'"):
+        Module(mlp, device="cpu", mesh=mesh_lib.Mesh(
+            0, 2, None, "cpu", model=2, axis_names=("pipe", "model")))
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        Module(mlp, device="cpu",
                mesh=types.SimpleNamespace(shape={"data": 2, "model": 2}))
+
+
+def test_mesh_manager_rebuild_refuses_a_model_axis():
+    """``MeshManager`` forms data axes only, as the JAX package's does: a
+    rebuild of a mesh with a second axis raises, naming the reason."""
+    from dt_tpu_torch.elastic.mesh_manager import MeshManager
+    mm = MeshManager(device="cpu")
+    mm.mesh = mesh_lib.Mesh(0, 1, None, "cpu", model=2,
+                            axis_names=("data", "pipe"))
+    with pytest.raises(NotImplementedError, match="'pipe' axis of 2"):
+        mm.rebuild({}, 1, 0)
 
 
 class _ListIter:

@@ -228,7 +228,9 @@ def test_fit_callbacks_checkpoint_and_begin_epoch(tmp_path):
 
 def test_unported_features_raise(monkeypatch):
     """What the port does not have raises ``NotImplementedError`` naming
-    its ROADMAP item (a mesh's model axis, ``remat``); a ``mesh_manager``
+    its ROADMAP item (``remat`` and a mesh's model axis are ported now: a
+    Module takes ``remat=True``, and a mesh must be a port mesh); a
+    ``mesh_manager``
     is taken, and the mesh sync mode across worker processes without their
     process group refuses to train each worker alone; the elastic contract
     (the distributed kvstores, a controller, the env variables,
@@ -238,11 +240,10 @@ def test_unported_features_raise(monkeypatch):
     model = tmodels.create("mlp", device="cpu", in_shape=(4, 4, 1))
     x, y = _nan_dataset(poison_from=32)
     it = tio.NDArrayIter(x, y, batch_size=16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TModule(model, device="cpu", remat=True)
+    assert TModule(model, device="cpu", remat=True).remat
     assert TModule(model, device="cpu",
                    mesh_manager=object()).mesh_manager is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         TModule(model, device="cpu", mesh=types.SimpleNamespace(
             shape={"data": 1, "model": 2}))
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):

@@ -316,10 +316,32 @@ def test_dropout_keep_rate_and_scale():
                                 dict(seq_parallel="ulysses"),
                                 dict(moe_experts=2), dict(remat=True)])
 def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tmodels.create("transformer_lm", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tmodels.create("transformer_lm_pipelined", device="cpu")
+    """The parallel layer's options (Queue 1 item 6) are ported: ring and
+    Ulysses attention raise without a mesh only, and on a mesh of one
+    process equal plain attention; MoE and ``remat`` build and run; the
+    pipelined LM builds (``tests/test_torch_ring_attention.py``,
+    ``test_torch_ulysses.py``, ``test_torch_moe.py``,
+    ``test_torch_pipeline.py`` and ``test_torch_remat.py`` hold them
+    against ``dt_tpu``)."""
+    from dt_tpu_torch.parallel.mesh import make_mesh
+    cfg = dict(vocab_size=16, embed_dim=16, num_layers=1, num_heads=2,
+               max_len=8)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, 16, (2, 8)))
+    if "seq_parallel" in kw:
+        with pytest.raises(ValueError, match="needs a mesh"):
+            tmodels.create("transformer_lm", device="cpu", **cfg, **kw)
+        kw = dict(kw, mesh=make_mesh(devices=["cpu"]), axis_name="model")
+    model = tmodels.init_params(
+        tmodels.create("transformer_lm", device="cpu", **cfg, **kw), 0)
+    plain = tmodels.init_params(
+        tmodels.create("transformer_lm", device="cpu", **cfg,
+                       moe_experts=kw.get("moe_experts", 0)), 0)
+    logits = model(toks, training=True)
+    logits.float().sum().backward()
+    torch.testing.assert_close(logits, plain(toks, training=True))
+    assert isinstance(tmodels.create("transformer_lm_pipelined",
+                                     device="cpu", **cfg, num_stages=1),
+                      tmodels.PipelinedTransformerLM)
 
 
 def test_create_defaults_to_cuda():
