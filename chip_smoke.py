@@ -226,7 +226,32 @@ JAX.  Phases, each fatal on failure:
    -> 105: the recompute launches again); (d) the
    ``PipelinedTransformerLM`` (2 stages, 4 microbatches) over the 2 ranks:
    f32 logits within 1e-4 of the one-process sequential path and 3 bf16
-   fit steps with the loss falling.  Each part's time and the phase's.
+   fit steps with the loss falling.  Each part's time and the phase's;
+22. optim (after the parallel layer): the port's optimizers on the card.
+   (a) ResNet-50 v1 bf16 through ``Module.fit`` as
+   ``examples/common.py:115-126`` builds it (sgd momentum 0.9, wd 1e-4, a
+   ``MultiFactorScheduler`` dropping after update 3, ``multi_precision``),
+   batch 32, one epoch of 6 steps on one seeded batch: loss finite and
+   falling, 53 ``bn_stats`` and 53 ``bn_act`` a step, one more update
+   leaving every f32 param at ``w + (master - w)``; the median step ms
+   beside the same fit without ``multi_precision``; (b) the TransformerLM
+   of phase 7 at full width under adam (lr 3e-4, as
+   ``examples/train_transformer_lm.py``), 5 steps, then 5 with
+   ``multi_precision`` (the bf16 ``pos_embed`` gets an f32 master): loss
+   falling, 6 flash launches a forward, the median step ms and the
+   state's bytes; (c) one update of every registered name (and rmsprop
+   centered) over ResNet-50's 161 parameters from seeded gradients, card
+   against the same code on the CPU (1e-6 of each leaf's largest, 1e-5
+   for lbsgd's and lamb's norms; sgld's key equal and its noise within 4
+   sigma of N(0, lr)), and each update's ms (CUDA events, median of 5);
+   (d) ZeRO-1 with adam over 2 gloo ranks of the card
+   (``tests/torch_mesh_worker.py``), ResNet-50 f32 at global batch 64, one
+   step: one sha256 over the ranks, ZeRO-1 equal to plain data
+   parallelism bit for bit, the moments against one process's step within
+   phase 20's f32 limits, the bytes held with and without ZeRO-1; (e)
+   (b)'s adam + ``multi_precision`` state saved asynchronously through the
+   pinned buffers, loaded into a fresh model's state bit-equal, and one
+   more step of each bit-equal.  Each part's time and the phase's.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -243,7 +268,9 @@ the jobs run bf16, and one counter serves both dtypes); the bf16
 BN-inference row also carries ``gateway_launches``, phase 19's, and the
 bf16 BN rows ``mesh_launches``, phase 20's (pass 1 there is ``bn_sums``,
 whose own times sit in the BN-train rows' ``bn_sums``); the flash rows
-and the bf16 BN rows carry ``parallel_launches``, phase 21's.
+and the bf16 BN rows carry ``parallel_launches``, phase 21's, and
+``optim_launches``, phase 22's; the f32 BN-train row carries phase 22
+(d)'s f32 ranks' ``bn_sums``/``bn_act`` as its ``optim_launches``.
 """
 
 from __future__ import annotations
@@ -4855,6 +4882,471 @@ def parallel_phase(gpu, dev, variables) -> dict:
             "launches": launches, "seconds": total}
 
 
+# Phase 22, the optimizers (dt_tpu_torch.optim) on the card: (a) ResNet-50
+# v1 bf16 through Module.fit as examples/common.py:115-126 builds it (sgd,
+# momentum 0.9, wd 1e-4, a MultiFactorScheduler, multi_precision) at batch
+# 32, one epoch of OPT_FIT_STEPS steps on one seeded batch, beside the same
+# fit without multi_precision; (b) the TransformerLM of LM under adam at
+# examples/train_transformer_lm.py's lr, OPT_LM_STEPS steps on one batch,
+# then as many under multi_precision; (c) one update of every registered
+# name (and rmsprop centered) over ResNet-50's 161 parameters from seeded
+# gradients, card against the same code on the CPU; (d) ZeRO-1 with adam
+# over 2 gloo ranks of the card, one f32 step; (e) (b)'s checkpoint round
+# trip.
+OPT_FIT_STEPS = 6
+OPT_FIT_DROP = [3]  # the schedule drops by 10 after update 3
+OPT_LM_STEPS = 5
+OPT_LM_ADAM = {"learning_rate": 3e-4}
+OPT_RULES = {
+    "sgd": ("sgd", dict(learning_rate=0.01, momentum=0.9,
+                        weight_decay=1e-4)),
+    "nag": ("nag", {}), "adam": ("adam", dict(weight_decay=1e-4)),
+    "adagrad": ("adagrad", {}), "rmsprop": ("rmsprop", {}),
+    "rmsprop_centered": ("rmsprop", dict(centered=True, momentum=0.9)),
+    "adadelta": ("adadelta", {}), "ftrl": ("ftrl", {}),
+    "adamax": ("adamax", {}), "nadam": ("nadam", {}),
+    "signum": ("signum", {}), "signsgd": ("signsgd", {}),
+    "ftml": ("ftml", {}), "sgld": ("sgld", dict(learning_rate=1e-4)),
+    "dcasgd": ("dcasgd", dict(momentum=0.9)),
+    "lbsgd": ("lbsgd", dict(eta=0.01)),
+    "lamb": ("lamb", dict(weight_decay=1e-4))}
+# card against CPU, per leaf of the max |value|: the elementwise rules are
+# the same f32 ops on both, a last bit apart where one device divides by a
+# scalar as a product with its reciprocal (up to 4.9e-7 on an H100);
+# ftrl's soft threshold z - lamda1 cancels, so such a bit grows (3.5e-6);
+# lbsgd's and lamb's norms sum in another order
+TOL_OPT_CARD = {"ftrl": 1e-5, "lbsgd": 1e-5, "lamb": 1e-5}
+OPT_ZERO_ADAM = {"learning_rate": 1e-4, "weight_decay": 1e-4}
+OPT_ZERO_TIMEOUT = 240  # s, the 2-rank world
+
+
+def _median_ms(times) -> float:
+    return float(np.median(times)) * 1e3 if len(times) else float("nan")
+
+
+def _opt_fit(dev, mp: bool, images, labels) -> dict:
+    """(a) one run: a fresh ResNet-50 bf16 ``Module`` (``init_params(seed=
+    0)``) fit for one epoch of the tiled batch; per-step cross-entropy from
+    the running metric, step times from the batch-end callbacks (one step
+    behind the launch), the launches of the fit."""
+    import torch
+    from dt_tpu_torch import models, optim
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.training.module import Module
+    sched = optim.MultiFactorScheduler(
+        steps=OPT_FIT_DROP, factor=0.1, base_lr=FIT_SGD["learning_rate"])
+    mod = Module(models.create("resnet50", device=dev, dtype=torch.bfloat16),
+                 optimizer="sgd",
+                 optimizer_params={"learning_rate": sched, "momentum": 0.9,
+                                   "weight_decay": 1e-4,
+                                   "multi_precision": mp},
+                 device=dev, seed=0)
+    mod.init_params()
+    ends, cum = [], []
+
+    def on_batch(param):
+        ends.append(time.perf_counter())
+        cum.append(dict(param.eval_metric.get_name_value())["cross-entropy"])
+
+    torch.cuda.synchronize()
+    reset_counts()  # the main path's run starts here
+    mod.fit(io.NDArrayIter(images, labels, batch_size=BATCH),
+            eval_metric="ce", num_epoch=1, batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    counts = read_counts()  # ... and ends here
+    losses = [cum[0]] + [cum[k] * (k + 1) - cum[k - 1] * k
+                         for k in range(1, len(cum))]
+    return {"mod": mod, "counts": counts, "losses": losses,
+            "step_ms": _median_ms(np.diff(ends))}
+
+
+def _opt_fit_phase(dev, gpu) -> dict:
+    """(a): the multi-precision fit and the plain one; gates on the first:
+    the loss finite and falling, 53 ``bn_stats`` and 53 ``bn_act`` a step,
+    the state ``{"master", "inner"}``, and one more update on the card
+    leaving every f32 param at ``w + (master - w)`` of that step."""
+    import torch
+    rng = np.random.RandomState(31)
+    x = rng.uniform(-1, 1, (BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    y = rng.randint(0, 1000, BATCH).astype(np.int32)
+    images = np.tile(x, (OPT_FIT_STEPS, 1, 1, 1))
+    labels = np.tile(y, OPT_FIT_STEPS)
+    out = {}
+    for mp in (True, False):
+        run = _opt_fit(dev, mp, images, labels)
+        tag = f"optim (a) fit bf16 multi_precision={mp}"
+        want = {k: 0 for k in run["counts"]}
+        want.update(bn_stats=BN_PER_FORWARD * OPT_FIT_STEPS,
+                    bn_act=BN_PER_FORWARD * OPT_FIT_STEPS)
+        _check_counts(tag, run["counts"], want)
+        _falling(tag, run["losses"])
+        print(f"{tag} median_step_ms={run['step_ms']:.3f} gpu={gpu}",
+              flush=True)
+        if mp:
+            st = run["mod"].state
+            if set(st.opt_state) != {"master", "inner"}:
+                raise AssertionError(f"{tag}: state {sorted(st.opt_state)}")
+            g = torch.Generator(device=dev).manual_seed(5)
+            grads = {n: torch.randn(p.shape, generator=g, device=dev) * 1e-3
+                     for n, p in st.params.items()}
+            before = {n: p.detach().clone() for n, p in st.params.items()}
+            st.apply_gradients(grads)
+            master = st.opt_state["master"]
+            bad = [n for n, p in st.params.items()
+                   if p.dtype == torch.float32 and not torch.equal(
+                       p, before[n] + (master[n] - before[n]))]
+            print(f"{tag} one more update: {len(st.params) - len(bad)} of "
+                  f"{len(st.params)} f32 params at w + (master - w)",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"{tag}: params off w + (master - w): "
+                                     f"{bad[:3]}")
+        out[mp] = {k: run[k] for k in ("counts", "losses", "step_ms")}
+        del run
+        torch.cuda.empty_cache()
+    return out
+
+
+def _state_bytes(state) -> int:
+    """Bytes of a train state's optimizer state: its slots' tensors and
+    its other leaves as the JAX state holds them (int32 counts)."""
+    from dt_tpu_torch.optim.state import export_leaf, leaves, slots
+    names = set(state.params)
+    return sum(t.numel() * t.element_size()
+               for _, s in slots(state.opt_state, names)
+               for t in s.values()) + sum(
+        export_leaf(v).nbytes for v in leaves(state.opt_state, names))
+
+
+def _opt_lm_phase(dev, gpu) -> dict:
+    """(b) and (e): the TransformerLM at full width (flash, bf16) under
+    adam, OPT_LM_STEPS steps on one batch, then as many under adam with
+    multi_precision (the bf16 ``pos_embed`` gets an f32 master); each run
+    6 ``flash_attention`` launches a forward and its loss falling.  Then
+    (e): the multi-precision state saved (async, through the pinned
+    buffers), loaded into a fresh model's state (bit-equal), and one more
+    step of each bit-equal."""
+    import tempfile
+    import torch
+    from dt_tpu_torch import models, optim
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.optim.state import slots as opt_slots
+    from dt_tpu_torch.training import checkpoint
+    from dt_tpu_torch.training.step import next_token_loss, train_step
+    from dt_tpu_torch.training.train_state import TrainState
+
+    def make():
+        return models.create("transformer_lm", device=dev,
+                             seq_parallel="flash", dtype=torch.bfloat16,
+                             **LM)
+
+    model = make()
+    load_jax_variables(model, seeded_lm_variables(model, seed=0))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, LM["vocab_size"], (LM_BATCH, LM_SEQ))).to(dev)
+    out = {}
+    state = None
+    for mp in (False, True):
+        state = TrainState.create(model, optim.create(
+            "adam", multi_precision=mp, **OPT_LM_ADAM))
+        tag = f"optim (b) lm adam multi_precision={mp}"
+        torch.cuda.synchronize()
+        reset_counts()  # the main path's run starts here
+        losses, times = [], []
+        for _ in range(OPT_LM_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(train_step(state, tokens, None,
+                                           loss_fn=next_token_loss)[1]))
+            times.append(time.perf_counter() - t0)
+        counts = read_counts()  # ... and ends here
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = LM["num_layers"] * OPT_LM_STEPS
+        _check_counts(tag, counts, want)
+        _falling(tag, losses)
+        nbytes = _state_bytes(state)
+        print(f"{tag} median_step_ms={_median_ms(times[1:]):.3f} "
+              f"first_step_ms={times[0] * 1e3:.3f} opt_state_bytes={nbytes} "
+              f"gpu={gpu}", flush=True)
+        out[mp] = {"counts": counts, "losses": losses, "state_bytes": nbytes,
+                   "step_ms": _median_ms(times[1:])}
+    # (e) the checkpoint round trip of the multi-precision state
+    names = set(state.params)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "lm")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(prefix, state.step, state,
+                                   async_save=True).result()
+        save_s = time.perf_counter() - t0
+        fresh = TrainState.create(make(), optim.create(
+            "adam", multi_precision=True, **OPT_LM_ADAM))
+        t0 = time.perf_counter()
+        tag_step, _ = checkpoint.load_latest_checkpoint(prefix, fresh)
+        load_s = time.perf_counter() - t0
+
+    def same(a, b, what):
+        bad = [n for n in a if not torch.equal(a[n], b[n])]
+        if bad:
+            raise AssertionError(f"optim (e) {what} differ after the "
+                                 f"round trip: {bad[:3]}")
+
+    def check(what):
+        if fresh.step != state.step:
+            raise AssertionError(f"optim (e) {what}: step {fresh.step} != "
+                                 f"{state.step}")
+        same(state.params, fresh.params, f"{what} params")
+        for (path, a), (_, b) in zip(opt_slots(state.opt_state, names),
+                                     opt_slots(fresh.opt_state, names)):
+            same(a, b, f"{what} {'/'.join(path)}")
+        if state.opt_state["inner"]["count"] != \
+                fresh.opt_state["inner"]["count"]:
+            raise AssertionError(f"optim (e) {what}: counts differ")
+
+    check("loaded")
+    reset_counts()
+    la = float(train_step(state, tokens, None, loss_fn=next_token_loss)[1])
+    lb = float(train_step(fresh, tokens, None, loss_fn=next_token_loss)[1])
+    counts = read_counts()
+    check("after one more step")
+    if la != lb:
+        raise AssertionError(f"optim (e) the next step's loss {lb} != {la}")
+    print(f"optim (e) checkpoint of the adam + multi_precision LM state: "
+          f"tag {tag_step}, save {save_s:.3f} s (async, pinned), load "
+          f"{load_s:.3f} s, state bit-equal, one more step bit-equal "
+          f"(loss {la:.6f}) gpu={gpu}", flush=True)
+    out["roundtrip"] = {"counts": counts, "save_s": save_s,
+                        "load_s": load_s}
+    del model, state, fresh, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def _opt_rules_phase(dev, variables, gpu) -> dict:
+    """(c): every rule of :data:`OPT_RULES`, one update over ResNet-50's
+    161 parameters (seeded weights, seeded gradients of 1e-2) on the card
+    and on the CPU: params and every state leaf within the rule's
+    tolerance (sgld: its key equal, its noise's mean and standard
+    deviation within 4 sigma of N(0, lr)); then the update's device time
+    (CUDA events around each of 5 more updates, the median)."""
+    import torch
+    from dt_tpu_torch import models, optim
+    from dt_tpu_torch.interchange import load_jax_variables
+    cpu = load_jax_variables(models.create("resnet50", device="cpu"),
+                             variables)
+    w0 = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    del cpu
+    rng = np.random.RandomState(41)
+    g0 = {n: torch.from_numpy(rng.normal(0, 1e-2, p.shape).astype(
+        np.float32)) for n, p in w0.items()}
+    n_elems = sum(p.numel() for p in w0.values())
+    out = {}
+    for case, (name, kw) in OPT_RULES.items():
+        sides = []
+        for d in (dev, torch.device("cpu")):
+            params = {n: p.to(d, copy=True) for n, p in w0.items()}
+            grads = {n: g.to(d) for n, g in g0.items()}
+            tx = optim.create(name, **kw)
+            state = tx.update(grads, tx.init(params), params)
+            sides.append((tx, params, grads, state))
+        (tx, pc, gc, sc), (_, pk, _, sk) = sides
+        tol = TOL_OPT_CARD.get(case, 1e-6)
+        worst = 0.0
+        if name == "sgld":
+            lr = float(np.float32(kw["learning_rate"]))
+            noise = torch.cat([(pc[n] - w0[n].to(dev)
+                                + gc[n] * np.float32(lr / 2)).reshape(-1)
+                               for n in pc]).double()
+            mean, std = float(noise.mean()), float(noise.std())
+            sigma = np.sqrt(lr)
+            if abs(mean) > 4 * sigma / np.sqrt(n_elems) or \
+                    abs(std - sigma) > 4 * sigma / np.sqrt(2 * n_elems):
+                raise AssertionError(f"optim (c) sgld noise mean {mean} std "
+                                     f"{std}, expected N(0, {sigma}^2)")
+            if not np.array_equal(sc["mom"], sk["mom"]):
+                raise AssertionError("optim (c) sgld: the keys differ")
+            worst = abs(std - sigma) / sigma
+        else:
+            def pairs(a, b, prefix=""):
+                for k, v in b.items():
+                    if isinstance(v, dict):
+                        yield from pairs(a[k], v, prefix + k + "/")
+                    else:
+                        yield prefix + k, a[k], v
+            for what, a, b in list(pairs(pc, pk)) + list(pairs(sc, sk)):
+                if isinstance(b, torch.Tensor):
+                    scale = float(b.abs().max())
+                    err = float((a.cpu() - b).abs().max())
+                    worst = max(worst, err / max(scale, 1e-30))
+                    if err > tol * scale:
+                        raise AssertionError(f"optim (c) {case} {what}: "
+                                             f"{err} of {scale}, tol {tol}")
+                elif np.asarray(a).tobytes() != np.asarray(b).tobytes():
+                    raise AssertionError(f"optim (c) {case} {what}: {a} "
+                                         f"!= {b}")
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            sc = tx.update(gc, sc, pc)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[case] = {"ms": float(np.median(times)), "max_rel_err": worst}
+        print(f"optim (c) {case}: one update of {len(pc)} params "
+              f"({n_elems} f32) card vs CPU max_rel_err={worst:.3e} (tol "
+              f"{tol if name != 'sgld' else '4 sigma'}) update_ms="
+              f"{out[case]['ms']:.3f} (median of 5, CUDA events) gpu={gpu}",
+              flush=True)
+        del sides, pc, pk, gc, sc, sk
+        torch.cuda.empty_cache()
+    return out
+
+
+def _opt_zero_phase(variables, gpu, dev) -> dict:
+    """(d): ZeRO-1 with adam over 2 gloo ranks of the card
+    (``tests/torch_mesh_worker.py``, modes ``dp_f32`` and ``zero1_f32``),
+    ResNet-50 f32 at global batch 64 (32 rows a rank), one step from the
+    seeded weights: one sha256 over the ranks in each mode, ZeRO-1's
+    state equal to plain data parallelism's bit for bit (Adam is
+    elementwise), and against one process's step over the 64 rows: the
+    moments (``a`` = 0.1 g, ``b`` = 0.001 g^2) and the running stats
+    within the f32 limits of phase 20's pair (``TOL_STEP``: the 2-rank
+    gradient holds one process's to ~2e-2).  The update, ``-lr*g/(|g| +
+    eps)``, is printed, not gated: where |g| is at the two runs' noise it
+    is +-lr on the sign of that noise.  Prints the bytes each rank holds
+    after its step in both modes."""
+    import shutil
+    import tempfile
+    import torch
+    from torch_mesh_job import run_world
+    from torch_mesh_worker import flat_tree
+
+    from dt_tpu_torch import models
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.elastic.mesh_manager import snapshot_state
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.training.module import Module
+    tmp = tempfile.mkdtemp(prefix="dt_optim_zero_")
+    try:
+        np.savez(f"{tmp}/init.npz", **flat_tree(variables))
+        rng = np.random.RandomState(23)
+        x = rng.uniform(-1, 1, (64, IMAGE, IMAGE, 3)).astype(np.float32)
+        y = rng.randint(0, 1000, 64).astype(np.int32)
+        for r in range(2):
+            np.savez(f"{tmp}/data{r}.npz", x=x[32 * r:32 * r + 32],
+                     y=y[32 * r:32 * r + 32])
+        t0 = time.perf_counter()
+        ranks = run_world(tmp, 2, [
+            "--model", "resnet50", "--dtype", "float32", "--device", dev.type,
+            "--image-size", str(IMAGE), "--deterministic", "--modes",
+            "dp_f32,zero1_f32", "--batch", "32", "--init-npz",
+            f"{tmp}/init.npz", "--data-npz", f"{tmp}/data{{rank}}.npz",
+            "--out", f"{tmp}/r{{rank}}_{{mode}}.npz", "--optimizer", "adam",
+            "--opt-params", json.dumps(OPT_ZERO_ADAM)],
+            timeout=OPT_ZERO_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        lines = [ln for r in ranks for ln in r]
+        for mode in ("dp_f32", "zero1_f32"):
+            shas = {ln["sha256"] for ln in lines if ln["mode"] == mode}
+            if len(shas) != 1:
+                raise AssertionError(f"optim (d) {mode}: ranks differ")
+        dp = dict(np.load(f"{tmp}/r0_dp_f32.npz"))
+        zero = dict(np.load(f"{tmp}/r0_zero1_f32.npz"))
+        bad = [k for k in dp if not np.array_equal(dp[k], zero[k])]
+        if bad or set(dp) != set(zero):
+            raise AssertionError(f"optim (d) ZeRO-1 differs from plain "
+                                 f"data parallelism at {bad[:3]}")
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            mod = Module(models.create("resnet50", device=dev),
+                         optimizer="adam", optimizer_params=OPT_ZERO_ADAM,
+                         device=dev)
+            mod.init_params()
+            load_jax_variables(mod.model, variables)
+            mod.fit(io.NDArrayIter(x, y, batch_size=64), num_epoch=1,
+                    eval_metric="ce")
+            blob = snapshot_state(mod.state)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        one = flat_tree({"params": blob["params"],
+                         "batch_stats": blob["batch_stats"],
+                         "opt_state": blob["opt_state"]})
+        del mod, blob
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    w0 = flat_tree({"params": variables["params"]})
+
+    def rel(prefix, base=None):
+        keys = sorted(k for k in one if k.startswith(prefix))
+        a = np.concatenate([zero[k].ravel().astype(np.float64)
+                            - (base[k[len(prefix):]].ravel()
+                               if base else 0.0) for k in keys])
+        b = np.concatenate([one[k].ravel().astype(np.float64)
+                            - (base[k[len(prefix):]].ravel()
+                               if base else 0.0) for k in keys])
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    w0p = {k[len("params/"):]: np.asarray(v, np.float64)
+           for k, v in w0.items()}
+    errs = {"update": rel("params/", w0p), "a": rel("opt_state/a/"),
+            "b": rel("opt_state/b/"), "stats": rel("batch_stats/")}
+    held = {ln["mode"]: ln["memory_allocated"] for ln in ranks[0]}
+    launches = {m: [ln["launches"] for ln in lines if ln["mode"] == m]
+                for m in ("dp_f32", "zero1_f32")}
+    print(f"optim (d) ZeRO-1 adam 2 gloo ranks x 32 rows, ResNet-50 f32: "
+          f"world {world_s:.1f} s, one sha256 a mode, ZeRO-1 = plain bit "
+          f"for bit; against one process on the 64 rows: a "
+          f"{errs['a']:.3e} (tol {TOL_STEP['flat_g']}) b {errs['b']:.3e} "
+          f"(tol {2 * TOL_STEP['flat_g']}) update {errs['update']:.3e} "
+          f"(not gated) running_stats {errs['stats']:.3e} (tol "
+          f"{TOL_STEP['stats']}); bytes held after the step by rank 0 "
+          f"{json.dumps(held)}; launches {json.dumps(launches)} gpu={gpu}",
+          flush=True)
+    if not (errs["a"] <= TOL_STEP["flat_g"]
+            and errs["b"] <= 2 * TOL_STEP["flat_g"]
+            and errs["stats"] <= TOL_STEP["stats"]):
+        raise AssertionError(f"optim (d) against one process: {errs}")
+    for m, per_rank in launches.items():
+        for c in per_rank:
+            if c != {"bn_sums": BN_PER_FORWARD, "bn_stats": 0,
+                     "bn_act": BN_PER_FORWARD}:
+                raise AssertionError(f"optim (d) {m} launches {c}")
+    return {"errs": errs, "held": held, "launches": launches,
+            "world_s": world_s}
+
+
+def optim_phase(gpu, dev, variables) -> dict:
+    """Phase 22, the optimizers: (a) :func:`_opt_fit_phase`, (b) and (e)
+    :func:`_opt_lm_phase`, (c) :func:`_opt_rules_phase`, (d)
+    :func:`_opt_zero_phase`.  Each part's time and the phase's."""
+    t0 = time.perf_counter()
+    times = {}
+    t = time.perf_counter()
+    fit = _opt_fit_phase(dev, gpu)
+    times["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lm = _opt_lm_phase(dev, gpu)
+    times["b_e"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rules = _opt_rules_phase(dev, variables, gpu)
+    times["c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    zero = _opt_zero_phase(variables, gpu, dev)
+    times["d"] = time.perf_counter() - t
+    total = time.perf_counter() - t0
+    print(f"optim phase: fit (a) {times['a']:.1f} s, lm + checkpoint (b, "
+          f"e) {times['b_e']:.1f} s, rules (c) {times['c']:.1f} s, zero "
+          f"(d) {times['d']:.1f} s, total {total:.1f} s gpu={gpu}",
+          flush=True)
+    launches = {k: fit[True]["counts"][k] + lm[False]["counts"][k]
+                + lm[True]["counts"][k] + lm["roundtrip"]["counts"][k]
+                for k in fit[True]["counts"]}
+    return {"fit": fit, "lm": lm, "rules": rules, "zero": zero,
+            "launches": launches, "seconds": total}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5009,6 +5501,9 @@ def main() -> int:
     parallel = parallel_phase(gpu, dev, variables)
     print(f"phase parallel done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    optim_run = optim_phase(gpu, dev, variables)
+    print(f"phase optim done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -5065,6 +5560,10 @@ def main() -> int:
             kernels[-1]["parallel_launches"] = (
                 parallel["launches"]["bn_act"]
                 - parallel["launches"]["bn_stats"])
+            # phase 22: (a)'s fit has no eval forward either
+            kernels[-1]["optim_launches"] = (
+                optim_run["launches"]["bn_act"]
+                - optim_run["launches"]["bn_stats"])
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -5113,6 +5612,13 @@ def main() -> int:
             # recompute launches pass 1 and pass 2 again)
             kernels[-1]["parallel_launches"] = \
                 parallel["launches"]["bn_stats"]
+            # phase 22 (a): the multi-precision fit
+            kernels[-1]["optim_launches"] = optim_run["launches"]["bn_stats"]
+        else:  # phase 22 (d): the f32 ZeRO-1 world's ranks (bn_sums)
+            kernels[-1]["optim_launches"] = {
+                k: sum(c[k] for per in optim_run["zero"]["launches"].values()
+                       for c in per) for k in ("bn_sums", "bn_stats",
+                                               "bn_act")}
     sums = train_kernels[torch.bfloat16]
     kernels.append({  # the mesh's pass 1 (phase 20), its own entry point
         "name": "fused_bn_train.bn_sums[bfloat16]", "route": "cuda",
@@ -5173,6 +5679,8 @@ def main() -> int:
         # phase 21: the MoE LM's fit (b) and the LM without and with
         # remat (c)
         k["parallel_launches"] = parallel["launches"]["flash_attention"]
+        # phase 22: the LM under adam (b) and the checkpoint's steps (e)
+        k["optim_launches"] = optim_run["launches"]["flash_attention"]
     lp = lstm[200]
     kernels.append({
         "name": "lstm_pointwise", "route": "cuda",

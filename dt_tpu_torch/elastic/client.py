@@ -267,10 +267,10 @@ class WorkerClient:
         at-least-once retry (the ``resender.h`` role): every re-send
         carries the same idempotency token.  ``retries`` is the total
         number of attempts.  With more than one scheduler endpoint, a
-        request to one of them fails over (:meth:`_req_failover`); a
-        range server's never rotates."""
+        request to one of them fails over (:meth:`_req_failover`, bounded
+        by its wall budget instead); a range server's never rotates."""
         if len(self.addrs) > 1 and tuple(addr) in set(self.addrs):
-            return self._req_failover(msg, timeout, retries)
+            return self._req_failover(msg, timeout)
         resp = protocol.request(addr[0], addr[1], msg, timeout=timeout,
                                 retries=max(retries - 1, 0))
         if "error" in resp:
@@ -281,32 +281,33 @@ class WorkerClient:
              retries: int = 8) -> dict:
         if len(self.addrs) == 1:
             return self._req_addr(self.addr, msg, timeout, retries)
-        return self._req_failover(msg, timeout, retries)
+        return self._req_failover(msg, timeout)
 
     # -- scheduler failover (client.py:300-402) ----------------------------
 
-    def _req_failover(self, msg: dict, timeout: float,
-                      retries: int) -> dict:
+    def _req_failover(self, msg: dict, timeout: float) -> dict:
         """One control request over the ordered endpoints.  The token is
         pinned before the first attempt, so a replay that crosses
         endpoints dedups like a same-endpoint retry; ``not_leader`` and
         ``fenced`` answers rotate like a dead connection.
         ``DT_CTRL_FAILOVER_S`` bounds the rotations, not one attempt (a
         barrier may park for minutes on a healthy leader), and every
-        endpoint is tried at least once; the backoff between rotations is
-        jittered (:func:`protocol.next_backoff`), so a failing-over fleet
-        does not reach the standby in lockstep."""
+        endpoint is tried at least once.  No count of attempts bounds
+        them: a standby takes over only once the dead leader's lease
+        lapsed, which a fixed count of backed-off attempts can end before
+        (16 attempts sleep 15 times, each draw in [0.1, 1] s).  The
+        backoff is jittered (:func:`protocol.next_backoff`), so a
+        failing-over fleet does not reach the standby in lockstep."""
         msg = dict(msg)
         msg.setdefault("token", uuid.uuid4().hex)
         with self._addr_lock:
             msg.setdefault("fence", self.fence)
         deadline = time.monotonic() + \
             float(config.env("DT_CTRL_FAILOVER_S"))
-        attempts = max(2, retries) * len(self.addrs)
         delay = 0.1
         tried: set = set()
         last_exc: Optional[Exception] = None
-        for _ in range(attempts):
+        while True:
             addr = self.addr
             tried.add(tuple(addr))
             try:
@@ -700,7 +701,16 @@ class WorkerClient:
         self._req({"cmd": "publish_snapshot", "blob": blob})
 
     def fetch_snapshot(self):
-        return self._req({"cmd": "fetch_snapshot"})["blob"]
+        try:
+            return self._req({"cmd": "fetch_snapshot"})["blob"]
+        except ModuleNotFoundError as e:
+            if e.name != "ml_dtypes":
+                raise
+            raise RuntimeError(
+                "the train-state snapshot holds bfloat16 leaves as "
+                "ml_dtypes arrays (a JAX worker published it), and this "
+                "host has no ml_dtypes to unpickle them: a worker here "
+                "cannot bootstrap from it (ROADMAP.md, Queue 3)") from e
 
     def num_dead_nodes(self, timeout_s: float = 60.0) -> int:
         return self._req({"cmd": "num_dead",

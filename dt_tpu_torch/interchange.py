@@ -47,6 +47,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from dt_tpu_torch.optim.state import export_leaf, load_state, map_state
+
 _FUSED_BN = re.compile(r"^FusedBatchNorm_(\d+)$")
 _BN = re.compile(r"^BatchNorm_(\d+)$")
 BN_NAMES = ("BatchNorm", "FusedBatchNorm")
@@ -108,13 +110,43 @@ def _port_name(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+#: the numpy-only form of a bfloat16 leaf where numpy has no bfloat16
+#: (:func:`numpy_tree`): its bits under a field the dtype names
+BF16_BITS = np.dtype([("bfloat16", "<u2")])
+
+
 def _to_tensor(leaf) -> torch.Tensor:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach()
     arr = np.array(leaf, copy=True)
-    if arr.dtype.name == "bfloat16":  # the JAX arrays' numpy bfloat16
+    if arr.dtype.name == "bfloat16" or arr.dtype == BF16_BITS:
+        # the JAX arrays' numpy bfloat16, or its bits (numpy_tree)
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def numpy_tree(tree: Mapping) -> Dict[str, Any]:
+    """``tree`` (an exported state) with every ``torch.bfloat16`` leaf as
+    numpy, so the tree pickles without torch (a published snapshot): as
+    ``ml_dtypes.bfloat16``, the JAX arrays' own dtype, where that package
+    is installed (a JAX joiner restores it as it restores a JAX worker's),
+    else as :data:`BF16_BITS`, the same bits under a structured dtype,
+    which the port restores bit for bit and ``jax.device_put`` refuses
+    with a ``TypeError`` naming it."""
+    try:
+        import ml_dtypes
+        bf16 = np.dtype(ml_dtypes.bfloat16)
+    except ImportError:
+        bf16 = BF16_BITS
+
+    def conv(v):
+        if isinstance(v, Mapping):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().contiguous().view(torch.int16).numpy() \
+                .view(bf16).copy()
+        return v
+    return conv(tree)
 
 
 def _subtree_map(module: nn.Module, tree: Mapping, hook: str) -> Mapping:
@@ -223,27 +255,25 @@ def load_jax_train_state(state, snapshot: Mapping[str, Any]):
     """Fill a ``training.train_state.TrainState`` from a JAX train-state
     snapshot, ``{"step", "params", "batch_stats", "opt_state"}`` in the
     state-dict form the JAX package publishes (``module.py:1235-1251``);
-    ``opt_state`` is ``{"count"}`` or ``{"count", "mom"}``, ``mom`` shaped
-    like ``params``.  Returns ``state``."""
+    ``opt_state`` is ``to_state_dict`` of the same optimizer's JAX state:
+    each per-param slot (``mom``, ``a``, ``master``, ``inner/b``,
+    ``0/mu`` ...) loads as its param does, the counts and the other
+    leaves (nadam's ``c``, sgld's key) as they are.  Returns ``state``."""
     extra = set(snapshot) - {"step", "params", "batch_stats", "opt_state"}
     if extra:
         raise KeyError(f"load_jax_train_state: unknown keys {sorted(extra)}")
     load_jax_variables(state.module, {"params": snapshot["params"],
                                       "batch_stats": snapshot["batch_stats"]})
-    opt = snapshot["opt_state"]
-    if set(opt) != set(state.opt_state):
-        raise KeyError(f"load_jax_train_state: opt_state has "
-                       f"{sorted(opt)}, the optimizer keeps "
-                       f"{sorted(state.opt_state)}")
+    names = set(dict(state.module.named_parameters()))
+
+    def load_slot(where, node, slot):
+        _load_tree("load_jax_train_state", where,
+                   _subtree_map(state.module, node, "jax_local_tree"), slot)
+        return slot
+
+    state.opt_state = load_state("load_jax_train_state", state.opt_state,
+                                 snapshot["opt_state"], names, load_slot)
     state.step = int(np.asarray(snapshot["step"]))
-    new_opt = {"count": int(np.asarray(opt["count"]))}
-    if "mom" in opt:
-        mom = state.opt_state["mom"]
-        _load_tree("load_jax_train_state", "opt_state/mom",
-                   _subtree_map(state.module, opt["mom"], "jax_local_tree"),
-                   mom)
-        new_opt["mom"] = mom
-    state.opt_state = new_opt
     return state
 
 
@@ -263,20 +293,22 @@ def export_jax_tree(step: int, params, buffers, opt_state: Mapping,
                     bn_name: str = "BatchNorm",
                     module: nn.Module = None) -> Dict[str, Any]:
     """:func:`export_jax_train_state` from its parts: ``(name, tensor)``
-    pairs of the params and the BN stats, and ``{"count"[, "mom"]}``
-    (a checkpoint's host copy is exported this way); ``module``'s
-    ``jax_global_tree`` hooks, when given, map the params and the
-    momentum back to the JAX tree."""
+    pairs of the params and the BN stats, and the optimizer state (a
+    checkpoint's host copy is exported this way); each per-param slot of
+    the state takes its param's names and layout, ``module``'s
+    ``jax_global_tree`` hooks, when given, map the params and the slots
+    back to the JAX tree."""
+    params = list(params)
+
     def tree(named):
         t = _jax_tree(named, bn_name)
         return t if module is None else \
             _subtree_map(module, t, "jax_global_tree")
 
+    opt = map_state(opt_state, {n for n, _ in params},
+                    lambda path, slot: tree(slot.items()), export_leaf)
     # 0-d arrays, as the JAX package's state holds them (msgpack encodes
     # a 0-d array and a numpy scalar differently)
-    opt = {"count": np.asarray(opt_state["count"], np.int32)}
-    if "mom" in opt_state:
-        opt["mom"] = tree(opt_state["mom"].items())
     return {"step": np.asarray(step, np.int32),
             "params": tree(params),
             "batch_stats": _jax_tree(buffers, bn_name),

@@ -7,27 +7,37 @@ divisible by the data-axis size (``parallel.mesh.dp_axis``) and lets GSPMD
 insert the collectives.  The port does them by hand, on the same leaves
 (the axis is chosen in the JAX layout, then mapped to the port's tensor):
 
-- ZeRO-1 (``opt``): each rank keeps its slice of every sharded momentum
-  leaf; the update runs on the slices of params, gradient and momentum,
-  then the params' slices are all-gathered, so every rank holds the whole
-  updated params;
+- ZeRO-1 (``opt``): each rank keeps its slice of every sharded leaf of
+  every per-param slot of the optimizer state (momentum, Adam's moments,
+  the f32 masters ...); the update runs on the slices of params, gradient
+  and slots, then the params' slices are all-gathered, so every rank
+  holds the whole updated params; the counts and the other small leaves
+  stay whole;
 - FSDP (``params``): between steps each rank keeps only its slice of every
   sharded param (the module's tensor is emptied); :meth:`ShardPlan.
   gather_params` all-gathers them before the forward.  The port gathers
   every param at the start of the step, not layer by layer as XLA does,
   so FSDP lowers the bytes held between steps, not the step's peak.
 
-SGD's update is elementwise, so the sliced update gives the bits of the
-whole one and both modes train exactly as plain data parallelism does.
+An elementwise rule (SGD, Adam ...) gives on the slices the bits of the
+whole update, so both modes train exactly as plain data parallelism
+does.  ``lbsgd``'s and ``lamb``'s ratios take whole parameters' norms: the
+update's ``reduce`` sums the slices' squares over the data group first
+(:meth:`ShardPlan._sumsq`), which rounds in another order than one
+process's norm.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from dt_tpu_torch.optim.state import export_leaf, map_state
+from dt_tpu_torch.optim.state import leaves as opt_leaves
+from dt_tpu_torch.optim.state import slots as opt_slots
 from dt_tpu_torch.parallel.mesh import Mesh, Sharding, dp_axis, local_part
 
 # the port axis of each axis of a JAX ``kernel`` (``interchange.
@@ -44,35 +54,35 @@ def port_axis(jax_axis: Optional[int], leaf: str, ndim: int
     return _KERNEL_AXES[ndim][jax_axis]
 
 
-def coverage(shapes, n: int, extra_bytes: int = 0
-             ) -> Tuple[float, int, int]:
-    """``(fraction, sharded_bytes, total_bytes)`` of f32 leaves of
-    ``shapes`` (JAX layout) split over ``n`` ranks by :func:`dp_axis`, with
-    ``extra_bytes`` of replicated scalars beside them (``_coverage``,
-    ``module.py:513-528``)."""
+def coverage(leaves, n: int) -> Tuple[float, int, int]:
+    """``(fraction, sharded_bytes, total_bytes)`` of ``leaves``, ``(shape,
+    itemsize, split)`` each (``shape`` in the JAX layout; ``split``: the
+    leaf is held in slices over ``n`` ranks), as ``_coverage``
+    (``module.py:393-408``) counts a state's leaves."""
     sharded = total = 0
-    for shape in shapes:
-        nbytes = 4
+    for shape, itemsize, split in leaves:
+        nbytes = itemsize
         for d in shape:
             nbytes *= d
         total += nbytes
-        if dp_axis(shape, n) is not None:
+        if split:
             sharded += nbytes
-    total += extra_bytes
     return sharded / max(total, 1), sharded, total
 
 
 class ShardPlan:
     """Which leaves of a ``TrainState`` split over ``mesh`` and how, and the
-    collectives that keep them so.  ``opt``: ZeRO-1; ``params``: FSDP."""
+    collectives that keep them so.  ``opt``: ZeRO-1 (every per-param slot
+    of the optimizer state); ``params``: FSDP."""
 
     def __init__(self, state, mesh: Mesh, opt: bool, params: bool):
         self.mesh = mesh
-        self.opt = opt and "mom" in state.opt_state
+        self.opt = opt
         self.params = params
         lay = state.layout.params
         named = state.params
         self.axis: Dict[str, int] = {}
+        jax_shape = dict(zip(lay.names, lay.jax_shapes))
         for name, leaf, shape in zip(lay.names, lay.leaves, lay.jax_shapes):
             ax = dp_axis(shape, mesh.data)
             if ax is not None:
@@ -81,13 +91,19 @@ class ShardPlan:
                       for name, p in named.items()}
         self._shards: Dict[str, torch.Tensor] = {}  # FSDP: this rank's
         self.report = {}
-        shapes = lay.jax_shapes
         if self.opt:
-            # the JAX opt state's int32 count rides beside the momentum
-            self.report["opt_state"] = coverage(shapes, mesh.data,
-                                                extra_bytes=4)
+            # every slot leaf splits as its param does; the counts (int32)
+            # and the other small leaves stay whole beside them
+            leaves = [(jax_shape[n], t.element_size(), n in self.axis)
+                      for _, slot in opt_slots(state.opt_state, named)
+                      for n, t in slot.items()]
+            leaves += [(np.shape(v), export_leaf(v).itemsize, False)
+                       for v in opt_leaves(state.opt_state, named)]
+            self.report["opt_state"] = coverage(leaves, mesh.data)
         if self.params:
-            self.report["params"] = coverage(shapes, mesh.data)
+            self.report["params"] = coverage(
+                [(jax_shape[n], p.element_size(), n in self.axis)
+                 for n, p in named.items()], mesh.data)
 
     # -- placement -------------------------------------------------------
 
@@ -98,12 +114,12 @@ class ShardPlan:
     @torch.no_grad()
     def shard(self, state) -> None:
         """Commit a whole state to the sharded layout: this rank's slice
-        of each sharded momentum leaf (ZeRO-1), the params released
-        (FSDP)."""
+        of each sharded leaf of every optimizer slot (ZeRO-1), the params
+        released (FSDP)."""
         if self.opt:
-            mom = state.opt_state["mom"]
-            for name in self.axis:
-                mom[name] = self._part(name, mom[name]).clone()
+            for _, slot in opt_slots(state.opt_state, self._full):
+                for name in self.axis:
+                    slot[name] = self._part(name, slot[name]).clone()
         if self.params:
             self.release_params(state)
 
@@ -119,7 +135,7 @@ class ShardPlan:
 
     @torch.no_grad()
     def materialize(self, state) -> None:
-        """Whole, unfilled tensors for every sliced param and momentum leaf,
+        """Whole, unfilled tensors for every sliced param and slot leaf,
         for a snapshot to be loaded into (no collective)."""
         params = state.params
         for name in self._shards:
@@ -129,11 +145,11 @@ class ShardPlan:
                 device=self._shards[name].device)
         self._shards = {}
         if self.opt:
-            mom = state.opt_state["mom"]
-            for name in self.axis:
-                mom[name] = torch.empty_strided(
-                    *self._full[name], dtype=mom[name].dtype,
-                    device=mom[name].device)
+            for _, slot in opt_slots(state.opt_state, self._full):
+                for name in self.axis:
+                    slot[name] = torch.empty_strided(
+                        *self._full[name], dtype=slot[name].dtype,
+                        device=slot[name].device)
 
     @property
     def released(self) -> bool:
@@ -167,7 +183,8 @@ class ShardPlan:
             params = state.params
             views = {n: self._part(n, p) for n, p in params.items()}
             gv = {n: self._part(n, grads[n]) for n in params}
-            state.opt_state = state.tx.update(gv, state.opt_state, views)
+            state.opt_state = state.tx.update(gv, state.opt_state, views,
+                                              reduce=self._sumsq)
             state.step += 1
             if not self.params:
                 self._all_gather({n: views[n] for n in self.axis},
@@ -196,17 +213,32 @@ class ShardPlan:
 
     @torch.no_grad()
     def full_opt_state(self, state) -> dict:
-        """The optimizer state with every momentum leaf whole (a
-        collective under ZeRO-1)."""
+        """The optimizer state with every slot leaf whole (a collective
+        under ZeRO-1)."""
         if not self.opt:
             return state.opt_state
-        mom = dict(state.opt_state["mom"])
-        fulls = {n: torch.empty_strided(*self._full[n], dtype=mom[n].dtype,
-                                        device=mom[n].device)
-                 for n in self.axis}
-        self._all_gather({n: mom[n] for n in self.axis}, fulls)
-        mom.update(fulls)
-        return {**state.opt_state, "mom": mom}
+
+        def whole(path, slot):
+            out = dict(slot)
+            fulls = {n: torch.empty_strided(*self._full[n],
+                                            dtype=slot[n].dtype,
+                                            device=slot[n].device)
+                     for n in self.axis}
+            self._all_gather({n: slot[n] for n in self.axis}, fulls)
+            out.update(fulls)
+            return out
+        return map_state(state.opt_state, self._full, whole)
+
+    def _sumsq(self, names, partial: torch.Tensor) -> torch.Tensor:
+        """The whole leaves' sums of squares from this rank's partial ones
+        (``partial[i]`` of ``names[i]``): summed over the data group where
+        the leaf is held in slices, as they are where it is whole (one
+        all-reduce; ``lbsgd``'s and ``lamb``'s norms)."""
+        split = torch.tensor([n in self.axis for n in names],
+                             device=partial.device)
+        total = torch.where(split, partial, torch.zeros_like(partial))
+        dist.all_reduce(total, group=self.mesh.group)
+        return torch.where(split, total, partial)
 
     def _all_gather(self, parts: Dict[str, torch.Tensor],
                     fulls: Dict[str, torch.Tensor]) -> None:

@@ -15,8 +15,9 @@ other's checkpoints.
 
 ``save_checkpoint(async_save=True)`` takes the snapshot on the caller's
 thread and leaves the encoding, the digest and the write to one
-background thread.  The port updates params, momentum and BN stats in
-place, so the snapshot must be whole before the next step writes them: a
+background thread.  The port updates params, optimizer slots and BN
+stats in place, so the snapshot must be whole before the next step
+writes them: a
 CUDA state is copied into pinned host buffers on the current stream
 (asynchronously to the host; every later kernel on that stream, the next
 update included, runs after the copy in stream order) and the writer
@@ -42,6 +43,8 @@ import torch
 
 from dt_tpu_torch.interchange import export_jax_tree, load_jax_train_state
 from dt_tpu_torch.obs import trace as obs_trace
+from dt_tpu_torch.optim.state import export_leaf, map_state
+from dt_tpu_torch.optim.state import slots as opt_slots
 from dt_tpu_torch.utils import msgpack
 
 
@@ -164,20 +167,25 @@ _pinned_lock = threading.Lock()
 
 
 class _HostCopy:
-    """One train state's snapshot on the host: its step and count, and
-    ``(name, tensor)`` copies of params, BN stats and momentum.  On the
-    card the copies are in flight until :meth:`wait`."""
+    """One train state's snapshot on the host: its step, ``(name, tensor)``
+    copies of params, BN stats and every per-param slot of the optimizer
+    state, and the state's other leaves (counts, nadam's ``c``, sgld's
+    key) copied as they are.  On the card the copies are in flight until
+    :meth:`wait`."""
 
     def __init__(self, state):
         self.step = int(state.step)
-        self.count = int(state.opt_state["count"])
         self.bn_name = state.layout.bn_name
-        named = [("p", n, t) for n, t in state.module.named_parameters()]
-        named += [("b", n, t) for n, t in state.module.named_buffers()]
-        named += [("m", n, t)
-                  for n, t in state.opt_state.get("mom", {}).items()]
+        named = [(("p",), n, t) for n, t in state.module.named_parameters()]
+        self._pnames = {n for _, n, _ in named}
+        named += [(("b",), n, t) for n, t in state.module.named_buffers()]
+        for path, slot in opt_slots(state.opt_state, self._pnames):
+            named += [(("o",) + path, n, t) for n, t in slot.items()]
+        # the optimizer state's skeleton: slots keep their names only
+        self._opt = map_state(state.opt_state, self._pnames,
+                              lambda path, slot: dict.fromkeys(slot),
+                              export_leaf)
         self._names = [(k, n) for k, n, _ in named]
-        self.has_mom = "mom" in state.opt_state
         srcs = [t.detach() for _, _, t in named]
         self._event = None
         self._sig = None
@@ -212,14 +220,13 @@ class _HostCopy:
 
     def tree(self) -> Dict[str, Any]:
         """The JAX state dict of the snapshot."""
-        parts: Dict[str, list] = {"p": [], "b": [], "m": []}
+        parts: Dict[tuple, list] = {}
         for (kind, name), t in zip(self._names, self._host):
-            parts[kind].append((name, t))
-        opt: Dict[str, Any] = {"count": self.count}
-        if self.has_mom:
-            opt["mom"] = dict(parts["m"])
-        return export_jax_tree(self.step, parts["p"], parts["b"], opt,
-                               self.bn_name)
+            parts.setdefault(kind, []).append((name, t))
+        opt = map_state(self._opt, self._pnames,
+                        lambda path, slot: dict(parts[("o",) + path]))
+        return export_jax_tree(self.step, parts[("p",)],
+                               parts.get(("b",), []), opt, self.bn_name)
 
 
 def save_checkpoint(prefix: str, epoch: int, state,

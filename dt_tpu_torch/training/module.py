@@ -102,6 +102,7 @@ from dt_tpu_torch import config as config_lib
 from dt_tpu_torch import models as models_lib
 from dt_tpu_torch.config import resolve_device
 from dt_tpu_torch.elastic.mesh_manager import snapshot_state
+from dt_tpu_torch.interchange import numpy_tree
 from dt_tpu_torch.obs import blackbox as obs_blackbox
 from dt_tpu_torch.obs import device as obs_device
 from dt_tpu_torch.obs import metrics as obs_metrics
@@ -179,17 +180,6 @@ class _HostCopy:
         return (h.float() if h.is_floating_point() else h).numpy()
 
 
-def _tensor_leaves(tree, path=()):
-    """The paths of a nested dict's ``torch.Tensor`` leaves."""
-    out = []
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out += _tensor_leaves(v, path + (k,))
-        elif isinstance(v, torch.Tensor):
-            out.append("/".join(path + (k,)))
-    return out
-
-
 def _host_labels(label):
     """A batch's labels for the metric: numpy as they are, a placed tensor
     (``DevicePrefetchIter``) by an asynchronous host copy."""
@@ -246,22 +236,6 @@ def _compute_dtype(model) -> torch.dtype:
         if isinstance(dt, torch.dtype):
             return dt
     return torch.float32
-
-
-class _ServerSideOptimizer:
-    """The local optimizer of a ``dist_async`` Module whose optimizer the
-    port has not ported for local use: the servers run it, so the state
-    keeps a count only and an update is an error."""
-
-    def __init__(self, name: str):
-        self.name = name
-
-    def init(self, params) -> dict:
-        return {"count": 0}
-
-    def update(self, grads, state, params):
-        raise RuntimeError(f"optimizer {self.name!r} runs on the dist_async "
-                           "servers, not in this process")
 
 
 class _AsyncMaster:
@@ -343,11 +317,7 @@ class Module:
             from dt_tpu_torch import optim
             self._optimizer_spec = {"name": optimizer,
                                     **(optimizer_params or {})}
-            if self.kv.type == "dist_async" and optimizer.lower() != "sgd":
-                optimizer = _ServerSideOptimizer(optimizer)
-            else:
-                optimizer = optim.create(optimizer,
-                                         **(optimizer_params or {}))
+            optimizer = optim.create(optimizer, **(optimizer_params or {}))
         self.tx = optimizer
         self.async_key = async_key
         self._async = None  # _AsyncMaster on a card, lazy
@@ -1180,7 +1150,15 @@ class Module:
         joiners bootstrap from (``module.py:1235-1251``): ``{step, params,
         batch_stats, opt_state}`` as numpy in the JAX package's names and
         layout (HWIO kernels), so a JAX joiner restores it too.  Nothing of
-        it is a ``torch.Tensor``."""
+        it is a ``torch.Tensor``: a bfloat16 leaf (the bf16 TransformerLM's
+        ``pos_embed``, lamb's moments of it) goes as
+        ``interchange.numpy_tree`` gives it, which a port joiner restores
+        bit for bit (``ml_dtypes`` arrays, which a JAX joiner restores too,
+        where that package is installed; else the bits under a structured
+        dtype that a JAX joiner refuses).  A JAX worker's bfloat16 snapshot
+        holds ``ml_dtypes`` arrays, which a host without that package
+        cannot unpickle (``WorkerClient.fetch_snapshot`` raises, naming
+        it)."""
         ctrl = getattr(self.kv, "_controller", None)
         if ctrl is None or not hasattr(ctrl, "publish_snapshot"):
             return
@@ -1190,11 +1168,8 @@ class Module:
         snap = snapshot_state(self.state)
         if self.kv.rank != 0:
             return
-        bad = _tensor_leaves(snap)
-        if bad:
-            raise NotImplementedError(
-                f"a snapshot with bfloat16 master params ({bad[:3]}) "
-                f"{_ITEM}item 8 (with_multi_precision)")
+        # bfloat16 leaves as numpy: the blob pickles without torch
+        snap = numpy_tree(snap)
         ctrl.publish_snapshot(snap)
 
     def _health_step(self, health, loss, epoch) -> bool:

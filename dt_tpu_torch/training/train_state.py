@@ -4,8 +4,9 @@
 The JAX package keeps ``step``, ``params``, ``batch_stats`` and ``opt_state``
 in one immutable pytree.  The port keeps the module, which holds the params
 (f32 ``nn.Parameter``s) and the BN stats (buffers), beside ``step`` and the
-optimizer's state (``count`` and the f32 ``mom`` dict), and updates them in
-place: one copy of each tensor on the card.
+optimizer's state (a nested dict as ``dt_tpu_torch.optim`` makes it:
+counts, per-param slots by parameter name), and updates them in place: one
+copy of each tensor on the card.
 """
 
 from __future__ import annotations
@@ -23,11 +24,11 @@ from dt_tpu_torch.training.flat import FlatLayout
 class TrainState:
     step: int                  # global update counter
     module: nn.Module          # params and batch_stats (buffers)
-    opt_state: Dict[str, Any]  # {"count": int, "mom": {name: f32 tensor}}
+    opt_state: Dict[str, Any]  # e.g. {"count": int, "a": {name: tensor}}
     tx: Any                    # the optimizer (``optim.create``)
     layout: FlatLayout         # flat-vector order of params and stats
     # the ZeRO-1/FSDP plan over a mesh (``parallel.zero.ShardPlan``) when
-    # the momentum or the params are held in slices; None: all whole
+    # the optimizer's slots or the params are held in slices; None: whole
     shards: Any = None
 
     @classmethod

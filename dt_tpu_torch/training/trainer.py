@@ -12,8 +12,10 @@ hands ``step`` gradients of the same structure (from ``torch.autograd``):
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
     trainer.step(grads, batch_size)
 
-The states file is the JAX package's: msgpack of ``{"count", "mom"}`` with
-``mom`` shaped like the params, so either package reads the other's.  With
+The states file is the JAX package's: msgpack of the optimizer state's
+``to_state_dict`` (``{"count", "mom"}``, adam's ``{"count", "a", "b"}``,
+``{"master", "inner"}`` under ``multi_precision`` ...), each per-param slot
+shaped like the params, so either package reads the other's.  With
 ``DT_METRICS`` or ``DT_HEALTH_HALT`` set a step computes the health vector
 (the ``health.*`` gauges, a ``health.nonfinite`` event); under the halt a
 non-finite gradient records ``health.halt``, leaves the flight recorder's
@@ -41,8 +43,8 @@ from dt_tpu_torch.obs import device as obs_device
 from dt_tpu_torch.obs import metrics as obs_metrics
 from dt_tpu_torch.obs import trace as obs_trace
 from dt_tpu_torch.parallel import kvstore as kvstore_lib
-from dt_tpu_torch.training.module import (_ServerSideOptimizer,
-                                          sentinel_health_vec)
+from dt_tpu_torch.optim.state import export_leaf, load_state, map_state
+from dt_tpu_torch.training.module import sentinel_health_vec
 from dt_tpu_torch.utils import msgpack
 
 
@@ -85,8 +87,7 @@ class Trainer:
             from dt_tpu_torch import optim
             self._optimizer_spec = {"name": optimizer,
                                     **(optimizer_params or {})}
-            optimizer = _ServerSideOptimizer(optimizer) if is_async else \
-                optim.create(optimizer, **(optimizer_params or {}))
+            optimizer = optim.create(optimizer, **(optimizer_params or {}))
         self.tx = optimizer
         self.params = params
         self._paths = list(_flatten(params))
@@ -247,12 +248,19 @@ class Trainer:
         return getattr(self.tx, "learning_rate", None)
 
     def _state_dict(self) -> Dict[str, Any]:
-        out: Dict[str, Any] = {"count": np.int32(self.opt_state["count"])}
-        if "mom" in self.opt_state:
-            out["mom"] = _unflatten({
-                tuple(k.split("/")): v.detach().float().cpu().numpy()
-                for k, v in self.opt_state["mom"].items()})
-        return out
+        """The optimizer state as the JAX package's ``to_state_dict``
+        gives it: each per-param slot nested as the params are (float32
+        numpy, bfloat16 as ``torch.bfloat16`` tensors), counts as 0-d
+        int32 arrays."""
+        def host(t):
+            t = t.detach().cpu()
+            return t.clone() if t.dtype == torch.bfloat16 else \
+                t.numpy().copy()
+
+        return map_state(self.opt_state, self._named, lambda path, slot:
+                         _unflatten({tuple(k.split("/")): host(v)
+                                     for k, v in slot.items()}),
+                         export_leaf)
 
     def _refuse_async(self, what: str) -> None:
         if self.kv.type == "dist_async":
@@ -262,7 +270,7 @@ class Trainer:
 
     def save_states(self, fname: str):
         """Write the optimizer state as the JAX package's ``save_states``
-        does: msgpack of ``{"count", "mom"}``."""
+        does: msgpack of its ``to_state_dict``."""
         self._refuse_async("save_states would serialize unused local state")
         with open(fname, "wb") as f:
             f.write(msgpack.pack(self._state_dict()))
@@ -274,23 +282,22 @@ class Trainer:
         self._refuse_async("load_states cannot restore them")
         with open(fname, "rb") as f:
             restored = msgpack.restore(f.read())
-        if set(restored) != set(self.opt_state):
-            raise KeyError(f"load_states: the file has {sorted(restored)}, "
-                           f"the optimizer keeps {sorted(self.opt_state)}")
-        new = {"count": int(np.asarray(restored["count"]))}
-        if "mom" in restored:
-            mom = self.opt_state["mom"]
-            flat = {"/".join(p): v for p, v in
-                    _flatten(restored["mom"]).items()}
-            if set(flat) != set(mom):
-                raise KeyError(f"load_states: mom has {sorted(flat)[:5]}, "
-                               f"the params {sorted(mom)[:5]}")
+
+        def load_slot(where, node, slot):
+            flat = {"/".join(p): v for p, v in _flatten(node).items()}
+            if set(flat) != set(slot):
+                raise KeyError(f"load_states: {where} has "
+                               f"{sorted(flat)[:5]}, the params "
+                               f"{sorted(slot)[:5]}")
             for k, v in flat.items():
-                src = torch.from_numpy(np.array(v))
-                if tuple(src.shape) != tuple(mom[k].shape):
-                    raise ValueError(f"load_states: mom/{k} has shape "
+                src = v if isinstance(v, torch.Tensor) else \
+                    torch.from_numpy(np.array(v))
+                if tuple(src.shape) != tuple(slot[k].shape):
+                    raise ValueError(f"load_states: {where}/{k} has shape "
                                      f"{tuple(src.shape)}, the param "
-                                     f"{tuple(mom[k].shape)}")
-                mom[k].copy_(src)
-            new["mom"] = mom
-        self.opt_state = new
+                                     f"{tuple(slot[k].shape)}")
+                slot[k].copy_(src)
+            return slot
+
+        self.opt_state = load_state("load_states", self.opt_state, restored,
+                                    self._named, load_slot)

@@ -115,3 +115,90 @@ def test_encoder_writes_flax_bytes():
     np.testing.assert_array_equal(back["a"]["w"], f32)
     mine = tmsgpack.restore(theirs)
     assert mine["bf"].dtype == torch.bfloat16 and mine["count"] == 7
+
+
+#: the optimizer states a checkpoint carries besides SGD's: two slots,
+#: nadam's 0-d ``c``, sgld's ``uint32[2]`` key, lamb's chain and the
+#: multi-precision masters
+_OPTS = {"adam": ("adam", dict(learning_rate=1e-3, weight_decay=1e-4)),
+         "nadam": ("nadam", dict(learning_rate=1e-3)),
+         "sgld": ("sgld", dict(learning_rate=1e-4, seed=3)),
+         "lamb": ("lamb", dict(learning_rate=1e-3, weight_decay=1e-4)),
+         "mp_sgd": ("sgd", dict(SGD, multi_precision=True))}
+
+
+def _opt_template(case):
+    name, kw = _OPTS[case]
+    model = jmodels.create("resnet20", num_classes=10)
+    v = model.init({"params": jax.random.PRNGKey(3)},
+                   jnp.zeros((1, 8, 8, 3)), training=False)
+    return JState.create(model.apply, v["params"],
+                         joptim.create(name, **kw), v["batch_stats"])
+
+
+def _port_opt_state(case, steps=2):
+    name, kw = _OPTS[case]
+    model = tmodels.init_params(tmodels.create("resnet20", device="cpu"), 1)
+    state = TrainState.create(model, toptim.create(name, **kw))
+    rng = np.random.RandomState(0)
+    for _ in range(steps):
+        x = torch.from_numpy(rng.uniform(-1, 1, (4, 8, 8, 3)).astype(
+            np.float32)).permute(0, 3, 1, 2)
+        train_step(state, x, torch.from_numpy(rng.randint(0, 10, 4)))
+    return state
+
+
+@pytest.mark.parametrize("case", sorted(_OPTS))
+def test_port_optimizer_checkpoint_restores_in_the_jax_package(tmp_path,
+                                                               case):
+    """A port checkpoint of each optimizer state restores through the JAX
+    package's ``load_checkpoint`` with every leaf equal to the port's
+    export, and its bytes are flax's ``msgpack_serialize`` of the restored
+    state's ``to_state_dict``."""
+    state = _port_opt_state(case)
+    prefix = str(tmp_path / "ck")
+    tckpt.save_checkpoint(prefix, 2, state)
+    restored = jckpt.load_checkpoint(prefix, 2, _opt_template(case))
+    want = export_jax_train_state(state)
+    got = flax.serialization.to_state_dict(restored)
+    assert jax.tree_util.tree_structure(got["opt_state"]) == \
+        jax.tree_util.tree_structure(want["opt_state"])
+    for (path, a), (_, b) in zip(
+            jax.tree_util.tree_flatten_with_path(got["opt_state"])[0],
+            jax.tree_util.tree_flatten_with_path(want["opt_state"])[0]):
+        assert np.asarray(a).dtype == np.asarray(b).dtype, path
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=str(path))
+    blob = (tmp_path / "ck-0002.state").read_bytes()
+    assert blob == flax.serialization.msgpack_serialize(got)
+
+
+@pytest.mark.parametrize("case", sorted(_OPTS))
+def test_jax_optimizer_checkpoint_restores_in_the_port(tmp_path, case):
+    """A JAX checkpoint with every optimizer leaf filled from a seed loads
+    into the port's train state of the same optimizer, and the port
+    writes it back byte for byte."""
+    template = _opt_template(case)
+    sd = flax.serialization.to_state_dict(template)
+    rng = np.random.RandomState(5)
+
+    def fill(x):
+        x = np.asarray(x)
+        if x.dtype == np.uint32:
+            return rng.randint(0, 2 ** 31, x.shape).astype(np.uint32)
+        if x.dtype == np.int32:
+            return np.asarray(3, np.int32)
+        return jnp.asarray(rng.normal(0, 1, x.shape), x.dtype)
+    sd["opt_state"] = jax.tree_util.tree_map(fill, sd["opt_state"])
+    sd["step"] = np.asarray(3, np.int32)
+    jstate = flax.serialization.from_state_dict(template, sd)
+    prefix = str(tmp_path / "jk")
+    jckpt.save_checkpoint(prefix, 3, jstate)
+    name, kw = _OPTS[case]
+    tstate = TrainState.create(tmodels.create("resnet20", device="cpu"),
+                               toptim.create(name, **kw))
+    tag, _ = tckpt.load_latest_checkpoint(prefix, tstate)
+    assert tag == 3 and tstate.step == 3
+    tckpt.save_checkpoint(str(tmp_path / "again"), 3, tstate)
+    assert (tmp_path / "again-0003.state").read_bytes() == \
+        (tmp_path / "jk-0003.state").read_bytes()

@@ -1119,3 +1119,122 @@ def test_parallel_layer_on_two_gloo_ranks_of_the_card(cuda, tmp_path, case):
         for key in h:
             np.testing.assert_allclose(c[key], h[key], rtol=1e-4, atol=1e-4,
                                        err_msg=key)
+
+
+#: every optimizer of the port on the card against the same code on the
+#: CPU, normwise per leaf: the elementwise rules run the same f32 ops, a
+#: last bit apart where one device divides by a scalar as a product with
+#: its reciprocal (1e-6); ftrl's soft threshold cancels and lbsgd's and
+#: lamb's norms sum in another order on each device (1e-5)
+_CARD_RULES = {
+    "sgd": dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-4),
+    "nag": {}, "adam": dict(weight_decay=1e-4), "adagrad": {},
+    "rmsprop": dict(centered=True, momentum=0.9), "adadelta": {},
+    "ftrl": {}, "adamax": {}, "nadam": {}, "signum": {}, "signsgd": {},
+    "ftml": {}, "dcasgd": dict(momentum=0.9), "lbsgd": dict(eta=0.01),
+    "lamb": dict(weight_decay=1e-4), "sgld": {}}
+_CARD_TOL = {"ftrl": 1e-5, "lbsgd": 1e-5, "lamb": 1e-5}
+
+
+def _card_params(dev, seed=0):
+    rng = np.random.RandomState(seed)
+    shapes = {"conv.weight": (64, 32, 3, 3), "dense.weight": (100, 64),
+              "dense.bias": (100,), "pos": (16, 64)}
+    out = {k: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+           for k, s in shapes.items()}
+    out["pos"] = out["pos"].to(torch.bfloat16)
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.parametrize("mp", [False, True], ids=["plain", "mp"])
+@pytest.mark.parametrize("name", sorted(_CARD_RULES))
+def test_optimizer_rules_on_card_match_cpu(cuda, name, mp):
+    """3 updates of each rule (and under multi_precision) on the card and
+    on the CPU from the same params (a bf16 leaf among them) and
+    gradients: params and every state leaf within the rule's tolerance;
+    sgld's key stream equal, its noise another stream of the same law."""
+    from dt_tpu_torch import optim
+    sides = []
+    for dev in (cuda, torch.device("cpu")):
+        tx = optim.create(name, multi_precision=mp, **_CARD_RULES[name])
+        params = _card_params(dev)
+        state = tx.init(params)
+        rng = np.random.RandomState(1)
+        for _ in range(3):
+            grads = {k: torch.from_numpy(rng.normal(0, 1, p.shape).astype(
+                np.float32)).to(dev).to(p.dtype) for k, p in params.items()}
+            state = tx.update(grads, state, params)
+        sides.append((params, _leaves(state)))
+    (pc, sc), (pk, sk) = sides
+    assert sorted(sc) == sorted(sk)
+    tol = _CARD_TOL.get(name, 1e-6)
+    for k, v in sk.items():
+        a = sc[k]
+        if isinstance(v, torch.Tensor):
+            assert a.dtype == v.dtype, k
+            if name == "sgld" and not k.endswith("mom"):
+                continue
+            err = float((a.cpu().double() - v.double()).abs().max())
+            assert err <= tol * max(float(v.double().abs().max()), 1e-30) \
+                + (2.0 ** -7 * float(v.double().abs().max())
+                   if v.dtype == torch.bfloat16 else 0.0), (k, err)
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(v),
+                                          err_msg=k)
+    for k, v in pk.items():
+        if name == "sgld":  # noise of N(0, lr) a step on each side
+            assert float((pc[k].cpu().float() - v.float()).abs().max()) \
+                <= 6 * np.sqrt(2 * 3 * 0.01) + 0.1, k
+            continue
+        bf = v.dtype == torch.bfloat16
+        scale = float(v.double().abs().max())
+        err = float((pc[k].cpu().double() - v.double()).abs().max())
+        assert err <= (2.0 ** -7 if bf else tol) * scale, (k, err)
+
+
+def test_multi_precision_fit_on_card_matches_cpu(cuda, monkeypatch):
+    """The resnet20 fit of :func:`test_module_fit_on_card_matches_cpu` with
+    SGD momentum under multi_precision (f32 masters beside f32 params):
+    per-epoch train cross-entropy within 1e-4 relative of the CPU's, and
+    the optimizer state ``{"master", "inner"}`` with the masters on the
+    card."""
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.training.module import Module
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    threads = torch.get_num_threads()
+    rng = np.random.RandomState(8)
+    x = rng.uniform(-1, 1, (64, 8, 8, 3)).astype(np.float32)
+    y = rng.randint(0, 10, 64).astype(np.int32)
+    curves = {}
+    torch.set_num_threads(1)
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            mod = Module(models.create("resnet20", device=dev,
+                                       num_classes=10),
+                         optimizer="sgd", optimizer_params=dict(
+                             learning_rate=0.1, momentum=0.9,
+                             multi_precision=True), device=dev, seed=1)
+            ce = []
+            mod.fit(io.NDArrayIter(x, y, batch_size=32, shuffle=True),
+                    eval_metric="ce", num_epoch=2,
+                    epoch_end_callback=lambda e, s, m: ce.append(m.get()[1]))
+            curves[dev.type] = ce
+            master = next(iter(mod.state.opt_state["master"].values()))
+            assert master.device.type == dev.type
+            assert master.dtype == torch.float32
+    finally:
+        torch.set_num_threads(threads)
+    for a, b in zip(curves["cuda"], curves["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b), curves

@@ -261,3 +261,49 @@ def test_stale_incarnation_round_replica_refused(tmp_path):
         assert again == {"value": [1.0]}
     finally:
         standby.close()
+
+
+@pytest.mark.parametrize("standby_up", [True, False],
+                         ids=["standby_after_its_lease", "every_endpoint_dead"])
+def test_failover_request_runs_to_its_wall_budget(monkeypatch, standby_up):
+    """A failed-over request rotates until ``DT_CTRL_FAILOVER_S`` is spent,
+    however many attempts that takes: a standby that answers
+    ``not_leader`` for 12 s (its lease of a dead primary has not lapsed)
+    takes the request then, and with every endpoint refusing the budget
+    ends it with the last refusal.  A fake clock stands in for the
+    backoff's sleeps."""
+    import types
+
+    from dt_tpu_torch.elastic import client as client_mod
+    now = [0.0]
+    monkeypatch.setattr(client_mod, "time", types.SimpleNamespace(
+        monotonic=lambda: now[0], time=lambda: now[0],
+        sleep=lambda s: now.__setitem__(0, now[0] + s)))
+    monkeypatch.setenv("DT_CTRL_FAILOVER_S", "30")
+    attempts = []
+
+    def request(host, port, msg, timeout, retries=0):
+        attempts.append((port, msg["cmd"]))
+        if port == 1 or not standby_up:
+            raise ConnectionRefusedError(111, "Connection refused")
+        if now[0] < 12.0:
+            return {"error": "not_leader"}
+        return {"value": [1.0]}
+
+    monkeypatch.setattr(client_mod.protocol, "request", request)
+    c = WorkerClient.__new__(WorkerClient)
+    c.host, c.fence, c._leader = "w0", 1, 0
+    c.addrs = [("127.0.0.1", 1), ("127.0.0.1", 2)]
+    c._addr_lock = threading.Lock()
+    msg = {"cmd": "allreduce", "host": "w0", "key": "g", "value": [1.0]}
+    if standby_up:
+        assert c._req(msg, timeout=5) == {"value": [1.0]}
+        assert 12.0 <= now[0] < 14.0
+        assert c.addr == ("127.0.0.1", 2)
+    else:
+        with pytest.raises(ConnectionRefusedError):
+            c._req(msg, timeout=5)
+        assert 29.0 <= now[0] <= 30.0
+    # more attempts than the 16 that a count of 8 retries over two
+    # endpoints allowed, which a long enough lease outlasted
+    assert sum(cmd == "allreduce" for _, cmd in attempts) > 16

@@ -29,6 +29,7 @@ from dt_tpu_torch.obs import metrics as tobs
 from dt_tpu_torch.parallel import kvstore as tkv
 from dt_tpu_torch.training import callbacks as tcb
 from dt_tpu_torch.training.module import Module as TModule
+from dt_tpu_torch.training.train_state import TrainState
 from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
 
 SGD = dict(learning_rate=0.1, momentum=0.9)
@@ -55,20 +56,23 @@ def _curves(mod, io, xtr, ytr, xva, yva, epochs, **fit_kw):
     return train, val
 
 
-def _pair(name, xtr, port_kw=None, grad_accum=1, **kw):
+def _pair(name, xtr, port_kw=None, grad_accum=1, opt=("sgd", SGD), **kw):
     """A JAX Module (its own init) and a port Module on the CPU holding the
     same weights."""
-    jmod = JModule(jmodels.create(name, **kw), optimizer="sgd",
-                   optimizer_params=SGD, seed=0, grad_accum=grad_accum)
+    jmod = JModule(jmodels.create(name, **kw), optimizer=opt[0],
+                   optimizer_params=opt[1], seed=0, grad_accum=grad_accum)
     jmod.init_params(xtr[:64])
     tmod = TModule(tmodels.create(name, device="cpu", **kw,
                                   **(port_kw or {})),
-                   optimizer="sgd", optimizer_params=SGD, device="cpu",
+                   optimizer=opt[0], optimizer_params=opt[1], device="cpu",
                    grad_accum=grad_accum)
     tmod.init_params()
     load_jax_variables(tmod.model, {
         "params": jax.device_get(jmod.state.params),
         "batch_stats": jax.device_get(jmod.state.batch_stats)})
+    # the optimizer state again from the loaded weights: the f32 masters
+    # of multi_precision are copies of the params taken at init
+    tmod.state = TrainState.create(tmod.model, tmod.tx)
     return jmod, tmod
 
 
@@ -88,6 +92,69 @@ def test_fit_on_digits_matches_the_jax_module(name):
         assert abs(a["accuracy"] - b["accuracy"]) <= 0.005, (tv, jv)
     assert tv[-1]["accuracy"] > 0.8
     assert tmod.state.step == jmod.state.step == 3 * 22
+
+
+@pytest.mark.parametrize("opt", [
+    ("adam", {"learning_rate": 1e-3}),
+    ("sgd", dict(SGD, multi_precision=True))], ids=["adam", "mp_sgd"])
+def test_fit_on_digits_with_other_optimizers_matches_the_jax_module(opt):
+    """The MLP's digits fit of :func:`test_fit_on_digits_matches_the_jax_
+    module` under adam and under SGD with f32 masters, 2 epochs: train
+    cross-entropy within 1e-3 relative each epoch, params within 1e-3 of
+    their norm, and the optimizer states' leaves the JAX state's."""
+    import flax.serialization
+    from dt_tpu_torch.interchange import export_jax_train_state
+    xtr, ytr, xva, yva = _digits()
+    jmod, tmod = _pair("mlp", xtr, dict(in_shape=(8, 8, 1)), opt=opt,
+                       num_classes=10)
+    jt, _ = _curves(jmod, jio, xtr, ytr, xva, yva, 2)
+    tt, _ = _curves(tmod, tio, xtr, ytr, xva, yva, 2)
+    for a, b in zip(tt, jt):
+        assert abs(a["cross-entropy"] - b["cross-entropy"]) <= \
+            1e-3 * b["cross-entropy"], (tt, jt)
+    want = np.asarray(ravel_pytree(jax.device_get(jmod.state.params))[0])
+    have = np.asarray(ravel_pytree(export_jax_variables(tmod.model)
+                                   ["params"])[0])
+    assert np.linalg.norm(have - want) <= 1e-3 * np.linalg.norm(want)
+    jopt = flax.serialization.to_state_dict(jax.device_get(
+        jmod.state.opt_state))
+    topt = export_jax_train_state(tmod.state)["opt_state"]
+    assert jax.tree_util.tree_structure(topt) == \
+        jax.tree_util.tree_structure(jopt)
+    for a, b in zip(jax.tree_util.tree_leaves(topt),
+                    jax.tree_util.tree_leaves(jopt)):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+    assert tmod.state.opt_state.get("count", tmod.state.opt_state.get(
+        "inner", {}).get("count")) == 2 * 22
+
+
+def test_dist_async_module_keeps_the_jax_state_layout():
+    """A ``dist_async`` Module with adam creates adam locally, as the JAX
+    Module does (the servers run the update; the layout is what a
+    checkpoint or snapshot of the Module holds): its exported optimizer
+    state has the JAX Module's keys, shapes and dtypes."""
+    import flax.serialization
+    from dt_tpu_torch.interchange import export_jax_train_state
+    xtr, _, _, _ = _digits(64, 0)
+    opt = {"learning_rate": 1e-3}
+    jmod = JModule(jmodels.create("mlp", num_classes=10), optimizer="adam",
+                   optimizer_params=opt, kvstore="dist_async")
+    jmod.init_params(xtr)
+    tmod = TModule(tmodels.create("mlp", device="cpu", num_classes=10,
+                                  in_shape=(8, 8, 1)),
+                   optimizer="adam", optimizer_params=opt,
+                   kvstore="dist_async", device="cpu")
+    tmod.init_params()
+    assert sorted(tmod.state.opt_state) == ["a", "b", "count"]
+    want = flax.serialization.to_state_dict(jax.device_get(
+        jmod.state.opt_state))
+    got = export_jax_train_state(tmod.state)["opt_state"]
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(want)
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        assert np.asarray(a).shape == np.asarray(b).shape
+        assert np.asarray(a).dtype == np.asarray(b).dtype
 
 
 def test_grad_accum_resnet20_matches_the_jax_module():
@@ -308,3 +375,76 @@ def test_unported_features_raise(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TModule(tmodels.create("mlp", device="cpu"))
+
+
+@pytest.mark.parametrize("have_ml_dtypes", [True, False],
+                         ids=["ml_dtypes", "bits"])
+def test_bf16_snapshot_with_adam_restores_bit_for_bit(monkeypatch,
+                                                      have_ml_dtypes):
+    """A bf16 TransformerLM (its ``pos_embed`` a bf16 param) under adam,
+    one step, publishes its snapshot: nothing in it is a torch tensor, and
+    a port joiner restores params, BN-free stats and every adam leaf bit
+    for bit.  Where ``ml_dtypes`` is missing, the bf16 leaves go as
+    their bits under a structured dtype, which ``jax.device_put``
+    refuses (a JAX joiner cannot take them); a JAX-published bf16
+    snapshot there makes ``fetch_snapshot`` raise, naming ml_dtypes."""
+    import pickle
+    from dt_tpu_torch.elastic.client import WorkerClient
+    from dt_tpu_torch.training.step import next_token_loss, train_step
+    if not have_ml_dtypes:
+        monkeypatch.setitem(__import__("sys").modules, "ml_dtypes", None)
+
+    class Ctrl:
+        rank, num_workers, snap = 0, 1, None
+
+        def publish_snapshot(self, blob):
+            Ctrl.snap = pickle.dumps(blob)
+
+        def fetch_snapshot(self):
+            return pickle.loads(Ctrl.snap)
+
+    def module():
+        kv = tkv.create("tpu_sync")
+        kv.set_controller(Ctrl())
+        model = tmodels.create("transformer_lm", device="cpu", vocab_size=32,
+                               embed_dim=16, num_layers=1, num_heads=2,
+                               max_len=8, dtype=torch.bfloat16)
+        return TModule(model, optimizer="adam",
+                       optimizer_params={"learning_rate": 1e-2},
+                       kvstore=kv, device="cpu")
+
+    mod = module()
+    mod.init_params()
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, 32, (2, 8)))
+    train_step(mod.state, toks, None, loss_fn=next_token_loss)
+    mod._publish_snapshot()
+    blob = pickle.loads(Ctrl.snap)
+
+    def leaves(t):
+        return [x for v in t.values() for x in (
+            leaves(v) if isinstance(v, dict) else [v])]
+    assert not any(isinstance(v, torch.Tensor) for v in leaves(blob))
+    pos = blob["params"]["pos_embed"]
+    assert pos.dtype.name == "bfloat16" if have_ml_dtypes else \
+        pos.dtype.names == ("bfloat16",)
+    joiner = module()
+    joiner.init_params(initialize_from_kvstore=True)
+    assert joiner.state.step == 1
+    for (n, a), (_, b) in zip(mod.model.named_parameters(),
+                              joiner.model.named_parameters()):
+        assert a.dtype == b.dtype and torch.equal(a, b), n
+    for slot in ("a", "b"):
+        for n, t in mod.state.opt_state[slot].items():
+            assert torch.equal(t, joiner.state.opt_state[slot][n]), n
+    assert joiner.state.opt_state["count"] == 1
+    if not have_ml_dtypes:
+        with pytest.raises(TypeError):
+            jax.device_put(pos)
+
+        def no_ml_dtypes(msg):
+            raise ModuleNotFoundError("No module named 'ml_dtypes'",
+                                      name="ml_dtypes")
+        client = WorkerClient.__new__(WorkerClient)
+        monkeypatch.setattr(client, "_req", no_ml_dtypes, raising=False)
+        with pytest.raises(RuntimeError, match="ml_dtypes"):
+            client.fetch_snapshot()

@@ -146,3 +146,61 @@ def test_health_halt_raises_before_the_update(_halt):
         tt.step(_torch(bad), batch_size=1)
     _assert_trees(_np(tt.params), _np(jt.params))
     assert tt.opt_state["count"] == 1
+
+
+_CROSS = {"adam": ("adam", {"learning_rate": 0.01, "weight_decay": 1e-4}),
+          "mp_sgd": ("sgd", dict(OPT, multi_precision=True)),
+          "mp_adam": ("adam", {"learning_rate": 0.01,
+                               "multi_precision": True})}
+
+
+def _state_leaves(jax_state):
+    import flax.serialization
+    return {"/".join(p): v for p, v in _flat(
+        flax.serialization.to_state_dict(jax_state))}
+
+
+def _port_leaves(state, prefix=()):
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(_port_leaves(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = np.asarray(
+                v.numpy() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("case", sorted(_CROSS))
+def test_states_files_cross_for_every_state_layout(tmp_path, case, writer):
+    """adam's ``{"count", "a", "b"}`` and ``multi_precision``'s
+    ``{"master", "inner"}`` states files cross both ways: every leaf
+    equal after the load, the next step agreeing, and a port rewrite of a
+    loaded file byte-equal to the file."""
+    name, opt = _CROSS[case]
+    jt = JTrainer(_jax(_tree(0)), name, opt)
+    tt = TTrainer(_torch(_tree(0)), name, opt)
+    for seed in (1, 2):
+        jt.step(_jax(_tree(seed)), batch_size=2)
+        tt.step(_torch(_tree(seed)), batch_size=2)
+    f, again = str(tmp_path / "opt.states"), str(tmp_path / "again.states")
+    fresh_j = JTrainer(_jax(_tree(0)), name, opt)
+    fresh_t = TTrainer(_torch(_tree(0)), name, opt)
+    (jt if writer == "jax" else tt).save_states(f)
+    fresh_j.load_states(f)
+    fresh_t.load_states(f)
+    # the port's state as its file holds it (counts as int32)
+    want, got = _state_leaves(fresh_j.opt_state), _port_leaves(
+        fresh_t._state_dict())
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    fresh_t.save_states(again)
+    with open(f, "rb") as a, open(again, "rb") as b:
+        assert a.read() == b.read()
+    g = _tree(5)
+    fresh_j.step(_jax(g), batch_size=2)
+    fresh_t.step(_torch(g), batch_size=2)
+    _assert_trees(_np(fresh_t.params), _np(fresh_j.params))

@@ -26,9 +26,11 @@ A fixed world, no scheduler::
 loads the JAX-layout variables of ``--init-npz``, trains one epoch over
 this rank's rows (``x``/``y`` of ``--data-npz``, batch ``--batch``) and
 writes the whole state after it (``params/<path>``, ``batch_stats/<path>``,
-``mom/<path>``) to ``--out``.  With ``--bn-case`` instead, it runs one
-training BatchNorm (``ops.kernels.fused_bn_train`` across the ranks) on its
-rows of ``x`` (NHWC) of ``--data-npz``, without and with the ReLU, and
+``mom/<path>``; with ``--optimizer`` other than sgd, ``--opt-params``
+JSON, every leaf as ``opt_state/<path>``) to ``--out``.  With
+``--bn-case`` instead, it runs one training BatchNorm
+(``ops.kernels.fused_bn_train`` across the ranks) on its rows of ``x``
+(NHWC) of ``--data-npz``, without and with the ReLU, and
 backward from the cotangent ``gy`` there, and writes ``y``, ``dx``, its
 local ``dgamma``/``dbeta`` and the new running stats.  It imports neither
 JAX nor the JAX package.
@@ -126,7 +128,7 @@ def build(args, dev, data=True):
 
 def fixed_world(args, dev, lr, momentum, wd, mesh=None, rank=None):
     """The fixed world (``mesh``, or one formed here): one epoch over this
-    rank's rows in each mode of ``--modes`` in turn (``dp``,
+    rank's rows in each mode of ``--modes`` in turn (``dp``, ``zero1``,
     ``zero1_fsdp``; ``_f32`` computes in float32), each from
     ``--init-npz``; the whole state after it written to ``--out``
     (``{mode}`` names the mode), and a JSON line a mode with the bytes the
@@ -144,15 +146,16 @@ def fixed_world(args, dev, lr, momentum, wd, mesh=None, rank=None):
     for mode in modes:
         # a mode names its sharding (an elastic worker's --zero/--fsdp are
         # the job's, not the modes')
-        zero = mode.startswith("zero1_fsdp") if args.modes else args.zero
+        zero = mode.startswith("zero1") if args.modes else args.zero
         fsdp = mode.startswith("zero1_fsdp") if args.modes else args.fsdp
         dtype = "float32" if mode.endswith("_f32") else args.dtype
         model = build(argparse.Namespace(**{**vars(args), "dtype": dtype}),
                       dev, data=False)[0]
-        mod = Module(model, optimizer="sgd",
-                     optimizer_params={"learning_rate": lr,
-                                       "momentum": momentum,
-                                       "weight_decay": wd},
+        opt = {"learning_rate": lr, "momentum": momentum,
+               "weight_decay": wd}
+        if args.optimizer != "sgd":
+            opt = json.loads(args.opt_params)
+        mod = Module(model, optimizer=args.optimizer, optimizer_params=opt,
                      device=dev, mesh=mesh, shard_opt_state=zero,
                      shard_params=fsdp)
         mod.init_params()
@@ -169,9 +172,10 @@ def fixed_world(args, dev, lr, momentum, wd, mesh=None, rank=None):
         held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" \
             else None
         blob = snapshot_state(mod.state)
+        slots = {"mom": blob["opt_state"].get("mom", {})} \
+            if args.optimizer == "sgd" else {"opt_state": blob["opt_state"]}
         flat = flat_tree({"params": blob["params"],
-                          "batch_stats": blob["batch_stats"],
-                          "mom": blob["opt_state"].get("mom", {})})
+                          "batch_stats": blob["batch_stats"], **slots})
         np.savez((args.state_out or args.out).format(rank=rank, mode=mode),
                  **flat)
         lines.append({"rank": rank, "mode": mode, "backend": mesh.backend,
@@ -240,6 +244,11 @@ def main():
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--epoch-steps", type=int, default=0)
     ap.add_argument("--lr", type=float, default=0.0)
+    ap.add_argument("--optimizer", default="sgd",
+                    help="fixed world: the optimizer's name; other than "
+                         "sgd it takes --opt-params")
+    ap.add_argument("--opt-params", default="{}",
+                    help="fixed world: the optimizer's params as JSON")
     ap.add_argument("--wd", type=float, default=1e-4)
     ap.add_argument("--zero", action="store_true",
                     help="shard_opt_state (ZeRO-1)")
