@@ -251,7 +251,38 @@ JAX.  Phases, each fatal on failure:
    phase 20's f32 limits, the bytes held with and without ZeRO-1; (e)
    (b)'s adam + ``multi_precision`` state saved asynchronously through the
    pinned buffers, loaded into a fresh model's state bit-equal, and one
-   more step of each bit-equal.  Each part's time and the phase's.
+   more step of each bit-equal.  Each part's time and the phase's;
+23. data (after the optimizers): the data pipeline and the recurrent
+   cells, nothing of it needing PIL or ``ml_dtypes``.  (a) ResNet-50 v1
+   bf16 ``Module.fit`` fed from a ``.rec`` as ``examples/common.py:74-126``
+   builds it: 320 seeded raw u8 records of 256x256x3 (~63 MB, written with
+   ``RecordIOWriter`` and ``pack_label``), ``ResizeIter(PrefetchingIter(
+   ImageRecordIter(shuffle=True, augmenter=FusedCropMirrorNormalize(224,
+   ImageNet mean/std), dtype="bfloat16")), 8)`` at batch 32, sgd momentum
+   0.9 wd 1e-4 with ``multi_precision``, one epoch: loss finite and
+   falling, 53 ``bn_stats`` and 53 ``bn_act`` a step, the first two
+   batches of the pooled iterator equal to a serial one's byte for byte,
+   ``num_parts=2`` shards disjoint and together every record; the
+   iterator's images/s alone at 1 thread and at the pool's, the median
+   step beside phase 10's and the idle share of a profiled 2-step epoch;
+   (b) ``resnet20_cifar`` with ``stochastic_depth=0.5`` in f32 (the
+   example's lr 0.05, momentum 0.9) from a ``.rec`` of 32x32x3 shapes
+   through ``cifar_train_augmenter``, batch 64, 2 epochs: loss finite, 19
+   + 19 BN-train launches a step, train forwards under other generators
+   differ, eval repeats equal, and with one generator's keeps the kernel-BN
+   logits within ``TOL_SD_PLAIN`` of the plain-BN run on the card; (c)
+   ``bidirectional_lstm`` at the PTB example's width (emsize 200, nhid
+   200, 2 layers, bptt 35, batch 32) forward and backward in f32 (4
+   ``lstm_layer`` launches) and bf16 (140 ``lstm_pointwise``) against
+   ``fused=False`` on the card within ``TOL_BILSTM``, ms beside cuDNN's
+   bidirectional ``torch.nn.LSTM`` (never called by the port); ``gru`` at
+   that width, f32 card against the CPU; ``train_ner.py``'s BiLSTM tagger
+   (E 32, H 32, adam lr 3e-3) 20 steps with the loss falling; (d)
+   ``MNISTIter`` over seeded gzip idx files and an ``ArrayDataset``
+   through a ``DataLoader`` of 2 workers forked after the card's launches,
+   each feeding a LeNet ``Module.fit`` of one epoch: losses finite, every
+   worker exited, all within ``LOADER_TIMEOUT_S``.  Each part's time and
+   the phase's.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -270,7 +301,9 @@ bf16 BN rows ``mesh_launches``, phase 20's (pass 1 there is ``bn_sums``,
 whose own times sit in the BN-train rows' ``bn_sums``); the flash rows
 and the bf16 BN rows carry ``parallel_launches``, phase 21's, and
 ``optim_launches``, phase 22's; the f32 BN-train row carries phase 22
-(d)'s f32 ranks' ``bn_sums``/``bn_act`` as its ``optim_launches``.
+(d)'s f32 ranks' ``bn_sums``/``bn_act`` as its ``optim_launches``; the BN
+rows carry ``data_launches``, phase 23's ((a) in bf16, (b) in f32), and the
+LSTM rows phase 23 (c)'s by part.
 """
 
 from __future__ import annotations
@@ -5347,6 +5380,634 @@ def optim_phase(gpu, dev, variables) -> dict:
             "launches": launches, "seconds": total}
 
 
+# --- phase 23: the data pipeline and the recurrent cells ---------------------
+DATA_RECORDS = 320  # seeded raw u8 records of DATA_RAW^2 x 3 (~63 MB)
+DATA_RAW = 256  # stored side; FusedCropMirrorNormalize crops IMAGE from it
+DATA_STEPS = 8  # one epoch of the .rec-fed fit
+DATA_CLASSES = 10  # labels used of the 1000, each with its own colour
+IMAGENET_MEAN = [123.68, 116.779, 103.939]
+IMAGENET_STD = [58.393, 57.12, 57.375]
+DATA_TIME_BATCHES = 4  # batches timed for the iterator's images/s
+SD_RATE = 0.5  # examples/train_stochastic_depth.py --death-rate
+SD_RECORDS = 512  # 32x32x3 raw u8 "shapes" records, 3 classes
+SD_BATCH = 64
+SD_EPOCHS = 2
+SD_SGD = dict(learning_rate=0.05, momentum=0.9)  # the example's
+SD_BLOCKS = 7  # resnet20's identity-shortcut blocks (9 less 2 downsampling)
+RESNET20_BN = 19
+# kernel BN against plain BN on the card, the same keeps, f32 logits: pass 1
+# sums in another order (1e-6 relative a BN), through 19 BNs; of the largest
+TOL_SD_PLAIN = 1e-4
+RNN = dict(emsize=200, hidden=200, layers=2, bptt=35, batch=32)  # PTB's
+# bidirectional_lstm with the kernels against fused=False on the card, of
+# each output's or gradient's largest: f32 sums in another order (5.9e-7
+# measured on an H100); in bf16 each step's h and c round to bf16, so a
+# last-bit difference in the f32 gates (the kernel's exp against torch's)
+# moves a bf16 value by an ulp (2^-8 relative) and the backward's 35 steps
+# carry it (6.6e-3 measured in the gradients)
+TOL_BILSTM = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+TOL_GRU_CARD = 1e-5  # gru, card against the CPU, f32, of the largest
+NER = dict(vocab_words=200, entities=40, sentence=12, sentences=256,
+           embed=32, hidden=32, lr=3e-3, steps=20, batch=32)
+LOADER = dict(images=512, batch=64, workers=2)
+LOADER_TIMEOUT_S = 120.0  # the MNIST and DataLoader fits together
+
+
+def _record_ids(batch) -> list:
+    """Record ids written into pixel (0, 0) of each real row (u8 batch)."""
+    d = np.asarray(batch.data)[:len(batch.data) - batch.pad]
+    return (d[:, 0, 0, 0].astype(int) + 256 * d[:, 0, 0, 1].astype(int)) \
+        .tolist()
+
+
+def _data_rec_fit(tmp, dev, gpu, fitted) -> dict:
+    """(a) ResNet-50 v1 bf16 ``Module.fit`` fed from a ``.rec`` as
+    ``examples/common.py:74-126`` builds it."""
+    import os
+    import torch
+    from dt_tpu_torch import models
+    from dt_tpu_torch.data import augment, io, recordio
+    from dt_tpu_torch.training.module import Module
+    path = str(Path(tmp) / "train.rec")
+    rng = np.random.RandomState(23)
+    # a class's colour under u8 noise: learnable, so the loss can fall
+    colours = rng.randint(32, 192, (DATA_CLASSES, 1, 1, 3)).astype(np.uint8)
+    t = time.perf_counter()
+    with recordio.RecordIOWriter(path) as w:
+        for i in range(DATA_RECORDS):
+            img = rng.randint(0, 64, (DATA_RAW, DATA_RAW, 3), np.uint8) \
+                + colours[i % DATA_CLASSES]
+            img[0, 0, :2] = (i % 256, i // 256)  # the record's id
+            w.write(recordio.pack_label(img.tobytes(), i % DATA_CLASSES,
+                                        rec_id=i))
+    write_s = time.perf_counter() - t
+    size = Path(path).stat().st_size
+    threads = min(os.cpu_count() or 1, 16)
+    aug = augment.FusedCropMirrorNormalize((IMAGE, IMAGE), IMAGENET_MEAN,
+                                           IMAGENET_STD)
+
+    def rec_iter(**kw):
+        kw = {"shuffle": True, "augmenter": aug, "seed": 0,
+              "dtype": "bfloat16", **kw}
+        return recordio.ImageRecordIter(path, (DATA_RAW, DATA_RAW, 3), BATCH,
+                                        **kw)
+
+    # the pooled decode against the serial one, byte for byte, then the
+    # iterator's own rate (no consumer) at 1 thread and at the pool's
+    rate = {}
+    firsts = {}
+    for n in (1, threads):
+        it = rec_iter(num_decode_threads=n)
+        firsts[n] = [it.next() for _ in range(2)]
+        t = time.perf_counter()
+        for _ in range(DATA_TIME_BATCHES):
+            it.next()
+        rate[n] = DATA_TIME_BATCHES * BATCH / (time.perf_counter() - t)
+        it.close()
+    for a, b in zip(firsts[1], firsts[threads]):
+        if not (a.data.dtype == torch.bfloat16 and torch.equal(a.data, b.data)
+                and np.array_equal(a.label, b.label) and a.pad == b.pad):
+            raise AssertionError(f"data (a): {threads} decode threads gave "
+                                 "other batches than one")
+    shards = []
+    for part in range(2):
+        it = recordio.ImageRecordIter(path, (DATA_RAW, DATA_RAW, 3), BATCH,
+                                      shuffle=True, num_parts=2,
+                                      part_index=part, dtype="uint8",
+                                      num_decode_threads=threads)
+        shards.append([i for b in it for i in _record_ids(b)])
+        it.close()
+    a, b = set(shards[0]), set(shards[1])
+    print(f"data (a) .rec {DATA_RECORDS} records {size} B written in "
+          f"{write_s:.2f} s; iterator images/s (FusedCropMirrorNormalize "
+          f"{IMAGE}, bf16 batches of {BATCH}) 1 thread {rate[1]:.1f}, "
+          f"{threads} threads {rate[threads]:.1f}; first 2 batches equal "
+          f"at 1 and {threads} threads; shards of num_parts=2: "
+          f"{len(shards[0])} + {len(shards[1])} records, overlap "
+          f"{len(a & b)}", flush=True)
+    if a & b or a | b != set(range(DATA_RECORDS)) or \
+            len(shards[0]) + len(shards[1]) != DATA_RECORDS:
+        raise AssertionError("data (a): the two shards are not disjoint and "
+                             "exhaustive")
+
+    inner = rec_iter(num_decode_threads=threads)
+    train = io.ResizeIter(io.PrefetchingIter(inner), DATA_STEPS)
+    mod = Module(models.create("resnet50", device=dev, dtype=torch.bfloat16),
+                 optimizer="sgd",
+                 optimizer_params={"learning_rate": FIT_SGD["learning_rate"],
+                                   "momentum": 0.9, "weight_decay": 1e-4,
+                                   "multi_precision": True},
+                 device=dev, seed=0)
+    mod.init_params()
+    ends, cum = [], []
+
+    def on_batch(param):
+        ends.append(time.perf_counter())
+        cum.append(dict(param.eval_metric.get_name_value())["cross-entropy"])
+
+    torch.cuda.synchronize()
+    reset_counts()  # the main path's run starts here
+    mod.fit(train, eval_metric="ce", num_epoch=1, batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    counts = read_counts()  # ... and ends here
+    tag = "data (a) .rec-fed fit ResNet-50 bf16"
+    want = {k: 0 for k in counts}
+    want.update(bn_stats=BN_PER_FORWARD * DATA_STEPS,
+                bn_act=BN_PER_FORWARD * DATA_STEPS)
+    _check_counts(tag, counts, want)
+    losses = [cum[0]] + [cum[k] * (k + 1) - cum[k - 1] * k
+                         for k in range(1, len(cum))]
+    _falling(tag, losses)
+    step_ms = _median_ms(np.diff(ends))
+    inner.close()
+    # one profiled 2-step epoch against the same epoch unprofiled
+    inner = rec_iter(num_decode_threads=threads)
+    short = io.ResizeIter(io.PrefetchingIter(inner), 2)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mod.fit(short, num_epoch=1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    prof = profile_fn(lambda: mod.fit(short, num_epoch=1), wall_ms,
+                      "data (a) .rec-fed fit 2-step epoch")
+    inner.close()
+    print(f"{tag} median_step_ms={step_ms:.3f} (phase 10's NDArrayIter fit "
+          f"of ResNet-50 bf16 at batch {BATCH}: {fitted['step_ms']:.3f}) "
+          f"imgs_per_s={BATCH * 1e3 / step_ms:.1f} gpu={gpu}", flush=True)
+    del mod
+    torch.cuda.empty_cache()
+    return {"counts": counts, "losses": losses, "step_ms": step_ms,
+            "phase10_step_ms": fitted["step_ms"], "imgs_per_s_1": rate[1],
+            f"imgs_per_s_{threads}": rate[threads], "threads": threads,
+            "rec_bytes": size, **prof}
+
+
+def _shapes_rec(path: str, n: int, seed: int) -> None:
+    """``examples/train_stochastic_depth.py``'s shapes at 32x32, as raw u8
+    records: a vertical bar, a horizontal bar or a centre square (the
+    label) on a noisy canvas."""
+    from dt_tpu_torch.data import recordio
+    rng = np.random.RandomState(seed)
+    with recordio.RecordIOWriter(path) as w:
+        for i in range(n):
+            y = rng.randint(0, 3)
+            x = rng.normal(110, 30, (32, 32, 3))
+            c = 8 + rng.randint(16)
+            if y == 0:
+                x[4:28, c] += 120
+            elif y == 1:
+                x[c, 4:28] += 120
+            else:
+                x[10:22, 10:22] += 120
+            w.write(recordio.pack_label(
+                np.clip(x, 0, 255).astype(np.uint8).tobytes(), y, rec_id=i))
+
+
+class _PlainBN:
+    """Within the block, the BN wrappers run their plain versions on any
+    device (no launch is counted): the plain-BN run of a model."""
+
+    def __enter__(self):
+        from dt_tpu_torch.ops import kernels as K
+        self.saved = K.bn_stats, K.bn_act
+        K.bn_stats = lambda x: K.bn_stats_plain(
+            K.rows_view(x, "fused_bn_train"))
+        K.bn_act = lambda x, scale, bias, relu=False: K._like_input(
+            K.bn_act_plain(K.rows_view(x), scale, bias, relu), x)
+        return self
+
+    def __exit__(self, *exc):
+        from dt_tpu_torch.ops import kernels as K
+        K.bn_stats, K.bn_act = self.saved
+
+
+def _data_stochastic_depth(tmp, dev, gpu) -> dict:
+    """(b) ``resnet20_cifar`` with ``stochastic_depth=0.5`` in f32, as
+    ``examples/train_stochastic_depth.py`` sets it, fed from a ``.rec``
+    through ``cifar_train_augmenter``."""
+    import torch
+    from dt_tpu_torch import models
+    from dt_tpu_torch.data import augment, recordio
+    from dt_tpu_torch.training.module import Module
+    path = str(Path(tmp) / "shapes.rec")
+    _shapes_rec(path, SD_RECORDS, 5)
+    it = recordio.ImageRecordIter(path, (32, 32, 3), SD_BATCH, shuffle=True,
+                                  augmenter=augment.cifar_train_augmenter(),
+                                  seed=0)
+    mod = Module(models.create("resnet20_cifar", device=dev, num_classes=3,
+                               stochastic_depth=SD_RATE),
+                 optimizer="sgd", optimizer_params=SD_SGD, device=dev, seed=0)
+    mod.init_params()
+    ce = []
+    torch.cuda.synchronize()
+    reset_counts()  # the main path's run starts here
+    mod.fit(it, eval_metric="ce", num_epoch=SD_EPOCHS,
+            epoch_end_callback=lambda e, s, m: ce.append(m.get()[1]))
+    torch.cuda.synchronize()
+    counts = read_counts()  # ... and ends here
+    steps = SD_EPOCHS * (SD_RECORDS // SD_BATCH)
+    tag = "data (b) resnet20_cifar stochastic_depth f32"
+    want = {k: 0 for k in counts}
+    want.update(bn_stats=RESNET20_BN * steps, bn_act=RESNET20_BN * steps)
+    _check_counts(tag, counts, want)
+    print(f"{tag} epochs={SD_EPOCHS} steps={steps} train_ce={ce}", flush=True)
+    if not np.isfinite(ce).all():
+        raise AssertionError(f"{tag}: cross-entropy not finite: {ce}")
+    it.reset()
+    x = mod._place(it.next().data)
+    it.close()
+    model = mod.model
+
+    def train(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            return model(x, training=True, generator=g).float()
+
+    base = train(1)
+    differ = [not torch.equal(base, train(s)) for s in (2, 3, 4)]
+    with torch.no_grad():
+        e1, e2 = model(x).float(), model(x).float()
+    with _PlainBN():
+        plain = train(1)
+    err = float((base - plain).abs().max())
+    tol = TOL_SD_PLAIN * float(plain.abs().max())
+    print(f"{tag} train forwards under other generators differ: {differ}; "
+          f"eval repeated equal: {torch.equal(e1, e2)}; kernel BN against "
+          f"plain BN, the same keeps: max_abs_err={err:.3e} tol={tol:.3e} "
+          f"gpu={gpu}", flush=True)
+    if not (any(differ) and torch.equal(e1, e2) and err <= tol
+            and torch.isfinite(base).all()):
+        raise AssertionError(f"{tag}: stochastic depth's checks failed")
+    del mod, model
+    return {"counts": counts, "train_ce": ce, "plain_max_abs_err": err}
+
+
+def _bilstm_weights(g, dev, dtype):
+    """Forward and backward weights of the PTB-width 2-layer BiLSTM: layer
+    0 reads the embedding, layer 1 the 2H concat."""
+    from dt_tpu_torch.ops import rnn
+    e, h = RNN["emsize"], RNN["hidden"]
+    out = []
+    for _ in range(2):  # directions
+        ws = rnn.init_lstm_weights(g, 1, e, h, dtype=dtype, device=dev)
+        for _ in range(1, RNN["layers"]):
+            ws += rnn.init_lstm_weights(g, 1, 2 * h, h, dtype=dtype,
+                                        device=dev)
+        out.append(ws)
+    return out
+
+
+def _events_ms(fn, iters: int = 5) -> float:
+    """Median ms of ``fn`` by CUDA events, after one warm call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _data_bilstm(dev, gpu) -> dict:
+    """(c) ``bidirectional_lstm`` at the PTB example's width in f32 and
+    bf16, forward and backward, against ``fused=False`` on the card; its
+    launches; its ms beside cuDNN's bidirectional ``torch.nn.LSTM``."""
+    import torch
+    from dt_tpu_torch.ops import rnn
+    t, b, e, h, layers = (RNN[k] for k in ("bptt", "batch", "emsize",
+                                           "hidden", "layers"))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(3)
+        fw, bw = _bilstm_weights(g, dev, dtype)
+        x = torch.randn(t, b, e, generator=g, device=dev).to(dtype)
+        h0 = (0.1 * torch.randn(2 * layers, b, h, generator=g, device=dev)) \
+            .to(dtype)
+        c0 = (0.1 * torch.randn(2 * layers, b, h, generator=g, device=dev)) \
+            .to(dtype)
+        cots = [torch.randn(s, generator=g, device=dev) for s in
+                ((t, b, 2 * h), (2 * layers, b, h), (2 * layers, b, h))]
+
+        def run(fused):
+            leaves = [a.clone().requires_grad_() for a in
+                      (x, h0, c0, *[p for w in fw + bw for p in w])]
+            lw = [rnn.LSTMWeights(*leaves[3 + 3 * i:6 + 3 * i])
+                  for i in range(2 * layers)]
+            outs = rnn.bidirectional_lstm(leaves[0], leaves[1], leaves[2],
+                                          lw[:layers], lw[layers:],
+                                          fused=fused)
+            loss = sum((o.float() * c).sum() for o, c in zip(outs, cots))
+            return list(outs) + list(torch.autograd.grad(loss, leaves))
+
+        torch.cuda.synchronize()
+        reset_counts()  # the path's run starts here
+        got = run(None)
+        torch.cuda.synchronize()
+        counts = read_counts()  # ... and ends here
+        want_counts = {k: 0 for k in counts}
+        if dtype == torch.float32:
+            want_counts["lstm_layer"] = 2 * layers
+        else:
+            want_counts["lstm_pointwise"] = 2 * layers * t
+        tag = f"data (c) bidirectional_lstm {name} T{t} B{b} E{e} H{h} L" \
+              f"{layers} forward+backward"
+        _check_counts(tag, counts, want_counts)
+        want = run(False)
+        errs = [float((a - w).detach().float().abs().max())
+                / max(float(w.detach().float().abs().max()), 1e-30)
+                for a, w in zip(got, want)]
+        ms = _events_ms(lambda: run(None))
+        plain_ms = _events_ms(lambda: run(False))
+        cudnn = torch.nn.LSTM(e, h, num_layers=layers, bidirectional=True) \
+            .to(dev, dtype)
+        cudnn.flatten_parameters()
+        xc = x.clone().requires_grad_()
+
+        def cudnn_step():
+            y, (hn, cn) = cudnn(xc, (h0, c0))
+            loss = (y.float() * cots[0]).sum() + (hn.float() * cots[1]).sum() \
+                + (cn.float() * cots[2]).sum()
+            torch.autograd.grad(loss, [xc] + list(cudnn.parameters()))
+
+        try:  # a yardstick only: the port never calls it
+            lib_ms = _events_ms(cudnn_step)
+        except RuntimeError as err:
+            print(f"{tag}: cuDNN's LSTM in {name} not measured ({err})",
+                  flush=True)
+            lib_ms = float("nan")
+        print(f"{tag}: max_rel_err={max(errs):.3e} (outputs "
+              f"{max(errs[:3]):.3e}, gradients {max(errs[3:]):.3e}) "
+              f"tol={TOL_BILSTM[name]:.3e}; ms={ms:.3f} plain_ms="
+              f"{plain_ms:.3f} cudnn_lstm_ms={lib_ms:.3f} gpu={gpu}",
+              flush=True)
+        if not (max(errs) <= TOL_BILSTM[name]
+                and all(torch.isfinite(a).all() for a in got)):
+            raise AssertionError(f"{tag}: kernels against the plain cell "
+                                 f"{errs}")
+        out[name] = {"counts": counts, "max_rel_err": max(errs), "ms": ms,
+                     "plain_ms": plain_ms, "cudnn_ms": lib_ms}
+    return out
+
+
+def _data_gru(dev, gpu) -> dict:
+    """(c) ``gru`` at the PTB width, f32 on the card against the CPU, bf16
+    finite; ms beside cuDNN's ``torch.nn.GRU`` (plain PyTorch both ways:
+    the JAX package's GRU reaches no Pallas kernel)."""
+    import torch
+    from dt_tpu_torch.ops import rnn
+    t, b, e, h, layers = (RNN[k] for k in ("bptt", "batch", "emsize",
+                                           "hidden", "layers"))
+    g = torch.Generator().manual_seed(4)
+    s = 1.0 / h ** 0.5
+    arrays = [torch.randn(t, b, e, generator=g),
+              0.1 * torch.randn(layers, b, h, generator=g)]
+    for layer in range(layers):
+        i = e if layer == 0 else h
+        arrays += [(torch.rand(shape, generator=g) * 2 - 1) * s
+                   for shape in ((i, 3 * h), (h, 3 * h), (3 * h,), (3 * h,))]
+    cot = torch.randn(t, b, h, generator=g)
+
+    def run(where, dtype):
+        leaves = [a.to(where, dtype).requires_grad_() for a in arrays]
+        ws = [rnn.GRUWeights(*leaves[2 + 4 * i:6 + 4 * i])
+              for i in range(layers)]
+        y, hT = rnn.gru(leaves[0], leaves[1], ws)
+        loss = (y.float() * cot.to(where)).sum() + hT.float().sum()
+        return [y, hT] + list(torch.autograd.grad(loss, leaves))
+
+    card = run(dev, torch.float32)
+    cpu = run("cpu", torch.float32)
+    err = max(float((a.detach().cpu() - w.detach()).abs().max())
+              / float(w.detach().abs().max()) for a, w in zip(card, cpu))
+    bf16 = run(dev, torch.bfloat16)
+    ms = _events_ms(lambda: run(dev, torch.float32))
+    ms_bf16 = _events_ms(lambda: run(dev, torch.bfloat16))
+    cudnn = torch.nn.GRU(e, h, num_layers=layers).to(dev)
+    cudnn.flatten_parameters()
+    xc = arrays[0].to(dev).requires_grad_()
+    h0 = arrays[1].to(dev)
+
+    def cudnn_step():
+        y, hn = cudnn(xc, h0)
+        torch.autograd.grad((y * cot.to(dev)).sum() + hn.sum(),
+                            [xc] + list(cudnn.parameters()))
+
+    lib_ms = _events_ms(cudnn_step)
+    print(f"data (c) gru f32 T{t} B{b} E{e} H{h} L{layers} card against cpu "
+          f"max_rel_err={err:.3e} (tol {TOL_GRU_CARD}); forward+backward "
+          f"ms f32 {ms:.3f} bf16 {ms_bf16:.3f} cudnn_gru_ms={lib_ms:.3f} "
+          f"gpu={gpu}", flush=True)
+    if not (err <= TOL_GRU_CARD
+            and all(torch.isfinite(a).all() for a in bf16)):
+        raise AssertionError("data (c): gru on the card disagrees")
+    return {"max_rel_err": err, "ms": ms, "ms_bf16": ms_bf16,
+            "cudnn_ms": lib_ms}
+
+
+def _ner_batches():
+    """Seeded sentences of ``train_ner.py``'s task: a token is an entity
+    (tag 1) if it is an entity word, inside one (tag 2) if it follows an
+    entity word, else outside (0)."""
+    from dt_tpu_torch.text import Vocabulary
+    rng = np.random.RandomState(11)
+    words = [f"w{i}" for i in range(NER["vocab_words"])]
+    ents = [f"E{i}" for i in range(NER["entities"])]
+    sents, tags = [], []
+    for _ in range(NER["sentences"]):
+        toks, tg = [], []
+        for k in range(NER["sentence"]):
+            ent = rng.rand() < 0.2
+            toks.append(ents[rng.randint(len(ents))] if ent
+                        else words[rng.randint(len(words))])
+            tg.append(1 if ent else (2 if k and tg[-1] == 1 else 0))
+        sents.append(toks)
+        tags.append(tg)
+    vocab = Vocabulary(Vocabulary.count_tokens(t for s in sents for t in s),
+                       reserved_tokens=["<pad>"])
+    x = np.asarray([vocab.to_indices(s) for s in sents], np.int64)
+    return vocab, x, np.asarray(tags, np.int64)
+
+
+def _data_ner(dev, gpu) -> dict:
+    """(c) ``train_ner.py``'s model on the card: a ``Vocabulary`` over the
+    seeded tokens, an embedding, a BiLSTM (E 32, H 32), a linear tagger,
+    adam lr 3e-3 (the port's), 20 steps with the loss falling."""
+    import torch
+    from dt_tpu_torch import optim
+    from dt_tpu_torch.ops import rnn
+    vocab, x, y = _ner_batches()
+    e, h = NER["embed"], NER["hidden"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    fw = rnn.init_lstm_weights(g, 1, e, h, device=dev)[0]
+    bw = rnn.init_lstm_weights(g, 1, e, h, device=dev)[0]
+    params = {"embed": 0.1 * torch.randn(len(vocab), e, generator=g,
+                                         device=dev),
+              "out_w": 0.1 * torch.randn(2 * h, 3, generator=g, device=dev),
+              "out_b": torch.zeros(3, device=dev)}
+    for d, w in (("fw", fw), ("bw", bw)):
+        params.update({f"{d}_{k}": v for k, v in w._asdict().items()})
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    tx = optim.create("adam", learning_rate=NER["lr"])
+    state = tx.init(params)
+    losses = []
+    torch.cuda.synchronize()
+    reset_counts()  # the path's run starts here
+    for step in range(NER["steps"]):
+        lo = step * NER["batch"] % len(x)
+        xb = torch.from_numpy(x[lo:lo + NER["batch"]]).to(dev)
+        yb = torch.from_numpy(y[lo:lo + NER["batch"]]).to(dev)
+        emb = params["embed"][xb].transpose(0, 1)  # (L, B, E)
+        h0 = torch.zeros(2, xb.shape[0], h, device=dev)
+        outs, _, _ = rnn.bidirectional_lstm(
+            emb, h0, h0, [rnn.LSTMWeights(*(params[f"fw_{k}"]
+                                            for k in ("wx", "wh", "b")))],
+            [rnn.LSTMWeights(*(params[f"bw_{k}"] for k in ("wx", "wh", "b")))])
+        logits = outs.transpose(0, 1) @ params["out_w"] + params["out_b"]
+        loss = torch.nn.functional.cross_entropy(logits.reshape(-1, 3),
+                                                 yb.reshape(-1))
+        grads = dict(zip(params, torch.autograd.grad(loss,
+                                                     list(params.values()))))
+        state = tx.update(grads, state, params)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    counts = read_counts()  # ... and ends here
+    want = {k: 0 for k in counts}
+    want["lstm_layer"] = 2 * NER["steps"]
+    tag = "data (c) train_ner BiLSTM E32 H32 adam"
+    _check_counts(tag, counts, want)
+    _falling(tag, losses)
+    print(f"{tag} vocab={len(vocab)} gpu={gpu}", flush=True)
+    return {"counts": counts, "losses": losses}
+
+
+def _data_loaders(tmp, dev, gpu) -> dict:
+    """(d) ``MNISTIter`` over seeded gzip idx files, then an
+    ``ArrayDataset`` through a ``DataLoader`` of 2 forked workers, each
+    feeding a LeNet ``Module.fit`` of one epoch, after the card's first
+    launches (the workers fork from a process with a CUDA context and
+    touch no CUDA).  A watchdog kills the workers and ends the script if
+    the two fits take past ``LOADER_TIMEOUT_S``."""
+    import gzip
+    import os
+    import signal
+    import struct
+    import threading
+    from dt_tpu_torch import models
+    from dt_tpu_torch.data import dataset, mnist
+    from dt_tpu_torch.training.module import Module
+    n, bs = LOADER["images"], LOADER["batch"]
+    rng = np.random.RandomState(13)
+    y = rng.randint(0, 10, n).astype(np.uint8)
+    img = rng.randint(0, 60, (n, 28, 28)).astype(np.uint8)
+    for i in range(n):  # a class-dependent bright row
+        img[i, 2 + 2 * y[i], 4:24] = 250
+    ip, lp = Path(tmp) / "train-images-idx3-ubyte.gz", \
+        Path(tmp) / "train-labels-idx1-ubyte.gz"
+    ip.write_bytes(gzip.compress(struct.pack(">IIII", 2051, n, 28, 28)
+                                 + img.tobytes()))
+    lp.write_bytes(gzip.compress(struct.pack(">II", 2049, n) + y.tobytes()))
+    workers = []
+
+    def fire():
+        print(f"chip_smoke: data (d) hung past {LOADER_TIMEOUT_S} s; "
+              f"killing workers {[p.pid for p in workers]}", file=sys.stderr,
+              flush=True)
+        for p in workers:
+            try:
+                os.kill(p.pid, signal.SIGKILL)
+            except OSError:
+                pass
+        os._exit(3)
+
+    dog = threading.Timer(LOADER_TIMEOUT_S, fire)
+    dog.daemon = True
+    dog.start()
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        it = mnist.MNISTIter(str(ip), str(lp), batch_size=bs, shuffle=True)
+        loader = dataset.DataLoader(
+            dataset.ArrayDataset(mnist.read_idx_images(str(ip))
+                                 .astype(np.float32) / 255.0,
+                                 mnist.read_idx_labels(str(lp))),
+            batch_size=bs, shuffle=True, num_workers=LOADER["workers"])
+        workers = list(loader._it._pool._pool)
+        for tag, data_iter in (("MNISTIter", it), ("DataLoader", loader)):
+            mod = Module(models.create("lenet", device=dev, num_classes=10),
+                         optimizer="sgd", optimizer_params=dict(
+                             learning_rate=0.1, momentum=0.9),
+                         device=dev, seed=0)
+            ce = []
+            mod.fit(data_iter, eval_metric="ce", num_epoch=1,
+                    epoch_end_callback=lambda e, s, m: ce.append(m.get()[1]))
+            out[tag] = ce[0]
+        loader.close()
+    finally:
+        dog.cancel()
+    alive = [p.pid for p in workers if p.is_alive()]
+    codes = [p.exitcode for p in workers]
+    secs = time.perf_counter() - t0
+    print(f"data (d) LeNet fits, one epoch each: MNISTIter (gzip idx) ce="
+          f"{out['MNISTIter']:.5f}, DataLoader({LOADER['workers']} forked "
+          f"workers) ce={out['DataLoader']:.5f}; workers {len(workers)} "
+          f"exit codes {codes}, alive {alive}; {secs:.2f} s (limit "
+          f"{LOADER_TIMEOUT_S} s) gpu={gpu}", flush=True)
+    if not (np.isfinite(list(out.values())).all() and not alive
+            and len(workers) == LOADER["workers"]
+            and all(c is not None for c in codes)):
+        raise AssertionError("data (d): a fit's loss is not finite or a "
+                             "worker outlived the loader")
+    return {"ce": out, "worker_exit_codes": codes, "seconds": secs}
+
+
+def data_phase(gpu, dev, fitted) -> dict:
+    """Phase 23, the data pipeline and the recurrent cells: (a)
+    :func:`_data_rec_fit`, (b) :func:`_data_stochastic_depth`, (c)
+    :func:`_data_bilstm`, :func:`_data_gru` and :func:`_data_ner`, (d)
+    :func:`_data_loaders`.  Nothing here needs PIL or ``ml_dtypes`` (the
+    records are raw u8): the phase fails if it imported either.  Each
+    part's time and the phase's."""
+    import importlib.util
+    import tempfile
+    optional = ("PIL", "ml_dtypes")
+    print("data phase: this host " + ", ".join(
+        f"{m} {'installed' if importlib.util.find_spec(m) else 'missing'}"
+        for m in optional), flush=True)
+    loaded = {m for m in optional if m in sys.modules}
+    t0 = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        rec = _data_rec_fit(tmp, dev, gpu, fitted)
+        times["a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        sd = _data_stochastic_depth(tmp, dev, gpu)
+        times["b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        bilstm = _data_bilstm(dev, gpu)
+        gru = _data_gru(dev, gpu)
+        ner = _data_ner(dev, gpu)
+        times["c"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loaders = _data_loaders(tmp, dev, gpu)
+        times["d"] = time.perf_counter() - t
+    total = time.perf_counter() - t0
+    added = {m for m in optional if m in sys.modules} - loaded
+    if added:
+        raise AssertionError(f"data phase: imported {sorted(added)}")
+    print(f"data phase: .rec fit (a) {times['a']:.1f} s, stochastic depth "
+          f"(b) {times['b']:.1f} s, rnn (c) {times['c']:.1f} s, loaders (d) "
+          f"{times['d']:.1f} s, total {total:.1f} s gpu={gpu}", flush=True)
+    return {"rec": rec, "sd": sd, "bilstm": bilstm, "gru": gru, "ner": ner,
+            "loaders": loaders, "times": times, "seconds": total}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5504,6 +6165,9 @@ def main() -> int:
     optim_run = optim_phase(gpu, dev, variables)
     print(f"phase optim done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    data_run = data_phase(gpu, dev, fitted)
+    print(f"phase data done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -5564,6 +6228,10 @@ def main() -> int:
             kernels[-1]["optim_launches"] = (
                 optim_run["launches"]["bn_act"]
                 - optim_run["launches"]["bn_stats"])
+        # phase 23: (a) bf16, (b) f32; the fits score nothing
+        part = data_run["rec" if dtype == torch.bfloat16 else "sd"]
+        kernels[-1]["data_launches"] = (part["counts"]["bn_act"]
+                                        - part["counts"]["bn_stats"])
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -5614,11 +6282,17 @@ def main() -> int:
                 parallel["launches"]["bn_stats"]
             # phase 22 (a): the multi-precision fit
             kernels[-1]["optim_launches"] = optim_run["launches"]["bn_stats"]
+            # phase 23 (a): the .rec-fed fit
+            kernels[-1]["data_launches"] = \
+                data_run["rec"]["counts"]["bn_stats"]
         else:  # phase 22 (d): the f32 ZeRO-1 world's ranks (bn_sums)
             kernels[-1]["optim_launches"] = {
                 k: sum(c[k] for per in optim_run["zero"]["launches"].values()
                        for c in per) for k in ("bn_sums", "bn_stats",
                                                "bn_act")}
+            # phase 23 (b): the stochastic-depth resnet20 fit
+            kernels[-1]["data_launches"] = \
+                data_run["sd"]["counts"]["bn_stats"]
     sums = train_kernels[torch.bfloat16]
     kernels.append({  # the mesh's pass 1 (phase 20), its own entry point
         "name": "fused_bn_train.bn_sums[bfloat16]", "route": "cuda",
@@ -5694,7 +6368,11 @@ def main() -> int:
         "main_path_launches": lstm_trained["launches"]["lstm_pointwise"],
         "shape": [PTB_BATCH, 200], "h650": lstm[650],
         "ha_launches": failover["launches"]["lstm_pointwise"],
-        "resume_launches": outage["launches"]["lstm_pointwise"]})
+        "resume_launches": outage["launches"]["lstm_pointwise"],
+        # phase 23 (c): the bf16 bidirectional_lstm's forward + backward
+        "data_launches": {
+            "bilstm_bf16": data_run["bilstm"]["bfloat16"]["counts"][
+                "lstm_pointwise"]}})
     ll = layer[200]
     kernels.append({
         "name": "lstm_layer", "route": "cuda",
@@ -5709,7 +6387,12 @@ def main() -> int:
         "serial_floor_ms": ll["serial_floor_ms"],
         "shape": ll["shape"], "h650": layer[650],
         "ha_launches": failover["launches"]["lstm_layer"],
-        "resume_launches": outage["launches"]["lstm_layer"]})
+        "resume_launches": outage["launches"]["lstm_layer"],
+        # phase 23 (c): the f32 bidirectional_lstm and the NER model's steps
+        "data_launches": {
+            "bilstm_f32": data_run["bilstm"]["float32"]["counts"][
+                "lstm_layer"],
+            "ner": data_run["ner"]["counts"]["lstm_layer"]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,6 +61,7 @@ ENV_REGISTRY = {
     # worker identity
     "DT_WORKER_ID": ("", "this worker's host name under the launcher's env contract"),
     "DT_RECOVERY": ("", "1 = re-register under the old identity after a crash"),
+    "DT_SERVER_ID": ("0", "range-server index under the launcher env contract"),
     # control-plane HA (scheduler journal, warm standby, client failover)
     "DT_CTRL_JOURNAL": ("", "control-state write-ahead journal path (enables scheduler HA replay)"),
     "DT_CTRL_LEASE": ("", "leader lease file path (default <journal>.lease)"),
@@ -112,6 +113,8 @@ ENV_REGISTRY = {
     "DT_SERVE_DOWN_AFTER": ("6", "consecutive idle serve-policy evaluations before a scale_down decision fires"),
     "DT_SERVE_MIN_REPLICAS": ("1", "serving autoscale floor (scale_down never goes below it)"),
     "DT_SERVE_MAX_REPLICAS": ("8", "serving autoscale ceiling (scale_up never goes above it)"),
+    # the data pipeline (data/recordio.py)
+    "DT_DECODE_THREADS": ("", "recordio decode pool size (default min(cpus, 16))"),
     # fault injection
     "DT_FAULT_PLAN": ("", "fault-plan JSON (or @/path) for subprocess workers"),
     "DT_DROP_MSG": ("", "percent of received control messages the scheduler drops"),

@@ -22,6 +22,35 @@ from dt_tpu_torch.config import resolve_device
 from dt_tpu_torch.policy import rescale
 
 
+def _is_bf16(dtype) -> bool:
+    return dtype is torch.bfloat16 or str(dtype) == "bfloat16"
+
+
+def _f32_tensor(arr) -> torch.Tensor:
+    a = np.ascontiguousarray(arr, np.float32)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def host_values(arr, dtype) -> np.ndarray:
+    """``arr`` cast to ``dtype`` as a numpy array.  numpy has no bfloat16
+    of its own (the JAX package gets one from ``ml_dtypes``, which the
+    port does not use), so ``"bfloat16"`` gives float32 holding the
+    bfloat16 values: rounded to nearest even through float32, as
+    ``ml_dtypes`` casts."""
+    if _is_bf16(dtype):
+        return _f32_tensor(arr).to(torch.bfloat16).float().numpy()
+    return np.asarray(arr).astype(dtype)
+
+
+def host_batch(arr, dtype):
+    """A batch's array in ``dtype``: numpy, but a CPU ``torch.bfloat16``
+    tensor for ``"bfloat16"`` (the same values as ``ml_dtypes``' cast;
+    ``Module`` and :class:`DevicePrefetchIter` place either)."""
+    if _is_bf16(dtype):
+        return _f32_tensor(arr).to(torch.bfloat16)
+    return np.asarray(arr).astype(dtype)
+
+
 class DataBatch:
     """One batch.  Reference: ``mx.io.DataBatch`` — ``pad`` counts the fake
     trailing examples appended to fill the batch (last_batch_handle='pad')."""
@@ -472,12 +501,13 @@ class DevicePrefetchIter(DataIter):
     current one (``dt_tpu/data/io.py:465``, where ``jax.device_put``
     dispatches the copy asynchronously).
 
-    Each numpy array of a batch is copied into pinned host memory and then
-    to the device with ``non_blocking=True`` on the side stream, so the
-    copy never waits for the compute in flight; an event recorded after
-    the copies is what the consumer's stream waits on when the batch is
-    handed over (``wait_event``), and ``record_stream`` tells the caching
-    allocator that the consumer's stream uses the tensors.  Placed batches
+    Each numpy array of a batch (or CPU tensor: a bfloat16 batch) is
+    copied into pinned host memory and then to the device with
+    ``non_blocking=True`` on the side stream, so the copy never waits for
+    the compute in flight; an event recorded after the copies is what the
+    consumer's stream waits on when the batch is handed over
+    (``wait_event``), and ``record_stream`` tells the caching allocator
+    that the consumer's stream uses the tensors.  Placed batches
     keep the iterator's layout (images NHWC) as torch tensors; ``Module``
     turns them into NCHW channels-last views.  On the CPU (``device=
     "cpu"``) batches pass through as they are.
@@ -501,10 +531,11 @@ class DevicePrefetchIter(DataIter):
         def place(x):
             if isinstance(x, tuple):
                 return tuple(place(a) for a in x)
-            if not isinstance(x, np.ndarray):
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            elif not (isinstance(x, torch.Tensor) and x.device.type == "cpu"):
                 return x
-            host = torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
-            return host.to(self.device, non_blocking=True)
+            return x.pin_memory().to(self.device, non_blocking=True)
 
         with torch.cuda.stream(self._stream):
             placed = DataBatch(place(batch.data), place(batch.label),
@@ -564,8 +595,8 @@ class SyntheticImageIter(DataIter):
                  dtype: str = "float32"):
         super().__init__(batch_size)
         rng = np.random.RandomState(seed)
-        self._data = rng.uniform(-1, 1, (batch_size,) + tuple(image_shape)) \
-            .astype(dtype)
+        self._data = host_batch(
+            rng.uniform(-1, 1, (batch_size,) + tuple(image_shape)), dtype)
         self._label = rng.randint(0, num_classes, (batch_size,)) \
             .astype("int32")
         self.num_batches = num_batches

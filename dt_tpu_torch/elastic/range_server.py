@@ -271,7 +271,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scheduler-port", type=int,
                     default=int(os.environ.get("DMLC_PS_ROOT_PORT", "0")))
     ap.add_argument("--index", type=int,
-                    default=int(os.environ.get("DT_SERVER_ID", "0")))
+                    default=int(config.env("DT_SERVER_ID")))
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--advertise-host", default=None)
     args = ap.parse_args(argv)

@@ -55,7 +55,8 @@ def create(name: str, device: Union[str, torch.device] = "cuda", **kwargs):
     key = name.lower().replace("-", "_")
     if key not in _REGISTRY:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet; ported: {sorted(_REGISTRY)}")
+            f"model {name!r} is not ported yet (ROADMAP.md, Queue 1 item 8); "
+            f"ported: {sorted(_REGISTRY)}")
     return _REGISTRY[key](**kwargs).to(dev).eval()
 
 

@@ -17,7 +17,7 @@ param tree unchanged.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +25,16 @@ from torch import nn
 from dt_tpu_torch.models.common import Conv, Dense, bn
 from dt_tpu_torch.ops import nn as ops
 from dt_tpu_torch.ops import remat as remat_lib
+
+
+def draw_keep(keep_prob: float, generator: Optional[torch.Generator],
+              device: torch.device) -> torch.Tensor:
+    """One Bernoulli(``keep_prob``) draw of stochastic depth, a 0-d bool
+    tensor on ``device`` (no host sync), from ``generator`` (the device's
+    default generator when ``None``).  The JAX package draws
+    ``jax.random.bernoulli`` from the ``dropout`` stream instead: the same
+    law, another stream."""
+    return torch.rand((), generator=generator, device=device) < keep_prob
 
 
 def _run_block(block, x, training: bool, remat: bool):
@@ -208,11 +218,14 @@ class CifarResNet(nn.Module):
     """6n+2 CIFAR ResNet (20/56/110) of pre-activation blocks.
 
     ``stochastic_depth`` is the death rate of the deepest block, ramping
-    linearly over the blocks; in eval an identity-shortcut block's residual
-    branch is scaled by its survival probability (``resnet.py:232-234``).
-    Training with ``stochastic_depth > 0`` samples from JAX's RNG in the
-    reference (``resnet.py:224-231``) and is not ported yet (ROADMAP, Queue
-    1 item 8); with 0 it trains."""
+    linearly over the blocks: block ``idx`` dies with ``p = rate * (idx +
+    1) / total``.  Downsampling blocks always run.  In training an
+    identity-shortcut block draws ONE Bernoulli(1 - p) a step
+    (:func:`draw_keep`, from ``forward``'s ``generator``, which ``Module``
+    passes where the JAX package passes its ``dropout`` rng) and adds its
+    residual branch only when kept, ``x + where(keep, y - x, 0)``
+    (``resnet.py:224-231``); in eval the branch is scaled by ``1 - p``
+    (``resnet.py:232-234``)."""
 
     def __init__(self, depth: int = 20, num_classes: int = 10,
                  dtype: torch.dtype = torch.float32, in_channels: int = 3,
@@ -243,16 +256,18 @@ class CifarResNet(nn.Module):
         self.BatchNorm_0 = bn(in_f, relu=True)
         self.Dense_0 = Dense(in_f, num_classes, dtype)
 
-    def forward(self, x, training: bool = False):
-        if training and self.stochastic_depth > 0:
-            raise NotImplementedError(
-                "CifarResNet training with stochastic_depth > 0 (per-block "
-                "Bernoulli sampling) is not ported yet; see ROADMAP.md, "
-                "Queue 1 item 8")
+    def forward(self, x, training: bool = False,
+                generator: Optional[torch.Generator] = None):
         x = self.Conv_0(x)
         for name, keep in self.blocks:
             y = _run_block(getattr(self, name), x, training, self.remat)
-            # y == x + F(x) for identity-shortcut blocks: scale F(x) only
-            x = y if keep is None else x + keep * (y - x)
+            # y == x + F(x) for identity-shortcut blocks: y - x is F(x)
+            if keep is None:
+                x = y
+            elif training:
+                kept = draw_keep(keep, generator, x.device)
+                x = x + torch.where(kept, y - x, 0.0).to(x.dtype)
+            else:
+                x = x + keep * (y - x)
         x = self.BatchNorm_0(x, training)
         return self.Dense_0(ops.global_avg_pool2d(x))

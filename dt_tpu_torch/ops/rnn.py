@@ -1,20 +1,24 @@
-"""Recurrent ops: the LSTM cell and the multi-layer LSTM (counterpart of
-``dt_tpu/ops/rnn.py:33-114``).
+"""Recurrent ops: LSTM, GRU and vanilla cells, the multi-layer LSTM and
+GRU, the bidirectional LSTM and the LSTM init (counterpart of
+``dt_tpu/ops/rnn.py``).
 
-Gate order i, f, g, o, as the JAX package and the reference's cuDNN
-convention have it.  The time loop, a ``lax.scan`` in the JAX package, is
-one launch a layer on the card (``ops.kernels.lstm_layer_fused``, the fused
-cell's whole window) and a Python loop over the steps otherwise.  ``gru``,
-``bidirectional_lstm`` and ``init_lstm_weights`` (which uses JAX's RNG) are
-for a later slice.
+Gate order i, f, g, o for the LSTM and r, z, n for the GRU, as the JAX
+package and the reference's cuDNN convention have them.  The LSTM's time
+loop, a ``lax.scan`` in the JAX package, is one launch a layer on the card
+(``ops.kernels.lstm_layer_fused``, the fused cell's whole window) and a
+Python loop over the steps otherwise.  The GRU and the vanilla cell are
+plain PyTorch, as the JAX package computes them in ``jnp`` outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import math
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from dt_tpu_torch.config import resolve_device
 from dt_tpu_torch.ops.kernels import (layer_fits, lstm_cell_fused,
                                       lstm_layer_fused)
 
@@ -24,6 +28,15 @@ class LSTMWeights(NamedTuple):
     wx: torch.Tensor
     wh: torch.Tensor
     b: torch.Tensor
+
+
+class GRUWeights(NamedTuple):
+    """One GRU layer's weights: wx (I, 3H), wh (H, 3H), bx (3H,), bh
+    (3H,)."""
+    wx: torch.Tensor
+    wh: torch.Tensor
+    bx: torch.Tensor
+    bh: torch.Tensor
 
 
 def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
@@ -38,6 +51,32 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     new_c = f * c.float() + i * g
     new_h = o * torch.tanh(new_c)
     return new_h.to(x.dtype), new_c.to(x.dtype)
+
+
+def gru_cell(x: torch.Tensor, h: torch.Tensor,
+             w: GRUWeights) -> torch.Tensor:
+    """One GRU step (``rnn.py:62-73``): gates r, z, n with the cuDNN-style
+    separate hidden bias, ``n = tanh(nx + r * nh)``; the matmuls in the
+    input dtype, the gates in f32, the output in ``x``'s dtype."""
+    gx = torch.matmul(x, w.wx).float() + w.bx
+    gh = torch.matmul(h, w.wh).float() + w.bh
+    rx, zx, nx = gx.chunk(3, dim=-1)
+    rh, zh, nh = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(rx + rh)
+    z = torch.sigmoid(zx + zh)
+    n = torch.tanh(nx + r * nh)
+    new_h = (1.0 - z) * n + z * h.float()
+    return new_h.to(x.dtype)
+
+
+def vanilla_cell(x: torch.Tensor, h: torch.Tensor, wx: torch.Tensor,
+                 wh: torch.Tensor, b: torch.Tensor,
+                 act: str = "tanh") -> torch.Tensor:
+    """The rnn_tanh / rnn_relu step (``rnn.py:76-81``); ``act`` other than
+    ``"tanh"`` is the ReLU, as in the JAX package."""
+    pre = (torch.matmul(x, wx) + torch.matmul(h, wh)).float() + b
+    out = torch.tanh(pre) if act == "tanh" else torch.relu(pre)
+    return out.to(x.dtype)
 
 
 def lstm(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
@@ -83,3 +122,80 @@ def lstm(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
         hs.append(h)
         cs.append(c)
     return outs, torch.stack(hs), torch.stack(cs)
+
+
+def gru(x: torch.Tensor, h0: torch.Tensor, weights: Sequence[GRUWeights],
+        reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-layer unidirectional GRU (``rnn.py:117-130``): ``x`` (T, B,
+    I), ``h0`` (L, B, H) -> (outputs (T, B, H), hT (L, B, H)); a Python
+    loop over the steps of :func:`gru_cell`."""
+    outs = x
+    hs = []
+    for layer, w in enumerate(weights):
+        h = h0[layer]
+        steps = range(outs.shape[0] - 1, -1, -1) if reverse \
+            else range(outs.shape[0])
+        ys = [None] * outs.shape[0]
+        for t in steps:
+            h = gru_cell(outs[t], h, w)
+            ys[t] = h
+        outs = torch.stack(ys)
+        hs.append(h)
+    return outs, torch.stack(hs)
+
+
+def bidirectional_lstm(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                       fwd: Sequence[LSTMWeights],
+                       bwd: Sequence[LSTMWeights],
+                       fused: Optional[bool] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bidirectional multi-layer LSTM (``rnn.py:133-150``; the reference's
+    ``bidirectional=True``).  ``h0``/``c0``: (2L, B, H), forward and
+    backward interleaved per layer; a layer's output is ``concat(fwd,
+    bwd)`` (T, B, 2H), the next layer's input (cuDNN semantics).  Returns
+    (outputs, hT (2L, B, H), cT (2L, B, H)).  Each direction is one
+    :func:`lstm` layer, the backward one with ``reverse=True``, so with
+    ``fused`` at its default an f32 layer is one ``lstm_layer_fused``
+    launch a direction and a bf16 one steps ``lstm_cell_fused``;
+    ``fused=False`` runs the plain cell."""
+    outs = x
+    hs, cs = [], []
+    for layer in range(len(fwd)):
+        f, b = 2 * layer, 2 * layer + 1
+        yf, hf, cf = lstm(outs, h0[f:f + 1], c0[f:f + 1], [fwd[layer]],
+                          fused=fused)
+        yb, hb, cb = lstm(outs, h0[b:b + 1], c0[b:b + 1], [bwd[layer]],
+                          reverse=True, fused=fused)
+        outs = torch.cat([yf, yb], dim=-1)
+        hs += [hf[0], hb[0]]
+        cs += [cf[0], cb[0]]
+    return outs, torch.stack(hs), torch.stack(cs)
+
+
+def init_lstm_weights(generator: torch.Generator, num_layers: int,
+                      input_size: int, hidden_size: int,
+                      dtype: torch.dtype = torch.float32,
+                      device: Union[str, torch.device] = "cuda"
+                      ) -> List[LSTMWeights]:
+    """cuDNN-style init (``rnn.py:153-167``): ``wx`` (I, 4H) and ``wh``
+    (H, 4H) uniform in [-1/sqrt(H), 1/sqrt(H)], ``b`` (4H,) zeros, in
+    ``dtype``, on ``device`` (default ``"cuda"``); layer 0 takes
+    ``input_size`` inputs and the others ``hidden_size``, as in the JAX
+    package.  The draws come from ``generator``, on its own device, then
+    move: the same law as the JAX package's, another stream (JAX's keys
+    cannot be reproduced here)."""
+    dev = resolve_device(device)
+    scale = 1.0 / math.sqrt(hidden_size)
+
+    def uniform(shape):
+        u = torch.empty(shape, dtype=dtype, device=generator.device)
+        return u.uniform_(-scale, scale, generator=generator).to(dev)
+
+    ws = []
+    for layer in range(num_layers):
+        i = input_size if layer == 0 else hidden_size
+        ws.append(LSTMWeights(
+            wx=uniform((i, 4 * hidden_size)),
+            wh=uniform((hidden_size, 4 * hidden_size)),
+            b=torch.zeros(4 * hidden_size, dtype=dtype, device=dev)))
+    return ws

@@ -1238,3 +1238,174 @@ def test_multi_precision_fit_on_card_matches_cpu(cuda, monkeypatch):
         torch.set_num_threads(threads)
     for a, b in zip(curves["cuda"], curves["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b), curves
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bidirectional_lstm_kernels_match_the_plain_cell(cuda, dtype):
+    """``ops.rnn.bidirectional_lstm`` at the PTB width (T 35, B 32, E = H
+    = 200, 2 layers) through the kernels (f32: the layer kernel, 4
+    launches; bf16: the pointwise kernel, 140) against ``fused=False`` on
+    the card: outputs, hT, cT and the gradients of x, h0, c0 and every
+    direction's wx, wh, b within 1e-5 (f32) or 2^-5 (bf16) of each one's
+    largest magnitude (as ``chip_smoke.py``'s ``TOL_BILSTM``)."""
+    from dt_tpu_torch.ops import rnn
+    t, b, e, h, layers = 35, 32, 200, 200, 2
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -5
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ws = []
+    for _ in range(2):
+        ws += rnn.init_lstm_weights(g, 1, e, h, dtype, cuda)
+        ws += rnn.init_lstm_weights(g, 1, 2 * h, h, dtype, cuda)
+    x = torch.randn(t, b, e, generator=g, device=cuda).to(dtype)
+    h0, c0 = ((0.1 * torch.randn(2 * layers, b, h, generator=g,
+                                 device=cuda)).to(dtype) for _ in range(2))
+    cots = [torch.randn(s, generator=g, device=cuda) for s in
+            ((t, b, 2 * h), (2 * layers, b, h), (2 * layers, b, h))]
+
+    def run(fused):
+        leaves = [a.clone().requires_grad_() for a in
+                  (x, h0, c0, *[p for w in ws for p in w])]
+        lw = [rnn.LSTMWeights(*leaves[3 + 3 * i:6 + 3 * i])
+              for i in range(4)]
+        outs = rnn.bidirectional_lstm(leaves[0], leaves[1], leaves[2],
+                                      lw[:2], lw[2:], fused=fused)
+        loss = sum((o.float() * c).sum() for o, c in zip(outs, cots))
+        return list(outs) + list(torch.autograd.grad(loss, leaves))
+
+    before = kernels.lstm_layer.launches, kernels.lstm_point.launches
+    got = run(None)
+    launched = (kernels.lstm_layer.launches - before[0],
+                kernels.lstm_point.launches - before[1])
+    assert launched == ((4, 0) if dtype == torch.float32 else (0, 140))
+    want = run(False)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        w = w.detach().float()
+        err = float((a.detach().float() - w).abs().max())
+        assert err <= tol * float(w.abs().max())
+
+
+def test_stochastic_depth_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One ``Module.fit`` epoch (2 steps) of ``resnet20`` with
+    ``stochastic_depth=0.5`` in f32, one keep pattern forced on both
+    devices (``models.resnet.draw_keep`` replaced), card against CPU: the
+    per-epoch cross-entropy within 1e-4 relative; then the card's own
+    draws: two train forwards from one generator seed equal, from others
+    not always, eval repeated equal."""
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.models import resnet
+    from dt_tpu_torch.training.module import Module
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    keeps = [True, False, True, True, False, True, False]
+    real = resnet.draw_keep
+    count = [0]
+
+    def forced(p, generator, device):
+        count[0] += 1
+        return torch.tensor(keeps[(count[0] - 1) % 7], device=device)
+
+    monkeypatch.setattr(resnet, "draw_keep", forced)
+    rng = np.random.RandomState(9)
+    x = rng.uniform(-1, 1, (64, 8, 8, 3)).astype(np.float32)
+    y = rng.randint(0, 10, 64).astype(np.int32)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    ce, mods = {}, {}
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            count[0] = 0
+            mod = Module(models.create("resnet20", device=dev, num_classes=10,
+                                       stochastic_depth=0.5),
+                         optimizer="sgd", optimizer_params=dict(
+                             learning_rate=0.05, momentum=0.9), device=dev,
+                         seed=1)
+            out = []
+            mod.fit(io.NDArrayIter(x, y, batch_size=32, shuffle=True),
+                    eval_metric="ce", num_epoch=1,
+                    epoch_end_callback=lambda e, s, m: out.append(m.get()[1]))
+            assert count[0] == 2 * 7
+            ce[dev.type], mods[dev.type] = out[0], mod
+    finally:
+        torch.set_num_threads(threads)
+    assert abs(ce["cuda"] - ce["cpu"]) <= 1e-4 * abs(ce["cpu"]), ce
+    monkeypatch.setattr(resnet, "draw_keep", real)
+    model = mods["cuda"].model
+    xb = torch.from_numpy(x[:16]).to(cuda).permute(0, 3, 1, 2)
+
+    def train(seed):
+        with torch.no_grad():
+            return model(xb, training=True, generator=torch.Generator(
+                device=cuda).manual_seed(seed))
+
+    assert torch.equal(train(1), train(1))
+    assert any(not torch.equal(train(1), train(s)) for s in (2, 3, 4))
+    with torch.no_grad():
+        assert torch.equal(model(xb), model(xb))
+
+
+def test_rec_fed_fit_on_card_matches_cpu(cuda, monkeypatch, tmp_path):
+    """A ``.rec`` of 48 raw u8 32x32x3 records through ``ImageRecordIter``
+    (``cifar_train_augmenter``, 4 decode threads) behind
+    ``PrefetchingIter`` and ``ResizeIter`` into a two-step f32 ``resnet20``
+    ``Module.fit``, card against CPU (the batches are the same bytes on
+    both): per-step cross-entropy within 1e-4 relative, 19 ``bn_stats``
+    launches a step on the card; and a ``DataLoader`` of 2 workers forked
+    after those launches gives the in-process loader's batches."""
+    from dt_tpu_torch import data
+    from dt_tpu_torch.data import augment, io
+    from dt_tpu_torch.training.module import Module
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    rng = np.random.RandomState(4)
+    path = str(tmp_path / "train.rec")
+    with data.RecordIOWriter(path) as w:
+        for i in range(48):
+            img = rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)
+            w.write(data.pack_label(img.tobytes(), i % 10, rec_id=i))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    curves = {}
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            it = data.ImageRecordIter(
+                path, (32, 32, 3), 16, shuffle=True, seed=2,
+                augmenter=augment.cifar_train_augmenter(),
+                num_decode_threads=4)
+            mod = Module(models.create("resnet20", device=dev,
+                                       num_classes=10),
+                         optimizer="sgd", optimizer_params=dict(
+                             learning_rate=0.1, momentum=0.9), device=dev,
+                         seed=1)
+            cum = []
+            before = kernels.bn_stats.launches
+            mod.fit(io.ResizeIter(io.PrefetchingIter(it), 2),
+                    eval_metric="ce", num_epoch=1,
+                    batch_end_callback=lambda p: cum.append(
+                        p.eval_metric.get()[1]))
+            if dev.type == "cuda":
+                assert kernels.bn_stats.launches - before == 19 * 2
+            curves[dev.type] = cum
+            it.close()
+    finally:
+        torch.set_num_threads(threads)
+    assert len(curves["cuda"]) == 2
+    for a, b in zip(curves["cuda"], curves["cpu"]):
+        assert np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b), curves
+    xs = rng.uniform(0, 1, (20, 4)).astype(np.float32)
+    ys = np.arange(20, dtype=np.int32)
+    with data.DataLoader(data.ArrayDataset(xs, ys), batch_size=6,
+                         shuffle=True, num_workers=2) as forked:
+        got = [(b.data, b.label) for b in forked]
+        procs = list(forked._it._pool._pool)
+    want = [(b.data, b.label) for b in data.DataLoader(
+        data.ArrayDataset(xs, ys), batch_size=6, shuffle=True)]
+    assert len(got) == len(want) == 4
+    for (a, la), (b, lb) in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(la, lb)
+    for p in procs:
+        p.join(timeout=10)
+        assert not p.is_alive()

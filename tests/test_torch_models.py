@@ -191,15 +191,21 @@ def test_unported_models_raise():
         tmodels.create("vgg16", device="cpu")
 
 
+@pytest.mark.parametrize("name", ["vgg16", "mobilenet", "ssd"])
+def test_unported_models_name_their_roadmap_item(name):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        tmodels.create(name, device="cpu")
+
+
 def test_training_mode_bn_is_not_ported():
-    """Training-mode BN is ported now (``tests/test_torch_train.py`` holds
-    it against JAX); what stays unported in training is the CIFAR ResNet's
-    stochastic-depth sampling, which raises."""
+    """Training-mode BN is ported (``tests/test_torch_train.py`` holds it
+    against JAX), and so is the CIFAR ResNet's stochastic-depth sampling
+    (``tests/test_torch_stochastic_depth.py``): both train."""
     x = torch.zeros(2, 3, 32, 32).contiguous(
         memory_format=torch.channels_last)
     sd = tmodels.create("resnet20", device="cpu", num_classes=3,
                         stochastic_depth=0.5)
-    with pytest.raises(NotImplementedError, match="stochastic_depth"):
-        sd(x, training=True)
+    assert torch.isfinite(sd(x, training=True,
+                             generator=torch.Generator())).all()
     model = tmodels.create("resnet18", device="cpu", num_classes=3)
     assert torch.isfinite(model(x, training=True)).all()
