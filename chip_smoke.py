@@ -282,7 +282,26 @@ JAX.  Phases, each fatal on failure:
    through a ``DataLoader`` of 2 workers forked after the card's launches,
    each feeding a LeNet ``Module.fit`` of one epoch: losses finite, every
    worker exited, all within ``LOADER_TIMEOUT_S``.  Each part's time and
-   the phase's.
+   the phase's;
+24. zoo (after the data phase): one model a family of the classification
+   zoo at full width, 1000 classes, from the port's own ``init_params``:
+   ``alexnet``, ``vgg16_bn``, ``squeezenet``, ``googlenet``,
+   ``inception_bn``, ``inception_v3`` (299), ``inception_v4`` (299),
+   ``inception_resnet_v2`` (299), ``resnext50``, ``mobilenet``,
+   ``mobilenet_v2``, ``densenet121`` (224 but where named).  For each: (a)
+   an f32 copy of the weights, its eval forward at batch 2 with the BN
+   kernels and again on their plain versions, and every BN kernel held
+   against its plain version on each BN input of the fit's own bf16 model
+   in a training forward at batch 32 and an eval forward at batch 1, within
+   ``TOL_ZOO``; (b) a bf16 ``Module.fit`` as ``examples/common.py:74-126``
+   builds it (sgd, momentum 0.9, wd 1e-4, ``multi_precision``) of
+   ``ZOO_STEPS`` steps of 32 synthetic images: losses finite, one
+   ``bn_stats`` and one ``bn_act`` a BN a step (none for the models without
+   BN), the median synced step of the last 3, images/s, peak HBM and the
+   idle share of one profiled step; (c) the ``Predictor`` in bf16, built by
+   name from a checkpoint of the fit, at buckets 1 and 32: one ``bn_act`` a
+   BN a request, bucket 32 against ``Module.predict``, ms a request and
+   images/s.  The phase's time.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -303,7 +322,9 @@ and the bf16 BN rows carry ``parallel_launches``, phase 21's, and
 ``optim_launches``, phase 22's; the f32 BN-train row carries phase 22
 (d)'s f32 ranks' ``bn_sums``/``bn_act`` as its ``optim_launches``; the BN
 rows carry ``data_launches``, phase 23's ((a) in bf16, (b) in f32), and the
-LSTM rows phase 23 (c)'s by part.
+LSTM rows phase 23 (c)'s by part; the bf16 BN rows carry ``zoo_launches``,
+phase 24's by model (the fits' pass 1 + pass 2, the requests' BN
+inference).
 """
 
 from __future__ import annotations
@@ -6008,6 +6029,282 @@ def data_phase(gpu, dev, fitted) -> dict:
             "loaders": loaders, "times": times, "seconds": total}
 
 
+# --- phase 24: the classification zoo ---------------------------------------
+# one model a family at full width, 1000 classes: test_torch_shapes.ZOO
+ZOO_STEPS = 4  # bf16 fit steps a model: the last 3 are timed
+ZOO_EVAL_BATCH = 2
+ZOO_BUCKETS = (1, 32)
+ZOO_REPS = 5  # requests timed a bucket
+# (a) kernel BN against plain BN.  The f32 eval forward of the whole model
+# runs the same arithmetic either way (bn_act and its plain version are
+# bit-equal): logits within TOL_ZOO["logits"] of the largest.  At the main
+# path's own BN inputs, layer by layer: pass 1 within TOL_ZOO["stats"] of
+# the layer's largest E[x^2] (its f32 sums run in another order), pass 2
+# and the inference kernel bit-equal to bn_act_plain.
+TOL_ZOO = {"logits": 1e-5, "stats": 1e-5}
+
+
+def _zoo_bn_count(model) -> int:
+    from dt_tpu_torch.models.common import FusedBatchNorm
+    return sum(isinstance(m, FusedBatchNorm) for m in model.modules())
+
+
+def _zoo_eval_vs_plain(name, size, mod, dev) -> dict:
+    """(a) An f32 copy of ``mod``'s model (the weights carried once, by
+    ``load_state_dict``): its eval forward at batch 2 with the BN kernels
+    and again on their plain versions (:class:`_PlainBN`)."""
+    import torch
+    from dt_tpu_torch import models
+    kw = {"image_size": size} if models.takes_image_size(name) else {}
+    model = models.create(name, device=dev, num_classes=1000, **kw)
+    model.load_state_dict(mod.model.state_dict())
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(ZOO_EVAL_BATCH, 3, size, size, generator=g,
+                    device=dev).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        got = model(x).float()
+        with _PlainBN():
+            want = model(x).float()
+    out = {"eval_max_abs_err": float((got - want).abs().max()),
+           "eval_max_abs_logit": float(want.abs().max())}
+    del model
+    return out
+
+
+def _zoo_kernels_at_path_shapes(mod, size, dev) -> dict:
+    """(a) The BN kernels against their plain versions on the inputs the
+    main path gives them: forward pre-hooks on every BN of the fit's own
+    bf16 model take each BN's input in one training forward at batch
+    ``BATCH`` (pass 1, pass 2 with pass 1's statistics, and the inference
+    kernel at the fit's and bucket 32's rows) and one eval forward at batch
+    1 (the inference kernel at bucket 1's rows), and hold each kernel there
+    (``TOL_ZOO``).  The running stats are put back after.  Launches here
+    are not the main path's."""
+    import torch
+    from dt_tpu_torch.models.common import FusedBatchNorm
+    from dt_tpu_torch.ops import kernels as K
+    model = mod.model
+    stats_err, mismatches, inputs = [], [], {}
+    mode = {"training": True}
+
+    def check(bn, args):
+        x = args[0]
+        x2 = K.rows_view(x)
+        if mode["training"]:
+            mean, var = K.bn_stats(x)
+            pm, pv = K.bn_stats_plain(x2)
+            ex2 = (x2.float() ** 2).mean(0).max().clamp_min(1e-30)
+            stats_err.append(torch.maximum((mean - pm).abs().max(),
+                                           (var - pv).abs().max()) / ex2)
+            scale, bias = K.bn_scale_bias(bn.scale, bn.bias, mean, var,
+                                          bn.epsilon, x.dtype)
+            mismatches.append((K.rows_view(K.bn_act(x, scale, bias, bn.relu))
+                               != K.bn_act_plain(x2, scale, bias, bn.relu))
+                              .sum())
+        y = K.fused_bn_inference(x, bn.scale, bn.bias, bn.mean, bn.var,
+                                 eps=bn.epsilon, relu=bn.relu)
+        scale, bias = K.bn_scale_bias(bn.scale, bn.bias, bn.mean, bn.var,
+                                      bn.epsilon, x.dtype)
+        mismatches.append((K.rows_view(y)
+                           != K.bn_act_plain(x2, scale, bias, bn.relu)).sum())
+        inputs[tuple(x2.shape)] = inputs.get(tuple(x2.shape), 0) + 1
+
+    bns = [m for m in model.modules() if isinstance(m, FusedBatchNorm)]
+    hooks = [m.register_forward_pre_hook(check) for m in bns]
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(BATCH, 3, size, size, generator=g, device=dev,
+                    dtype=torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+    takes_gen = "generator" in model.forward.__code__.co_varnames
+    try:
+        with torch.no_grad():
+            for training, rows in ((True, x), (False, x[:1])):
+                mode["training"] = training
+                kw = {"generator": g} if training and takes_gen else {}
+                model(rows, training=training, **kw)
+            for n, b in model.named_buffers():
+                b.copy_(stats0[n])
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    return {"bn_inputs": sum(inputs.values()), "shapes": len(inputs),
+            "stats_rel_err": float(torch.stack(stats_err).max())
+            if stats_err else 0.0,
+            "mismatches": int(torch.stack(mismatches).sum())
+            if mismatches else 0}
+
+
+def _zoo_model(name, size, dev, gpu) -> dict:
+    """One model of phase 24: (a) :func:`_zoo_eval_vs_plain` and
+    :func:`_zoo_kernels_at_path_shapes`, (b) the bf16 ``Module.fit`` (the
+    main path's training run: counts reset just before it, read just
+    after), (c) the ``Predictor`` in bf16, built by name from the fit's
+    checkpoint (its requests the main path's serving run)."""
+    import tempfile
+
+    import torch
+    from dt_tpu_torch import models
+    from dt_tpu_torch.data import io
+    from dt_tpu_torch.predictor import Predictor
+    from dt_tpu_torch.training import checkpoint
+    from dt_tpu_torch.training.module import Module
+    tag = f"zoo {name} {size}"
+    t0 = time.perf_counter()
+    kw = {"image_size": size} if models.takes_image_size(name) else {}
+    mod = Module(models.create(name, device=dev, dtype=torch.bfloat16,
+                               num_classes=1000, **kw),
+                 optimizer="sgd",
+                 optimizer_params={"learning_rate": FIT_SGD["learning_rate"],
+                                   "momentum": 0.9, "weight_decay": 1e-4,
+                                   "multi_precision": True},
+                 device=dev, seed=0)
+    mod.init_params()
+    n_bn = _zoo_bn_count(mod.model)
+    n_params = sum(p.numel() for p in mod.model.parameters())
+    init_s = time.perf_counter() - t0
+
+    # (a) the kernels against their plain versions
+    t = time.perf_counter()
+    held = _zoo_eval_vs_plain(name, size, mod, dev)
+    held.update(_zoo_kernels_at_path_shapes(mod, size, dev))
+    a_s = time.perf_counter() - t
+    print(f"{tag} (a) f32 eval, kernel BN against plain BN: max_abs_err="
+          f"{held['eval_max_abs_err']:.3e} (largest logit "
+          f"{held['eval_max_abs_logit']:.3f}); bf16 at the main path's "
+          f"{held['bn_inputs']} BN inputs ({held['shapes']} (rows, C)): pass "
+          f"1 max_err/E[x^2]={held['stats_rel_err']:.3e} (tol "
+          f"{TOL_ZOO['stats']:.0e}), pass 2 and inference elements unequal "
+          f"to plain: {held['mismatches']}", flush=True)
+    bad = []
+    if not held["eval_max_abs_err"] <= \
+            TOL_ZOO["logits"] * held["eval_max_abs_logit"]:
+        bad.append("eval logits")
+    if held["bn_inputs"] != 2 * n_bn:
+        bad.append(f"{held['bn_inputs']} BN inputs held, not {2 * n_bn}")
+    if not held["stats_rel_err"] <= TOL_ZOO["stats"]:
+        bad.append("pass 1")
+    if held["mismatches"]:
+        bad.append("pass 2 / inference")
+    if bad:
+        raise AssertionError(f"{tag} (a): kernel BN against plain BN off "
+                             f"in {bad}")
+
+    # (b) the bf16 fit, as examples/common.py builds it
+    ends, cum = [], []
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        cum.append(dict(param.eval_metric.get_name_value())["cross-entropy"])
+
+    train = io.SyntheticImageIter((size, size, 3), 1000, BATCH,
+                                  num_batches=ZOO_STEPS, seed=0,
+                                  dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    reset_counts()  # the main path's run starts here
+    mod.fit(train, eval_metric="ce", num_epoch=1,
+            batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    fit_counts = read_counts()  # ... and ends here
+    fit_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [cum[0]] + [cum[k] * (k + 1) - cum[k - 1] * k
+                         for k in range(1, len(cum))]
+    want = {k: 0 for k in fit_counts}
+    want.update(bn_stats=n_bn * ZOO_STEPS, bn_act=n_bn * ZOO_STEPS)
+    _check_counts(f"{tag} (b) fit bf16", fit_counts, want)
+    if len(losses) != ZOO_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag} (b): losses {losses}")
+    step_ms = _median_ms(np.diff(ends))
+    one = io.SyntheticImageIter((size, size, 3), 1000, BATCH, num_batches=1,
+                                seed=1, dtype="bfloat16")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mod.fit(one, num_epoch=1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    prof = profile_fn(lambda: mod.fit(one, num_epoch=1), wall_ms,
+                      f"{tag} (b) one fit step")
+    print(f"{tag} (b) fit bf16 batch {BATCH}: losses "
+          f"{[round(v, 4) for v in losses]} median_synced_step_ms="
+          f"{step_ms:.3f} (last {ZOO_STEPS - 1}) imgs_per_s="
+          f"{BATCH * 1e3 / step_ms:.1f} peak_hbm_bytes={peak} bn_a_step="
+          f"{fit_counts['bn_stats'] // ZOO_STEPS}+"
+          f"{fit_counts['bn_act'] // ZOO_STEPS} params={n_params} "
+          f"gpu={gpu}", flush=True)
+
+    # (c) serving in bf16, buckets 1 and 32, by name from a checkpoint
+    images = np.random.RandomState(3).uniform(
+        -1, 1, (max(ZOO_BUCKETS), size, size, 3)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        prefix = str(Path(tmp) / name)
+        checkpoint.save_checkpoint(prefix, 0, mod.state)
+        pred = Predictor(name, prefix, 0, images[:1], dtype=torch.bfloat16,
+                         batch_buckets=list(ZOO_BUCKETS), device=dev,
+                         num_classes=1000)
+        ckpt_s = time.perf_counter() - t
+    pred.warmup((size, size, 3))
+    torch.cuda.synchronize()
+    reset_counts()  # the main path's run starts here
+    outs = [pred.predict(images[:b]) for b in ZOO_BUCKETS]
+    serve_counts = read_counts()  # ... and ends here
+    want = {k: 0 for k in serve_counts}
+    want.update(bn_act=n_bn * len(ZOO_BUCKETS))
+    _check_counts(f"{tag} (c) serve bf16", serve_counts, want)
+    for b, out in zip(ZOO_BUCKETS, outs):
+        if out.shape != (b, 1000) or not np.isfinite(out).all():
+            raise AssertionError(f"{tag} (c): bucket {b} gave {out.shape}")
+    ref = mod.predict(images)
+    err = float(np.abs(outs[-1] - ref).max())
+    if not err <= TOL_BF16 * float(np.abs(ref).max()):
+        raise AssertionError(f"{tag} (c): the checkpoint's Predictor is "
+                             f"{err:.3e} from Module.predict")
+    serve_ms = {}
+    for b in ZOO_BUCKETS:
+        t = time.perf_counter()
+        for _ in range(ZOO_REPS):
+            pred.predict(images[:b])
+        serve_ms[b] = (time.perf_counter() - t) * 1e3 / ZOO_REPS
+    print(f"{tag} (c) serve bf16 by name from a checkpoint ({ckpt_s:.1f} s "
+          f"to save and load; bucket {max(ZOO_BUCKETS)} {err:.3e} from "
+          f"Module.predict) " + " ".join(
+              f"bucket={b} ms_per_request={ms:.3f} img_per_s="
+              f"{b / ms * 1e3:.1f}" for b, ms in serve_ms.items())
+          + f" gpu={gpu}", flush=True)
+    secs = time.perf_counter() - t0
+    print(f"{tag} done in {secs:.1f} s (init {init_s:.1f}, (a) {a_s:.1f}, "
+          f"fit {fit_s:.1f})", flush=True)
+    del mod, pred
+    torch.cuda.empty_cache()
+    return {"bn": n_bn, "params": n_params, "held": held,
+            "fit_counts": fit_counts, "serve_counts": serve_counts,
+            "losses": losses, "step_ms": step_ms,
+            "imgs_per_s": BATCH * 1e3 / step_ms, "peak_hbm_bytes": peak,
+            "serve_ms": serve_ms, "seconds": secs, **prof}
+
+
+def zoo_phase(gpu, dev) -> dict:
+    """Phase 24, the classification zoo: :func:`_zoo_model` for each model
+    of ``test_torch_shapes.ZOO`` in order.  The phase's time, and the
+    launches of the main path's runs summed over the models."""
+    from test_torch_shapes import ZOO
+    t0 = time.perf_counter()
+    runs = {}
+    for name, size in ZOO:
+        runs[name] = _zoo_model(name, size, dev, gpu)
+    total = {k: sum(r["fit_counts"][k] + r["serve_counts"][k]
+                    for r in runs.values()) for k in ("bn_stats", "bn_act")}
+    secs = time.perf_counter() - t0
+    print(f"zoo phase: {len(runs)} models, launches {json.dumps(total)}, "
+          f"total {secs:.1f} s gpu={gpu}", flush=True)
+    return {"runs": runs, "launches": total, "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6168,6 +6465,8 @@ def main() -> int:
     data_run = data_phase(gpu, dev, fitted)
     print(f"phase data done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    zoo = zoo_phase(gpu, dev)
+    print(f"phase zoo done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -6232,6 +6531,10 @@ def main() -> int:
         part = data_run["rec" if dtype == torch.bfloat16 else "sd"]
         kernels[-1]["data_launches"] = (part["counts"]["bn_act"]
                                         - part["counts"]["bn_stats"])
+        if dtype == torch.bfloat16:  # phase 24 (c): every model's requests
+            kernels[-1]["zoo_launches"] = {
+                name: r["serve_counts"]["bn_act"]
+                for name, r in zoo["runs"].items()}
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -6285,6 +6588,10 @@ def main() -> int:
             # phase 23 (a): the .rec-fed fit
             kernels[-1]["data_launches"] = \
                 data_run["rec"]["counts"]["bn_stats"]
+            # phase 24 (b): every model's fit, pass 1 + pass 2
+            kernels[-1]["zoo_launches"] = {
+                name: {k: r["fit_counts"][k] for k in ("bn_stats", "bn_act")}
+                for name, r in zoo["runs"].items()}
         else:  # phase 22 (d): the f32 ZeRO-1 world's ranks (bn_sums)
             kernels[-1]["optim_launches"] = {
                 k: sum(c[k] for per in optim_run["zero"]["launches"].values()

@@ -1,46 +1,93 @@
 """Model zoo of the port (counterpart of ``dt_tpu/models/__init__.py``).
 
-``create(name, **kwargs)`` takes the JAX package's network names.  The port
-has ``mlp`` and ``lenet``, the ResNets: resnet18/34/50/101/152[_v2] and the
-CIFAR resnet20/56/110 (also as resnet20_cifar etc.), and the language models
-``transformer_lm``, ``transformer_lm_pipelined`` and ``lstm_lm``; every other
-name raises
-``NotImplementedError`` until its slice lands.  ``init_params(module,
-seed)`` gives a model the initial weights linen's defaults give the JAX
-model, drawn from a seeded ``torch.Generator``.
+``create(name, **kwargs)`` takes the JAX package's network names, ``-``
+folded to ``_`` (``inception-v3`` works): ``lenet``, ``mlp``, ``alexnet``,
+``vgg11/13/16/19[_bn]``, ``resnet18/34/50/101/152[_v2]``, the CIFAR
+``resnet20/56/110`` (also as ``resnet20_cifar`` etc.), ``inception_v3``,
+``inception_bn``, ``inception_v4``, ``inception_resnet_v2``,
+``googlenet``, ``resnext50/101/152``, ``mobilenet[_v2]``,
+``densenet121/161/169/201``, ``squeezenet``, and the language models
+``transformer_lm``, ``transformer_lm_pipelined`` and ``lstm_lm``.  ``ssd``
+and ``faster_rcnn`` raise ``NotImplementedError`` until their slice lands.
+``init_params(module, seed)`` gives a model the initial weights linen's
+defaults give the JAX model, drawn from a seeded ``torch.Generator``.
+Image models take ``in_channels`` (3); AlexNet and VGG also take
+``image_size`` (224), which sizes their first dense layer
+(:func:`takes_image_size`).
 """
 
+import inspect
 import re
-from typing import Any, Callable, Dict, Union
+from typing import Any, Dict, Tuple, Union
 
 import torch
 
 from dt_tpu_torch import initializer
 from dt_tpu_torch.config import resolve_device
 from dt_tpu_torch.interchange import from_jax_layout, jax_path, to_jax_layout
+from dt_tpu_torch.models.alexnet import AlexNet as AlexNet
+from dt_tpu_torch.models.densenet import DenseNet as DenseNet
+from dt_tpu_torch.models.googlenet import GoogLeNet as GoogLeNet
+from dt_tpu_torch.models.inception import InceptionV3 as InceptionV3
+from dt_tpu_torch.models.inception_resnet_v2 import (
+    InceptionResNetV2 as InceptionResNetV2)
+from dt_tpu_torch.models.inception_v4 import InceptionBN as InceptionBN
+from dt_tpu_torch.models.inception_v4 import InceptionV4 as InceptionV4
 from dt_tpu_torch.models.lenet import LeNet as LeNet
 from dt_tpu_torch.models.lstm_lm import LSTMLanguageModel as LSTMLanguageModel
 from dt_tpu_torch.models.mlp import MLP as MLP
+from dt_tpu_torch.models.mobilenet import MobileNetV1 as MobileNetV1
+from dt_tpu_torch.models.mobilenet import MobileNetV2 as MobileNetV2
 from dt_tpu_torch.models.resnet import CifarResNet as CifarResNet
 from dt_tpu_torch.models.resnet import ResNet as ResNet
+from dt_tpu_torch.models.resnext import ResNeXt as ResNeXt
+from dt_tpu_torch.models.squeezenet import SqueezeNet as SqueezeNet
 from dt_tpu_torch.models.transformer import (
     PipelinedTransformerLM as PipelinedTransformerLM)
 from dt_tpu_torch.models.transformer import TransformerLM as TransformerLM
+from dt_tpu_torch.models.vgg import VGG as VGG
 
-_REGISTRY: Dict[str, Callable[..., Any]] = {}
+#: name -> (class, the keyword arguments the name fixes)
+_REGISTRY: Dict[str, Tuple[type, Dict[str, Any]]] = {
+    "lenet": (LeNet, {}), "mlp": (MLP, {}), "alexnet": (AlexNet, {}),
+    "inception_v3": (InceptionV3, {}), "googlenet": (GoogLeNet, {}),
+    "inception_bn": (InceptionBN, {}), "inception_v4": (InceptionV4, {}),
+    "inception_resnet_v2": (InceptionResNetV2, {}),
+    "mobilenet": (MobileNetV1, {}), "mobilenet_v2": (MobileNetV2, {}),
+    "squeezenet": (SqueezeNet, {}), "lstm_lm": (LSTMLanguageModel, {}),
+    "transformer_lm": (TransformerLM, {}),
+    "transformer_lm_pipelined": (PipelinedTransformerLM, {}),
+}
+for _d in (11, 13, 16, 19):
+    _REGISTRY[f"vgg{_d}"] = (VGG, {"depth": _d, "batch_norm": False})
+    _REGISTRY[f"vgg{_d}_bn"] = (VGG, {"depth": _d, "batch_norm": True})
 for _d in (18, 34, 50, 101, 152):
-    _REGISTRY[f"resnet{_d}"] = lambda d=_d, **kw: ResNet(depth=d, version=1,
-                                                         **kw)
-    _REGISTRY[f"resnet{_d}_v2"] = lambda d=_d, **kw: ResNet(depth=d,
-                                                            version=2, **kw)
+    _REGISTRY[f"resnet{_d}"] = (ResNet, {"depth": _d, "version": 1})
+    _REGISTRY[f"resnet{_d}_v2"] = (ResNet, {"depth": _d, "version": 2})
 for _d in (20, 56, 110):
-    _REGISTRY[f"resnet{_d}"] = lambda d=_d, **kw: CifarResNet(depth=d, **kw)
+    _REGISTRY[f"resnet{_d}"] = (CifarResNet, {"depth": _d})
     _REGISTRY[f"resnet{_d}_cifar"] = _REGISTRY[f"resnet{_d}"]
-_REGISTRY["transformer_lm"] = TransformerLM
-_REGISTRY["transformer_lm_pipelined"] = PipelinedTransformerLM
-_REGISTRY["lstm_lm"] = LSTMLanguageModel
-_REGISTRY["mlp"] = MLP
-_REGISTRY["lenet"] = LeNet
+for _d in (50, 101, 152):
+    _REGISTRY[f"resnext{_d}"] = (ResNeXt, {"depth": _d})
+for _d in (121, 161, 169, 201):
+    _REGISTRY[f"densenet{_d}"] = (DenseNet, {"depth": _d})
+
+
+def _entry(name: str) -> Tuple[type, Dict[str, Any]]:
+    key = name.lower().replace("-", "_")
+    if key not in _REGISTRY:
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP.md, Queue 1 item 8); "
+            f"ported: {sorted(_REGISTRY)}")
+    return _REGISTRY[key]
+
+
+def takes_image_size(name: str) -> bool:
+    """Whether the model ``name`` sizes a layer from ``image_size`` (the
+    input side, as an int or ``(h, w)``): AlexNet and VGG, whose first
+    dense layer reads the flattened last pool."""
+    cls, _ = _entry(name)
+    return "image_size" in inspect.signature(cls).parameters
 
 
 def create(name: str, device: Union[str, torch.device] = "cuda", **kwargs):
@@ -52,12 +99,8 @@ def create(name: str, device: Union[str, torch.device] = "cuda", **kwargs):
     variance 1) until :func:`init_params` draws them or
     ``dt_tpu_torch.interchange.load_jax_variables`` fills them."""
     dev = resolve_device(device)
-    key = name.lower().replace("-", "_")
-    if key not in _REGISTRY:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, Queue 1 item 8); "
-            f"ported: {sorted(_REGISTRY)}")
-    return _REGISTRY[key](**kwargs).to(dev).eval()
+    cls, fixed = _entry(name)
+    return cls(**fixed, **kwargs).to(dev).eval()
 
 
 _LSTM_W = re.compile(r"^l\d+_w[xh]$")

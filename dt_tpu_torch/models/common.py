@@ -14,7 +14,7 @@ language models.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -64,9 +64,12 @@ def bn(features: int, relu: bool = False) -> FusedBatchNorm:
 
 class Conv(nn.Module):
     """``linen.Conv``: f32 OIHW weight in channels_last (the JAX HWIO
-    kernel, carried over by ``interchange``) and, with ``use_bias`` (LeNet;
-    the ResNets have none), an f32 bias, cast to ``dtype`` at each call; TF
-    padding ("SAME", linen's default, by ``ops.nn.same_padding``)."""
+    kernel, carried over by ``interchange``; ``(out, in / groups, kh, kw)``
+    for a grouped or depthwise conv) and, with ``use_bias`` (linen's
+    default, which LeNet, AlexNet, VGG, SqueezeNet and GoogLeNet keep; the
+    BN models have none), an f32 bias, cast to ``dtype`` at each call.
+    Padding: "SAME" (linen's default, TF-style, by
+    ``ops.nn.same_padding``), "VALID" or explicit pairs."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Tuple[int, int],
@@ -157,3 +160,55 @@ class ConvBN(nn.Module):
         if self.act is not None and self.act != "relu":
             x = nn_ops.activation(x, self.act)
         return x
+
+
+class Numbered(nn.Module):
+    """A module whose children are named as the JAX modules' compact
+    auto-naming names theirs: ``<Kind>_<i>``, numbered per kind from 0.
+    The port's models create their children in the JAX module's call
+    order, so the creation order numbers them alike.  The helpers create a
+    child of ``dtype`` (the compute dtype), register it and return it; a
+    model keeps the returned children in plain lists (branches) for its
+    forward."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self._counts: Dict[str, int] = {}
+
+    def numbered(self, kind: str, module: nn.Module) -> nn.Module:
+        i = self._counts.get(kind, 0)
+        self._counts[kind] = i + 1
+        self.add_module(f"{kind}_{i}", module)
+        return module
+
+    def conv_bn(self, cin: int, cout: int, kernel: Tuple[int, int],
+                strides: Tuple[int, int] = (1, 1),
+                padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+                act: Optional[str] = "relu", groups: int = 1) -> "ConvBN":
+        return self.numbered("ConvBN", ConvBN(cin, cout, kernel, strides,
+                                              padding, act, groups,
+                                              self.dtype))
+
+    def conv(self, cin: int, cout: int, kernel: Tuple[int, int],
+             strides: Tuple[int, int] = (1, 1),
+             padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+             groups: int = 1, use_bias: bool = True) -> Conv:
+        return self.numbered("Conv", Conv(cin, cout, kernel, strides,
+                                          padding, groups, self.dtype,
+                                          use_bias))
+
+    def batch_norm(self, features: int, relu: bool = False
+                   ) -> FusedBatchNorm:
+        return self.numbered("BatchNorm", bn(features, relu))
+
+    def dense(self, cin: int, cout: int) -> Dense:
+        return self.numbered("Dense", Dense(cin, cout, self.dtype))
+
+
+def chain(modules: List[nn.Module], x: torch.Tensor,
+          training: bool) -> torch.Tensor:
+    """``x`` through ``modules`` in order, each called ``(x, training)``."""
+    for m in modules:
+        x = m(x, training)
+    return x

@@ -35,5 +35,5 @@ class LeNet(nn.Module):
                 ) -> torch.Tensor:
         x = ops.max_pool2d(torch.tanh(self.Conv_0(x)), 2, 2)
         x = ops.max_pool2d(torch.tanh(self.Conv_1(x)), 2, 2)
-        x = torch.tanh(self.Dense_0(ops.flatten_nhwc(x)))
+        x = torch.tanh(self.Dense_0(ops.flatten(x)))
         return self.Dense_1(x)

@@ -35,7 +35,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = True
                 ) -> torch.Tensor:
-        x = ops.flatten_nhwc(x)
+        x = ops.flatten(x)
         for name in self.layers[:-1]:
             x = torch.relu(getattr(self, name)(x))
         return getattr(self, self.layers[-1])(x)

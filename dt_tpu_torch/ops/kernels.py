@@ -118,6 +118,22 @@ def _on_cuda(what: str, t: torch.Tensor) -> bool:
     return True
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The BN wrappers' accumulation type: float32, but float64 for a
+    float64 input (on the CPU only, where the plain versions run)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _check_dtype(what: str, x: torch.Tensor) -> None:
+    """float32 and bfloat16 run on either device; float64 runs the plain
+    versions on the CPU only (a test's well-conditioned reference)."""
+    if x.dtype in _DTYPE_CODES or (x.dtype == torch.float64
+                                   and x.device.type == "cpu"):
+        return
+    raise TypeError(f"{what}: dtype must be float32 or bfloat16 (or float64 "
+                    f"on the CPU), got {x.dtype} on {x.device}")
+
+
 def rows_view(x: torch.Tensor, what: str = "fused_bn_inference"
               ) -> torch.Tensor:
     """The ``(rows, C)`` view of a channels_last NCHW tensor (the same view
@@ -147,8 +163,10 @@ def _like_input(y2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def bn_scale_bias(gamma, beta, mean, var, eps: float, dtype: torch.dtype):
     """``scale = gamma * rsqrt(var + eps)`` and ``bias = beta - mean * gamma *
-    rsqrt(var + eps)`` in f32, cast to ``dtype`` (``kernels.py:71-72``)."""
-    gamma, beta, mean, var = (t.float() for t in (gamma, beta, mean, var))
+    rsqrt(var + eps)`` in f32 (f64 for a float64 ``dtype``), cast to
+    ``dtype`` (``kernels.py:71-72``)."""
+    acc = _acc_dtype(dtype)
+    gamma, beta, mean, var = (t.to(acc) for t in (gamma, beta, mean, var))
     inv = torch.rsqrt(var + eps)
     scale = gamma * inv
     bias = beta - mean * gamma * inv
@@ -174,9 +192,7 @@ def bn_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     tensor launches ``csrc/bn_act.cu`` and counts the launch in
     ``bn_act.launches``; a CPU tensor runs :func:`bn_act_plain`."""
     x2 = rows_view(x)
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError("fused_bn_inference: dtype must be float32 or "
-                        f"bfloat16, got {x.dtype}")
+    _check_dtype("fused_bn_inference", x)
     rows, c = x2.shape
     for name, t in (("scale", scale), ("bias", bias)):
         if (tuple(t.shape) != (c,) or t.dtype != x.dtype
@@ -305,10 +321,10 @@ def _stats_tickets(device: torch.device) -> torch.Tensor:
 
 
 def bn_stats_plain(x2: torch.Tensor):
-    """The plain version of pass 1 on the ``(rows, C)`` view: f32 ``mean =
-    sum(x) / n`` and ``var = max(sum(x*x) / n - mean^2, 0)`` (NaN kept), the
-    TPU kernel's formula (``kernels.py:135-140``)."""
-    x32 = x2.float()
+    """The plain version of pass 1 on the ``(rows, C)`` view: f32 (f64 for
+    float64) ``mean = sum(x) / n`` and ``var = max(sum(x*x) / n - mean^2,
+    0)`` (NaN kept), the TPU kernel's formula (``kernels.py:135-140``)."""
+    x32 = x2.to(_acc_dtype(x2.dtype))
     n = x2.shape[0]
     mean = x32.sum(0) / n
     var = (x32 * x32).sum(0) / n - mean * mean
@@ -340,9 +356,7 @@ def _check_pass1(x: torch.Tensor) -> torch.Tensor:
     """``x``'s ``(rows, C)`` view; raises for a dtype or a shape pass 1
     does not take."""
     x2 = rows_view(x, "fused_bn_train")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError("fused_bn_train: dtype must be float32 or bfloat16, "
-                        f"got {x.dtype}")
+    _check_dtype("fused_bn_train", x)
     if x2.shape[0] == 0 or x2.shape[1] == 0:
         raise ValueError("fused_bn_train: batch statistics of an empty "
                          f"input {tuple(x.shape)}")
@@ -372,8 +386,8 @@ bn_stats.launches = 0
 
 def bn_sums_plain(x2: torch.Tensor):
     """The plain version of :func:`bn_sums` on the ``(rows, C)`` view: f32
-    ``(sum(x), sum(x*x))`` over the rows."""
-    x32 = x2.float()
+    (f64 for float64) ``(sum(x), sum(x*x))`` over the rows."""
+    x32 = x2.to(_acc_dtype(x2.dtype))
     return x32.sum(0), (x32 * x32).sum(0)
 
 
@@ -402,19 +416,20 @@ def _bwd_sums(x, y, gy, mean, var, eps: float, relu: bool):
     else:
         gy = gy.contiguous()
     x2 = rows_view(x, "fused_bn_train")
-    gy32 = rows_view(gy, "fused_bn_train").float()
+    acc = _acc_dtype(x.dtype)
+    gy32 = rows_view(gy, "fused_bn_train").to(acc)
     if relu:
         gy32 = torch.where(rows_view(y, "fused_bn_train") > 0, gy32,
                            torch.zeros_like(gy32))
     inv = torch.rsqrt(var + eps)
-    x_hat = (x2.float() - mean) * inv
+    x_hat = (x2.to(acc) - mean) * inv
     return x2, gy32, x_hat, inv, gy32.sum(0), (gy32 * x_hat).sum(0)
 
 
 def _bn_dx(x, gamma, gy32, x_hat, inv, dbeta, dgamma, n):
     """``dx`` of training BN over ``n`` rows in all, from the sums over
     those rows, in ``x``'s dtype and layout."""
-    dx = (gamma.float() * inv / n) * (n * gy32 - dbeta - x_hat * dgamma)
+    dx = (gamma.to(inv.dtype) * inv / n) * (n * gy32 - dbeta - x_hat * dgamma)
     return _like_input(dx.to(x.dtype), x)
 
 

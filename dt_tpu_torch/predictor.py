@@ -52,10 +52,12 @@ class Predictor:
     """``Predictor(model_or_name, prefix, epoch, sample_input)`` ->
     ``predict(x)``.
 
-    ``sample_input`` is one NHWC request (its channel count sizes the model's
-    stem).  ``dtype`` is the compute type (``torch.float32`` or
-    ``torch.bfloat16``).  ``batch_buckets``: allowed batch sizes (ascending);
-    ``None`` -> powers of two up to ``max_batch``.  ``device`` defaults to
+    ``sample_input`` is one NHWC request: its channel count sizes the
+    model's stem, and for AlexNet and VGG its side sizes the first dense
+    layer (``image_size``); requests then come at that side.  ``dtype`` is
+    the compute type (``torch.float32`` or ``torch.bfloat16``).
+    ``batch_buckets``: allowed batch sizes (ascending); ``None`` -> powers
+    of two up to ``max_batch``.  ``device`` defaults to
     ``"cuda"`` and raises without a GPU unless it is ``"cpu"``.
     """
 
@@ -66,8 +68,10 @@ class Predictor:
                  device: Union[str, torch.device] = "cuda", **model_kwargs):
         dev = resolve_device(device)
         if isinstance(model, str):
-            model_kwargs.setdefault("in_channels",
-                                    np.shape(sample_input)[-1])
+            shape = np.shape(sample_input)
+            model_kwargs.setdefault("in_channels", shape[-1])
+            if models_lib.takes_image_size(model):  # AlexNet, VGG
+                model_kwargs.setdefault("image_size", tuple(shape[-3:-1]))
             model = models_lib.create(model, device=dev, dtype=dtype,
                                       **model_kwargs)
         state = ckpt_lib.load_checkpoint(prefix, epoch)

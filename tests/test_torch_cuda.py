@@ -14,7 +14,7 @@ import torch
 from dt_tpu_torch import models
 from dt_tpu_torch.interchange import export_jax_variables, load_jax_variables
 from dt_tpu_torch.ops import kernels
-from test_torch_shapes import RESNET50_BN_CHW
+from test_torch_shapes import RESNET50_BN_CHW, ZOO
 
 pytestmark = pytest.mark.cuda
 
@@ -1409,3 +1409,104 @@ def test_rec_fed_fit_on_card_matches_cpu(cuda, monkeypatch, tmp_path):
     for p in procs:
         p.join(timeout=10)
         assert not p.is_alive()
+
+
+def _zoo_model(name, size, dev, **kw):
+    if models.takes_image_size(name):
+        kw["image_size"] = size
+    return models.create(name, device=dev, **kw)
+
+
+@pytest.mark.parametrize("name,size", ZOO)
+def test_zoo_eval_on_card_matches_cpu(cuda, name, size, monkeypatch):
+    """Each family's f32 eval forward (TF32 off) on the card, every BN
+    through ``fused_bn_inference``, against the port on the CPU, with the
+    running means away from 0: logits within 1e-4."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = models.init_params(_zoo_model(name, size, "cpu", num_classes=10),
+                             seed=2)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for n, b in cpu.named_buffers():
+            if n.endswith(".mean"):
+                b.copy_(torch.randn(b.shape, generator=g) * 0.1)
+    card = _zoo_model(name, size, cuda, num_classes=10)
+    card.load_state_dict(cpu.state_dict())
+    n_bn = sum(isinstance(m, models.common.FusedBatchNorm)
+               for m in card.modules())
+    x = torch.rand(2, 3, size, size, generator=g).sub(0.5).contiguous(
+        memory_format=torch.channels_last)
+    before = kernels.bn_act.launches
+    with torch.inference_mode():
+        got = card(x.to(cuda)).cpu()
+        want = cpu(x)
+    assert kernels.bn_act.launches - before == n_bn
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _zoo_bn_shapes(name, size, dev):
+    """Every distinct (C, H, W) of a BN input in one forward of ``name``,
+    with whether its ReLU is fused in."""
+    from dt_tpu_torch.models.common import FusedBatchNorm
+    seen = set()
+
+    def hook(mod, args):
+        seen.add((*args[0].shape[1:], mod.relu))
+
+    model = _zoo_model(name, size, dev)
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, FusedBatchNorm)]
+    with torch.inference_mode():
+        model(torch.zeros(1, 3, size, size, device=dev).contiguous(
+            memory_format=torch.channels_last))
+    for h in hooks:
+        h.remove()
+    return sorted(seen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,size", [z for z in ZOO if z[0] not in (
+    "alexnet", "squeezenet", "googlenet")])
+def test_zoo_bn_kernels_at_every_shape_of_the_model(cuda, name, size,
+                                                    dtype):
+    """Pass 1 and pass 2 at every (rows, C) a BN family gives them at batch
+    32 (Inception-v3's C 80 ... 2048 over 8·8·32 rows, DenseNet's
+    concatenations, MobileNet-v2's C 16 and 24 ...): pass 1 within 1e-5
+    of E[x^2] of its plain version, pass 2 and the fused training forward
+    bit-equal to ``bn_act_plain``, the inference kernel too."""
+    shapes = _zoo_bn_shapes(name, size, cuda)
+    assert shapes
+    for c, h, w, relu in shapes:
+        x = _bn_input((32, c, h, w), dtype, cuda)
+        gamma = torch.rand(c, device=cuda) + 0.5
+        beta = torch.randn(c, device=cuda)
+        mean, var = kernels.bn_stats(x)
+        x2 = kernels.rows_view(x)
+        pm, pv = kernels.bn_stats_plain(x2)
+        ex2 = float((x2.float() ** 2).mean(0).max())
+        torch.testing.assert_close(mean, pm, rtol=0, atol=1e-5 * ex2)
+        torch.testing.assert_close(var, pv, rtol=0, atol=1e-5 * ex2)
+        rm, rv = torch.zeros(c, device=cuda), torch.ones(c, device=cuda)
+        y, _, _ = kernels.fused_bn_train(x, gamma, beta, rm, rv, relu=relu)
+        scale, bias = kernels.bn_scale_bias(gamma, beta, mean, var, 1e-5,
+                                            dtype)
+        assert torch.equal(kernels.rows_view(y),
+                           kernels.bn_act_plain(x2, scale, bias, relu)), \
+            (c, h, w)
+        y = kernels.fused_bn_inference(x, gamma, beta, rm, rv, relu=relu)
+        scale, bias = kernels.bn_scale_bias(gamma, beta, rm, rv, 1e-5, dtype)
+        assert torch.equal(kernels.rows_view(y),
+                           kernels.bn_act_plain(x2, scale, bias, relu)), \
+            (c, h, w)
+
+
+def test_bn_kernels_refuse_float64_on_the_card(cuda):
+    """float64 runs the plain versions on the CPU only: on the card the
+    wrappers raise rather than fall back."""
+    x = torch.zeros(4, 8, dtype=torch.float64, device=cuda)
+    ones = torch.ones(8, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float64 on the CPU"):
+        kernels.bn_stats(x)
+    with pytest.raises(TypeError, match="float64 on the CPU"):
+        kernels.bn_act(x, ones, ones)

@@ -188,10 +188,10 @@ def test_create_needs_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmodels.create("vgg16", device="cpu")
+        tmodels.create("faster_rcnn", device="cpu")
 
 
-@pytest.mark.parametrize("name", ["vgg16", "mobilenet", "ssd"])
+@pytest.mark.parametrize("name", ["ssd", "faster_rcnn", "faster-rcnn"])
 def test_unported_models_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tmodels.create(name, device="cpu")

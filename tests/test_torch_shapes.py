@@ -2,7 +2,9 @@
 
 ``RESNET50_BN_CHW`` is every distinct BatchNorm input of ResNet-50 v1 at
 224x224 as (C, H, W), in the order of a forward; the kernel tests take
-their shapes from it.
+their shapes from it.  ``ZOO`` is one model a family of the classification
+zoo with its input side, as the card tests and ``chip_smoke.py``'s zoo
+phase run them.
 """
 
 import torch
@@ -15,6 +17,11 @@ RESNET50_BN_CHW = [(64, 112, 112), (64, 56, 56), (256, 56, 56),
                    (128, 56, 56), (128, 28, 28), (512, 28, 28),
                    (256, 28, 28), (256, 14, 14), (1024, 14, 14),
                    (512, 14, 14), (512, 7, 7), (2048, 7, 7)]
+ZOO = [("alexnet", 224), ("vgg16_bn", 224), ("squeezenet", 224),
+       ("googlenet", 224), ("inception_bn", 224), ("inception_v3", 299),
+       ("inception_v4", 299), ("inception_resnet_v2", 299),
+       ("resnext50", 224), ("mobilenet", 224), ("mobilenet_v2", 224),
+       ("densenet121", 224)]
 
 
 def test_resnet50_bn_shapes_are_the_models():
