@@ -101,8 +101,7 @@ JAX.  Phases, each fatal on failure:
    epoch's steps after its first timed as a window on worker 0's clock
    (2, 3, 2 workers), the step's parts from worker 0's spans beside the
    bare step, and the scheduler's straggler board (it traces here) at
-   every epoch's end; then 2-worker f32 resnet20 jobs (8x8x3 and
-   32x32x3) on the
+   every epoch's end; then 2-worker f32 resnet20 jobs (32x32x3) on the
    card, each step recorded and replayed on the CPU from the card's state
    (``tests/torch_elastic_drift.py``: loss, stats, update and, where no
    ReLU mask flipped, gradient within 1e-4; the applied average exact;
@@ -301,7 +300,37 @@ JAX.  Phases, each fatal on failure:
    idle share of one profiled step; (c) the ``Predictor`` in bf16, built by
    name from a checkpoint of the fit, at buckets 1 and 32: one ``bn_act`` a
    BN a request, bucket 32 against ``Module.predict``, ms a request and
-   images/s.  The phase's time.
+   images/s.  The phase's time;
+25. detection (after the zoo): the detectors at the sizes users train
+   them, from the port's own ``init_params``: SSD at 300x300, batch 32, 20
+   classes, and FasterRCNNMini's defaults at 512x512, batch 8 (3 classes,
+   32 ROIs), on seeded batches of ``examples/train_ssd.py``'s and
+   ``train_rcnn.py``'s generators.  For each: (a) every BN kernel held
+   against its plain version on each BN input of a bf16 training forward
+   at the card batch and an eval forward at batch 1 (``TOL_ZOO``); (b)
+   adam (lr 1e-3, the examples' rule) in bf16 and in f32 on one batch,
+   ``DETECT_STEPS`` steps with the last loss below 0.8 of the first (the
+   JAX package's test gates), one ``bn_stats`` and one ``bn_act`` a BN a
+   step (FasterRCNNMini's proposal stage one ``nms_keep``), the median of
+   3 synced steps, images/s, peak HBM and one profiled step; (c) the
+   trained model's eval forward on a fresh batch and on the batch it fit,
+   and its detection stage (``ssd_detect``, ``rcnn_detect``) at its
+   default score threshold, FasterRCNNMini's also at 0 on the fresh batch
+   (every ROI scanned; something kept), held against the plain CPU version
+   run on the card's class probabilities and other outputs (labels equal
+   but named flips whose deciding IoU lies within ``TOL_DETECT["iou"]`` of
+   the threshold; scores and boxes within ``TOL_DETECT["scores"]``), its
+   ms and the forward's; every ``nms_keep`` call of (b)'s and (c)'s runs
+   (the proposal stage's, unlabelled, and the detection stages') held
+   against its plain version on the same sorted inputs (equal masks); on
+   SSD's bf16 call the scan kernel's device time, the plain version's and
+   its bound; SSD served by name through ``Predictor`` from a checkpoint
+   of the bf16 state at buckets 1 and 32, bucket 32 within ``TOL_BF16`` of
+   the model's eval forward; (d) SSD fed 3 bf16 steps from 96 raw u8
+   detection records through ``ImageDetRecordIter`` with
+   ``ssd_train_augmenter`` and, last in the chain, a ``native`` resize to
+   300x300 (the phase fails if it imported PIL), the iterator's images/s
+   alone.  The phase's time.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -324,11 +353,16 @@ and the bf16 BN rows carry ``parallel_launches``, phase 21's, and
 rows carry ``data_launches``, phase 23's ((a) in bf16, (b) in f32), and the
 LSTM rows phase 23 (c)'s by part; the bf16 BN rows carry ``zoo_launches``,
 phase 24's by model (the fits' pass 1 + pass 2, the requests' BN
-inference).
+inference), and every BN row ``detection_launches``, phase 25's by model
+(training and SSD's record-fed steps: pass 1 + pass 2; the eval forwards
+and SSD's requests: BN inference).  ``nms_keep`` (phase 25's scan kernel)
+counts its launches over the phase's main-path runs, by model, dtype and
+part.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -457,9 +491,11 @@ TOL_ASYNC_BF16 = {"loss": 5e-3, "stats": 2e-2, "grad": 0.1}
 # the sparse phase: examples/train_sparse_embedding.py's defaults, 50 steps
 SPARSE = {"vocab": 50_000, "dim": 64, "batch": 256, "window": 8,
           "steps": 50, "lr": 0.1}
-# the small jobs: f32 resnet20 (8x8x3 and CIFAR's 32x32x3), 2 workers, 2
-# epochs of 2 steps over 128 seeded images (tests/torch_elastic_drift.py)
-SMALL_SIZES = (8, 32)
+# the small jobs: f32 resnet20 at CIFAR's 32x32x3, 2 workers, 2 epochs of
+# 2 steps over 128 seeded images (tests/torch_elastic_drift.py); the same
+# jobs at a toy 8x8x3 ran beside them until the whole run neared its time
+# limit (their 6 more processes shared the host's 8 cores)
+SMALL_SIZES = (32,)
 TOL_ELASTIC_LOSS = 1e-4  # card against CPU, relative
 # the failover phase: the elastic job under an HA pair of port scheduler
 # processes, the primary SIGKILLed once worker 0 reported the third step
@@ -822,7 +858,7 @@ def counted():
             "dequantize_2bit": kernels.dequantize_2bit,
             "flash_attention": attention.flash_fwd,
             "lstm_pointwise": kernels.lstm_point,
-            "lstm_layer": kernels.lstm_layer}
+            "lstm_layer": kernels.lstm_layer, "nms_keep": kernels.nms_keep}
 
 
 def reset_counts() -> None:
@@ -3318,8 +3354,8 @@ def sparse_phase(gpu, dev=None) -> dict:
 
 
 def elastic_small_jobs(gpu) -> dict:
-    """2-worker f32 resnet20 jobs (2 epochs of 2 steps) at 8x8 and at
-    32x32 images, each against its own port ``Scheduler``, all at once:
+    """2-worker f32 resnet20 jobs (2 epochs of 2 steps) at ``SMALL_SIZES``
+    images, each against its own port ``Scheduler``, all at once:
     on the card with the overlapped step, its workers recording every step
     (``tests/torch_elastic_drift.py``); on the card with
     ``DT_AR_OVERLAP=0`` (serial); on the CPU.  Gates: every step of the
@@ -6071,19 +6107,17 @@ def _zoo_eval_vs_plain(name, size, mod, dev) -> dict:
     return out
 
 
-def _zoo_kernels_at_path_shapes(mod, size, dev) -> dict:
-    """(a) The BN kernels against their plain versions on the inputs the
-    main path gives them: forward pre-hooks on every BN of the fit's own
-    bf16 model take each BN's input in one training forward at batch
-    ``BATCH`` (pass 1, pass 2 with pass 1's statistics, and the inference
-    kernel at the fit's and bucket 32's rows) and one eval forward at batch
-    1 (the inference kernel at bucket 1's rows), and hold each kernel there
-    (``TOL_ZOO``).  The running stats are put back after.  Launches here
-    are not the main path's."""
+def _bn_kernels_on_path(model, runs) -> dict:
+    """The BN kernels against their plain versions on the inputs the main
+    path gives them: forward pre-hooks on every BN of ``model`` take each
+    BN's input in the forwards ``runs`` (``(training, x, kwargs)``, no
+    gradient) and hold each kernel there (``TOL_ZOO``): in a training
+    forward pass 1, pass 2 with pass 1's statistics and the inference
+    kernel, in an eval forward the inference kernel.  The running stats
+    are put back after.  Launches here are not the main path's."""
     import torch
     from dt_tpu_torch.models.common import FusedBatchNorm
     from dt_tpu_torch.ops import kernels as K
-    model = mod.model
     stats_err, mismatches, inputs = [], [], {}
     mode = {"training": True}
 
@@ -6112,16 +6146,10 @@ def _zoo_kernels_at_path_shapes(mod, size, dev) -> dict:
     bns = [m for m in model.modules() if isinstance(m, FusedBatchNorm)]
     hooks = [m.register_forward_pre_hook(check) for m in bns]
     stats0 = {n: b.clone() for n, b in model.named_buffers()}
-    g = torch.Generator(device=dev).manual_seed(11)
-    x = torch.randn(BATCH, 3, size, size, generator=g, device=dev,
-                    dtype=torch.bfloat16).contiguous(
-                        memory_format=torch.channels_last)
-    takes_gen = "generator" in model.forward.__code__.co_varnames
     try:
         with torch.no_grad():
-            for training, rows in ((True, x), (False, x[:1])):
+            for training, rows, kw in runs:
                 mode["training"] = training
-                kw = {"generator": g} if training and takes_gen else {}
                 model(rows, training=training, **kw)
             for n, b in model.named_buffers():
                 b.copy_(stats0[n])
@@ -6134,6 +6162,21 @@ def _zoo_kernels_at_path_shapes(mod, size, dev) -> dict:
             if stats_err else 0.0,
             "mismatches": int(torch.stack(mismatches).sum())
             if mismatches else 0}
+
+
+def _zoo_kernels_at_path_shapes(mod, size, dev) -> dict:
+    """(a) :func:`_bn_kernels_on_path` on the fit's own bf16 model: one
+    training forward at batch ``BATCH`` (the fit's and bucket 32's rows)
+    and one eval forward at batch 1 (bucket 1's rows)."""
+    import torch
+    model = mod.model
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(BATCH, 3, size, size, generator=g, device=dev,
+                    dtype=torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+    takes_gen = "generator" in model.forward.__code__.co_varnames
+    return _bn_kernels_on_path(model, [
+        (True, x, {"generator": g} if takes_gen else {}), (False, x[:1], {})])
 
 
 def _zoo_model(name, size, dev, gpu) -> dict:
@@ -6305,6 +6348,538 @@ def zoo_phase(gpu, dev) -> dict:
     return {"runs": runs, "launches": total, "seconds": secs}
 
 
+# --- phase 25: the detectors ------------------------------------------------
+# test_torch_shapes.DETECTORS: SSD at 300x300, batch 32, 20 classes (the
+# reference's SSD300 on VOC); FasterRCNNMini's defaults at 512x512, batch 8
+DETECT_BOXES = {"ssd": 8, "faster_rcnn": 2}  # boxes an image at most
+DETECT_CLASSES = {"ssd": 20, "faster_rcnn": 2}  # of the data's labels
+DETECT_ADAM = {"learning_rate": 1e-3}  # examples/train_ssd.py, train_rcnn.py
+# steps on one seeded batch, as many as tests/test_ssd.py:43 (12) and
+# tests/test_rcnn.py:91 (15) take, gated as they gate: the last loss below
+# 0.8 of the first (FasterRCNNMini fits its batch by ~20 steps on the card;
+# past that adam's steps on a near-zero loss reshuffle the proposals and
+# the loss spikes)
+DETECT_STEPS = {"ssd": 12, "faster_rcnn": 15}
+DETECT_TIMED = 3  # synced steps, their median
+DETECT_REC = {"records": 96, "steps": 3}  # (d): raw u8 records, SSD steps
+# (a) as TOL_ZOO; (c) scores and boxes relative to the largest, the
+# deciding IoU's distance to the threshold that excuses a flipped keep
+# decision (the two sides' decoded boxes may differ in their last bits)
+TOL_DETECT = {"scores": 1e-6, "iou": 1e-6}
+
+
+def _det_example(name):
+    """``synthetic_batch`` of ``examples/train_ssd.py`` or
+    ``train_rcnn.py`` (numpy only; the scripts' ``main`` is not run)."""
+    import importlib.util
+    stem = "train_ssd" if name == "ssd" else "train_rcnn"
+    spec = importlib.util.spec_from_file_location(
+        f"_det_{stem}", ROOT / "examples" / f"{stem}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.synthetic_batch
+
+
+def _det_batch(name, size, batch, seed, dev, dtype):
+    """A seeded batch of the example's generator on the card: NCHW
+    channels_last images in ``dtype``, gt boxes (B, M, 4) f32 and labels
+    (B, M) int64 (-1 padding)."""
+    import torch
+    imgs, boxes, labels = _det_example(name)(
+        np.random.RandomState(seed), batch, size, DETECT_CLASSES[name],
+        DETECT_BOXES[name])
+    x = torch.from_numpy(imgs).to(dev, dtype).permute(0, 3, 1, 2)
+    return (x, torch.from_numpy(boxes).to(dev),
+            torch.from_numpy(labels).to(dev), imgs)
+
+
+def _det_loss(name, model, out, gtb, gtl, size):
+    from dt_tpu_torch import models
+    if name == "ssd":
+        return models.ssd_loss(*out, gtb, gtl)
+    return models.rcnn_loss(out, model.anchors((size, size), gtb.device),
+                            gtb, gtl)
+
+
+def _det_detect(name, out, **kw):
+    from dt_tpu_torch import models
+    if name == "ssd":
+        return models.ssd_detect(*out, **kw)
+    return models.rcnn_detect(out, **kw)
+
+
+def _det_model(name, dtype, dev, kw):
+    from dt_tpu_torch import models
+    return models.init_params(models.create(name, device=dev, dtype=dtype,
+                                            **kw), seed=0)
+
+
+def _det_step(name, model, state, size):
+    """One training step of ``model``: forward, loss, gradients, adam
+    (``TrainState.apply_gradients``).  Returns ``step(x, gtb, gtl) ->
+    loss`` (a device scalar: no host sync)."""
+    import torch
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+
+    def step(x, gtb, gtl):
+        out = model(x, training=True)
+        loss = _det_loss(name, model, out, gtb, gtl, size)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        state.apply_gradients({n: torch.zeros_like(p) if g is None else g
+                               for n, g, p in zip(names, grads, params)})
+        return loss.detach()
+
+    return step
+
+
+def _det_train(name, size, batch, kw, dtype, dev, gpu) -> dict:
+    """(b) ``DETECT_STEPS`` adam steps of a fresh seeded model on one
+    seeded batch (the main path's run: counts reset just before, read just
+    after), the loss gated as the JAX package's tests gate it; then the
+    median of ``DETECT_TIMED`` synced steps, images/s, peak HBM and one
+    profiled step.  Returns the trained model and state with the report."""
+    import torch
+    from dt_tpu_torch import optim
+    from dt_tpu_torch.models.common import FusedBatchNorm
+    from dt_tpu_torch.training.train_state import TrainState
+    tag = f"detection {name} {str(dtype).split('.')[-1]}"
+    model = _det_model(name, dtype, dev, kw)
+    n_bn = sum(isinstance(m, FusedBatchNorm) for m in model.modules())
+    state = TrainState.create(model, optim.create("adam", **DETECT_ADAM))
+    step = _det_step(name, model, state, size)
+    x, gtb, gtl, _ = _det_batch(name, size, batch, 0, dev, dtype)
+    steps = DETECT_STEPS[name]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _nms_captured() as nms_calls:
+        reset_counts()  # the main path's run starts here
+        losses = [step(x, gtb, gtl) for _ in range(steps)]
+        torch.cuda.synchronize()
+        counts = read_counts()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(v) for v in losses]
+    want = {k: 0 for k in counts}
+    want.update(bn_stats=n_bn * steps, bn_act=n_bn * steps)
+    if name == "faster_rcnn":  # the proposal stage's scan, once a forward
+        want["nms_keep"] = steps
+    _check_counts(f"{tag} (b) train", counts, want)
+    print(f"{tag} (b) losses={[round(v, 4) for v in losses]}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < 0.8 * losses[0]):
+        raise AssertionError(f"{tag} (b): the loss did not fall below 0.8 "
+                             f"of the first: {losses}")
+    nms = _det_hold_nms(nms_calls, f"{tag} (b) train")
+    times = []
+    for _ in range(DETECT_TIMED):
+        t = time.perf_counter()
+        step(x, gtb, gtl)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step_ms = _median_ms(times)
+    prof = profile_fn(lambda: step(x, gtb, gtl), step_ms,
+                      f"{tag} (b) one step")
+    print(f"{tag} (b) batch {batch} at {size}x{size}: median_synced_step_ms="
+          f"{step_ms:.3f} imgs_per_s={batch * 1e3 / step_ms:.1f} "
+          f"peak_hbm_bytes={peak} bn_a_step={counts['bn_stats'] // steps}+"
+          f"{counts['bn_act'] // steps} nms_keep_a_step="
+          f"{counts['nms_keep'] // steps} gpu={gpu}", flush=True)
+    return {"model": model, "state": state, "counts": counts,
+            "losses": losses, "step_ms": step_ms,
+            "imgs_per_s": batch * 1e3 / step_ms, "peak_hbm_bytes": peak,
+            "bn": n_bn, "nms_held": nms, **prof}
+
+
+@contextlib.contextmanager
+def _nms_captured():
+    """Every ``ops.kernels.nms_keep`` call made inside the block, as
+    ``(boxes, labels, counts, threshold, keep)`` copies: ``ops.detection
+    .nms`` calls the wrapper through its module, so it is swapped for one
+    that calls it (which counts the launch) and keeps the copies."""
+    from dt_tpu_torch.ops import kernels as K
+    wrapper, calls = K.nms_keep, []
+
+    def capture(boxes, labels, counts, iou_threshold):
+        keep = wrapper(boxes, labels, counts, iou_threshold)
+        calls.append((boxes.clone(), None if labels is None
+                      else labels.clone(), counts.clone(), iou_threshold,
+                      keep.clone()))
+        return keep
+
+    K.nms_keep = capture
+    try:
+        yield calls
+    finally:
+        K.nms_keep = wrapper
+
+
+def _det_hold_nms(calls, tag) -> dict:
+    """Each captured ``nms_keep`` call's keep mask against
+    ``nms_keep_plain`` on the same sorted card tensors (its "over" rows
+    computed by PyTorch on the card, the scan on the host): equal."""
+    from dt_tpu_torch.ops import kernels as K
+    mism, t = 0, time.perf_counter()
+    for boxes, labels, counts, thr, keep in calls:
+        plain = K.nms_keep_plain(boxes, labels, counts, thr)
+        mism += int((keep != plain).sum())
+    shapes = sorted({(*c[0].shape[:2], c[1] is not None, c[3])
+                     for c in calls})
+    print(f"{tag} nms_keep calls {len(calls)} (B, N, labelled, threshold) "
+          f"{shapes}: elements unequal to plain {mism} (plain "
+          f"{time.perf_counter() - t:.1f} s)", flush=True)
+    if mism:
+        raise AssertionError(f"{tag}: nms_keep differs from its plain "
+                             f"version on {mism} elements")
+    return {"calls": len(calls), "mismatches": mism,
+            "shapes": [list(s) for s in shapes]}
+
+
+def _det_flips(boxes, scores, labels_cpu, labels_card, thr) -> list:
+    """Boxes whose keep decision differs between the card and the CPU.
+    Both sides scan the same scores in the same order, so a flip comes
+    from the decoded boxes alone: it is excused only where a same-class box
+    before it (kept by either side) overlaps it at an IoU within
+    ``TOL_DETECT["iou"]`` of the threshold.  Returns ``(position, the IoU
+    nearest the threshold, excused)``."""
+    import torch
+    from dt_tpu_torch.ops.detection import box_iou
+    order = torch.argsort(-scores, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(len(order))
+    cls = torch.maximum(labels_cpu, labels_card)
+    out = []
+    for i in torch.nonzero(labels_cpu != labels_card).flatten().tolist():
+        cand = torch.nonzero((cls == cls[i]) & (rank < rank[i])).flatten()
+        if not len(cand):
+            out.append((i, float("nan"), False))
+            continue
+        iou = box_iou(boxes[i:i + 1], boxes[cand])[0]
+        near = float(iou[(iou - thr).abs().argmin()])
+        out.append((i, near, abs(near - thr) <= TOL_DETECT["iou"]))
+    return out
+
+
+def _det_host_detect(name, out, kw):
+    """The detection stage's plain CPU version on the card's class
+    probabilities (the card's softmax, so both sides sort the same scores)
+    and its other outputs, copied to the host."""
+    import torch
+    from dt_tpu_torch.models import rcnn, ssd
+    if name == "ssd":
+        return ssd._detect_probs(torch.softmax(out[0], dim=-1).cpu(),
+                                 out[1].cpu(), out[2].cpu(), **kw)
+    return rcnn._detect_probs(torch.softmax(out["cls_scores"], dim=-1).cpu(),
+                              out["rois"].cpu(), out["box_deltas"].cpu(),
+                              **kw)
+
+
+def _det_hold_detect(name, out, got, thr, kw) -> dict:
+    """(c) The detection stage's plain CPU version (keyword arguments
+    ``kw``) on the card's outputs, against the card's labels, scores and
+    boxes."""
+    import torch
+    want = _det_host_detect(name, out, kw)
+    labels, scores, boxes = (t.cpu() for t in got)
+    err = {}
+    for what, g, w in (("scores", scores, want[1]), ("boxes", boxes,
+                                                     want[2])):
+        err[what] = float((g - w).abs().max() / w.abs().max())
+        if not err[what] <= TOL_DETECT["scores"]:
+            raise AssertionError(f"detection {name} (c): {what} {err[what]}"
+                                 f" of the largest from the CPU's")
+    flips = []
+    for img in range(labels.shape[0]):
+        if torch.equal(labels[img], want[0][img]):
+            continue
+        for pos, iou, excused in _det_flips(want[2][img], want[1][img],
+                                            want[0][img], labels[img], thr):
+            flips.append({"image": img, "box": pos, "iou": iou,
+                          "excused": excused, "cpu": int(want[0][img][pos]),
+                          "card": int(labels[img][pos])})
+    for f in flips:
+        print(f"detection {name} (c) flipped keep decision: {json.dumps(f)}",
+              flush=True)
+    if not all(f["excused"] for f in flips):
+        raise AssertionError(f"detection {name} (c): labels differ from the "
+                             f"CPU's beyond an IoU at the threshold: {flips}")
+    return {"scores_rel_err": err["scores"], "boxes_rel_err": err["boxes"],
+            "flips": len(flips), "kept": int((labels >= 0).sum())}
+
+
+def _det_nms_kernel(call) -> dict:
+    """The scan kernel on the sorted inputs of one captured main-path call
+    (``_nms_captured``): its device time (CUDA graph), the plain version's
+    time on the same card tensors, and its bound from this run's data: 13
+    f32 operations (``csrc/nms.cu``) a pair of boxes the greedy scan must
+    compare, over 67 TFLOP/s, against the boxes, labels and counts read and
+    the keep mask written once over 3.35 TB/s.  Boxes of two labels never
+    suppress each other at a threshold >= 0, so with labels the pairs are
+    the sum over images and labels of K_l (K_l - 1) / 2 (the kernel itself
+    compares all K (K - 1) / 2 of an image)."""
+    import torch
+    from dt_tpu_torch.ops import kernels as K
+    sb, sl, counts, thr, keep = call
+    ms = cuda_ms(lambda a: K.nms_keep(*a, thr), [(sb, sl, counts)], iters=5)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    K.nms_keep_plain(sb, sl, counts, thr)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    pairs = 0
+    for img, k in enumerate(counts.tolist()):
+        if sl is None or thr < 0:
+            pairs += k * (k - 1) // 2
+        else:
+            n = torch.unique(sl[img, :k], return_counts=True)[1].cpu()
+            pairs += int((n * (n - 1) // 2).sum())
+    ops = pairs * 13
+    b, n = sb.shape[:2]
+    nbytes = b * n * (16 + (0 if sl is None else 4) + 1) + b * 4
+    bound_ms = max(ops / 67e12, nbytes / 3.35e12) * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops / 67e12 > nbytes / 3.35e12
+            else "bytes", "library_ms": None, "pairs": pairs,
+            "counts": counts.tolist(), "kept": int(keep.sum()),
+            "shape": [b, n]}
+
+
+def _det_serve(trained, size, batch, dev, gpu) -> dict:
+    """(c) SSD served by name through ``Predictor`` from a checkpoint of
+    the bf16 training state, at buckets 1 and ``batch`` (one
+    ``fused_bn_inference`` a BN a request); bucket ``batch`` against the
+    model's own eval forward within ``TOL_BF16``."""
+    import tempfile
+    import torch
+    from dt_tpu_torch.predictor import Predictor
+    from dt_tpu_torch.training import checkpoint
+    model = trained["model"]
+    _, _, _, imgs = _det_batch("ssd", size, batch, 7, dev, torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "ssd")
+        checkpoint.save_checkpoint(prefix, 0, trained["state"])
+        pred = Predictor("ssd", prefix, 0, imgs[:1], dtype=torch.bfloat16,
+                         batch_buckets=[1, batch], device=dev,
+                         num_classes=20)
+    pred.warmup((size, size, 3))
+    torch.cuda.synchronize()
+    reset_counts()  # the main path's run starts here
+    outs = [pred.predict(imgs[:b]) for b in (1, batch)]
+    counts = read_counts()  # ... and ends here
+    want = {k: 0 for k in counts}
+    want.update(bn_act=2 * trained["bn"])
+    _check_counts("detection ssd (c) serve bf16", counts, want)
+    with torch.no_grad():
+        ref = model(torch.from_numpy(imgs).to(dev, torch.bfloat16)
+                    .permute(0, 3, 1, 2))[0].float().cpu().numpy()
+    err = float(np.abs(outs[1] - ref).max())
+    if outs[0].shape != (1,) + ref.shape[1:] or \
+            not err <= TOL_BF16 * float(np.abs(ref).max()):
+        raise AssertionError(f"detection ssd (c): the checkpoint's "
+                             f"Predictor is {err:.3e} from the model")
+    ms = {}
+    for b in (1, batch):
+        t = time.perf_counter()
+        for _ in range(3):
+            pred.predict(imgs[:b])
+        ms[b] = (time.perf_counter() - t) * 1e3 / 3
+    print(f"detection ssd (c) serve bf16 by name from a checkpoint: bucket "
+          f"{batch} {err:.3e} from the model's eval forward (largest "
+          f"{np.abs(ref).max():.3f}) " + " ".join(
+              f"bucket={b} ms_per_request={v:.3f}" for b, v in ms.items())
+          + f" gpu={gpu}", flush=True)
+    return {"counts": counts, "err": err, "ms": ms}
+
+
+def _det_records(path, n, size, seed) -> None:
+    """``n`` raw u8 detection records of ``size``^2 x 3 from the SSD
+    example's generator: labels ``[class, x1, y1, x2, y2]`` a box,
+    normalized."""
+    from dt_tpu_torch.data import recordio
+    gen = _det_example("ssd")
+    rng = np.random.RandomState(seed)
+    with recordio.RecordIOWriter(path) as w:
+        for i in range(n):
+            img, boxes, labels = gen(rng, 1, size, DETECT_CLASSES["ssd"],
+                                     DETECT_BOXES["ssd"])
+            real = labels[0] >= 0
+            lab = np.concatenate([labels[0][real, None].astype(np.float32),
+                                  boxes[0][real]], 1)
+            w.write(recordio.pack_label(
+                (img[0] * 255).round().astype(np.uint8).tobytes(), lab,
+                rec_id=i))
+
+
+def _det_rec_steps(trained, size, batch, dev, gpu) -> dict:
+    """(d) SSD fed from raw u8 records through ``ImageDetRecordIter`` with
+    ``ssd_train_augmenter`` (colour distortion, mirror, zoom-out pad,
+    IoU-constrained crop), as ``examples/train_ssd.py:73-93`` feeds it, and
+    last in the chain a ``native`` resize to ``size`` (PIL-free; the boxes
+    are normalized, so only the image moves), which leaves the iterator's
+    own PIL resize nothing to do:
+    ``DETECT_REC["steps"]`` steps of the bf16 state, loss finite; the
+    iterator's images/s alone."""
+    import tempfile
+    import torch
+    from dt_tpu_torch.data import augment, recordio
+    model, state = trained["model"], trained["state"]
+    step = _det_step("ssd", model, state, size)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "det.rec")
+        t = time.perf_counter()
+        _det_records(path, DETECT_REC["records"], size, 25)
+        write_s = time.perf_counter() - t
+
+        def make():
+            return recordio.ImageDetRecordIter(
+                path, (size, size, 3), batch, max_objs=DETECT_BOXES["ssd"],
+                shuffle=True, seed=0, dtype="uint8",
+                det_augmenter=augment.DetCompose(
+                    augment.ssd_train_augmenter(seed=0),
+                    augment.DetImageOnly(augment.Resize(
+                        (size, size), backend="native"))))
+
+        it = make()
+        t = time.perf_counter()
+        n = sum(len(b.data) - b.pad for b in it)
+        iter_s = time.perf_counter() - t
+        it = make()
+        reset_counts()  # the main path's run starts here
+        losses = []
+        for b in it:
+            x = torch.from_numpy(np.asarray(b.data)).to(dev).to(
+                torch.bfloat16).div_(255.0).permute(0, 3, 1, 2)
+            lab = torch.from_numpy(np.asarray(b.label)).to(dev)
+            losses.append(step(x, lab[..., 1:5].contiguous(),
+                               lab[..., 0].long()))
+        torch.cuda.synchronize()
+        counts = read_counts()  # ... and ends here
+    losses = [float(v) for v in losses]
+    steps = DETECT_REC["steps"]
+    want = {k: 0 for k in counts}
+    want.update(bn_stats=trained["bn"] * steps, bn_act=trained["bn"] * steps)
+    _check_counts("detection ssd (d) .rec steps", counts, want)
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"detection ssd (d): losses {losses}")
+    print(f"detection ssd (d) {DETECT_REC['records']} raw u8 records "
+          f"({write_s:.1f} s to write) through ImageDetRecordIter + "
+          f"ssd_train_augmenter: iterator alone {n / iter_s:.1f} images/s; "
+          f"{steps} bf16 steps, losses {[round(v, 4) for v in losses]} "
+          f"gpu={gpu}", flush=True)
+    return {"counts": counts, "losses": losses, "iter_imgs_per_s":
+            n / iter_s}
+
+
+def detection_phase(gpu, dev) -> dict:
+    """Phase 25, the detectors: for each of ``test_torch_shapes.DETECTORS``
+    (a) the BN kernels held on the main path's own inputs, (b) training in
+    bf16 and f32, (c) the detection stage on a fresh batch held against
+    its plain CPU version, its ms, the scan kernel against its plain
+    version; SSD served by name from a checkpoint; (d) SSD fed from
+    detection records.  The phase's time and the main path's launches."""
+    import torch
+    from dt_tpu_torch.models.common import FusedBatchNorm
+    from test_torch_shapes import DETECTORS
+    t0 = time.perf_counter()
+    pil = "PIL" in sys.modules
+    runs, held, detect, launches = {}, {}, {}, {}
+    for name, size, batch, kw in DETECTORS:
+        # (a) the BN kernels on the main path's inputs (a fresh bf16 model)
+        model = _det_model(name, torch.bfloat16, dev, kw)
+        x = _det_batch(name, size, batch, 0, dev, torch.bfloat16)[0]
+        held[name] = _bn_kernels_on_path(model, [(True, x, {}),
+                                                 (False, x[:1], {})])
+        n_bn = sum(isinstance(m, FusedBatchNorm) for m in model.modules())
+        h = held[name]
+        print(f"detection {name} (a) bf16 at the main path's {h['bn_inputs']}"
+              f" BN inputs ({h['shapes']} (rows, C)): pass 1 max_err/E[x^2]="
+              f"{h['stats_rel_err']:.3e} (tol {TOL_ZOO['stats']:.0e}), pass 2"
+              f" and inference elements unequal to plain: "
+              f"{h['mismatches']}", flush=True)
+        if h["bn_inputs"] != 2 * n_bn or h["mismatches"] or \
+                not h["stats_rel_err"] <= TOL_ZOO["stats"]:
+            raise AssertionError(f"detection {name} (a): {h}")
+        del model
+        # (b) training
+        for dtype in (torch.bfloat16, torch.float32):
+            runs[name, dtype] = _det_train(name, size, batch, kw, dtype, dev,
+                                           gpu)
+        # (c) detection from each trained model, on a fresh batch and on
+        # the batch it fit, at the default score threshold; FasterRCNNMini
+        # also at threshold 0, which scans every ROI (after 15 steps its
+        # head may call every ROI background at 0.05)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"detection {name} {str(dtype).split('.')[-1]}"
+            model = runs[name, dtype]["model"]
+            xs = [_det_batch(name, size, batch, seed, dev, dtype)[0]
+                  for seed in (5, 0)]
+            calls = [(0, {}), (1, {})] + ([(0, {"score_threshold": 0.0})]
+                                          if name == "faster_rcnn" else [])
+            torch.cuda.synchronize()
+            with _nms_captured() as nms_calls, torch.no_grad():
+                reset_counts()  # the main path's run starts here
+                outs = [model(x) for x in xs]
+                gots = [_det_detect(name, outs[i], **kw) for i, kw in calls]
+                torch.cuda.synchronize()
+                counts = read_counts()  # ... and ends here
+            want = {k: 0 for k in counts}
+            want.update(bn_act=2 * runs[name, dtype]["bn"],
+                        nms_keep=len(calls) + (2 if name == "faster_rcnn"
+                                               else 0))
+            _check_counts(f"{tag} (c) detect", counts, want)
+            res_nms = _det_hold_nms(nms_calls, f"{tag} (c) detect")
+            thr = 0.45 if name == "ssd" else 0.5
+            held_c = [_det_hold_detect(name, outs[i], g, thr, kw)
+                      for (i, kw), g in zip(calls, gots)]
+            res = {k: max(h[k] for h in held_c)
+                   for k in ("scores_rel_err", "boxes_rel_err")}
+            res["flips"] = sum(h["flips"] for h in held_c)
+            res["kept"] = [h["kept"] for h in held_c]
+            if not res["kept"][-1]:
+                raise AssertionError(f"{tag} (c): nothing kept: the scan "
+                                     "was not exercised")
+            x, out = xs[0], outs[0]
+            with torch.no_grad():
+                res["detect_ms"] = _events_ms(lambda: _det_detect(name, out))
+                res["forward_ms"] = _events_ms(lambda: model(x))
+            res["counts"], res["nms_held"] = counts, res_nms
+            print(f"{tag} (c) detect batch {batch}: decode+nms_ms="
+                  f"{res['detect_ms']:.3f} forward_ms={res['forward_ms']:.3f}"
+                  f" kept (fresh, fit batch[, fresh at threshold 0])="
+                  f"{res['kept']} scores/boxes rel err "
+                  f"{res['scores_rel_err']:.2e}/{res['boxes_rel_err']:.2e} "
+                  f"against the CPU, flipped decisions {res['flips']} "
+                  f"gpu={gpu}", flush=True)
+            if name == "ssd" and dtype == torch.bfloat16:
+                # the fresh batch's call, the first of the run
+                res["nms"] = k = _det_nms_kernel(nms_calls[0])
+                print(f"{tag} (c) nms_keep at {k['shape']}: ms={k['ms']:.3f}"
+                      f" plain_ms={k['plain_ms']:.1f} bound_ms="
+                      f"{k['bound_ms']:.5f} ({k['bound_by']}, {k['pairs']} "
+                      f"same-label pairs) scanned={sum(k['counts'])} "
+                      f"kept={k['kept']} gpu={gpu}", flush=True)
+            detect[name, dtype] = res
+        launches[name] = {
+            str(dt).split(".")[-1]: {
+                "train": runs[name, dt]["counts"],
+                "detect": detect[name, dt]["counts"]}
+            for dt in (torch.bfloat16, torch.float32)}
+    # SSD served, then fed from records (the bf16 state)
+    size, batch = DETECTORS[0][1], DETECTORS[0][2]
+    served = _det_serve(runs["ssd", torch.bfloat16], size, batch, dev, gpu)
+    rec = _det_rec_steps(runs["ssd", torch.bfloat16], size, batch, dev, gpu)
+    launches["ssd"]["bfloat16"]["serve"] = served["counts"]
+    launches["ssd"]["bfloat16"]["rec"] = rec["counts"]
+    if "PIL" in sys.modules and not pil:
+        raise AssertionError("detection phase: imported PIL")
+    secs = time.perf_counter() - t0
+    print(f"detection phase: launches {json.dumps(launches)} total "
+          f"{secs:.1f} s gpu={gpu}", flush=True)
+    for r in runs.values():
+        del r["model"], r["state"]
+    torch.cuda.empty_cache()
+    return {"runs": runs, "held": held, "detect": detect, "serve": served,
+            "rec": rec, "launches": launches, "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6467,6 +7042,9 @@ def main() -> int:
           flush=True)
     zoo = zoo_phase(gpu, dev)
     print(f"phase zoo done at {time.perf_counter() - t0:.1f} s", flush=True)
+    detection = detection_phase(gpu, dev)
+    print(f"phase detection done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -6535,6 +7113,12 @@ def main() -> int:
             kernels[-1]["zoo_launches"] = {
                 name: r["serve_counts"]["bn_act"]
                 for name, r in zoo["runs"].items()}
+        # phase 25 (c): each detector's eval forward (+ SSD's requests)
+        dname = str(dtype).split(".")[-1]
+        kernels[-1]["detection_launches"] = {
+            name: sum(c["bn_act"] for part, c in per[dname].items()
+                      if part in ("detect", "serve"))
+            for name, per in detection["launches"].items()}
     train_launches = {
         torch.float32: trained["f32"]["launches"]["bn_stats"],
         torch.bfloat16: trained["bf16"]["launches"]["bn_stats"]
@@ -6592,7 +7176,15 @@ def main() -> int:
             kernels[-1]["zoo_launches"] = {
                 name: {k: r["fit_counts"][k] for k in ("bn_stats", "bn_act")}
                 for name, r in zoo["runs"].items()}
-        else:  # phase 22 (d): the f32 ZeRO-1 world's ranks (bn_sums)
+        # phase 25 (b): each detector's training (+ SSD's .rec steps in
+        # bf16), pass 1 and pass 2
+        dname = str(dtype).split(".")[-1]
+        kernels[-1]["detection_launches"] = {
+            name: {k: sum(c[k] for part, c in per[dname].items()
+                          if part in ("train", "rec"))
+                   for k in ("bn_stats", "bn_act")}
+            for name, per in detection["launches"].items()}
+        if dtype != torch.bfloat16:  # phase 22 (d): the f32 ZeRO-1 ranks'
             kernels[-1]["optim_launches"] = {
                 k: sum(c[k] for per in optim_run["zero"]["launches"].values()
                        for c in per) for k in ("bn_sums", "bn_stats",
@@ -6700,6 +7292,31 @@ def main() -> int:
             "bilstm_f32": data_run["bilstm"]["float32"]["counts"][
                 "lstm_layer"],
             "ner": data_run["ner"]["counts"]["lstm_layer"]}})
+    nk = detection["detect"]["ssd", torch.bfloat16]["nms"]
+    kernels.append({  # phase 25: the detection stage's scan
+        "name": "nms_keep", "route": "cuda",
+        "source": "dt_tpu_torch/csrc/nms.cu",
+        # the greedy scan of nms, a lax.fori_loop (no Pallas kernel)
+        "replaces": "dt_tpu/ops/detection.py:141",
+        "launches": sum(c.get("nms_keep", 0)
+                        for per in detection["launches"].values()
+                        for parts in per.values() for c in parts.values()),
+        # unequal keep elements over every held call of phase 25
+        "max_abs_err": max(r["nms_held"]["mismatches"]
+                           for part in ("runs", "detect")
+                           for r in detection[part].values()),
+        "ms": nk["ms"],
+        "plain_ms": nk["plain_ms"], "bound_ms": nk["bound_ms"],
+        "bound_by": nk["bound_by"], "library_ms": nk["library_ms"],
+        "path": "ssd_detect bf16 (phase 25 (c))", "shape": nk["shape"],
+        "scanned": sum(nk["counts"]), "pairs": nk["pairs"],
+        "kept": nk["kept"],
+        "kernels_a_call": 2,
+        "detection_launches": {
+            name: {dt: {part: c.get("nms_keep", 0)
+                        for part, c in parts.items()}
+                   for dt, parts in per.items()}
+            for name, per in detection["launches"].items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,11 @@ folded to ``_`` (``inception-v3`` works): ``lenet``, ``mlp``, ``alexnet``,
 ``inception_bn``, ``inception_v4``, ``inception_resnet_v2``,
 ``googlenet``, ``resnext50/101/152``, ``mobilenet[_v2]``,
 ``densenet121/161/169/201``, ``squeezenet``, and the language models
-``transformer_lm``, ``transformer_lm_pipelined`` and ``lstm_lm``.  ``ssd``
-and ``faster_rcnn`` raise ``NotImplementedError`` until their slice lands.
+``transformer_lm``, ``transformer_lm_pipelined`` and ``lstm_lm``, and the
+detectors ``ssd`` and ``faster_rcnn`` (``faster-rcnn``), with their losses
+and detection stages (``ssd_loss``, ``ssd_detect``, ``rcnn_loss``,
+``rcnn_detect``).  A name neither package registers raises
+``NotImplementedError``.
 ``init_params(module, seed)`` gives a model the initial weights linen's
 defaults give the JAX model, drawn from a seeded ``torch.Generator``.
 Image models take ``in_channels`` (3); AlexNet and VGG also take
@@ -38,10 +41,16 @@ from dt_tpu_torch.models.lstm_lm import LSTMLanguageModel as LSTMLanguageModel
 from dt_tpu_torch.models.mlp import MLP as MLP
 from dt_tpu_torch.models.mobilenet import MobileNetV1 as MobileNetV1
 from dt_tpu_torch.models.mobilenet import MobileNetV2 as MobileNetV2
+from dt_tpu_torch.models.rcnn import FasterRCNNMini as FasterRCNNMini
+from dt_tpu_torch.models.rcnn import rcnn_detect as rcnn_detect
+from dt_tpu_torch.models.rcnn import rcnn_loss as rcnn_loss
 from dt_tpu_torch.models.resnet import CifarResNet as CifarResNet
 from dt_tpu_torch.models.resnet import ResNet as ResNet
 from dt_tpu_torch.models.resnext import ResNeXt as ResNeXt
 from dt_tpu_torch.models.squeezenet import SqueezeNet as SqueezeNet
+from dt_tpu_torch.models.ssd import SSD as SSD
+from dt_tpu_torch.models.ssd import ssd_detect as ssd_detect
+from dt_tpu_torch.models.ssd import ssd_loss as ssd_loss
 from dt_tpu_torch.models.transformer import (
     PipelinedTransformerLM as PipelinedTransformerLM)
 from dt_tpu_torch.models.transformer import TransformerLM as TransformerLM
@@ -57,6 +66,7 @@ _REGISTRY: Dict[str, Tuple[type, Dict[str, Any]]] = {
     "squeezenet": (SqueezeNet, {}), "lstm_lm": (LSTMLanguageModel, {}),
     "transformer_lm": (TransformerLM, {}),
     "transformer_lm_pipelined": (PipelinedTransformerLM, {}),
+    "ssd": (SSD, {}), "faster_rcnn": (FasterRCNNMini, {}),
 }
 for _d in (11, 13, 16, 19):
     _REGISTRY[f"vgg{_d}"] = (VGG, {"depth": _d, "batch_norm": False})
@@ -77,8 +87,8 @@ def _entry(name: str) -> Tuple[type, Dict[str, Any]]:
     key = name.lower().replace("-", "_")
     if key not in _REGISTRY:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, Queue 1 item 8); "
-            f"ported: {sorted(_REGISTRY)}")
+            f"unknown model {name!r}: neither this package nor the JAX "
+            f"package registers it; known: {sorted(_REGISTRY)}")
     return _REGISTRY[key]
 
 

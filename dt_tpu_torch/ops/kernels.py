@@ -34,6 +34,13 @@ bound by bytes; their least time is the bytes they must move over the H100's
   in practice, by its serial chain of steps; :func:`lstm_layer_fused` is
   its differentiable form, with an explicit BPTT backward in PyTorch.
 
+- ``nms_keep`` (``csrc/nms.cu``) replaces the greedy scan of the JAX
+  package's ``nms`` (``dt_tpu/ops/detection.py:141-169``), a
+  ``lax.fori_loop`` with no Pallas kernel behind it: the keep mask of
+  score-sorted boxes, one scan an image.  Bound by operations (the pairs'
+  IoUs at 67 TFLOP/s f32) and, in practice, by its serial chain of kept
+  boxes.
+
 ``flash_attn`` (``csrc/flash_attn.cu``, the flash-attention forward) is
 bound by operations; its wrapper lives in ``ops.attention`` and its
 signature here.
@@ -46,6 +53,7 @@ import ctypes
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -76,6 +84,8 @@ _SIGNATURES = {
     # and v; scale, causal, dtype; stream
     "flash_attn": {"dt_flash_attn_fwd": [_V] * 5 + [_I64] * 14
                    + [ctypes.c_float, _INT, _INT, _V]},
+    # boxes, labels, counts, mask scratch, keep; batch, N; threshold; stream
+    "nms": {"dt_nms": [_V] * 5 + [_I64] * 2 + [ctypes.c_float, _V]},
 }
 
 
@@ -1008,3 +1018,120 @@ def lstm_layer_fused(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     wx + b`` is one ``torch.matmul``; the steps are :func:`lstm_layer`.
     The backward is :func:`lstm_layer_backward`."""
     return _LSTMLayer.apply(x, h0, c0, w.wx, w.wh, w.b, bool(reverse))
+
+
+# ---------------------------------------------------------------------------
+# Greedy NMS scan
+# ---------------------------------------------------------------------------
+
+_NMS_BLOCK = 64  # boxes a mask word
+
+
+def _nms_check(boxes, labels, counts) -> None:
+    if boxes.dim() != 3 or boxes.shape[2] != 4 or not boxes.is_contiguous():
+        raise ValueError(f"nms_keep: boxes must be contiguous (B, N, 4), got "
+                         f"{tuple(boxes.shape)}")
+    b, n = boxes.shape[:2]
+    if counts.dtype != torch.int32 or tuple(counts.shape) != (b,) \
+            or counts.device != boxes.device:
+        raise ValueError(f"nms_keep: counts must be int32 ({b},) on "
+                         f"{boxes.device}")
+    if labels is not None and (
+            labels.dtype != torch.int32 or tuple(labels.shape) != (b, n)
+            or labels.device != boxes.device or not labels.is_contiguous()):
+        raise ValueError(f"nms_keep: labels must be contiguous int32 "
+                         f"({b}, {n}) on {boxes.device}")
+
+
+def _nms_over_rows(boxes: torch.Tensor, labels, lo: int, hi: int,
+                  iou_threshold: float) -> torch.Tensor:
+    """Rows ``lo:hi`` of one image's "over" matrix: ``over[i, j]`` is True
+    where box ``j > i`` overlaps box ``i`` above the threshold (same label
+    only, with ``labels``), computed as the JAX function's ``box_iou``."""
+    from dt_tpu_torch.ops.detection import box_iou
+    iou = box_iou(boxes[lo:hi], boxes)
+    if labels is not None:
+        iou = torch.where(labels[lo:hi, None] == labels[None, :], iou,
+                          torch.zeros_like(iou))
+    j = torch.arange(boxes.shape[0], device=boxes.device)
+    return (iou > iou_threshold) & (j[None, :] > torch.arange(
+        lo, hi, device=boxes.device)[:, None])
+
+
+def _greedy_scan(boxes: torch.Tensor, labels, iou_threshold: float,
+                 chunk: int) -> list:
+    """The greedy walk over ``boxes`` (in order): their "over" matrix
+    (:func:`_nms_over_rows`, ``chunk`` rows at a time) packed to bits on the
+    host, each kept box ORing its row into the removed bits (Python
+    integers).  Returns the kept positions."""
+    k = boxes.shape[0]
+    rows = []
+    for lo in range(0, k, chunk):
+        over = _nms_over_rows(boxes, labels, lo, min(k, lo + chunk),
+                             iou_threshold)
+        rows.append(np.packbits(over.cpu().numpy(), axis=1,
+                                bitorder="little"))
+    removed = 0
+    kept = []
+    for i in range(k):
+        if (removed >> i) & 1:
+            continue
+        kept.append(i)
+        removed |= int.from_bytes(rows[i // chunk][i % chunk].tobytes(),
+                                  "little")
+    return kept
+
+
+def nms_keep_plain(boxes: torch.Tensor, labels, counts: torch.Tensor,
+                   iou_threshold: float, chunk: int = 1024) -> torch.Tensor:
+    """The plain version of the scan kernel: :func:`_greedy_scan` of each
+    image's first ``count`` boxes.  With labels and a threshold >= 0, boxes
+    of two labels never suppress each other (their IoU counts as 0), so
+    each label's boxes are scanned alone, in their order: the same keep
+    mask from a fraction of the pairs.  Any device, any float dtype."""
+    b, n = boxes.shape[:2]
+    keep = torch.zeros((b, n), dtype=torch.bool)
+    for img, k in enumerate(counts.tolist()):
+        if labels is not None and iou_threshold >= 0:
+            lab = labels[img, :k]
+            groups = [torch.nonzero(lab == v).flatten()
+                      for v in torch.unique(lab)]
+            group_labels = None
+        else:
+            groups = [torch.arange(k, device=boxes.device)]
+            group_labels = None if labels is None else labels[img, :k]
+        for pos in groups:
+            kept = _greedy_scan(boxes[img, pos], group_labels,
+                                iou_threshold, chunk)
+            keep[img, pos.cpu()[kept]] = True
+    return keep.to(boxes.device)
+
+
+def nms_keep(boxes: torch.Tensor, labels, counts: torch.Tensor,
+             iou_threshold: float) -> torch.Tensor:
+    """The scan kernel's wrapper: ``boxes`` (B, N, 4), each image's boxes
+    sorted best score first; ``labels`` int32 (B, N) in that order or None
+    (every box suppresses every other); ``counts`` int32 (B,), the boxes an
+    image scans, a prefix of its order -> ``keep`` bool (B, N).  A CUDA
+    tensor (f32) launches ``csrc/nms.cu`` (its mask and scan kernels) once
+    a call and counts the call in ``nms_keep.launches``; a CPU tensor runs
+    :func:`nms_keep_plain`.  Nothing waits for the host on the card."""
+    _nms_check(boxes, labels, counts)
+    if not _on_cuda("nms_keep", boxes):
+        return nms_keep_plain(boxes, labels, counts, iou_threshold)
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"nms_keep: boxes on the card must be float32, got "
+                        f"{boxes.dtype}")
+    b, n = boxes.shape[:2]
+    words = -(-n // _NMS_BLOCK)
+    mask = torch.empty((b, n, words), dtype=torch.int64, device=boxes.device)
+    keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    _launch("nms_keep", "nms", "dt_nms", boxes.device, boxes.data_ptr(),
+            0 if labels is None else labels.data_ptr(), counts.data_ptr(),
+            mask.data_ptr(), keep.data_ptr(), b, n,
+            ctypes.c_float(iou_threshold), sig=(boxes,))
+    nms_keep.launches += 1
+    return keep
+
+
+nms_keep.launches = 0

@@ -9,11 +9,12 @@ fixed slot count ``nnz``; the out-of-range row id ``num_rows`` marks an
 empty slot, dropped by every scatter and read as zeros by every gather.
 Each function here returns what its JAX counterpart returns, slot for slot.
 
-The CSR type and ``cast_storage`` (``csr_dot_dense`` and the storage cast
-dispatcher) raise ``NotImplementedError``: they wait for ROADMAP.md, Queue 1
-item 8.  The row-sparse plane has no TPU kernel behind it, so nothing here
-launches a hand-written one: these are PyTorch ops on whatever device the
-tensors are on.
+The CSR type has a fixed capacity ``nse`` too: an empty slot's column is
+``n`` (its data 0) and ``indptr[-1]`` counts the filled slots; the filled
+slots come first, in row-major order.  ``cast_storage`` converts between the
+dense, row-sparse and CSR types.  The sparse plane has no TPU kernel behind
+it, so nothing here launches a hand-written one: these are PyTorch ops on
+whatever device the tensors are on.
 """
 
 from __future__ import annotations
@@ -21,10 +22,6 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
-
-_CSR = ("the CSR storage type is not ported yet; see ROADMAP.md, Queue 1 "
-        "item 8 (the rest of the surface: ops.sparse CSR)")
-
 
 class RowSparse:
     """``nnz`` (possibly duplicate) row slots of a ``(num_rows, ...)``
@@ -125,23 +122,104 @@ def aggregate_duplicates(rs: RowSparse) -> RowSparse:
 
 
 class CSR:
-    """The compressed-sparse-row type (``dt_tpu/ops/sparse.py:126``)."""
+    """Compressed sparse row matrix of shape ``(m, n)`` with capacity
+    ``nse``: ``indptr`` ``(m+1,)`` int32, ``indices`` ``(nse,)`` int32
+    column ids (``n`` marks an empty slot), ``data`` ``(nse,)``
+    (reference kCSRStorage, ``ndarray.h``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_CSR)
+    __slots__ = ("indptr", "indices", "data", "_shape")
+
+    def __init__(self, indptr, indices, data, shape: Tuple[int, int]):
+        self.indptr = indptr
+        self.indices = indices
+        self.data = data
+        self._shape = (int(shape[0]), int(shape[1]))
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self._shape
+
+    @property
+    def nse(self) -> int:
+        return int(self.indices.shape[0])
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def _row_ids(self) -> torch.Tensor:
+        """Each slot's row, from ``indptr``; an empty slot gets ``m``."""
+        k = torch.arange(self.nse, device=self.indices.device)
+        row = torch.searchsorted(self.indptr.long(), k, right=True) - 1
+        return torch.where(k < self.indptr[-1], row,
+                           torch.full_like(row, self.shape[0]))
+
+    def to_dense(self) -> torch.Tensor:
+        """Densify; empty slots drop (``cast_storage(csr, 'default')``)."""
+        m, n = self.shape
+        out = torch.zeros((m, n), dtype=self.data.dtype,
+                          device=self.data.device)
+        rows = self._row_ids()
+        live = (rows < m) & (self.indices >= 0) & (self.indices < n)
+        out.index_put_((rows[live], self.indices[live].long()),
+                       self.data[live], accumulate=True)
+        return out
+
+    def __repr__(self):
+        return f"CSR(nse={self.nse}, shape={self.shape}, dtype={self.dtype})"
 
 
-def csr_from_dense(x, nse: Optional[int] = None):
-    raise NotImplementedError(_CSR)
+def csr_from_dense(x: torch.Tensor, nse: Optional[int] = None) -> CSR:
+    """``cast_storage(dense, 'csr')`` with capacity ``nse`` (default every
+    element): the nonzeros in row-major order, then empty slots; nonzeros
+    past the capacity are dropped."""
+    m, n = x.shape
+    nse = m * n if nse is None else int(nse)
+    flat = x.reshape(-1)
+    pos = torch.nonzero(flat != 0).flatten()[:nse]
+    cols = torch.full((nse,), n, dtype=torch.int32, device=x.device)
+    cols[:pos.numel()] = (pos % n).to(torch.int32)
+    rows = torch.full((nse,), m, dtype=torch.int64, device=x.device)
+    rows[:pos.numel()] = pos // n
+    data = torch.zeros((nse,), dtype=x.dtype, device=x.device)
+    data[:pos.numel()] = flat[pos]
+    indptr = torch.searchsorted(rows, torch.arange(m + 1, device=x.device)) \
+        .to(torch.int32)
+    return CSR(indptr, cols, data, (m, n))
 
 
-def csr_dot_dense(lhs, rhs, transpose_a: bool = False):
-    raise NotImplementedError(_CSR)
+def csr_dot_dense(lhs: CSR, rhs: torch.Tensor,
+                  transpose_a: bool = False) -> torch.Tensor:
+    """``dot(csr, dense)`` -> (m, k), or ``dot(csr.T, dense)`` -> (n, k)
+    with ``transpose_a`` (``dot-inl.h`` DotCsrDnsDns / DotCsrDnsRsp, dense
+    out): a gather of ``rhs``'s rows and a sum by row (by column)."""
+    m, n = lhs.shape
+    rows = lhs._row_ids()
+    cols = lhs.indices.long()
+    live = (rows < m) & (cols >= 0) & (cols < n)
+    if not transpose_a:
+        contrib = lhs.data[:, None] * rhs[cols.clamp(0, n - 1)]
+        out = torch.zeros((m, rhs.shape[1]), dtype=contrib.dtype,
+                          device=rhs.device)
+        return out.index_add(0, rows[live], contrib[live])
+    contrib = lhs.data[:, None] * rhs[rows.clamp(0, m - 1)]
+    out = torch.zeros((n, rhs.shape[1]), dtype=contrib.dtype,
+                      device=rhs.device)
+    return out.index_add(0, cols[live], contrib[live])
 
 
 def cast_storage(x, stype: str, **kw):
-    """The storage-cast dispatcher spans CSR too, so it waits with it."""
-    raise NotImplementedError(_CSR)
+    """The storage cast (``cast_storage-inl.h``): ``'default'`` densifies,
+    ``'row_sparse'``/``'csr'`` sparsify (``nnz``/``nse`` capacity in
+    ``kw``); a tensor already of the type is returned as it is."""
+    if stype == "default":
+        return x.to_dense() if isinstance(x, (RowSparse, CSR)) else x
+    if stype == "row_sparse":
+        return x if isinstance(x, RowSparse) else row_sparse_from_dense(x,
+                                                                        **kw)
+    if stype == "csr":
+        return x if isinstance(x, CSR) else csr_from_dense(x, **kw)
+    raise ValueError(f"unknown storage type {stype!r}")
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -45,7 +45,10 @@ def _default_buckets(max_batch: int) -> list:
 
 
 def _module_forward(module: nn.Module, _stats, x: torch.Tensor):
-    return module(x)
+    out = module(x)
+    # a model of several outputs serves its first (SSD: the class scores),
+    # as the JAX predictor does
+    return out[0] if isinstance(out, tuple) else out
 
 
 class Predictor:

@@ -125,9 +125,9 @@ def check_consistency(fn: Callable, inputs: Sequence,
 
 def rand_ndarray(shape, stype: str = "default", density: float = 0.5,
                  dtype="float32", rng: Optional[np.random.RandomState] = None):
-    """A random dense tensor or ``ops.sparse.RowSparse``, drawn as the JAX
-    package draws it (the same ``rng`` gives the same values).  CSR is
-    ROADMAP Queue 1 item 8."""
+    """A random dense tensor, ``ops.sparse.RowSparse`` or
+    ``ops.sparse.CSR``, drawn as the JAX package draws it (the same ``rng``
+    gives the same values)."""
     from dt_tpu_torch.ops import sparse
 
     rng = rng or np.random.RandomState(np.random.randint(1 << 31))
@@ -140,7 +140,10 @@ def rand_ndarray(shape, stype: str = "default", density: float = 0.5,
         nnz = max(int(keep.sum()), 1)
         return sparse.row_sparse_from_dense(torch.from_numpy(dense), nnz=nnz)
     if stype == "csr":
-        return sparse.csr_from_dense(dense)
+        mask = rng.rand(*shape) < density
+        dense[~mask] = 0
+        return sparse.csr_from_dense(torch.from_numpy(dense),
+                                     nse=max(int(mask.sum()), 1))
     raise ValueError(f"unknown stype {stype!r}")
 
 

@@ -14,7 +14,8 @@ import torch
 from dt_tpu_torch import models
 from dt_tpu_torch.interchange import export_jax_variables, load_jax_variables
 from dt_tpu_torch.ops import kernels
-from test_torch_shapes import RESNET50_BN_CHW, ZOO
+from test_torch_shapes import (DETECTOR_BN_CHW, DETECTORS, RESNET50_BN_CHW,
+                               ZOO)
 
 pytestmark = pytest.mark.cuda
 
@@ -1510,3 +1511,132 @@ def test_bn_kernels_refuse_float64_on_the_card(cuda):
         kernels.bn_stats(x)
     with pytest.raises(TypeError, match="float64 on the CPU"):
         kernels.bn_act(x, ones, ones)
+
+
+# --- the detectors (SSD, FasterRCNNMini) and the NMS scan kernel -----------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,size,batch,kw", DETECTORS)
+def test_detector_bn_kernels_at_every_convbn_shape(cuda, name, size, batch,
+                                                   kw, dtype):
+    """Pass 1 and pass 2 at every (rows, C) a detector's ConvBNs give them
+    at its card batch (SSD at 300: C 32 over 150^2 x 32 rows down to C 128
+    over 3^2 x 32; FasterRCNNMini at 512: C 32 over 256^2 x 8 ...): pass 1
+    within 1e-5 of E[x^2] of its plain version, pass 2 (ReLU fused) and the
+    inference kernel bit-equal to ``bn_act_plain``."""
+    for c, h, w in DETECTOR_BN_CHW[name]:
+        x = _bn_input((batch, c, h, w), dtype, cuda)
+        gamma = torch.rand(c, device=cuda) + 0.5
+        beta = torch.randn(c, device=cuda)
+        mean, var = kernels.bn_stats(x)
+        x2 = kernels.rows_view(x)
+        pm, pv = kernels.bn_stats_plain(x2)
+        ex2 = float((x2.float() ** 2).mean(0).max())
+        torch.testing.assert_close(mean, pm, rtol=0, atol=1e-5 * ex2)
+        torch.testing.assert_close(var, pv, rtol=0, atol=1e-5 * ex2)
+        rm, rv = torch.zeros(c, device=cuda), torch.ones(c, device=cuda)
+        y, _, _ = kernels.fused_bn_train(x, gamma, beta, rm, rv, relu=True)
+        scale, bias = kernels.bn_scale_bias(gamma, beta, mean, var, 1e-5,
+                                            dtype)
+        assert torch.equal(kernels.rows_view(y),
+                           kernels.bn_act_plain(x2, scale, bias, True)), \
+            (c, h, w)
+        y = kernels.fused_bn_inference(x, gamma, beta, rm, rv, relu=True)
+        scale, bias = kernels.bn_scale_bias(gamma, beta, rm, rv, 1e-5, dtype)
+        assert torch.equal(kernels.rows_view(y),
+                           kernels.bn_act_plain(x2, scale, bias, True)), \
+            (c, h, w)
+
+
+def _sorted_boxes(g, b, n, classes, dev):
+    """``b`` images of ``n`` clustered boxes (many overlaps), sorted best
+    score first, with labels in that order."""
+    centers = torch.rand(b, 12, 2, generator=g) * 0.8 + 0.1
+    pick = torch.randint(0, 12, (b, n), generator=g)
+    c = torch.gather(centers, 1, pick[..., None].expand(b, n, 2)) \
+        + torch.randn(b, n, 2, generator=g) * 0.03
+    wh = torch.rand(b, n, 2, generator=g) * 0.2 + 0.05
+    boxes = torch.cat([c - wh / 2, c + wh / 2], -1)
+    scores = torch.rand(b, n, generator=g)
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    boxes = torch.gather(boxes, 1, order[..., None].expand(b, n, 4))
+    labels = torch.randint(0, classes, (b, n), generator=g,
+                           dtype=torch.int32)
+    return boxes.contiguous().to(dev), labels.to(dev)
+
+
+@pytest.mark.parametrize("n,classes,labelled", [
+    (7756, 20, True), (7756, 1, False), (256, 1, False), (65, 3, True),
+    (1, 2, True), (64, 4, True)])
+@pytest.mark.parametrize("thr", [0.45, 0.7])
+def test_nms_scan_kernel_matches_plain(cuda, n, classes, labelled, thr):
+    """The scan kernel's keep mask equals its plain version's on the same
+    sorted boxes, exactly (the same correctly rounded IoU), with counts
+    that stop short, at 0 and at every box; one launch a call."""
+    g = torch.Generator().manual_seed(n + classes)
+    boxes, labels = _sorted_boxes(g, 4, n, classes, cuda)
+    counts = torch.tensor([n, n // 2, 0, max(n - 1, 0)], dtype=torch.int32,
+                          device=cuda)
+    lab = labels if labelled else None
+    before = kernels.nms_keep.launches
+    keep = kernels.nms_keep(boxes, lab, counts, thr)
+    assert kernels.nms_keep.launches == before + 1
+    want = kernels.nms_keep_plain(boxes.cpu(), None if lab is None
+                                  else lab.cpu(), counts.cpu(), thr)
+    assert torch.equal(keep.cpu(), want)
+    assert not keep[2].any() and keep[0].any()
+
+
+def test_nms_scan_kernel_refuses_float64_on_the_card(cuda):
+    boxes = torch.zeros(1, 4, 4, dtype=torch.float64, device=cuda)
+    counts = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.nms_keep(boxes, None, counts, 0.5)
+
+
+def test_detection_stages_on_card_match_cpu(cuda):
+    """``ssd_detect`` at SSD300's 7,756 anchors (batch 4, 21 classes) and
+    ``rcnn_detect`` on the same seeded model outputs on the card and on the
+    CPU: labels equal, scores and boxes within 1e-6 of the largest."""
+    g = torch.Generator().manual_seed(5)
+    from dt_tpu_torch.ops.detection import multibox_prior
+    anchors = torch.cat([multibox_prior((s, s), (0.2, 0.3), (1.0, 2.0, 0.5))
+                         for s in (38, 19, 10, 5, 3)])
+    cls = torch.randn(4, anchors.shape[0], 21, generator=g) * 2
+    box = torch.randn(4, anchors.shape[0], 4, generator=g) * 0.5
+    rois = torch.rand(4, 32, 2, generator=g) * 400
+    out = {"rois": torch.cat([rois, rois + 20 + torch.rand(
+        4, 32, 2, generator=g) * 80], -1),
+        "cls_scores": torch.randn(4, 32, 4, generator=g),
+        "box_deltas": torch.randn(4, 32, 4, generator=g) * 0.2}
+    for got, want in (
+            (models.ssd_detect(cls.to(cuda), box.to(cuda), anchors.to(cuda)),
+             models.ssd_detect(cls, box, anchors)),
+            (models.rcnn_detect({k: v.to(cuda) for k, v in out.items()}),
+             models.rcnn_detect(out))):
+        assert torch.equal(got[0].cpu(), want[0])
+        assert (want[0] >= 0).any() and (want[0] < 0).any()
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("name,size,batch,kw", DETECTORS)
+def test_detector_eval_on_card_matches_cpu(cuda, name, size, batch, kw,
+                                           monkeypatch):
+    """Each detector's f32 eval forward (TF32 off) at 96x96, batch 2, on
+    the card against the CPU: every output within 1e-4 of its largest."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = models.init_params(models.create(name, device="cpu", **kw), seed=1)
+    card = models.create(name, device=cuda, **kw)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(2, 3, 96, 96, generator=torch.Generator().manual_seed(2)
+                   ).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        got, want = card(x.to(cuda)), cpu(x)
+    if name == "ssd":
+        got, want = dict(enumerate(got)), dict(enumerate(want))
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=0,
+                                   atol=1e-4 * float(want[k].abs().max()))

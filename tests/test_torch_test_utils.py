@@ -30,7 +30,7 @@ def test_tolerances_and_verdicts_match():
 
 
 def test_draws_are_the_jax_packages():
-    for stype in ("default", "row_sparse"):
+    for stype in ("default", "row_sparse", "csr"):
         t = ttu.rand_ndarray((6, 3), stype, density=0.5,
                              rng=np.random.RandomState(4))
         j = jtu.rand_ndarray((6, 3), stype, density=0.5,
@@ -40,8 +40,8 @@ def test_draws_are_the_jax_packages():
         else:
             np.testing.assert_array_equal(t.to_dense().numpy(),
                                           np.asarray(j.to_dense()))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttu.rand_ndarray((4, 4), "csr", rng=np.random.RandomState(0))
+    csr = ttu.rand_ndarray((4, 4), "csr", rng=np.random.RandomState(0))
+    assert csr.nse == int(np.count_nonzero(csr.to_dense().numpy()))
 
 
 def test_gradient_and_consistency_checks():
