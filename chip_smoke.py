@@ -505,7 +505,10 @@ FAILOVER_KILL_STEP = ELASTIC_STEPS + 3
 LEASE_MIN_S = 2.0  # DT_CTRL_LEASE_S's default
 # the policy phase: the port's launcher (-n 2 --standby, host file w0 w2)
 # runs the elastic job's worker under DT_POLICY=1, 4 epochs of
-# POLICY_STEPS steps, 32 seeded images scored after every epoch; w1 joins
+# POLICY_STEPS steps (the gates take the least of the 7 after each epoch's
+# first: with the mean of 3, the ratio of epoch 3's rate to epoch 0's
+# ranged 0.635-1.437 over whole runs on one card), 32 seeded images scored
+# after every epoch; w1 joins
 # at the epoch-1 barrier and sleeps POLICY_DELAY_S before each step's
 # allreduce (scaled by its batch over the equal split), breaches
 # POLICY_THRESHOLD_MS at the epoch-2 barrier (its share halves) and again
@@ -518,7 +521,13 @@ LEASE_MIN_S = 2.0  # DT_CTRL_LEASE_S's default
 # threshold is >= 3x the worst score of a worker that does not straggle
 # and <= the delay / 3 (on an H100 80GB HBM3 at 700 W: phase 11's board
 # at most 7.2 ms, this job's at most 55.4 ms).
-POLICY_STEPS = 4
+POLICY_STEPS = 8
+# the most a step of epoch 3's window may take over epoch 0's least step:
+# a stall after the eviction.  The host's other tenants stretched one step
+# to at most 1.70 x over 11 runs of the phase on one card (H100 80GB HBM3,
+# 700 W); w1 left in the fleet would hold every step to ~2.3-2.7 x, which
+# the recovery gate sees
+POLICY_STALL = 3.0
 POLICY_ARGS = ["--model", "resnet50", "--dtype", "bfloat16",
                "--global-batch", "64", "--images", "128", "--lr", "0.025",
                "--wd", "1e-4", "--compress", "0.005", "--num-epoch", "4",
@@ -870,20 +879,25 @@ def read_counts() -> dict:
     return {k: w.launches for k, w in counted().items()}
 
 
-#: profiler windows taken over one call before an empty trace fails
-PROFILE_WINDOWS = 3
+#: profiler windows taken over one call before an empty trace fails (3
+#: empty windows in a row, a second apart or less, happened in a whole
+#: run on an H100 after 47 full ones)
+PROFILE_WINDOWS = 5
 
 
-def device_kernels(fn, wrapper) -> list:
-    """Names of the CUDA kernels (and memsets, copies) that one call of
-    ``fn`` puts on the device, from a ``torch.profiler`` window over that
-    call alone, synchronized before the window closes.  ``wrapper`` is
-    the kernel wrapper ``fn`` calls: its launch counter must advance by
+def device_kernels(fn, wrapper, need=(), required=True) -> list:
+    """``(name, device ms)`` of each CUDA kernel (and memset, copy) that one
+    call of ``fn`` puts on the device, from a ``torch.profiler`` window over
+    that call alone, synchronized before the window closes.  ``wrapper``
+    is the kernel wrapper ``fn`` calls: its launch counter must advance by
     one in every window.  A window that recorded no device event at all
     (the profiler missed the call: it happened once in one of PR 9's
-    runs) is taken again, up to :data:`PROFILE_WINDOWS` windows; three
-    empty windows fail, and the caller fails a window that recorded
-    anything but exactly one kernel."""
+    runs), or none whose name holds one of ``need``, is taken again after
+    a pause of as many seconds as windows taken, up to
+    :data:`PROFILE_WINDOWS` windows; that many such windows fail where
+    ``required``, else give ``[]`` (the caller reports its split as not
+    measured).  The BN phases fail a window that recorded anything but
+    exactly one kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -897,14 +911,21 @@ def device_kernels(fn, wrapper) -> list:
             raise AssertionError(f"profiler window {window}: the wrapper "
                                  f"counted {wrapper.launches - before} "
                                  "launches, not one")
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            return names
-        print(f"profiler window {window}: no device event recorded for "
-              "one launch; taking the window again", flush=True)
+        events = [(e.name, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events and all(any(w in name for name, _ in events)
+                          for w in need):
+            return events
+        print(f"profiler window {window}: {len(events)} device events "
+              f"recorded for one launch (needing {list(need)}); taking the "
+              "window again", flush=True)
+        time.sleep(window)
+    if not required:
+        return []
     raise AssertionError(f"{PROFILE_WINDOWS} profiler windows in a row "
-                         "recorded no device event")
+                         f"recorded no device event (or none of "
+                         f"{list(need)})")
 
 
 def bn_train_phase(shapes, dev, also=(), held=()):
@@ -976,8 +997,8 @@ def bn_train_phase(shapes, dev, also=(), held=()):
                     print(f"kernel bn_train {tag} held stats_max_abs_err="
                           f"{err:.3e} ex2={ex2:.3f}", flush=True)
                     continue
-                launched = device_kernels(lambda: kernels.bn_stats(x),
-                                          kernels.bn_stats)
+                launched = [name for name, _ in device_kernels(
+                    lambda: kernels.bn_stats(x), kernels.bn_stats)]
                 print(f"kernel bn_train {tag} kernels_a_bn_stats_call="
                       f"{len(launched)} {launched}", flush=True)
                 if len(launched) != 1:
@@ -1000,8 +1021,8 @@ def bn_train_phase(shapes, dev, also=(), held=()):
                     raise AssertionError(f"bn_sums {tag}: launches agree "
                                          f"{torch.equal(s1, s2)}, max abs "
                                          f"err / rows {serr}")
-                slaunched = device_kernels(lambda: kernels.bn_sums(x),
-                                           kernels.bn_sums)
+                slaunched = [name for name, _ in device_kernels(
+                    lambda: kernels.bn_sums(x), kernels.bn_sums)]
                 if len(slaunched) != 1:
                     raise AssertionError(f"bn_sums {tag}: one call put "
                                          f"{slaunched} on the device")
@@ -2957,6 +2978,16 @@ def failover_phase(gpu, elastic: dict) -> dict:
                               timeout=30)["job"]["tracks"]["control-plane"]
         sb_inc = protocol.request("127.0.0.1", sb_port, {"cmd": "status"},
                                   timeout=30)["incarnation"]
+    except BaseException:
+        # what each process said, for the failure's cause: the schedulers'
+        # logs hold a stuck round's waiters and seqs (DataPlane._stuck_locked)
+        for name in ("primary", "standby", *stems):
+            path = os.path.join(tmp, f"{name}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    print(f"failover: {name} log tail:\n{f.read()[-3000:]}",
+                          flush=True)
+        raise
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -3434,9 +3465,11 @@ def policy_phase(gpu) -> dict:
     shares' ``batch_map`` and sum to 64; the workers' gradient weights sum
     to W within 1e-6; the live sha256 agree at every epoch end; 53 + 53
     BN-train and 1 ``quantize_2bit`` launches a worker-step, 53 ``bn_act``
-    a scored batch, nothing else; on worker 0's clock epoch 2's median
-    step (its steps after the first) is >= 0.25 x the delay under epoch
-    1's, and epoch 3's rate >= 80 % of epoch 0's."""
+    a scored batch, nothing else; on worker 0's clock epoch 2's least step
+    (of its steps after the first) is >= 0.25 x the delay under epoch 1's,
+    epoch 3's rate (images a least step) >= 80 % of epoch 0's, and no step
+    of epoch 3's window takes more than :data:`POLICY_STALL` x epoch 0's
+    least step."""
     import hashlib
     import os
     import signal
@@ -3569,6 +3602,7 @@ def policy_phase(gpu) -> dict:
                         "wall_ms": span, "ms_a_step": span / (hi - lo),
                         "median_step_ms": float(np.median(
                             spans["step"][lo:hi])),
+                        "least_step_ms": float(min(spans["step"][lo:hi])),
                         "images_s": 64 * (hi - lo) / span * 1e3,
                         "step_ms": spans["step"][lo:hi]})
         w = windows[-1]
@@ -3599,19 +3633,49 @@ def policy_phase(gpu) -> dict:
              "after_w0_last_step": wall * 1e3 - (ends[-1] - wall0_ms)}
     print(f"policy wall parts_ms={json.dumps(parts)}; gpu={gpu}",
           flush=True)
-    gain = windows[1]["median_step_ms"] - windows[2]["median_step_ms"]
-    recovery = windows[3]["images_s"] / windows[0]["images_s"]
-    print(f"policy dynamic mini-batch: epoch 2's median step "
-          f"{gain:.3f} ms under epoch 1's (gate >= "
-          f"{0.25 * POLICY_DELAY_S * 1e3:.1f}); epoch 3's rate "
-          f"{recovery:.3f} of epoch 0's (gate >= 0.8); wall_s={wall:.1f} "
+    # w2 trains every epoch beside w0: its steps on the same clock, and w1's
+    # exit (its result written) against epoch 3's window
+    w2 = r["w2"]["spans"]
+    for epoch in (0, 3):
+        lo, hi = epoch * k + 1, epoch * k + k
+        offsets = [round(b - a, 3) for a, b in
+                   zip(starts[lo:hi], w2["step_start"][lo:hi])]
+        print(f"policy epoch {epoch} steps after the first, start offset "
+              f"w2 - w0 (ms): {json.dumps(offsets)}; w2 step_ms="
+              f"{json.dumps([round(t, 3) for t in w2['step'][lo:hi]])}",
+              flush=True)
+    print(f"policy w1 wrote its result {r['w1']['end_ms'] - starts[3 * k]:.1f}"
+          f" ms after epoch 3's first step began (its timed window: "
+          f"{starts[3 * k + 1] - starts[3 * k]:.1f} to "
+          f"{ends[4 * k - 1] - starts[3 * k]:.1f} ms)", flush=True)
+    # the gain and recovery gates on each window's least step (a rate: 64
+    # images a least step).  Every step waits for the fleet's allreduce, so
+    # none can be faster than the fleet allows, while the host's other
+    # tenants only add time: a slowdown of 10-20 s can cover most of a
+    # 7-step window (median and wall span printed beside it).  A stall
+    # inside epoch 3's window, which the least step cannot see, is gated
+    # on its slowest step
+    gain = windows[1]["least_step_ms"] - windows[2]["least_step_ms"]
+    recovery = windows[0]["least_step_ms"] / windows[3]["least_step_ms"]
+    stall = max(windows[3]["step_ms"]) / windows[0]["least_step_ms"]
+    med = [w["median_step_ms"] for w in windows]
+    print(f"policy dynamic mini-batch: epoch 2's least step {gain:.3f} ms "
+          f"under epoch 1's (gate >= {0.25 * POLICY_DELAY_S * 1e3:.1f}; "
+          f"medians {med[1] - med[2]:.3f}); epoch 3's rate by least steps "
+          f"{recovery:.3f} of epoch 0's (gate >= 0.8; medians "
+          f"{med[0] / med[3]:.3f}, wall spans "
+          f"{windows[3]['images_s'] / windows[0]['images_s']:.3f}); epoch "
+          f"3's slowest step {stall:.3f} x epoch 0's least (gate <= "
+          f"{POLICY_STALL}), over {k - 1} steps an epoch; wall_s={wall:.1f} "
           f"gpu={gpu}", flush=True)
-    if gain < 0.25 * POLICY_DELAY_S * 1e3 or recovery < 0.8:
+    if gain < 0.25 * POLICY_DELAY_S * 1e3 or recovery < 0.8 \
+            or stall > POLICY_STALL:
         raise AssertionError(f"policy: step gain {gain} ms, recovery "
-                             f"{recovery}")
+                             f"{recovery}, epoch 3's slowest step {stall} x "
+                             "epoch 0's least")
     return {"launches": launches, "windows": windows, "boards": boards,
             "log_sha256": log_sha, "wall_s": wall, "gain_ms": gain,
-            "recovery": recovery, "wall_parts_ms": parts}
+            "recovery": recovery, "stall": stall, "wall_parts_ms": parts}
 
 
 # Phase 18, the obs planes: phase 11's job at full width (ResNet-50 v1
@@ -6605,16 +6669,49 @@ def _det_hold_detect(name, out, got, thr, kw) -> dict:
             "flips": len(flips), "kept": int((labels >= 0).sum())}
 
 
+def _nms_runs(sl, counts, thr, keep) -> dict:
+    """The label runs the scan kernel walks on one call's data, from the
+    host: each image's prefix is one run a label when labels are given and
+    the threshold is >= 0, else one run.  Runs an image, the longest run's
+    boxes and kept boxes, and the pairs the greedy scan must compare (a
+    run's K (K - 1) / 2)."""
+    runs, pairs, longest, longest_kept = [], 0, 0, 0
+    keep = keep.cpu().numpy()
+    lab = None if sl is None or thr < 0 else sl.cpu().numpy()
+    for img, k in enumerate(counts.tolist()):
+        k = min(max(k, 0), keep.shape[1])
+        if lab is None:
+            sizes, kept = [k] if k else [], [int(keep[img, :k].sum())]
+        else:
+            vals, sizes = np.unique(lab[img, :k], return_counts=True)
+            kept = [int(keep[img, :k][lab[img, :k] == v].sum())
+                    for v in vals]
+        runs.append(len(sizes))
+        pairs += sum(int(m) * (int(m) - 1) // 2 for m in sizes)
+        if len(sizes):
+            i = int(np.argmax(sizes))
+            if sizes[i] > longest:
+                longest, longest_kept = int(sizes[i]), kept[i]
+    return {"runs_an_image": runs, "pairs": pairs, "longest_run": longest,
+            "longest_run_kept": longest_kept}
+
+
 def _det_nms_kernel(call) -> dict:
     """The scan kernel on the sorted inputs of one captured main-path call
-    (``_nms_captured``): its device time (CUDA graph), the plain version's
-    time on the same card tensors, and its bound from this run's data: 13
-    f32 operations (``csrc/nms.cu``) a pair of boxes the greedy scan must
-    compare, over 67 TFLOP/s, against the boxes, labels and counts read and
-    the keep mask written once over 3.35 TB/s.  Boxes of two labels never
-    suppress each other at a threshold >= 0, so with labels the pairs are
-    the sum over images and labels of K_l (K_l - 1) / 2 (the kernel itself
-    compares all K (K - 1) / 2 of an image)."""
+    (``_nms_captured``): its device time (CUDA graph; the wrapper's label
+    reorder included), the plain version's time on the same card tensors,
+    its bound from this run's data: 13 f32 operations (``csrc/nms.cu``) a
+    pair of boxes the greedy scan must compare, over 67 TFLOP/s, against
+    the boxes, labels and counts read and the keep mask written once over
+    3.35 TB/s.  Boxes of two labels never suppress each other at a
+    threshold >= 0, so with labels the pairs are the sum over images and
+    labels of K_l (K_l - 1) / 2 (:func:`_nms_runs`, with the runs the
+    kernel walks).  Also the device kernels one call puts on the card, by
+    ``torch.profiler`` (:func:`device_kernels`: the reorder's PyTorch ops
+    and the mask and scan kernels), with their device ms, and the bytes one
+    call allocates on the card above what was allocated before it (the
+    allocator's peak: the reorder's tensors, the sort's temporary storage,
+    the mask scratch and ``keep``)."""
     import torch
     from dt_tpu_torch.ops import kernels as K
     sb, sl, counts, thr, keep = call
@@ -6624,22 +6721,35 @@ def _det_nms_kernel(call) -> dict:
     K.nms_keep_plain(sb, sl, counts, thr)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
-    pairs = 0
-    for img, k in enumerate(counts.tolist()):
-        if sl is None or thr < 0:
-            pairs += k * (k - 1) // 2
-        else:
-            n = torch.unique(sl[img, :k], return_counts=True)[1].cpu()
-            pairs += int((n * (n - 1) // 2).sum())
-    ops = pairs * 13
+    runs = _nms_runs(sl, counts, thr, keep)
+    ops = runs["pairs"] * 13
     b, n = sb.shape[:2]
     nbytes = b * n * (16 + (0 if sl is None else 4) + 1) + b * 4
     bound_ms = max(ops / 67e12, nbytes / 3.35e12) * 1e3
+    # the split is reported, not gated: in phase 25 the profiler has
+    # recorded none of the scan's kernels in PROFILE_WINDOWS windows in a
+    # row (two whole runs on an H100), while the launch count stays gated
+    events = device_kernels(lambda: K.nms_keep(sb, sl, counts, thr),
+                            K.nms_keep, required=False,
+                            need=("nms_mask_kernel", "nms_scan_kernel"))
+    by_kernel = {}
+    for name, t in events:  # kernels, memsets and copies, by name
+        c, total = by_kernel.get(name[:60], (0, 0.0))
+        by_kernel[name[:60]] = [c + 1, total + t]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.nms_keep(sb, sl, counts, thr)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops / 67e12 > nbytes / 3.35e12
-            else "bytes", "library_ms": None, "pairs": pairs,
-            "counts": counts.tolist(), "kept": int(keep.sum()),
-            "shape": [b, n]}
+            else "bytes", "library_ms": None, "counts": counts.tolist(),
+            "kept": int(keep.sum()), "shape": [b, n],
+            # None and {}: not measured (the profiler recorded no window)
+            "device_kernels": by_kernel, "kernels_a_call": len(events)
+            or None,
+            "peak_bytes_a_call": peak, **runs}
 
 
 def _det_serve(trained, size, batch, dev, gpu) -> dict:
@@ -6855,7 +6965,15 @@ def detection_phase(gpu, dev) -> dict:
                       f" plain_ms={k['plain_ms']:.1f} bound_ms="
                       f"{k['bound_ms']:.5f} ({k['bound_by']}, {k['pairs']} "
                       f"same-label pairs) scanned={sum(k['counts'])} "
-                      f"kept={k['kept']} gpu={gpu}", flush=True)
+                      f"kept={k['kept']} runs an image (min/max)="
+                      f"{min(k['runs_an_image'])}/{max(k['runs_an_image'])}"
+                      f" longest run {k['longest_run']} boxes, "
+                      f"{k['longest_run_kept']} kept; device kernels a "
+                      f"call {k['kernels_a_call'] or 'not measured'} "
+                      f"{json.dumps(k['device_kernels'])}; bytes one call "
+                      f"allocates (peak over what was allocated before) "
+                      f"{k['peak_bytes_a_call']} gpu={gpu}",
+                      flush=True)
             detect[name, dtype] = res
         launches[name] = {
             str(dt).split(".")[-1]: {
@@ -7310,8 +7428,17 @@ def main() -> int:
         "bound_by": nk["bound_by"], "library_ms": nk["library_ms"],
         "path": "ssd_detect bf16 (phase 25 (c))", "shape": nk["shape"],
         "scanned": sum(nk["counts"]), "pairs": nk["pairs"],
-        "kept": nk["kept"],
-        "kernels_a_call": 2,
+        "kept": nk["kept"], "redesigned_in": 19,
+        # the device kernels one call launches: the label reorder's
+        # PyTorch ops, then csrc/nms.cu's mask and scan kernels
+        "kernels_a_call": nk["kernels_a_call"],
+        "device_kernels": nk["device_kernels"],
+        "runs_an_image": [min(nk["runs_an_image"]),
+                          max(nk["runs_an_image"])],
+        "longest_run": nk["longest_run"],
+        "longest_run_kept": nk["longest_run_kept"],
+        # measured: the allocator's peak over one call, keep included
+        "peak_bytes_a_call": nk["peak_bytes_a_call"],
         "detection_launches": {
             name: {dt: {part: c.get("nms_keep", 0)
                         for part, c in parts.items()}

@@ -67,6 +67,8 @@ class DataPlane:
     #: commands this plane serves
     CMDS = ("allreduce", "set_optimizer", "async_init", "async_push",
             "async_pull_rows", "async_stats")
+    #: seconds a contribution waits for its round before it raises
+    round_timeout_s = 300.0
 
     def __init__(self, expected_fn: Callable[[], Set[str]],
                  confirm_fn: Optional[Callable[[], Set[str]]] = None,
@@ -239,9 +241,23 @@ class DataPlane:
                 self._cv.notify_all()
                 return self._round_resp_locked(slot, gen, tnow)
             while slot["gen"] == gen:
-                if not self._cv.wait(timeout=300):
-                    raise TimeoutError(f"allreduce {key} stuck")
+                if not self._cv.wait(timeout=self.round_timeout_s):
+                    raise TimeoutError(self._stuck_locked(key, slot, gen,
+                                                          host, seq))
             return self._round_resp_locked(slot, gen, tnow)
+
+    def _stuck_locked(self, key: str, slot: dict, gen: int, host: str,
+                      seq: int) -> str:
+        """A round that waited past its limit, for its error: the hosts it
+        waits on, each contribution's seq, each host's last served seq.
+        Caller holds the lock."""
+        expected = sorted(self.expected_fn())
+        have = {h: s for h, (s, _) in sorted(slot["vals"].items())}
+        served = {h: s for h, (s, _) in sorted(slot["served"].items())}
+        return (f"allreduce {key} stuck: {host} seq {seq} at generation "
+                f"{gen}; waiting on {sorted(set(expected) - set(have))} of "
+                f"{expected}; contributed seqs {have}; last served seqs "
+                f"{served}")
 
     def _round_resp_locked(self, slot: dict, gen: int, tnow) -> dict:
         """A completed round's response; when tracing, a transient

@@ -37,9 +37,11 @@ bound by bytes; their least time is the bytes they must move over the H100's
 - ``nms_keep`` (``csrc/nms.cu``) replaces the greedy scan of the JAX
   package's ``nms`` (``dt_tpu/ops/detection.py:141-169``), a
   ``lax.fori_loop`` with no Pallas kernel behind it: the keep mask of
-  score-sorted boxes, one scan an image.  Bound by operations (the pairs'
-  IoUs at 67 TFLOP/s f32) and, in practice, by its serial chain of kept
-  boxes.
+  score-sorted boxes, each image's prefix reordered by label
+  (:func:`nms_label_runs`) and each label's run scanned by one warp.  Bound
+  by operations (the pairs' IoUs at 67 TFLOP/s f32); in practice its mask
+  kernel's correctly rounded IoUs take most of a call, then the serial
+  chain of the longest run.
 
 ``flash_attn`` (``csrc/flash_attn.cu``, the flash-attention forward) is
 bound by operations; its wrapper lives in ``ops.attention`` and its
@@ -84,8 +86,9 @@ _SIGNATURES = {
     # and v; scale, causal, dtype; stream
     "flash_attn": {"dt_flash_attn_fwd": [_V] * 5 + [_I64] * 14
                    + [ctypes.c_float, _INT, _INT, _V]},
-    # boxes, labels, counts, mask scratch, keep; batch, N; threshold; stream
-    "nms": {"dt_nms": [_V] * 5 + [_I64] * 2 + [ctypes.c_float, _V]},
+    # boxes, labels, counts, perm, mask scratch, keep; batch, N; threshold;
+    # stream
+    "nms": {"dt_nms": [_V] * 6 + [_I64] * 2 + [ctypes.c_float, _V]},
 }
 
 
@@ -1025,6 +1028,8 @@ def lstm_layer_fused(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _NMS_BLOCK = 64  # boxes a mask word
+_NMS_WINDOW = 32  # mask words a row of the scratch (csrc/nms.cu's kWin)
+_INT32_MAX = 2 ** 31 - 1  # the reorder's key past an image's count
 
 
 def _nms_check(boxes, labels, counts) -> None:
@@ -1107,6 +1112,26 @@ def nms_keep_plain(boxes: torch.Tensor, labels, counts: torch.Tensor,
     return keep.to(boxes.device)
 
 
+def nms_label_runs(boxes: torch.Tensor, labels: torch.Tensor,
+                   counts: torch.Tensor):
+    """Each image's first ``count`` boxes reordered stably by label, the
+    scan kernel's labelled input: ``(perm, boxes, labels)``, ``perm`` int64
+    (B, N) the caller's position of each new one, ``boxes`` (B, N, 4) in
+    the new order and ``labels`` int32 (B, N), ascending along the prefix
+    (each label's boxes one run, in their score order) and ``INT32_MAX``
+    past it.  The prefix stays a prefix: its sort key is the label, every
+    later box's ``INT32_MAX``, and among equal keys the stable sort keeps
+    positions in order.  Plain PyTorch on either device, with no host
+    sync (a count outside [0, N] is held to it, as the kernel does)."""
+    b, n = labels.shape
+    pos = torch.arange(n, device=labels.device)
+    key = torch.where(pos[None, :] < counts[:, None].long(), labels,
+                      _INT32_MAX)
+    sorted_labels, perm = torch.sort(key, dim=1, stable=True)
+    sorted_boxes = torch.gather(boxes, 1, perm[..., None].expand(b, n, 4))
+    return perm, sorted_boxes.contiguous(), sorted_labels.contiguous()
+
+
 def nms_keep(boxes: torch.Tensor, labels, counts: torch.Tensor,
              iou_threshold: float) -> torch.Tensor:
     """The scan kernel's wrapper: ``boxes`` (B, N, 4), each image's boxes
@@ -1114,8 +1139,13 @@ def nms_keep(boxes: torch.Tensor, labels, counts: torch.Tensor,
     (every box suppresses every other); ``counts`` int32 (B,), the boxes an
     image scans, a prefix of its order -> ``keep`` bool (B, N).  A CUDA
     tensor (f32) launches ``csrc/nms.cu`` (its mask and scan kernels) once
-    a call and counts the call in ``nms_keep.launches``; a CPU tensor runs
-    :func:`nms_keep_plain`.  Nothing waits for the host on the card."""
+    a call and counts the call in ``nms_keep.launches``; with labels and a
+    threshold >= 0 the prefix is first reordered by label
+    (:func:`nms_label_runs`, PyTorch ops) so that each label is one run of
+    its own.  The mask scratch holds 32 words (2,048 boxes) a row past its
+    own word; a longer run's scan computes the IoUs past them itself.  A
+    CPU tensor runs :func:`nms_keep_plain`.  Nothing waits for the host on
+    the card."""
     _nms_check(boxes, labels, counts)
     if not _on_cuda("nms_keep", boxes):
         return nms_keep_plain(boxes, labels, counts, iou_threshold)
@@ -1123,13 +1153,17 @@ def nms_keep(boxes: torch.Tensor, labels, counts: torch.Tensor,
         raise TypeError(f"nms_keep: boxes on the card must be float32, got "
                         f"{boxes.dtype}")
     b, n = boxes.shape[:2]
-    words = -(-n // _NMS_BLOCK)
-    mask = torch.empty((b, n, words), dtype=torch.int64, device=boxes.device)
+    perm = None
+    if labels is not None and iou_threshold >= 0:
+        perm, boxes, labels = nms_label_runs(boxes, labels, counts)
+    win = min(-(-n // _NMS_BLOCK), _NMS_WINDOW)
+    mask = torch.empty((b, win, n), dtype=torch.int64, device=boxes.device)
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
     _launch("nms_keep", "nms", "dt_nms", boxes.device, boxes.data_ptr(),
             0 if labels is None else labels.data_ptr(), counts.data_ptr(),
-            mask.data_ptr(), keep.data_ptr(), b, n,
-            ctypes.c_float(iou_threshold), sig=(boxes,))
+            0 if perm is None else perm.data_ptr(), mask.data_ptr(),
+            keep.data_ptr(), b, n, ctypes.c_float(iou_threshold),
+            sig=(boxes,))
     nms_keep.launches += 1
     return keep
 

@@ -1548,9 +1548,10 @@ def test_detector_bn_kernels_at_every_convbn_shape(cuda, name, size, batch,
             (c, h, w)
 
 
-def _sorted_boxes(g, b, n, classes, dev):
+def _sorted_boxes(g, b, n, classes, dev, kind="clustered"):
     """``b`` images of ``n`` clustered boxes (many overlaps), sorted best
-    score first, with labels in that order."""
+    score first, with labels in that order: uniform over ``classes``, or
+    (``kind``) one label holding 90 % of the boxes, or -5 and 100,000."""
     centers = torch.rand(b, 12, 2, generator=g) * 0.8 + 0.1
     pick = torch.randint(0, 12, (b, n), generator=g)
     c = torch.gather(centers, 1, pick[..., None].expand(b, n, 2)) \
@@ -1562,21 +1563,44 @@ def _sorted_boxes(g, b, n, classes, dev):
     boxes = torch.gather(boxes, 1, order[..., None].expand(b, n, 4))
     labels = torch.randint(0, classes, (b, n), generator=g,
                            dtype=torch.int32)
+    if kind == "one_label_90":
+        labels = torch.where(torch.rand(b, n, generator=g) < 0.9,
+                             torch.full_like(labels, classes // 2), labels)
+    elif kind == "extreme_labels":
+        labels = torch.where(labels % 2 == 0, torch.full_like(labels, -5),
+                             torch.full_like(labels, 100000))
     return boxes.contiguous().to(dev), labels.to(dev)
 
 
-@pytest.mark.parametrize("n,classes,labelled", [
-    (7756, 20, True), (7756, 1, False), (256, 1, False), (65, 3, True),
-    (1, 2, True), (64, 4, True)])
-@pytest.mark.parametrize("thr", [0.45, 0.7])
-def test_nms_scan_kernel_matches_plain(cuda, n, classes, labelled, thr):
+# (B, N, classes, labelled, kind, threshold): SSD300's call and smaller
+# ones; one label holding 90 % of SSD300's anchors; a single run of more
+# than 2,048 boxes (its removed words in shared memory); labels -5 and
+# 100,000; a labelled threshold < 0 (two labels' boxes suppress each
+# other: one run, labels compared); FasterRCNNMini's unlabelled proposals
+_NMS_CASES = [(4, n, classes, labelled, "clustered", thr)
+              for n, classes, labelled in [
+                  (7756, 20, True), (7756, 1, False), (256, 1, False),
+                  (65, 3, True), (1, 2, True), (64, 4, True)]
+              for thr in (0.45, 0.7)] + [
+    (4, 7756, 20, True, "one_label_90", 0.45),
+    (4, 7756, 20, True, "one_label_90", 0.7),
+    (4, 3000, 1, True, "clustered", 0.45),
+    (4, 500, 2, True, "extreme_labels", 0.45),
+    (4, 7756, 20, True, "clustered", -0.1),
+    (4, 500, 2, True, "extreme_labels", -0.1),
+    (8, 256, 1, False, "clustered", 0.7)]
+
+
+@pytest.mark.parametrize("b,n,classes,labelled,kind,thr", _NMS_CASES)
+def test_nms_scan_kernel_matches_plain(cuda, b, n, classes, labelled, kind,
+                                       thr):
     """The scan kernel's keep mask equals its plain version's on the same
     sorted boxes, exactly (the same correctly rounded IoU), with counts
     that stop short, at 0 and at every box; one launch a call."""
     g = torch.Generator().manual_seed(n + classes)
-    boxes, labels = _sorted_boxes(g, 4, n, classes, cuda)
-    counts = torch.tensor([n, n // 2, 0, max(n - 1, 0)], dtype=torch.int32,
-                          device=cuda)
+    boxes, labels = _sorted_boxes(g, b, n, classes, cuda, kind)
+    counts = torch.tensor(([n, n // 2, 0, max(n - 1, 0)] * 2)[:b],
+                          dtype=torch.int32, device=cuda)
     lab = labels if labelled else None
     before = kernels.nms_keep.launches
     keep = kernels.nms_keep(boxes, lab, counts, thr)
@@ -1585,6 +1609,60 @@ def test_nms_scan_kernel_matches_plain(cuda, n, classes, labelled, thr):
                                   else lab.cpu(), counts.cpu(), thr)
     assert torch.equal(keep.cpu(), want)
     assert not keep[2].any() and keep[0].any()
+    if kind == "clustered" and labelled and n == 3000:  # one long run
+        assert int(want[0].sum()) > 1 and n > 2048
+
+
+def test_nms_scan_kernel_waits_for_no_host_sync(cuda):
+    """The whole card path (the label reorder and both kernels) at
+    SSD300's call runs under ``set_sync_debug_mode("error")``, which
+    raises on any op that waits for the card; the result is then held
+    against the plain version."""
+    g = torch.Generator().manual_seed(5)
+    boxes, labels = _sorted_boxes(g, 32, 7756, 20, cuda)
+    counts = torch.randint(0, 7757, (32,), generator=g,
+                           dtype=torch.int32).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keep = kernels.nms_keep(boxes, labels, counts, 0.45)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = kernels.nms_keep_plain(boxes.cpu(), labels.cpu(), counts.cpu(),
+                                  0.45)
+    assert torch.equal(keep.cpu(), want)
+
+
+def test_nms_scan_scratch_is_a_window(cuda):
+    """One unlabelled call at SSD300's (32, 7,756) (no reorder) allocates
+    its mask window of 32 words a row and ``keep``, no more: the
+    allocator's peak over the call, against what was allocated before it,
+    with 2 MiB of the allocator's rounding."""
+    g = torch.Generator().manual_seed(11)
+    boxes, _ = _sorted_boxes(g, 32, 7756, 1, cuda)
+    counts = torch.full((32,), 7756, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    keep = kernels.nms_keep(boxes, None, counts, 0.45)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    window = 32 * 32 * 7756 * 8
+    assert window <= peak <= window + keep.numel() + 2 ** 21, peak
+
+
+def test_nms_label_runs_on_card_matches_cpu(cuda):
+    """The label reorder on the card gives the CPU's permutation, boxes
+    and labels (a stable sort has one answer)."""
+    g = torch.Generator().manual_seed(9)
+    boxes, labels = _sorted_boxes(g, 4, 7756, 20, torch.device("cpu"),
+                                  "one_label_90")
+    counts = torch.tensor([7756, 3000, 0, 1], dtype=torch.int32)
+    want = kernels.nms_label_runs(boxes, labels, counts)
+    got = kernels.nms_label_runs(boxes.to(cuda), labels.to(cuda),
+                                 counts.to(cuda))
+    for w, x in zip(want, got):
+        assert torch.equal(x.cpu(), w)
 
 
 def test_nms_scan_kernel_refuses_float64_on_the_card(cuda):

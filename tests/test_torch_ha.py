@@ -307,3 +307,37 @@ def test_failover_request_runs_to_its_wall_budget(monkeypatch, standby_up):
     # more attempts than the 16 that a count of 8 retries over two
     # endpoints allowed, which a long enough lease outlasted
     assert sum(cmd == "allreduce" for _, cmd in attempts) > 16
+
+
+def test_stuck_round_error_names_its_waiters():
+    """A contribution whose round does not complete in the plane's limit
+    raises with the round's state: the hosts it waits on, each
+    contribution's seq and each host's last served seq (what a stranded
+    failed-over worker's error shows in a log)."""
+    import numpy as np
+
+    from dt_tpu_torch.elastic.dataplane import DataPlane
+    dp = DataPlane(expected_fn=lambda: ["w0", "w1", "w2"])
+    dp.round_timeout_s = 0.2
+    done = [threading.Thread(target=dp.allreduce,
+                             args=(h, "grads#b0", np.ones(3), 0))
+            for h in ("w0", "w1", "w2")]
+    for t in done:
+        t.start()
+    for t in done:
+        t.join(timeout=10)
+    ahead = threading.Thread(  # w2 one round ahead (its wait times out)
+        target=lambda: pytest.raises(TimeoutError, dp.allreduce, "w2",
+                                     "grads#b0", np.ones(3), 1))
+    ahead.start()
+    deadline = time.time() + 10
+    while not dp.pending_rounds() and time.time() < deadline:
+        time.sleep(0.01)
+    with pytest.raises(TimeoutError) as e:
+        dp.allreduce("w0", "grads#b0", np.ones(3), 2)
+    msg = str(e.value)
+    assert msg.startswith("allreduce grads#b0 stuck: w0 seq 2")
+    assert "waiting on ['w1'] of ['w0', 'w1', 'w2']" in msg
+    assert "contributed seqs {'w0': 2, 'w2': 1}" in msg
+    assert "last served seqs {'w0': 0, 'w1': 0, 'w2': 0}" in msg
+    ahead.join(timeout=10)

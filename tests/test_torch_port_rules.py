@@ -123,7 +123,8 @@ def test_port_sources_name_no_jax_and_no_dt_tpu_module():
         ROOT / "tests" / "torch_mesh_worker.py",
         ROOT / "tests" / "torch_mesh_job.py",
         ROOT / "tests" / "torch_fit_variance.py",
-        ROOT / "tests" / "torch_parallel_worker.py"]
+        ROOT / "tests" / "torch_parallel_worker.py",
+        ROOT / "tests" / "torch_chip_phases.py"]
     assert len(files) > 10
     hits = []
     for f in files:

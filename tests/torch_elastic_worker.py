@@ -487,6 +487,9 @@ def main():
                 torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         result["bare_step_ms"] = times
+    # the wall clock (the spans' clock) as the result is written: an
+    # evicted worker's exit against the survivors' steps
+    result["end_ms"] = time.time() * 1e3
     with open(args.out, "w") as f:
         json.dump(result, f)
     ctrl.close()
