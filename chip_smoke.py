@@ -56,7 +56,14 @@ JAX.  Phases, each fatal on failure:
    and 650, forward and reverse, against its plain step loop (1e-5, bits
    repeated), timed alone and with its input product beside the per-step
    path, the plain loop, cuDNN's one-layer ``torch._VF.lstm`` (never
-   called by the port), its bound and its serial floor;
+   called by the port), its bound and its serial floor; the bf16 layer
+   kernel (tensor cores) at the same window, H 200 and 650, both
+   directions, against its plain loop (2^-6 of each output's largest,
+   bits repeated), timed beside its bound, the plain loop, the stepped bf16
+   cell and cuDNN's bf16 ``_VF.lstm``; the BPTT kernel in f32 and bf16 at
+   the same shapes against its plain loop (1e-5 / 2^-6), timed beside its
+   bound, the plain loop, the stepped path's backward and cuDNN's (forward
+   + backward less forward, CUDA events);
 7. train the TransformerLM of ``bench.py:579-598`` at full width (vocab
    8192, 512 wide, 6 layers, 8 heads, S 2048, batch 8, bfloat16 compute,
    ``seq_parallel="flash"``, SGD lr 0.1 momentum 0.9) for ten steps on one
@@ -67,14 +74,16 @@ JAX.  Phases, each fatal on failure:
 8. train the LSTM LM of ``examples/train_lstm_ptb.py`` with its defaults
    (vocab 10000, 200/200, 2 layers, bptt 35, batch 32, SGD lr 1.0, clip
    0.25, dropout 0.2 from a seeded generator) for ten windows with the
-   state carried (loss falling; 2 ``lstm_layer`` launches a forward and
-   no ``lstm_pointwise``), window time, tokens/s, a profile; then one
-   float32 window at dropout 0 against the port on the CPU (2
-   ``lstm_layer`` launches; the TransformerLM's f32 step: 2 f32 flash
-   launches);
-9. the PTB LSTM LM's forward in bfloat16 over one window, the path that
-   steps the fused cell (70 ``lstm_pointwise`` launches), its logits
-   against float32;
+   state carried (loss falling; 2 ``lstm_layer`` launches a forward, 2
+   ``lstm_layer_bwd`` a backward and no ``lstm_pointwise``), window time,
+   tokens/s, a profile; then one float32 window at dropout 0 against the
+   port on the CPU (2 ``lstm_layer`` and 2 ``lstm_layer_bwd`` launches;
+   the TransformerLM's f32 step: 2 f32 flash launches);
+9. the PTB LSTM LM's forward in bfloat16 over one window, through the
+   bf16 layer kernel (2 ``lstm_layer`` launches, no ``lstm_pointwise``),
+   its logits against float32; then an f32 layer too wide for the layer
+   kernels (B 1, H 6656, T 3), which steps the fused cell (3
+   ``lstm_pointwise`` launches), against the plain cell;
 10. ``Module.fit`` (run after the train phase, before the LM phases):
    ResNet-50 v1 in bfloat16 at full width from the port's own
    ``init_params(seed=0)``, SGD lr 0.0125 (0.1 scaled to batch 32),
@@ -271,8 +280,8 @@ JAX.  Phases, each fatal on failure:
    differ, eval repeats equal, and with one generator's keeps the kernel-BN
    logits within ``TOL_SD_PLAIN`` of the plain-BN run on the card; (c)
    ``bidirectional_lstm`` at the PTB example's width (emsize 200, nhid
-   200, 2 layers, bptt 35, batch 32) forward and backward in f32 (4
-   ``lstm_layer`` launches) and bf16 (140 ``lstm_pointwise``) against
+   200, 2 layers, bptt 35, batch 32) forward and backward in f32 and bf16
+   (each 4 ``lstm_layer`` and 4 ``lstm_layer_bwd`` launches) against
    ``fused=False`` on the card within ``TOL_BILSTM``, ms beside cuDNN's
    bidirectional ``torch.nn.LSTM`` (never called by the port); ``gru`` at
    that width, f32 card against the CPU; ``train_ner.py``'s BiLSTM tagger
@@ -296,7 +305,7 @@ JAX.  Phases, each fatal on failure:
    builds it (sgd, momentum 0.9, wd 1e-4, ``multi_precision``) of
    ``ZOO_STEPS`` steps of 32 synthetic images: losses finite, one
    ``bn_stats`` and one ``bn_act`` a BN a step (none for the models without
-   BN), the median synced step of the last 3, images/s, peak HBM and the
+   BN), the median synced step of the last 2, images/s, peak HBM and the
    idle share of one profiled step; (c) the ``Predictor`` in bf16, built by
    name from a checkpoint of the fit, at buckets 1 and 32: one ``bn_act`` a
    BN a request, bucket 32 against ``Module.predict``, ms a request and
@@ -377,7 +386,8 @@ H100_BYTES_PER_S = 3.35e12  # HBM3 rate of the H100 SXM data sheet
 L2_BYTES = 2 * 50 * 2 ** 20  # twice the H100's 50 MB L2
 BN_PER_FORWARD = 53  # ResNet-50 v1: stem + 16 bottlenecks x 3 + 4 shortcuts
 # the LM kernels' counters, which every ResNet-50 job leaves at 0
-LM_KERNELS = ("flash_attention", "lstm_pointwise", "lstm_layer")
+LM_KERNELS = ("flash_attention", "lstm_pointwise", "lstm_layer",
+              "lstm_layer_bwd")
 BUCKET_MAX = 64
 REQUESTS = (1, 3, 32, 130)  # 130 splits into 64 + 64 + 2
 TOL_F32 = 1e-3  # card f32 (no TF32) against the CPU: summation order
@@ -867,7 +877,9 @@ def counted():
             "dequantize_2bit": kernels.dequantize_2bit,
             "flash_attention": attention.flash_fwd,
             "lstm_pointwise": kernels.lstm_point,
-            "lstm_layer": kernels.lstm_layer, "nms_keep": kernels.nms_keep}
+            "lstm_layer": kernels.lstm_layer,
+            "lstm_layer_bwd": kernels.lstm_layer_bwd,
+            "nms_keep": kernels.nms_keep}
 
 
 def reset_counts() -> None:
@@ -1424,25 +1436,16 @@ def lstm_layer_phase(dev):
     a yardstick the port never calls); and its serial floor, the same
     kernel at B 1, H 16.  Returns one summary per H."""
     import torch
-    from dt_tpu_torch.ops import kernels, rnn
+    from dt_tpu_torch.ops import kernels
     t, b = PTB_BPTT, PTB_BATCH
     out = {}
     for hidden in (200, 650):
         g = torch.Generator(device=dev).manual_seed(hidden + 1)
-        lim = hidden ** -0.5
-
-        def draw():
-            x = torch.randn(t, b, hidden, generator=g, device=dev)
-            h0, c0 = (torch.randn(b, hidden, generator=g, device=dev) * 0.3
-                      for _ in range(2))
-            wx, wh = ((torch.rand(hidden, 4 * hidden, generator=g,
-                                  device=dev) * 2 - 1) * lim
-                      for _ in range(2))
-            bias = torch.randn(4 * hidden, generator=g, device=dev) * 0.02
-            xw = (x.reshape(t * b, hidden) @ wx + bias).reshape(t, b, -1)
-            return x, h0, c0, rnn.LSTMWeights(wx, wh, bias), xw
-
-        sets = [draw(), draw()]
+        sets = []
+        for _ in range(2):
+            x, h0, c0, w = _draw_layer(g, dev, t, b, hidden, torch.float32)
+            xw = (x.reshape(t * b, hidden) @ w.wx + w.b).reshape(t, b, -1)
+            sets.append((x, h0, c0, w, xw))
         x, h0, c0, w, xw = sets[0]
         err, same = 0.0, True
         for reverse in (False, True):
@@ -1463,17 +1466,8 @@ def lstm_layer_phase(dev):
                                  "plain version failed")
         # cuDNN's layer on the same x and weights (the same function), its
         # weights in one flat buffer as torch.nn.LSTM keeps them
-        flat = []
-        for a in sets:
-            mod = torch.nn.LSTM(hidden, hidden, 1).to(dev)
-            with torch.no_grad():
-                for name, val in (("weight_ih_l0", a[3].wx.t()),
-                                  ("weight_hh_l0", a[3].wh.t()),
-                                  ("bias_ih_l0", a[3].b),
-                                  ("bias_hh_l0", torch.zeros_like(a[3].b))):
-                    getattr(mod, name).copy_(val)
-            mod.flatten_parameters()
-            flat.append(mod._flat_weights)
+        flat = [_cudnn_layer(a, dev, torch.float32)._flat_weights
+                for a in sets]
 
         def cudnn(a):
             return torch._VF.lstm(a[0], (a[1][None], a[2][None]), a[5],
@@ -1519,6 +1513,277 @@ def lstm_layer_phase(dev):
               f"layer_over_library={layer_ms / lib_ms:.3f} "
               f"library_max_abs_diff={lib_err:.3e}", flush=True)
         del sets, x, h0, c0, w, xw
+    return out
+
+
+#: the bf16 layer kernels against their plain loops, of each output's
+#: largest magnitude: the product's f32 sums run in another order than
+#: cuBLAS's, so a bf16 rounding can fall one ulp apart and the steps carry
+#: it (the CPU tests' bf16 bound against JAX)
+TOL_LAYER_BF16 = 2.0 ** -6
+
+
+def layer_bf16_bound_ms(t: int, b: int, hidden: int) -> float:
+    """Least time of one bf16 layer window from xw: 2 T B H 4H operations
+    at the bf16 tensor-core peak against xw in (bf16), the f32 gates out,
+    h and c out, Wh, b, h0 and c0 once (bf16); and which bounds it."""
+    ops = 2.0 * t * b * hidden * 4 * hidden
+    nbytes = 2.0 * t * b * 4 * hidden + 4.0 * t * b * 4 * hidden \
+        + 2.0 * (2 * t * b * hidden + 4 * hidden * hidden + 4 * hidden
+                 + 2 * b * hidden)
+    by_bytes, by_ops = nbytes / H100_BYTES_PER_S, ops / (BF16_TFLOPS * 1e12)
+    return max(by_bytes, by_ops) * 1e3, \
+        "bytes" if by_bytes >= by_ops else "operations"
+
+
+def layer_bwd_bound_ms(t: int, b: int, hidden: int, itemsize: int):
+    """Least time of one BPTT window: 2 T B 4H H operations (dh = dG Wh^T)
+    at the peak for the inputs' type (f32 67, bf16 989 TFLOP/s) against
+    the f32 gates, c, dhs, dcs, c0 and Wh in and dG, dh0, dc0 out once;
+    and which bounds it."""
+    ops = 2.0 * t * b * 4 * hidden * hidden
+    peak = FP32_TFLOPS if itemsize == 4 else BF16_TFLOPS
+    nbytes = 4.0 * t * b * 4 * hidden + itemsize * (
+        3 * t * b * hidden + b * hidden + 4 * hidden * hidden
+        + t * b * 4 * hidden + 2 * b * hidden)
+    by_bytes, by_ops = nbytes / H100_BYTES_PER_S, ops / (peak * 1e12)
+    return max(by_bytes, by_ops) * 1e3, \
+        "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _rel_of_max(a, w) -> float:
+    """max |a - w| over max |w| (0 for an all-zero w equal to a)."""
+    w = w.detach().float()
+    err = float((a.detach().float() - w).abs().max())
+    return err / max(float(w.abs().max()), 1e-30)
+
+
+def _draw_layer(g, dev, t, b, hidden, dtype):
+    """Seeded x (T, B, H), h0, c0 and PTB-scaled weights in ``dtype``."""
+    import torch
+    from dt_tpu_torch.ops import rnn
+    lim = hidden ** -0.5
+    x = torch.randn(t, b, hidden, generator=g, device=dev).to(dtype)
+    h0, c0 = ((torch.randn(b, hidden, generator=g, device=dev) * 0.3)
+              .to(dtype) for _ in range(2))
+    wx, wh = (((torch.rand(hidden, 4 * hidden, generator=g, device=dev) * 2
+                - 1) * lim).to(dtype) for _ in range(2))
+    bias = (torch.randn(4 * hidden, generator=g, device=dev) * 0.02) \
+        .to(dtype)
+    return x, h0, c0, rnn.LSTMWeights(wx, wh, bias)
+
+
+def _cudnn_layer(a, dev, dtype):
+    """cuDNN's one-layer LSTM with the weights of ``a`` (x, h0, c0, w):
+    its module (a yardstick the port never calls)."""
+    import torch
+    hidden = a[1].shape[-1]
+    mod = torch.nn.LSTM(a[0].shape[-1], hidden, 1).to(dev, dtype)
+    with torch.no_grad():
+        for name, val in (("weight_ih_l0", a[3].wx.t()),
+                          ("weight_hh_l0", a[3].wh.t()),
+                          ("bias_ih_l0", a[3].b),
+                          ("bias_hh_l0", torch.zeros_like(a[3].b))):
+            getattr(mod, name).copy_(val)
+    mod.flatten_parameters()
+    return mod
+
+
+def lstm_layer_bf16_phase(dev):
+    """Hold the bf16 layer kernel against its plain step loop at the PTB
+    window (T 35, B 32) with H 200 and 650, forward and reverse, within
+    ``TOL_LAYER_BF16`` of each output's largest magnitude and two launches
+    bit-identical; time it alone, with its input product, beside its
+    bound, the plain loop, the stepped path (the bf16 fused cell a step,
+    the pointwise kernel and all) and cuDNN's one-layer LSTM in bf16
+    (``torch._VF.lstm``, a yardstick the port never calls).  Returns one
+    summary per H."""
+    import torch
+    from dt_tpu_torch.ops import kernels
+    t, b, bf = PTB_BPTT, PTB_BATCH, torch.bfloat16
+    out = {}
+    for hidden in (200, 650):
+        g = torch.Generator(device=dev).manual_seed(hidden + 2)
+        sets = []
+        for _ in range(2):
+            x, h0, c0, w = _draw_layer(g, dev, t, b, hidden, bf)
+            xw = (x.reshape(t * b, hidden) @ w.wx).reshape(t, b, -1)
+            sets.append((x, h0, c0, w, xw))
+        x, h0, c0, w, xw = sets[0]
+        err, abs_err, same = 0.0, 0.0, True
+        for reverse in (False, True):
+            got = kernels.lstm_layer(xw, h0, c0, w.wh, reverse, b=w.b)
+            again = kernels.lstm_layer(xw, h0, c0, w.wh, reverse, b=w.b)
+            want = kernels.lstm_layer_plain(xw, h0, c0, w.wh, reverse,
+                                            b=w.b)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, a2)
+                                for a, a2 in zip(got, again))
+            err = max([err] + [_rel_of_max(a, p) for a, p in zip(got, want)])
+            abs_err = max([abs_err] + [float((a.float() - p.float()).abs()
+                                             .max())
+                                       for a, p in zip(got, want)])
+        print(f"kernel lstm_layer[bfloat16] T={t} B={b} H={hidden} geometry="
+              f"{tuple(kernels.layer_geometry(b, hidden, bf))} "
+              f"max_abs_err={abs_err:.3e} max_rel_err={err:.3e} (tol "
+              f"{TOL_LAYER_BF16:.3e} of the largest) bitwise_repeat={same}",
+              flush=True)
+        if not same or not err <= TOL_LAYER_BF16:
+            raise AssertionError(f"lstm_layer[bfloat16] H={hidden}: kernel "
+                                 "against plain version failed")
+        mods = [_cudnn_layer(a, dev, bf) for a in sets]
+        sets = [(*a, m._flat_weights) for a, m in zip(sets, mods)]
+
+        def cudnn(a):
+            return torch._VF.lstm(a[0], (a[1][None], a[2][None]), a[5],
+                                  True, 1, 0.0, False, False, False)
+
+        def per_step(a):  # the path before this kernel: a cell a step
+            hh, cc = a[1], a[2]
+            for s_ in range(t):
+                hh, cc = kernels.lstm_cell_fused(a[0][s_], hh, cc, a[3])
+            return hh
+
+        with torch.no_grad():
+            k_ms = cuda_ms(lambda a: kernels.lstm_layer(
+                a[4], a[1], a[2], a[3].wh, b=a[3].b), sets)
+            layer_ms = cuda_ms(lambda a: kernels.lstm_layer_fused(
+                a[0], a[1], a[2], a[3]), sets)
+            step_ms = cuda_ms(per_step, sets, iters=5)
+            p_ms = cuda_ms(lambda a: kernels.lstm_layer_plain(
+                a[4], a[1], a[2], a[3].wh, b=a[3].b), sets, iters=5)
+            try:  # a yardstick only
+                lib_ms = cuda_ms(cudnn, sets)
+            except RuntimeError as e:
+                print(f"kernel lstm_layer[bfloat16] H={hidden}: cuDNN's "
+                      f"bf16 LSTM not measured ({e})", flush=True)
+                lib_ms = None
+        bound, bound_by = layer_bf16_bound_ms(t, b, hidden)
+        out[hidden] = {"ms": k_ms, "layer_ms": layer_ms,
+                       "per_step_ms": step_ms, "plain_ms": p_ms,
+                       "library_ms": lib_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "max_abs_err": abs_err,
+                       "max_rel_err": err, "shape": [t, b, hidden]}
+        print(f"kernel lstm_layer[bfloat16] T={t} B={b} H={hidden} "
+              f"kernel_ms={k_ms:.5f} layer_ms={layer_ms:.5f} "
+              f"per_step_ms={step_ms:.5f} plain_ms={p_ms:.5f} "
+              f"library_ms={lib_ms} bound_ms={bound:.5f} ({bound_by})",
+              flush=True)
+        del sets, mods
+    return out
+
+
+def _backward_ms(fwd, leaves, cot) -> float:
+    """ms of a backward alone: forward + backward less forward (medians by
+    CUDA events, grad mode on for both)."""
+    import torch
+
+    def both():
+        y = fwd()
+        torch.autograd.grad((y.float() * cot).sum(), leaves)
+
+    return _events_ms(both) - _events_ms(fwd)
+
+
+def lstm_layer_bwd_phase(dev):
+    """Hold the BPTT kernel against its plain loop in f32 and bf16 at the
+    PTB window (T 35, B 32) with H 200 and 650, forward and reverse, on the
+    forward kernel's own gates and cs with seeded outside gradients: within
+    1e-5 (f32) or ``TOL_LAYER_BF16`` (bf16) of each output's largest
+    magnitude, two launches bit-identical; time it beside its bound, its
+    plain loop (the port's backward before this kernel), the stepped path's
+    backward (autograd through the fused cell a step) and cuDNN's (both:
+    forward + backward less forward, CUDA events; cuDNN a yardstick the
+    port never calls).  Returns one summary per (dtype name, H)."""
+    import torch
+    from dt_tpu_torch.ops import kernels
+    t, b = PTB_BPTT, PTB_BATCH
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = 1e-5 if dtype == torch.float32 else TOL_LAYER_BF16
+        for hidden in (200, 650):
+            g = torch.Generator(device=dev).manual_seed(hidden + 3)
+            draws = [_draw_layer(g, dev, t, b, hidden, dtype)
+                     for _ in range(2)]
+            err, abs_err, same = 0.0, 0.0, True
+            sets = []
+            for reverse in (False, True):
+                for x, h0, c0, w in draws:
+                    xw = (x.reshape(t * b, hidden) @ w.wx).reshape(t, b, -1)
+                    if dtype == torch.float32:
+                        _, cs, gates = kernels.lstm_layer(xw + w.b, h0, c0,
+                                                          w.wh, reverse)
+                    else:
+                        _, cs, gates = kernels.lstm_layer(xw, h0, c0, w.wh,
+                                                          reverse, b=w.b)
+                    dhs, dcs = (torch.randn(t, b, hidden, generator=g,
+                                            device=dev).to(dtype)
+                                for _ in range(2))
+                    args = (gates, cs, c0, w.wh, dhs, dcs, reverse)
+                    if not reverse:
+                        sets.append(args)
+                got = kernels.lstm_layer_bwd(*args)
+                again = kernels.lstm_layer_bwd(*args)
+                want = kernels.lstm_layer_bwd_plain(*args)
+                torch.cuda.synchronize()
+                same = same and all(torch.equal(a, a2)
+                                    for a, a2 in zip(got, again))
+                err = max([err] + [_rel_of_max(a, p)
+                                   for a, p in zip(got, want)])
+                abs_err = max([abs_err] + [
+                    float((a.float() - p.float()).abs().max())
+                    for a, p in zip(got, want)])
+            print(f"kernel lstm_layer_bwd[{name}] T={t} B={b} H={hidden} "
+                  f"geometry="
+                  f"{tuple(kernels.layer_bwd_geometry(b, hidden, dtype))} "
+                  f"max_abs_err={abs_err:.3e} max_rel_err={err:.3e} (tol "
+                  f"{tol:.3e} of the largest) bitwise_repeat={same}",
+                  flush=True)
+            if not same or not err <= tol:
+                raise AssertionError(f"lstm_layer_bwd[{name}] H={hidden}: "
+                                     "kernel against plain version failed")
+            k_ms = cuda_ms(lambda a: kernels.lstm_layer_bwd(*a), sets)
+            p_ms = cuda_ms(lambda a: kernels.lstm_layer_bwd_plain(*a), sets,
+                           iters=5)
+            x, h0, c0, w = draws[0]
+            cot = torch.randn(t, b, hidden, generator=g, device=dev)
+            leaves = [a.clone().requires_grad_() for a in (x, h0, c0, *w)]
+
+            def stepped():
+                hh, cc, ys = leaves[1], leaves[2], []
+                lw = type(w)(*leaves[3:])
+                for s_ in range(t):
+                    hh, cc = kernels.lstm_cell_fused(leaves[0][s_], hh, cc,
+                                                     lw)
+                    ys.append(hh)
+                return torch.stack(ys)
+
+            step_ms = _backward_ms(stepped, leaves, cot)
+            mod = _cudnn_layer(draws[0], dev, dtype)
+            xl = x.clone().requires_grad_()
+            try:  # a yardstick only
+                lib_ms = _backward_ms(
+                    lambda: mod(xl, (h0[None], c0[None]))[0],
+                    [xl, *mod.parameters()], cot)
+            except RuntimeError as e:
+                print(f"kernel lstm_layer_bwd[{name}] H={hidden}: cuDNN's "
+                      f"LSTM backward not measured ({e})", flush=True)
+                lib_ms = None
+            bound, bound_by = layer_bwd_bound_ms(t, b, hidden,
+                                                 torch.tensor(
+                                                     [], dtype=dtype)
+                                                 .element_size())
+            out[name, hidden] = {
+                "ms": k_ms, "plain_ms": p_ms, "stepped_backward_ms": step_ms,
+                "library_ms": lib_ms, "bound_ms": bound,
+                "bound_by": bound_by, "max_abs_err": abs_err,
+                "max_rel_err": err, "shape": [t, b, hidden]}
+            print(f"kernel lstm_layer_bwd[{name}] T={t} B={b} H={hidden} "
+                  f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} "
+                  f"stepped_backward_ms={step_ms:.5f} library_ms={lib_ms} "
+                  f"bound_ms={bound:.5f} ({bound_by})", flush=True)
+            del draws, sets, leaves, mod, xl
     return out
 
 
@@ -1694,6 +1959,7 @@ def lstm_train_phase(dev, gpu):
     counts = read_counts()  # ... and ends here
     want = {k: 0 for k in counts}
     want["lstm_layer"] = PTB["num_layers"] * TRAIN_STEPS
+    want["lstm_layer_bwd"] = PTB["num_layers"] * TRAIN_STEPS
     _check_counts("lstm_train f32", counts, want)
     _falling("lstm_train f32", losses)
     res = {"launches": counts, "losses": losses, **_timed_steps(step)}
@@ -1709,11 +1975,10 @@ def lstm_train_phase(dev, gpu):
 
 
 def lstm_bf16_forward(dev):
-    """The PTB LSTM LM's forward in bf16 over one window (the path that
-    steps the fused cell: a bf16 layer runs ``lstm_cell_fused`` a step, and
-    so the pointwise kernel; counts reset just before and read just after),
-    its logits against the same model in f32 within ``TOL_LSTM_BF16`` of
-    the largest |logit|."""
+    """The PTB LSTM LM's forward in bf16 over one window (a bf16 layer is
+    one launch of the bf16 layer kernel, no pointwise launch; counts reset
+    just before and read just after), its logits against the same model in
+    f32 within ``TOL_LSTM_BF16`` of the largest |logit|."""
     import torch
     from dt_tpu_torch import models
     from dt_tpu_torch.interchange import load_jax_variables
@@ -1736,7 +2001,7 @@ def lstm_bf16_forward(dev):
             counts = read_counts()  # ... and ends here
         if dtype == torch.bfloat16:
             want = {k: 0 for k in counts}
-            want["lstm_pointwise"] = PTB_BPTT * PTB["num_layers"]
+            want["lstm_layer"] = PTB["num_layers"]
             _check_counts("lstm_forward bf16", counts, want)
     f32, bf = logits[torch.float32], logits[torch.bfloat16]
     scale = float(f32.abs().max())
@@ -1746,6 +2011,50 @@ def lstm_bf16_forward(dev):
           f"finite={bool(torch.isfinite(bf).all())}", flush=True)
     if not (torch.isfinite(bf).all() and err <= TOL_LSTM_BF16 * scale):
         raise AssertionError("bf16 LSTM LM forward disagrees with f32")
+    return {"launches": counts, "max_abs_err": err}
+
+
+#: the wide-layer route: an f32 layer too wide for the layer kernels
+#: (``layer_fits`` False past H 6404) steps the fused cell a step
+WIDE_LSTM = dict(t=3, batch=1, inputs=64, hidden=6656)
+
+
+def lstm_wide_forward(dev):
+    """``ops.rnn.lstm`` on a layer too wide for the layer kernels (f32, B 1,
+    H 6656): it steps ``lstm_cell_fused``, one pointwise launch a step and
+    no layer launch (counts reset just before and read just after); its
+    outputs against the plain cell (``fused=False``) within 1e-5."""
+    import torch
+    from dt_tpu_torch.ops import kernels, rnn
+    t, b, i, h = (WIDE_LSTM[k] for k in ("t", "batch", "inputs", "hidden"))
+    if kernels.layer_fits(b, h):
+        raise AssertionError(f"H {h} fits the layer kernels")
+    g = torch.Generator(device=dev).manual_seed(6)
+    lim = h ** -0.5
+    x = torch.randn(t, b, i, generator=g, device=dev)
+    h0, c0 = (torch.randn(1, b, h, generator=g, device=dev) * 0.3
+              for _ in range(2))
+    w = [rnn.LSTMWeights(*(((torch.rand(n, 4 * h, generator=g, device=dev)
+                             * 2 - 1) * lim) for n in (i, h)),
+                         torch.randn(4 * h, generator=g, device=dev) * 0.02)]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()  # the path's run starts here
+        got = rnn.lstm(x, h0, c0, w)
+        torch.cuda.synchronize()
+        counts = read_counts()  # ... and ends here
+        want = rnn.lstm(x, h0, c0, w, fused=False)
+    expect = {k: 0 for k in counts}
+    expect["lstm_pointwise"] = t
+    _check_counts(f"lstm_wide f32 T{t} B{b} H{h}", counts, expect)
+    err = max(float((a - e).abs().max()) for a, e in zip(got, want))
+    print(f"lstm_wide f32 T{t} B{b} H{h} vs the plain cell max_abs_err="
+          f"{err:.3e} (tol 1e-5)", flush=True)
+    if not err <= 1e-5:
+        raise AssertionError("the wide LSTM layer disagrees with the plain "
+                             "cell")
+    del w, x
+    torch.cuda.empty_cache()
     return {"launches": counts, "max_abs_err": err}
 
 
@@ -1773,8 +2082,9 @@ def lm_steps_card_vs_cpu() -> dict:
         "lstm_lm": (dict(PTB, dropout=0.0), dict(learning_rate=PTB_LR),
                     None, PTB_CLIP, stream[:PTB_BPTT],
                     stream[1:1 + PTB_BPTT])}
-    expected = {"transformer_lm": ("flash_attention", lm["num_layers"]),
-                "lstm_lm": ("lstm_layer", PTB["num_layers"])}
+    expected = {"transformer_lm": {"flash_attention": lm["num_layers"]},
+                "lstm_lm": {"lstm_layer": PTB["num_layers"],
+                            "lstm_layer_bwd": PTB["num_layers"]}}
     launched = {}
     for name, (kw, sgd, loss_fn, clip, x, y) in cases.items():
         variables = seeded_lm_variables(
@@ -1793,7 +2103,7 @@ def lm_steps_card_vs_cpu() -> dict:
             if where == "cuda":
                 launched[name] = read_counts()  # ... and ends here
                 want = {k: 0 for k in launched[name]}
-                want[expected[name][0]] = expected[name][1]
+                want.update(expected[name])
                 _check_counts(f"lm step f32 {name}", launched[name], want)
             if clip is not None:
                 flat_g = clip_global_norm({"g": flat_g}, clip)[0]["g"]
@@ -5832,10 +6142,8 @@ def _data_bilstm(dev, gpu) -> dict:
         torch.cuda.synchronize()
         counts = read_counts()  # ... and ends here
         want_counts = {k: 0 for k in counts}
-        if dtype == torch.float32:
-            want_counts["lstm_layer"] = 2 * layers
-        else:
-            want_counts["lstm_pointwise"] = 2 * layers * t
+        want_counts["lstm_layer"] = 2 * layers  # both dtypes
+        want_counts["lstm_layer_bwd"] = 2 * layers
         tag = f"data (c) bidirectional_lstm {name} T{t} B{b} E{e} H{h} L" \
               f"{layers} forward+backward"
         _check_counts(tag, counts, want_counts)
@@ -6000,6 +6308,7 @@ def _data_ner(dev, gpu) -> dict:
     counts = read_counts()  # ... and ends here
     want = {k: 0 for k in counts}
     want["lstm_layer"] = 2 * NER["steps"]
+    want["lstm_layer_bwd"] = 2 * NER["steps"]
     tag = "data (c) train_ner BiLSTM E32 H32 adam"
     _check_counts(tag, counts, want)
     _falling(tag, losses)
@@ -6131,10 +6440,10 @@ def data_phase(gpu, dev, fitted) -> dict:
 
 # --- phase 24: the classification zoo ---------------------------------------
 # one model a family at full width, 1000 classes: test_torch_shapes.ZOO
-ZOO_STEPS = 4  # bf16 fit steps a model: the last 3 are timed
+ZOO_STEPS = 3  # bf16 fit steps a model: the last 2 are timed
 ZOO_EVAL_BATCH = 2
 ZOO_BUCKETS = (1, 32)
-ZOO_REPS = 5  # requests timed a bucket
+ZOO_REPS = 2  # requests timed a bucket
 # (a) kernel BN against plain BN.  The f32 eval forward of the whole model
 # runs the same arithmetic either way (bn_act and its plain version are
 # bit-equal): logits within TOL_ZOO["logits"] of the largest.  At the main
@@ -7168,6 +7477,8 @@ def main() -> int:
     flash = flash_phase(dev)
     lstm = lstm_phase(dev)
     layer = lstm_layer_phase(dev)
+    layer_bf16 = lstm_layer_bf16_phase(dev)
+    layer_bwd = lstm_layer_bwd_phase(dev)
     print(f"phase LM kernels done at {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -7176,6 +7487,7 @@ def main() -> int:
     lstm_trained = lstm_train_phase(dev, gpu)
     lm_steps = lm_steps_card_vs_cpu()
     lstm_bf16 = lstm_bf16_forward(dev)
+    lstm_wide = lstm_wide_forward(dev)
     print(f"phase LM train done at {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -7377,11 +7689,15 @@ def main() -> int:
         "name": "lstm_pointwise", "route": "cuda",
         "source": "dt_tpu_torch/csrc/lstm_point.cu",
         "replaces": "dt_tpu/ops/pallas/kernels.py:319",
-        "launches": lstm_bf16["launches"]["lstm_pointwise"],
+        # a bf16 layer runs the layer kernels: the pointwise kernel runs
+        # where a layer is too wide for them
+        "launches": lstm_wide["launches"]["lstm_pointwise"],
         "max_abs_err": lp["max_abs_err"], "ms": lp["ms"],
         "plain_ms": lp["plain_ms"], "bound_ms": lp["bound_ms"],
         "bound_by": "bytes", "library_ms": lp["library_ms"],
-        "path": "lstm_forward bf16",
+        "path": "lstm_wide f32 (B 1, H 6656)",
+        "lstm_forward_bf16_launches": lstm_bf16["launches"][
+            "lstm_pointwise"],
         "main_path_launches": lstm_trained["launches"]["lstm_pointwise"],
         "shape": [PTB_BATCH, 200], "h650": lstm[650],
         "ha_launches": failover["launches"]["lstm_pointwise"],
@@ -7410,6 +7726,52 @@ def main() -> int:
             "bilstm_f32": data_run["bilstm"]["float32"]["counts"][
                 "lstm_layer"],
             "ner": data_run["ner"]["counts"]["lstm_layer"]}})
+    la = layer_bf16[200]
+    kernels.append({  # kernel A: the bf16 layer window (tensor cores)
+        "name": "lstm_layer[bfloat16]", "route": "cuda",
+        "source": "dt_tpu_torch/csrc/lstm_layer.cu",
+        "replaces": "dt_tpu/ops/pallas/kernels.py:319",
+        "launches": lstm_bf16["launches"]["lstm_layer"],
+        "max_abs_err": la["max_abs_err"], "max_rel_err": la["max_rel_err"],
+        "ms": la["ms"], "plain_ms": la["plain_ms"],
+        "bound_ms": la["bound_ms"], "bound_by": la["bound_by"],
+        "library_ms": la["library_ms"], "redesigned_in": 20,
+        "path": "lstm_forward bf16", "layer_ms": la["layer_ms"],
+        "per_step_ms": la["per_step_ms"], "shape": la["shape"],
+        "h650": layer_bf16[650],
+        # phase 23 (c): the bf16 bidirectional_lstm's forward
+        "data_launches": {
+            "bilstm_bf16": data_run["bilstm"]["bfloat16"]["counts"][
+                "lstm_layer"]}})
+    for name in ("float32", "bfloat16"):  # kernel B: the BPTT window
+        lb = layer_bwd[name, 200]
+        kernels.append({
+            "name": f"lstm_layer_bwd[{name}]", "route": "cuda",
+            "source": "dt_tpu_torch/csrc/lstm_layer_bwd.cu",
+            # the custom VJP of the pointwise kernel, chained by the scan
+            "replaces": "dt_tpu/ops/pallas/kernels.py:381",
+            "launches": (lstm_trained["launches"]["lstm_layer_bwd"]
+                         if name == "float32" else
+                         data_run["bilstm"]["bfloat16"]["counts"][
+                             "lstm_layer_bwd"]),
+            "max_abs_err": lb["max_abs_err"],
+            "max_rel_err": lb["max_rel_err"], "ms": lb["ms"],
+            "plain_ms": lb["plain_ms"], "bound_ms": lb["bound_ms"],
+            "bound_by": lb["bound_by"], "library_ms": lb["library_ms"],
+            "redesigned_in": 20,
+            "path": ("lstm_train f32" if name == "float32" else
+                     "data (c) bidirectional_lstm bf16 forward+backward"),
+            "stepped_backward_ms": lb["stepped_backward_ms"],
+            "shape": lb["shape"], "h650": layer_bwd[name, 650],
+            "ha_launches": failover["launches"]["lstm_layer_bwd"],
+            "resume_launches": outage["launches"]["lstm_layer_bwd"],
+            "data_launches": {
+                "bilstm": data_run["bilstm"][name]["counts"][
+                    "lstm_layer_bwd"],
+                "ner": (data_run["ner"]["counts"]["lstm_layer_bwd"]
+                        if name == "float32" else 0)},
+            "lm_step_launches": (lm_steps["lstm_lm"]["lstm_layer_bwd"]
+                                 if name == "float32" else 0)})
     nk = detection["detect"]["ssd", torch.bfloat16]["nms"]
     kernels.append({  # phase 25: the detection stage's scan
         "name": "nms_keep", "route": "cuda",

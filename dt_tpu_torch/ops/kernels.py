@@ -30,9 +30,15 @@ bound by bytes; their least time is the bytes they must move over the H100's
 - ``lstm_layer`` (``csrc/lstm_layer.cu``) replaces the same kernel on the
   path of the multi-layer LSTM (``dt_tpu/ops/rnn.py:84-114``): a whole
   layer window, every step's recurrent product and pointwise stage, in one
-  thread-block-cluster launch.  Bound by operations (67 TFLOP/s f32) and,
-  in practice, by its serial chain of steps; :func:`lstm_layer_fused` is
-  its differentiable form, with an explicit BPTT backward in PyTorch.
+  thread-block-cluster launch, in f32 (CUDA cores) and bf16 (the product on
+  the tensor cores, with the JAX package's bf16 roundings).  In practice
+  bound by its serial chain of steps; :func:`lstm_layer_fused` is its
+  differentiable form.
+- ``lstm_layer_bwd`` (``csrc/lstm_layer_bwd.cu``) replaces the custom VJP
+  of ``_lstm_point_kernel`` (``_lstm_pointwise_bwd``, ``kernels.py:381-404``)
+  chained through a layer window: the BPTT recurrence of the cell's
+  backward and ``dh = dG Wh^T``, one cluster launch a layer window, f32
+  and bf16; the weight gradients are matrix products after it.
 
 - ``nms_keep`` (``csrc/nms.cu``) replaces the greedy scan of the JAX
   package's ``nms`` (``dt_tpu/ops/detection.py:141-169``), a
@@ -81,7 +87,14 @@ _SIGNATURES = {
     "lstm_point": {"dt_lstm_point": [_V, _V, _V, _V, _I64, _I64, _INT, _V]},
     # xw, h0, c0, wh, hs, cs, gates; T, B, H, n, rows, ks, clusters, wsm,
     # reverse; shared-memory bytes; stream
-    "lstm_layer": {"dt_lstm_layer": [_V] * 7 + [_INT] * 9 + [_I64, _V]},
+    "lstm_layer": {"dt_lstm_layer": [_V] * 7 + [_INT] * 9 + [_I64, _V],
+                   # xw, b, h0, c0, wh, hs, cs, gates; T, B, H, n, rows, ks,
+                   # clusters, wsm, reverse; shared-memory bytes; stream
+                   "dt_lstm_layer_bf16": [_V] * 8 + [_INT] * 9 + [_I64, _V]},
+    # gates, cs, c0, wh, dhs, dcs, dgates, dh0, dc0; T, B, H, n, rows, ks,
+    # clusters, wsm, dtype, reverse; shared-memory bytes; stream
+    "lstm_layer_bwd": {"dt_lstm_layer_bwd": [_V] * 9 + [_INT] * 10
+                       + [_I64, _V]},
     # q, k, v, out, lse; batch, heads, sq, sk, d; (b, s, h) strides of q, k
     # and v; scale, causal, dtype; stream
     "flash_attn": {"dt_flash_attn_fwd": [_V] * 5 + [_I64] * 14
@@ -696,11 +709,13 @@ def dequantize_2bit(words: torch.Tensor, n: int,
 dequantize_2bit.launches = 0
 
 
-def _check_flat(what: str, **tensors) -> None:
+def _check_flat(what: str, dtype: torch.dtype = torch.float32,
+                **tensors) -> None:
     for name, t in tensors.items():
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous float32, "
-                             f"got {t.dtype} with strides {tuple(t.stride())}")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous "
+                             f"{str(dtype).split('.')[-1]}, got {t.dtype} "
+                             f"with strides {tuple(t.stride())}")
 
 
 # ---------------------------------------------------------------------------
@@ -814,7 +829,7 @@ def lstm_cell_fused(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, w):
 
 
 # ---------------------------------------------------------------------------
-# LSTM layer: the whole window in one launch
+# LSTM layer: the whole window in one launch, forward and backward
 # ---------------------------------------------------------------------------
 
 _LAYER_THREADS = 512  # csrc/lstm_layer.cu NT
@@ -824,13 +839,18 @@ _LAYER_SMEM = 232448  # shared memory a block can use on the H100 (227 KB)
 _LAYER_CLUSTER = 16  # blocks a cluster (a non-portable size above 8)
 _LAYER_ROWS = 8  # batch rows a cluster the geometry aims at ...
 _LAYER_CLUSTERS = 4  # ... over at most this many clusters (64 SMs)
+_LAYER_BF16_ROWS = 16  # the bf16 kernel's rows a cluster at most (one m16)
+_LAYER_BF16_KSPLIT = 8  # its slices of the k tiles at most (KSPLIT_MAX)
+_LAYER_BF16_WARPS = _LAYER_THREADS // 32
+_LAYER_BWD_KS_MAX = 32  # csrc/lstm_layer_bwd.cu KS_MAX
 
 
 class LayerGeometry(NamedTuple):
     """The launch of one layer window: ``clusters`` clusters of ``n``
-    blocks, each cluster ``rows`` batch rows; ``ks`` slices of the H inputs
-    a gate product; ``wsm``: Wh's columns in shared memory (else read from
-    L2 every step); ``smem`` bytes of shared memory a block."""
+    blocks, each cluster ``rows`` batch rows; ``ks`` slices of the inputs
+    a gate product (of the H inputs in f32, of the k tiles in bf16, of the
+    4H inputs in the backward); ``wsm``: Wh in shared memory (else read
+    from L2 every step); ``smem`` bytes of shared memory a block."""
     n: int
     rows: int
     clusters: int
@@ -842,8 +862,8 @@ class LayerGeometry(NamedTuple):
 def _layer_floats(hidden: int, n: int, rows: int, ks: int, wsm: bool):
     """(shared-memory floats a block, tiles of the gate product, pairs a
     block at most), as ``make_geo`` in ``csrc/lstm_layer.cu`` lays them
-    out: two h buffers (rows x (H4 + 4)), Wh's columns (H4 x C4) when
-    ``wsm``, ``ks`` partial tiles (rows x C4) and c (rows x units)."""
+    out for f32: two h buffers (rows x (H4 + 4)), Wh's columns (H4 x C4)
+    when ``wsm``, ``ks`` partial tiles (rows x C4) and c (rows x units)."""
     per = -(-hidden // n)
     c4 = -(-4 * per // 4) * 4
     h4 = -(-hidden // 4) * 4
@@ -860,103 +880,220 @@ def _layer_ks(hidden: int, n: int, rows: int) -> int:
     return max(1, min(_LAYER_KS_MAX, _LAYER_THREADS // tiles))
 
 
-def _layer_rows_fit(hidden: int, n: int, rows: int) -> bool:
-    """Whether a cluster of ``n`` blocks takes ``rows`` batch rows: the h
-    buffers, partial tiles and c in 227 KB, the tiles and pairs in the
-    threads."""
-    floats, tiles, pairs = _layer_floats(hidden, n, rows,
-                                         _layer_ks(hidden, n, rows), False)
-    return (floats * 4 <= _LAYER_SMEM and tiles <= _LAYER_THREADS
-            and pairs <= _LAYER_PAIRS * _LAYER_THREADS)
+def _layer_f32(hidden: int, n: int, rows: int, wsm: bool):
+    """(bytes, ks, whether the threads take it) of the f32 forward."""
+    ks = _layer_ks(hidden, n, rows)
+    floats, tiles, pairs = _layer_floats(hidden, n, rows, ks, wsm)
+    return floats * 4, ks, (tiles <= _LAYER_THREADS
+                            and pairs <= _LAYER_PAIRS * _LAYER_THREADS)
 
 
-def layer_fits(batch: int, hidden: int) -> bool:
-    """Whether the layer kernel takes ``batch`` rows of ``hidden`` units,
-    that is whether one batch row fits a cluster (it does up to H = 6404):
-    the shape test ``ops.rnn.lstm`` makes, before any launch, to choose
-    between the layer kernel and stepping the fused cell."""
-    return batch >= 1 and hidden >= 1 and _layer_rows_fit(
-        hidden, min(_LAYER_CLUSTER, hidden), 1)
+def _layer_bytes_bf16(hidden: int, n: int, rows: int, wsm: bool):
+    """(bytes, ks, whether the threads take it) of the bf16 forward, as
+    ``bf::make_geo`` in ``csrc/lstm_layer.cu`` lays it out: two h buffers
+    (rows x (K16 + 8) bf16), Wh's columns transposed (C8 x (K16 + 8) bf16)
+    when ``wsm``, ``ks`` partial tiles (rows x C8 f32); ``ks`` slices of
+    the K16 / 16 k tiles, as many as the 16 warps left over by the C8 / 8
+    column tiles allow, 1 to 8."""
+    per = -(-hidden // n)
+    c8 = -(-4 * per // 8) * 8
+    k16 = -(-hidden // 16) * 16
+    hs = k16 + 8
+    ks = max(1, min(k16 // 16, _LAYER_BF16_KSPLIT,
+                    _LAYER_BF16_WARPS // (c8 // 8)))
+    nbytes = 2 * (2 * rows * hs + (c8 * hs if wsm else 0)) \
+        + 4 * ks * rows * c8
+    return nbytes, ks, (rows <= _LAYER_BF16_ROWS
+                        and rows * per <= _LAYER_PAIRS * _LAYER_THREADS)
 
 
-def layer_geometry(batch: int, hidden: int) -> LayerGeometry:
-    """The layer kernel's launch for ``batch`` rows of ``hidden`` units.
-    A cluster of ``min(16, H)`` blocks walks the steps for a share of the
-    batch rows: ~8 rows a cluster over at most 4 clusters (64 of the H100's
-    132 SMs, all resident at once), fewer rows where the h buffers, the
-    partial tiles and c would not fit 227 KB of shared memory or the tiles
-    and pairs the threads; Wh's columns go into shared memory where they
-    fit too.  Raises ``ValueError`` where one row does not fit (where
-    :func:`layer_fits` is False)."""
+def _layer_bwd_bytes(hidden: int, n: int, rows: int, wsm: bool,
+                     itemsize: int):
+    """(bytes, ks, whether the threads take it) of the backward, as
+    ``make_geo`` in ``csrc/lstm_layer_bwd.cu`` lays it out: two dG buffers
+    (rows x (4H + 4) elements), Wh's rows of the block's units (U4 x (4H +
+    4)) when ``wsm``, ``ks`` partial tiles (rows x U4 f32); ``ks`` slices
+    of the 4H inputs, as many as the threads left over by the 4 x 4 tiles
+    allow, 1 to 32."""
+    per = -(-hidden // n)
+    u4 = -(-per // 4) * 4
+    sc = 4 * hidden + 4
+    tiles = -(-rows // 4) * (u4 // 4)
+    ks = max(1, min(_LAYER_BWD_KS_MAX, _LAYER_THREADS // tiles))
+    nbytes = itemsize * (2 * rows * sc + (u4 * sc if wsm else 0)) \
+        + 4 * ks * rows * u4
+    return nbytes, ks, (tiles <= _LAYER_THREADS
+                        and rows * per <= _LAYER_PAIRS * _LAYER_THREADS)
+
+
+def _layout(kind: str, dtype: torch.dtype):
+    """The layout function of a kernel: ``kind`` "fwd" or "bwd"."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"lstm_layer: dtype must be float32 or bfloat16, "
+                        f"got {dtype}")
+    if kind == "bwd":
+        size = torch.tensor([], dtype=dtype).element_size()
+        return lambda h, n, r, wsm: _layer_bwd_bytes(h, n, r, wsm, size)
+    return _layer_f32 if dtype == torch.float32 else _layer_bytes_bf16
+
+
+def _rows_fit(layout, hidden: int, n: int, rows: int) -> bool:
+    """Whether a cluster of ``n`` blocks takes ``rows`` batch rows: its
+    buffers in 227 KB, its tiles and pairs in the threads."""
+    nbytes, _, threads = layout(hidden, n, rows, False)
+    return threads and nbytes <= _LAYER_SMEM
+
+
+def layer_fits(batch: int, hidden: int,
+               dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the layer kernels of ``dtype`` take ``batch`` rows of
+    ``hidden`` units, forward and backward: whether one batch row fits a
+    cluster (f32: up to H = 6404).  The shape test ``ops.rnn.lstm`` makes,
+    before any launch, to choose between the layer kernels and stepping
+    the fused cell."""
+    if batch < 1 or hidden < 1:
+        return False
+    n = min(_LAYER_CLUSTER, hidden)
+    return all(_rows_fit(_layout(kind, dtype), hidden, n, 1)
+               for kind in ("fwd", "bwd"))
+
+
+def _geometry(kind: str, batch: int, hidden: int,
+              dtype: torch.dtype) -> LayerGeometry:
+    """A cluster of ``min(16, H)`` blocks walks the steps for a share of
+    the batch rows: ~8 rows a cluster over at most 4 clusters (64 of the
+    H100's 132 SMs, all resident at once), fewer rows where the buffers
+    would not fit 227 KB of shared memory or the tiles and pairs the
+    threads (bf16 forward: at most 16 rows, one m16 tile, and fewer where
+    that lets Wh's columns into shared memory); Wh goes into shared memory
+    where it fits too."""
+    layout = _layout(kind, dtype)
     if batch < 1 or hidden < 1:
         raise ValueError(f"lstm_layer: need B, H >= 1, got {batch}, "
                          f"{hidden}")
-    if not layer_fits(batch, hidden):
+    n = min(_LAYER_CLUSTER, hidden)
+    if not _rows_fit(layout, hidden, n, 1):
         raise ValueError(f"lstm_layer: H = {hidden} is too wide for the "
                          "kernel's shared memory")
-    n = min(_LAYER_CLUSTER, hidden)
     rows = -(-batch // min(_LAYER_CLUSTERS, -(-batch // _LAYER_ROWS)))
-    while rows > 1 and not _layer_rows_fit(hidden, n, rows):
+    if kind == "fwd" and dtype == torch.bfloat16:
+        rows = min(rows, _LAYER_BF16_ROWS)
+    while rows > 1 and not _rows_fit(layout, hidden, n, rows):
         rows -= 1
+    if kind == "fwd" and dtype == torch.bfloat16:
+        # the tensor-core product reads Wh's columns every step, from L2
+        # in 2-byte pieces where they are not in shared memory (H 650 at 8
+        # rows: 1.67 ms a PTB window on an H100, against ~0.12 ms at H
+        # 200); fewer rows a cluster, in more clusters, make room for them
+        # where any do
+        fit = rows
+        while fit > 1 and layout(hidden, n, fit, True)[0] > _LAYER_SMEM:
+            fit -= 1
+        if layout(hidden, n, fit, True)[0] <= _LAYER_SMEM:
+            rows = fit
     clusters = -(-batch // rows)
     rows = -(-batch // clusters)  # the same clusters, rows evened out
-    ks = _layer_ks(hidden, n, rows)
-    wsm = _layer_floats(hidden, n, rows, ks, True)[0] * 4 <= _LAYER_SMEM
-    return LayerGeometry(n, rows, clusters, ks, wsm,
-                         _layer_floats(hidden, n, rows, ks, wsm)[0] * 4)
+    wsm = layout(hidden, n, rows, True)[0] <= _LAYER_SMEM
+    nbytes, ks, _ = layout(hidden, n, rows, wsm)
+    return LayerGeometry(n, rows, clusters, ks, wsm, nbytes)
+
+
+def layer_geometry(batch: int, hidden: int,
+                   dtype: torch.dtype = torch.float32) -> LayerGeometry:
+    """The forward layer kernel's launch for ``batch`` rows of ``hidden``
+    units in ``dtype`` (see :func:`_geometry`).  Raises ``ValueError``
+    where one row does not fit."""
+    return _geometry("fwd", batch, hidden, dtype)
+
+
+def layer_bwd_geometry(batch: int, hidden: int,
+                       dtype: torch.dtype = torch.float32) -> LayerGeometry:
+    """The backward kernel's launch (``csrc/lstm_layer_bwd.cu``) for
+    ``batch`` rows of ``hidden`` units in ``dtype``."""
+    return _geometry("bwd", batch, hidden, dtype)
 
 
 def lstm_layer_plain(xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-                     wh: torch.Tensor, reverse: bool = False):
-    """The plain version of the layer kernel, a loop over the steps:
-    ``gates_t = xw_t + h_{t-1} @ wh`` and :func:`lstm_pointwise_plain`.
-    ``xw`` (T, B, 4H), ``h0``/``c0`` (B, H), ``wh`` (H, 4H), all f32 ->
-    ``(hs, cs)`` (T, B, H) and ``gates`` (T, B, 4H)."""
+                     wh: torch.Tensor, reverse: bool = False,
+                     b: torch.Tensor = None):
+    """The plain version of the layer kernel, a loop over the steps.  f32:
+    ``xw`` (T, B, 4H) holds the bias (``b`` None), ``gates_t = xw_t +
+    h_{t-1} @ wh`` and :func:`lstm_pointwise_plain`.  bf16 (the JAX
+    package's roundings): ``xw = bf16(x @ wx)`` without the bias, ``b``
+    (4H,); ``gates_t = f32(bf16(xw_t + bf16(h_{t-1} @ wh))) + f32(b)``, the
+    pointwise stage in f32, h and c rounded to bf16.  ``h0``/``c0`` (B, H),
+    ``wh`` (H, 4H) in ``xw``'s dtype -> ``(hs, cs)`` (T, B, H) in that
+    dtype and f32 ``gates`` (T, B, 4H)."""
     steps = range(xw.shape[0] - 1, -1, -1) if reverse \
         else range(xw.shape[0])
     hs, cs, gates = [None] * xw.shape[0], [None] * xw.shape[0], \
         [None] * xw.shape[0]
     h, c = h0, c0
     for t in steps:
-        gates[t] = xw[t] + torch.matmul(h, wh)
-        h, c = lstm_pointwise_plain(gates[t], c)
+        if b is None:
+            gates[t] = xw[t] + torch.matmul(h, wh)
+            h, c = lstm_pointwise_plain(gates[t], c)
+        else:
+            gates[t] = (xw[t] + torch.matmul(h, wh)).float() + b.float()
+            h, c = lstm_pointwise_plain(gates[t], c.float())
+            h, c = h.to(xw.dtype), c.to(xw.dtype)
         hs[t], cs[t] = h, c
     return torch.stack(hs), torch.stack(cs), torch.stack(gates)
 
 
 def lstm_layer(xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-               wh: torch.Tensor, reverse: bool = False):
-    """The layer kernel's wrapper: contiguous f32 ``xw`` (T, B, 4H) (the
-    input product with the bias), ``h0``/``c0`` (B, H) and ``wh`` (H, 4H)
-    -> ``(hs, cs, gates)``, h and c after every step (T, B, H) and the gate
-    pre-activations (T, B, 4H), in time order also under ``reverse``.  A
-    CUDA tensor launches ``csrc/lstm_layer.cu`` once (geometry from
-    :func:`layer_geometry`) and counts the launch in
+               wh: torch.Tensor, reverse: bool = False,
+               b: torch.Tensor = None):
+    """The layer kernel's wrapper: contiguous ``xw`` (T, B, 4H),
+    ``h0``/``c0`` (B, H) and ``wh`` (H, 4H), all float32 (``xw`` holds the
+    bias, ``b`` None) or all bfloat16 (``xw`` without the bias, ``b`` (4H,)
+    bfloat16) -> ``(hs, cs, gates)``, h and c after every step (T, B, H) in
+    that dtype and the f32 gate pre-activations (T, B, 4H), in time order
+    also under ``reverse``.  A CUDA tensor launches ``csrc/lstm_layer.cu``
+    once (geometry from :func:`layer_geometry`) and counts the launch in
     ``lstm_layer.launches``; a CPU tensor runs :func:`lstm_layer_plain`."""
     if xw.dim() != 3 or xw.shape[2] % 4 or xw.shape[0] < 1:
         raise ValueError(f"lstm_layer: need xw (T >= 1, B, 4H), got "
                          f"{tuple(xw.shape)}")
-    t, b, four_h = xw.shape
+    t, b_, four_h = xw.shape
     hidden = four_h // 4
-    if tuple(h0.shape) != (b, hidden) or tuple(c0.shape) != (b, hidden) \
+    if tuple(h0.shape) != (b_, hidden) or tuple(c0.shape) != (b_, hidden) \
             or tuple(wh.shape) != (hidden, four_h):
         raise ValueError(f"lstm_layer: h0, c0 (B, H) and wh (H, 4H) do not "
                          f"fit xw {tuple(xw.shape)}: {tuple(h0.shape)}, "
                          f"{tuple(c0.shape)}, {tuple(wh.shape)}")
     if not (xw.device == h0.device == c0.device == wh.device):
         raise ValueError("lstm_layer: xw, h0, c0, wh must be on one device")
-    _check_flat("lstm_layer", xw=xw, h0=h0, c0=c0, wh=wh)
+    if xw.dtype == torch.bfloat16:
+        if b is None or tuple(b.shape) != (four_h,) or b.device != xw.device:
+            raise ValueError("lstm_layer: a bfloat16 layer needs b (4H,) on "
+                             "xw's device (its xw holds no bias)")
+        _check_flat("lstm_layer", torch.bfloat16, xw=xw, h0=h0, c0=c0,
+                    wh=wh, b=b)
+    else:
+        if b is not None:
+            raise ValueError("lstm_layer: a float32 layer's xw holds the "
+                             "bias; b must be None")
+        _check_flat("lstm_layer", xw=xw, h0=h0, c0=c0, wh=wh)
     if not _on_cuda("lstm_layer", xw):
-        return lstm_layer_plain(xw, h0, c0, wh, reverse)
-    geo = layer_geometry(b, hidden)
-    hs = torch.empty((t, b, hidden), dtype=torch.float32, device=xw.device)
+        return lstm_layer_plain(xw, h0, c0, wh, reverse, b)
+    geo = layer_geometry(b_, hidden, xw.dtype)
+    hs = torch.empty((t, b_, hidden), dtype=xw.dtype, device=xw.device)
     cs = torch.empty_like(hs)
-    gates = torch.empty_like(xw)
-    _launch("lstm_layer", "lstm_layer", "dt_lstm_layer", xw.device,
-            xw.data_ptr(), h0.data_ptr(), c0.data_ptr(), wh.data_ptr(),
-            hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, b, hidden,
-            geo.n, geo.rows, geo.ks, geo.clusters, int(geo.wsm),
-            int(reverse), geo.smem, sig=(xw,))
+    gates = torch.empty((t, b_, four_h), dtype=torch.float32,
+                        device=xw.device)
+    if b is None:
+        _launch("lstm_layer", "lstm_layer", "dt_lstm_layer", xw.device,
+                xw.data_ptr(), h0.data_ptr(), c0.data_ptr(), wh.data_ptr(),
+                hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, b_,
+                hidden, geo.n, geo.rows, geo.ks, geo.clusters, int(geo.wsm),
+                int(reverse), geo.smem, sig=(xw,))
+    else:
+        _launch("lstm_layer", "lstm_layer", "dt_lstm_layer_bf16", xw.device,
+                xw.data_ptr(), b.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                wh.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
+                t, b_, hidden, geo.n, geo.rows, geo.ks, geo.clusters,
+                int(geo.wsm), int(reverse), geo.smem, sig=(xw,))
     lstm_layer.launches += 1
     return hs, cs, gates
 
@@ -964,43 +1101,116 @@ def lstm_layer(xw: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
 lstm_layer.launches = 0
 
 
-def lstm_layer_backward(x, h0, c0, wx, wh, hs, cs, gates, dhs, dcs,
-                        reverse: bool):
-    """Explicit BPTT through one layer window from the saved ``hs``, ``cs``
-    and ``gates``: from the last step processed to the first,
-    :func:`lstm_pointwise_backward` gives the step's gate gradient and
-    ``dc_{t-1} = dc * f``, and ``dh_{t-1} = dG_t @ wh^T``; then one matmul
-    each gives ``dWh``, ``dWx`` and ``dx``, and a sum ``db``.  ``dhs`` and
-    ``dcs`` (T, B, H) are the gradients reaching h_t and c_t from outside.
-    Returns ``(dx, dh0, dc0, dwx, dwh, db)``."""
-    steps = x.shape[0]
-    dgates = torch.empty_like(gates)
-    dh = torch.zeros_like(h0)
+def lstm_layer_bwd_plain(gates, cs, c0, wh, dhs, dcs, reverse: bool = False):
+    """The plain version of the backward kernel: BPTT through one layer
+    window from the saved f32 ``gates`` (T, B, 4H) and ``cs`` (T, B, H),
+    ``c0`` (B, H) and ``wh`` (H, 4H).  From the last step processed to the
+    first, :func:`lstm_pointwise_backward` at ``(gates_t, c_{t-1}, dhs_t +
+    dh, dcs_t + dc)`` gives the step's gate gradient ``dG_t`` and ``dc_{t-1}
+    = dc * f``, and ``dh_{t-1} = dG_t @ wh^T``.  In bf16 it makes the
+    roundings of autograd through the stepped bf16 cell: ``dhs_t + dh`` and
+    ``dcs_t + dc`` are bf16 sums, the cell's backward runs in f32, ``dG_t``
+    and ``dc`` round to bf16 (the cotangents of ``.float()``), ``dh`` is a
+    bf16 product.  Returns ``(dgates (T, B, 4H), dh0, dc0)`` in ``cs``'s
+    dtype."""
+    steps = gates.shape[0]
+    dtype = cs.dtype
+    dgates = torch.empty(gates.shape, dtype=dtype, device=gates.device)
+    dh = torch.zeros_like(c0)
     dc = torch.zeros_like(c0)
     whT = wh.t()
     for s in range(steps - 1, -1, -1):
         t = steps - 1 - s if reverse else s
         c_prev = c0 if s == 0 else cs[t + 1 if reverse else t - 1]
-        dgates[t], dc = lstm_pointwise_backward(gates[t], c_prev,
-                                                dhs[t] + dh, dcs[t] + dc)
+        dg, dc = lstm_pointwise_backward(gates[t], c_prev.float(),
+                                         dhs[t] + dh, dcs[t] + dc)
+        dgates[t] = dg.to(dtype)
+        dc = dc.to(dtype)
         dh = torch.matmul(dgates[t], whT)
+    return dgates, dh, dc
+
+
+def lstm_layer_bwd(gates, cs, c0, wh, dhs, dcs, reverse: bool = False):
+    """The backward kernel's wrapper: contiguous f32 ``gates`` (T, B, 4H),
+    ``cs``, ``dhs``, ``dcs`` (T, B, H), ``c0`` (B, H) and ``wh`` (H, 4H),
+    all float32 or all bfloat16 -> ``(dgates, dh0, dc0)`` in that dtype (see
+    :func:`lstm_layer_bwd_plain`).  A CUDA tensor launches
+    ``csrc/lstm_layer_bwd.cu`` once (geometry from
+    :func:`layer_bwd_geometry`) and counts the launch in
+    ``lstm_layer_bwd.launches``; a CPU tensor runs
+    :func:`lstm_layer_bwd_plain`."""
+    if gates.dim() != 3 or gates.shape[2] % 4 or gates.shape[0] < 1:
+        raise ValueError(f"lstm_layer_bwd: need gates (T >= 1, B, 4H), got "
+                         f"{tuple(gates.shape)}")
+    t, b, four_h = gates.shape
+    hidden = four_h // 4
+    if not all(tuple(a.shape) == (t, b, hidden) for a in (cs, dhs, dcs)) \
+            or tuple(c0.shape) != (b, hidden) \
+            or tuple(wh.shape) != (hidden, four_h):
+        raise ValueError(f"lstm_layer_bwd: cs, dhs, dcs (T, B, H), c0 (B, "
+                         f"H) and wh (H, 4H) do not fit gates "
+                         f"{tuple(gates.shape)}")
+    if not all(a.device == gates.device for a in (cs, c0, wh, dhs, dcs)):
+        raise ValueError("lstm_layer_bwd: the tensors must be on one device")
+    if cs.dtype not in _DTYPE_CODES:
+        raise ValueError(f"lstm_layer_bwd: cs must be float32 or bfloat16, "
+                         f"got {cs.dtype}")
+    _check_flat("lstm_layer_bwd", gates=gates)
+    _check_flat("lstm_layer_bwd", cs.dtype, cs=cs, c0=c0, wh=wh, dhs=dhs,
+                dcs=dcs)
+    if not _on_cuda("lstm_layer_bwd", gates):
+        return lstm_layer_bwd_plain(gates, cs, c0, wh, dhs, dcs, reverse)
+    geo = layer_bwd_geometry(b, hidden, cs.dtype)
+    if wh.data_ptr() % 16:  # the L2 path reads Wh in 16- or 8-byte loads
+        wh = wh.clone()
+    dgates = torch.empty((t, b, four_h), dtype=cs.dtype, device=cs.device)
+    dh0 = torch.empty((b, hidden), dtype=cs.dtype, device=cs.device)
+    dc0 = torch.empty_like(dh0)
+    _launch("lstm_layer_bwd", "lstm_layer_bwd", "dt_lstm_layer_bwd",
+            gates.device, gates.data_ptr(), cs.data_ptr(), c0.data_ptr(),
+            wh.data_ptr(), dhs.data_ptr(), dcs.data_ptr(), dgates.data_ptr(),
+            dh0.data_ptr(), dc0.data_ptr(), t, b, hidden, geo.n, geo.rows,
+            geo.ks, geo.clusters, int(geo.wsm), _DTYPE_CODES[cs.dtype],
+            int(reverse), geo.smem, sig=(gates,))
+    lstm_layer_bwd.launches += 1
+    return dgates, dh0, dc0
+
+
+lstm_layer_bwd.launches = 0
+
+
+def lstm_layer_backward(x, h0, c0, wx, wh, hs, cs, gates, dhs, dcs,
+                        reverse: bool):
+    """The layer's backward from the saved ``hs``, ``cs`` and ``gates``:
+    the BPTT recurrence is :func:`lstm_layer_bwd` (one launch on the card),
+    then one matmul each gives ``dWh``, ``dWx`` and ``dx``, and a sum
+    ``db``.  ``dhs`` and ``dcs`` (T, B, H) are the gradients reaching h_t
+    and c_t from outside.  Returns ``(dx, dh0, dc0, dwx, dwh, db)``."""
+    dgates, dh, dc = lstm_layer_bwd(gates, cs, c0, wh, dhs.contiguous(),
+                                    dcs.contiguous(), reverse)
     h_prev = torch.cat([hs[1:], h0[None]]) if reverse \
         else torch.cat([h0[None], hs[:-1]])
     dg2 = dgates.reshape(-1, dgates.shape[-1])
     dwh = torch.matmul(h_prev.reshape(-1, h0.shape[-1]).t(), dg2)
     dwx = torch.matmul(x.reshape(-1, x.shape[-1]).t(), dg2)
     dx = torch.matmul(dg2, wx.t()).reshape(x.shape)
-    return dx, dh, dc, dwx, dwh, dg2.sum(0)
+    return dx, dh, dc, dwx, dwh, dg2.float().sum(0).to(dg2.dtype)
 
 
 class _LSTMLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, h0, c0, wx, wh, b, reverse):
         t, bsz, inp = x.shape
-        xw = (torch.matmul(x.reshape(t * bsz, inp), wx) + b) \
-            .reshape(t, bsz, -1)
-        hs, cs, gates = lstm_layer(xw, h0.contiguous(), c0.contiguous(),
-                                   wh.contiguous(), reverse)
+        xw = torch.matmul(x.reshape(t * bsz, inp), wx)
+        if x.dtype == torch.bfloat16:  # b joins each step's f32 gates
+            hs, cs, gates = lstm_layer(xw.reshape(t, bsz, -1),
+                                       h0.contiguous(), c0.contiguous(),
+                                       wh.contiguous(), reverse,
+                                       b=b.contiguous())
+        else:
+            hs, cs, gates = lstm_layer((xw + b).reshape(t, bsz, -1),
+                                       h0.contiguous(), c0.contiguous(),
+                                       wh.contiguous(), reverse)
         ctx.save_for_backward(x, h0, c0, wx, wh, hs, cs, gates)
         ctx.reverse = reverse
         return hs, cs
@@ -1015,12 +1225,16 @@ def lstm_layer_fused(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
                      w, reverse: bool = False):
     """One layer of the fused LSTM over a window (the JAX package's
     ``lax.scan`` of ``lstm_cell_fused``, ``dt_tpu/ops/rnn.py:84-114``),
-    differentiable: f32 ``x`` (T, B, I), ``h0``/``c0`` (B, H) and ``w``
-    (``wx`` (I, 4H), ``wh`` (H, 4H), ``b`` (4H,)) -> ``(hs, cs)`` (T, B,
-    H), h and c after every step in time order.  The input product ``x @
-    wx + b`` is one ``torch.matmul``; the steps are :func:`lstm_layer`.
-    The backward is :func:`lstm_layer_backward`."""
-    return _LSTMLayer.apply(x, h0, c0, w.wx, w.wh, w.b, bool(reverse))
+    differentiable: ``x`` (T, B, I), ``h0``/``c0`` (B, H) and ``w`` (``wx``
+    (I, 4H), ``wh`` (H, 4H), ``b`` (4H,)), all float32 or all bfloat16
+    (``h0``/``c0`` are cast to ``x``'s dtype) -> ``(hs, cs)`` (T, B, H), h
+    and c after every step in time order.  The input product ``x @ wx``
+    (plus ``b`` in f32; in bf16 ``b`` joins the f32 gates in the kernel) is
+    one ``torch.matmul``; the steps are :func:`lstm_layer`.  The backward is
+    :func:`lstm_layer_backward`: :func:`lstm_layer_bwd`, then the weight
+    gradients' matmuls."""
+    return _LSTMLayer.apply(x, h0.to(x.dtype), c0.to(x.dtype), w.wx, w.wh,
+                            w.b, bool(reverse))
 
 
 # ---------------------------------------------------------------------------

@@ -4,11 +4,12 @@ GRU, the bidirectional LSTM and the LSTM init (counterpart of
 
 Gate order i, f, g, o for the LSTM and r, z, n for the GRU, as the JAX
 package and the reference's cuDNN convention have them.  The LSTM's time
-loop, a ``lax.scan`` in the JAX package, is one launch a layer on the card
-(``ops.kernels.lstm_layer_fused``, the fused cell's whole window) and a
-Python loop over the steps otherwise.  The GRU and the vanilla cell are
-plain PyTorch, as the JAX package computes them in ``jnp`` outside any
-Pallas kernel.
+loop, a ``lax.scan`` in the JAX package, is one launch a layer window on
+the card in f32 and in bf16 (``ops.kernels.lstm_layer_fused``, the fused
+cell's whole window), and its backward one more; a Python loop over the
+steps otherwise (the layers too wide for the kernels).  The GRU and the
+vanilla cell are plain PyTorch, as the JAX package computes them in ``jnp``
+outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -79,6 +80,16 @@ def vanilla_cell(x: torch.Tensor, h: torch.Tensor, wx: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _layer_route(x: torch.Tensor, h: torch.Tensor, w) -> bool:
+    """Whether a layer runs as ``lstm_layer_fused``: an f32 ``x``, or a
+    bf16 one with bf16 weights, of a shape the layer kernels take."""
+    if x.dtype == torch.float32:
+        return layer_fits(x.shape[1], h.shape[-1])
+    return x.dtype == torch.bfloat16 \
+        and all(a.dtype == torch.bfloat16 for a in (w.wx, w.wh, w.b)) \
+        and layer_fits(x.shape[1], h.shape[-1], torch.bfloat16)
+
+
 def lstm(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
          weights: Sequence[LSTMWeights], reverse: bool = False,
          fused: Optional[bool] = None
@@ -88,12 +99,12 @@ def lstm(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     ``x``: (T, B, I); ``h0``/``c0``: (L, B, H).  Returns (outputs (T, B, H),
     hT (L, B, H), cT (L, B, H)).  ``reverse`` runs each layer from the last
     step to the first.  ``fused`` picks the cell: ``None`` (the default) and
-    ``True`` run the fused cell, a float32 layer as
-    :func:`dt_tpu_torch.ops.kernels.lstm_layer_fused` (one CUDA launch a
-    layer window on the card, its plain step loop on the CPU; BPTT
-    backward) where the layer kernel takes the shape
-    (:func:`dt_tpu_torch.ops.kernels.layer_fits`: H up to 6404), and any
-    other dtype or a wider f32 layer step by step through
+    ``True`` run the fused cell, a float32 or bfloat16 layer (its weights
+    in ``x``'s dtype) as :func:`dt_tpu_torch.ops.kernels.lstm_layer_fused`
+    (one CUDA launch a layer window on the card and one for its BPTT
+    backward; their plain step loops on the CPU) where the layer kernels
+    take the shape (:func:`dt_tpu_torch.ops.kernels.layer_fits`: f32 H up
+    to 6404), and a wider layer or any other dtype step by step through
     :func:`dt_tpu_torch.ops.kernels.lstm_cell_fused` (the pointwise kernel,
     which takes any H); ``False`` runs the plain :func:`lstm_cell` step by
     step.  Both are hand kernels, chosen from the shape before any launch.
@@ -105,8 +116,7 @@ def lstm(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     last = 0 if reverse else x.shape[0] - 1
     for layer, w in enumerate(weights):
         h, c = h0[layer], c0[layer]
-        if fused is not False and outs.dtype == torch.float32 \
-                and layer_fits(outs.shape[1], h.shape[-1]):
+        if fused is not False and _layer_route(outs, h, w):
             outs, c_all = lstm_layer_fused(outs, h, c, w, reverse)
             hs.append(outs[last])
             cs.append(c_all[last])
@@ -155,9 +165,9 @@ def bidirectional_lstm(x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     bwd)`` (T, B, 2H), the next layer's input (cuDNN semantics).  Returns
     (outputs, hT (2L, B, H), cT (2L, B, H)).  Each direction is one
     :func:`lstm` layer, the backward one with ``reverse=True``, so with
-    ``fused`` at its default an f32 layer is one ``lstm_layer_fused``
-    launch a direction and a bf16 one steps ``lstm_cell_fused``;
-    ``fused=False`` runs the plain cell."""
+    ``fused`` at its default an f32 or bf16 layer is one
+    ``lstm_layer_fused`` launch a direction, and its backward one
+    ``lstm_layer_bwd`` launch; ``fused=False`` runs the plain cell."""
     outs = x
     hs, cs = [], []
     for layer in range(len(fwd)):

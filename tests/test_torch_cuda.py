@@ -612,14 +612,147 @@ def test_lstm_layer_gradients_match_the_step_path(cuda, reverse):
         loss = sum((o * c).sum() for o, c in zip(out, cots))
         return list(out) + list(torch.autograd.grad(loss, leaves))
 
-    before = kernels.lstm_layer.launches, kernels.lstm_point.launches
+    before = (kernels.lstm_layer.launches, kernels.lstm_point.launches,
+              kernels.lstm_layer_bwd.launches)
     got = run(True)
     assert (kernels.lstm_layer.launches - before[0],
-            kernels.lstm_point.launches - before[1]) == (2, 0)
+            kernels.lstm_point.launches - before[1],
+            kernels.lstm_layer_bwd.launches - before[2]) == (2, 0, 2)
     want = run(False)
     for a, w in zip(got, want):
         tol = 1e-5 * max(1.0, float(w.detach().abs().max()))
         assert float((a - w).detach().abs().max()) <= tol
+
+
+#: bf16 layer kernels against their plain loops on the card, of each
+#: output's largest magnitude: the product's f32 sums run in another order
+#: than cuBLAS's, so a bf16 rounding of hw (or dh) can fall one ulp apart,
+#: and the steps carry it (the CPU tests' bf16 bound, two ulps at the top)
+TOL_LAYER_BF16 = 2.0 ** -6
+
+
+def _bf16_layer_inputs(dev, t, b, h, seed):
+    x, h0, c0, wx, wh, bias = _layer_inputs(dev, t, b, h, h, seed)
+    bf = torch.bfloat16
+    xw = (x.to(bf).reshape(t * b, h) @ wx.to(bf)).reshape(t, b, 4 * h)
+    return xw, h0.to(bf), c0.to(bf), wh.to(bf), bias.to(bf)
+
+
+def _close_of_max(a, w, tol):
+    w = w.detach().float()
+    return float((a.detach().float() - w).abs().max()) <= \
+        tol * max(float(w.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b", [1, 5, 32])
+@pytest.mark.parametrize("h", [8, 200, 650])
+def test_lstm_layer_bf16_kernel_matches_plain(cuda, h, b, reverse):
+    """The bf16 layer kernel (tensor-core product) against its plain step
+    loop on the same xw and b at T 35: hs, cs and the f32 gates within
+    ``TOL_LAYER_BF16`` of each one's largest magnitude, two launches
+    bit-identical, one launch a call; H 8 (clusters of 8 blocks), 200 (Wh
+    in shared memory) and 650 (Wh from L2)."""
+    t = 35
+    xw, h0, c0, wh, bias = _bf16_layer_inputs(cuda, t, b, h, seed=b + h)
+    before = kernels.lstm_layer.launches
+    got = kernels.lstm_layer(xw, h0, c0, wh, reverse, b=bias)
+    again = kernels.lstm_layer(xw, h0, c0, wh, reverse, b=bias)
+    assert kernels.lstm_layer.launches == before + 2
+    want = kernels.lstm_layer_plain(xw, h0, c0, wh, reverse, b=bias)
+    torch.cuda.synchronize()
+    for a, a2, w in zip(got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, a2)
+        assert _close_of_max(a, w, TOL_LAYER_BF16)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(35, 32, 200), (35, 32, 650),
+                                   (9, 33, 200), (5, 3, 7), (35, 1, 8)])
+def test_lstm_layer_bwd_kernel_matches_plain(cuda, t, b, h, dtype, reverse):
+    """The BPTT kernel against its plain loop on the forward kernel's own
+    gates and cs, with seeded outside gradients: dG, dh0 and dc0 within
+    1e-5 (f32: sums in another order) or ``TOL_LAYER_BF16`` (bf16) of each
+    one's largest magnitude, two launches bit-identical, one launch a
+    call."""
+    if dtype == torch.float32:
+        x, h0, c0, wx, wh, bias = _layer_inputs(cuda, t, b, h, h, seed=t * h)
+        xw = (x.reshape(t * b, h) @ wx + bias).reshape(t, b, 4 * h)
+        _, cs, gates = kernels.lstm_layer(xw, h0, c0, wh, reverse)
+        tol = 1e-5
+    else:
+        xw, h0, c0, wh, bias = _bf16_layer_inputs(cuda, t, b, h, seed=t * h)
+        _, cs, gates = kernels.lstm_layer(xw, h0, c0, wh, reverse, b=bias)
+        tol = TOL_LAYER_BF16
+    g = torch.Generator(device=cuda).manual_seed(b)
+    dhs, dcs = (torch.randn(t, b, h, generator=g, device=cuda).to(dtype)
+                for _ in range(2))
+    before = kernels.lstm_layer_bwd.launches
+    got = kernels.lstm_layer_bwd(gates, cs, c0, wh, dhs, dcs, reverse)
+    again = kernels.lstm_layer_bwd(gates, cs, c0, wh, dhs, dcs, reverse)
+    assert kernels.lstm_layer_bwd.launches == before + 2
+    want = kernels.lstm_layer_bwd_plain(gates, cs, c0, wh, dhs, dcs, reverse)
+    torch.cuda.synchronize()
+    for a, a2, w in zip(got, again, want):
+        assert a.dtype == w.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, a2)
+        assert _close_of_max(a, w, tol)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_bf16_gradients_match_the_step_path(cuda, reverse):
+    """``ops.rnn.lstm`` in bf16 through the layer kernels (2 forward, 2
+    backward launches, no pointwise launch) against the per-step path (the
+    fused cell a step, autograd) at the PTB width, two layers: outputs,
+    final states and the gradients of x, h0, c0 and every weight within
+    2^-5 of each one's largest magnitude (``TOL_BILSTM`` of
+    ``chip_smoke.py``: the two paths round the bf16 sums in other
+    orders)."""
+    from dt_tpu_torch.ops import rnn
+    t, b, h = 35, 32, 200
+    bf = torch.bfloat16
+    x, h0, c0, wx, wh, bias = (a.to(bf) for a in
+                               _layer_inputs(cuda, t, b, h, h, seed=4))
+    ws = [rnn.LSTMWeights(wx, wh, bias),
+          rnn.LSTMWeights(wx.flip(0), wh.flip(0), bias.flip(0))]
+    h0s, c0s = torch.stack([h0, h0.flip(0)]), torch.stack([c0, c0.flip(0)])
+    cots = [torch.randn(s, generator=torch.Generator(device=cuda)
+                        .manual_seed(i), device=cuda)
+            for i, s in enumerate([(t, b, h), (2, b, h), (2, b, h)])]
+
+    def run(layer):
+        leaves = [a.clone().requires_grad_() for a in
+                  (x, h0s, c0s, *[p for w in ws for p in w])]
+        lw = [rnn.LSTMWeights(*leaves[3:6]), rnn.LSTMWeights(*leaves[6:9])]
+        if layer:
+            out = rnn.lstm(leaves[0], leaves[1], leaves[2], lw, reverse)
+        else:  # the per-step path: the fused cell a step
+            outs, hs, cs = leaves[0], [], []
+            for i, w in enumerate(lw):
+                hh, cc = leaves[1][i], leaves[2][i]
+                ys = [None] * t
+                for s in (range(t - 1, -1, -1) if reverse else range(t)):
+                    hh, cc = kernels.lstm_cell_fused(outs[s], hh, cc, w)
+                    ys[s] = hh
+                outs = torch.stack(ys)
+                hs.append(hh)
+                cs.append(cc)
+            out = (outs, torch.stack(hs), torch.stack(cs))
+        loss = sum((o.float() * c).sum() for o, c in zip(out, cots))
+        return list(out) + list(torch.autograd.grad(loss, leaves))
+
+    before = (kernels.lstm_layer.launches, kernels.lstm_point.launches,
+              kernels.lstm_layer_bwd.launches)
+    got = run(True)
+    assert (kernels.lstm_layer.launches - before[0],
+            kernels.lstm_point.launches - before[1],
+            kernels.lstm_layer_bwd.launches - before[2]) == (2, 0, 2)
+    want = run(False)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype == bf
+        assert _close_of_max(a, w, 2.0 ** -5)
 
 
 def test_lm_steps_on_card_match_cpu(cuda):
@@ -1244,8 +1377,8 @@ def test_multi_precision_fit_on_card_matches_cpu(cuda, monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bidirectional_lstm_kernels_match_the_plain_cell(cuda, dtype):
     """``ops.rnn.bidirectional_lstm`` at the PTB width (T 35, B 32, E = H
-    = 200, 2 layers) through the kernels (f32: the layer kernel, 4
-    launches; bf16: the pointwise kernel, 140) against ``fused=False`` on
+    = 200, 2 layers) through the kernels (both dtypes: the layer kernel, 4
+    launches, its backward 4, no pointwise launch) against ``fused=False`` on
     the card: outputs, hT, cT and the gradients of x, h0, c0 and every
     direction's wx, wh, b within 1e-5 (f32) or 2^-5 (bf16) of each one's
     largest magnitude (as ``chip_smoke.py``'s ``TOL_BILSTM``)."""
@@ -1273,11 +1406,13 @@ def test_bidirectional_lstm_kernels_match_the_plain_cell(cuda, dtype):
         loss = sum((o.float() * c).sum() for o, c in zip(outs, cots))
         return list(outs) + list(torch.autograd.grad(loss, leaves))
 
-    before = kernels.lstm_layer.launches, kernels.lstm_point.launches
+    before = (kernels.lstm_layer.launches, kernels.lstm_point.launches,
+              kernels.lstm_layer_bwd.launches)
     got = run(None)
     launched = (kernels.lstm_layer.launches - before[0],
-                kernels.lstm_point.launches - before[1])
-    assert launched == ((4, 0) if dtype == torch.float32 else (0, 140))
+                kernels.lstm_point.launches - before[1],
+                kernels.lstm_layer_bwd.launches - before[2])
+    assert launched == (4, 0, 4)
     want = run(False)
     for a, w in zip(got, want):
         assert a.dtype == w.dtype

@@ -305,8 +305,9 @@ def test_lstm_routes_a_wide_f32_layer_to_the_fused_cell(monkeypatch, hidden,
                                                         want):
     """``ops.rnn.lstm`` picks the route from the shape before any launch:
     an f32 layer the layer kernel takes goes to ``lstm_layer_fused``, a
-    wider one (H 6656) steps ``lstm_cell_fused``, as bf16 does (the two
-    kernels stubbed here, so no H 6656 weights are made)."""
+    wider one (H 6656) steps ``lstm_cell_fused`` (the two kernels stubbed
+    here, so no H 6656 weights are made; bf16 in
+    ``test_torch_lstm_bf16.py``)."""
     calls = []
 
     def layer(x, h0, c0, w, reverse):

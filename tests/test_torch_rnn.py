@@ -140,8 +140,8 @@ def _lstm_arrays(rng, layers, inp, hidden):
 def test_bidirectional_lstm_matches(dtype, layers, fused):
     """Outputs (T, B, 2H), hT and cT (2L, B, H) and the gradients of x, h0,
     c0 and every direction's wx, wh, b.  With ``fused`` at its default an
-    f32 direction runs the layer Function and a bf16 one the fused cell
-    (their plain versions on the CPU); ``False`` the plain cell."""
+    f32 or bf16 direction runs the layer Function (its plain versions on
+    the CPU: the step loop and the BPTT loop); ``False`` the plain cell."""
     rng = np.random.RandomState(layers)
     t, b, i, h = 6, 3, 5, 8
     x = rng.normal(0, 1, (t, b, i)).astype(np.float32)

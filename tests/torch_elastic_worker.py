@@ -181,6 +181,7 @@ def launch_counts() -> dict:
             "flash_attention": attention.flash_fwd.launches,
             "lstm_pointwise": kernels.lstm_point.launches,
             "lstm_layer": kernels.lstm_layer.launches,
+            "lstm_layer_bwd": kernels.lstm_layer_bwd.launches,
             "grad_bytes": tr.get_counter("pipeline.grad_bytes"),
             "wire_bytes": tr.get_counter("wire.bytes_sent"),
             "wire_recv_bytes": tr.get_counter("wire.bytes_recv")}
