@@ -307,7 +307,8 @@ JAX.  Phases, each fatal on failure:
    ``bn_stats`` and one ``bn_act`` a BN a step (none for the models without
    BN), the median synced step of the last 2, images/s, peak HBM and the
    idle share of one profiled step; (c) the ``Predictor`` in bf16, built by
-   name from a checkpoint of the fit, at buckets 1 and 32: one ``bn_act`` a
+   name from a serving checkpoint of the fit (its weights and BN stats, no
+   optimizer slots), at buckets 1 and 32: one ``bn_act`` a
    BN a request, bucket 32 against ``Module.predict``, ms a request and
    images/s.  The phase's time;
 25. detection (after the zoo): the detectors at the sizes users train
@@ -340,6 +341,26 @@ JAX.  Phases, each fatal on failure:
    ``ssd_train_augmenter`` and, last in the chain, a ``native`` resize to
    300x300 (the phase fails if it imported PIL), the iterator's images/s
    alone.  The phase's time.
+26. quantization and ONNX (after the detectors): (b)
+   ``examples/quantize_model.py``'s flow in the port at its defaults (the
+   4-way task of 64 features, 4096 rows and 1024 held out, the 64-128-128-4
+   MLP, the port's adam at 1e-3 for 30 epochs of 256, 8 calibration
+   batches): int8 top-1 within 0.02 of fp32 (the example's gate) with
+   ``naive`` and ``entropy`` calibration, 3 ``qconv`` launches an int8
+   forward (the int8 kernel's main path), each forward bit-equal to the
+   same forward on the kernel's plain version; (a) the int8 kernel
+   (``csrc/qconv.cu``) at every distinct convolution of ResNet-50 v1
+   (224x224, batch 32) and its dense head, on int8 codes of a seeded float
+   forward (``MinMaxCollector`` ranges, ``quantize_params`` weights), and
+   at the example's three dense calls: bit-equal to ``qconv_plain`` in
+   float32 and bfloat16 output, two launches bit-identical, timed beside
+   the bound, the plain version and ``torch._int_mm`` (a yardstick the
+   port never calls) over the same GEMM, summed over one forward; (c)
+   ResNet-50 v1 exported by ``onnx.export_onnx`` from phase 4's seeded
+   weights at batch 32 (bytes, seconds, nodes, initializers) and served by
+   ``Predictor.from_onnx`` at bucket 32 (requests of 1, 32 and 130 rows)
+   against the native ``Predictor`` on the same weights, f32 logits within
+   1e-4 of its largest; ms a request and images/s of both, in turns.
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
@@ -366,7 +387,10 @@ inference), and every BN row ``detection_launches``, phase 25's by model
 (training and SSD's record-fed steps: pass 1 + pass 2; the eval forwards
 and SSD's requests: BN inference).  ``nms_keep`` (phase 25's scan kernel)
 counts its launches over the phase's main-path runs, by model, dtype and
-part.
+part.  ``quantized_conv2d`` (phase 26's int8 kernel) counts the launches of
+(b)'s int8 forwards; its times are those of the example's three calls, and
+``resnet50_int8_forward`` carries (a)'s sums; the f32 BN-inference row
+carries the native Predictor's launches a request in (c).
 """
 
 from __future__ import annotations
@@ -845,11 +869,12 @@ def serve(name, dtype, variables, dev, images, gpu):
 
 def profile_fn(fn, wall_ms: float, tag: str) -> dict:
     """Device time of one call of ``fn`` by kernel, from ``torch.profiler``,
-    and the device's idle share against the call's unprofiled host time."""
+    and the device's idle share against the call's unprofiled host time.
+    Only device activity is recorded: the host's op events cost seconds a
+    window for the deep zoo models' steps and no number here reads them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
@@ -879,7 +904,7 @@ def counted():
             "lstm_pointwise": kernels.lstm_point,
             "lstm_layer": kernels.lstm_layer,
             "lstm_layer_bwd": kernels.lstm_layer_bwd,
-            "nms_keep": kernels.nms_keep}
+            "nms_keep": kernels.nms_keep, "qconv": kernels.qconv}
 
 
 def reset_counts() -> None:
@@ -6556,16 +6581,18 @@ def _zoo_model(name, size, dev, gpu) -> dict:
     """One model of phase 24: (a) :func:`_zoo_eval_vs_plain` and
     :func:`_zoo_kernels_at_path_shapes`, (b) the bf16 ``Module.fit`` (the
     main path's training run: counts reset just before it, read just
-    after), (c) the ``Predictor`` in bf16, built by name from the fit's
-    checkpoint (its requests the main path's serving run)."""
+    after), (c) the ``Predictor`` in bf16, built by name from a serving
+    checkpoint of the fit's weights and BN stats (its requests the main
+    path's serving run)."""
     import tempfile
 
     import torch
-    from dt_tpu_torch import models
+    from dt_tpu_torch import models, optim
     from dt_tpu_torch.data import io
     from dt_tpu_torch.predictor import Predictor
     from dt_tpu_torch.training import checkpoint
     from dt_tpu_torch.training.module import Module
+    from dt_tpu_torch.training.train_state import TrainState
     tag = f"zoo {name} {size}"
     t0 = time.perf_counter()
     kw = {"image_size": size} if models.takes_image_size(name) else {}
@@ -6659,7 +6686,10 @@ def _zoo_model(name, size, dev, gpu) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
         prefix = str(Path(tmp) / name)
-        checkpoint.save_checkpoint(prefix, 0, mod.state)
+        # a serving checkpoint: the fit's weights and BN stats, no
+        # optimizer slots (what the Predictor reads; half the bytes)
+        serving = TrainState.create(mod.model, optim.create("sgd"))
+        checkpoint.save_checkpoint(prefix, 0, serving)
         pred = Predictor(name, prefix, 0, images[:1], dtype=torch.bfloat16,
                          batch_buckets=list(ZOO_BUCKETS), device=dev,
                          num_classes=1000)
@@ -7307,6 +7337,464 @@ def detection_phase(gpu, dev) -> dict:
             "rec": rec, "launches": launches, "seconds": secs}
 
 
+# --- phase 26: int8 quantization and ONNX -----------------------------------
+# examples/quantize_model.py's defaults: a 4-way task of 64 features, 4096
+# training rows and 1024 held out, a 64-128-128-4 MLP, adam 1e-3 for 30
+# epochs of 256, 8 calibration batches; the int8 top-1 within 0.02 of fp32
+QUANT = dict(features=64, hidden=128, classes=4, train=4096, val=1024,
+             batch=256, epochs=30, calib_batches=8, lr=1e-3, seed=0)
+QUANT_GATE = 0.02
+QUANT_PER_FORWARD = 3  # quantized_dense calls an int8 forward
+QUANT_MODEL = "resnet50"  # (a)'s shapes and (c)'s export, at full width
+ONNX_REQUESTS = (1, 32, 130)  # 130: chunks of 32 + a padded 2
+ONNX_BUCKET = 32
+ONNX_REPS = 5  # requests timed a predictor, in turns
+TOL_ONNX = 1e-4  # of the native Predictor's largest logit
+INT8_TOPS = 1979e12  # H100 SXM dense int8 (data sheet)
+HBM_BYTES_S = 3.35e12
+
+
+def _quant_task(n: int, seed: int):
+    """``examples/quantize_model.py``'s ``make_task``: the quadrant of the
+    means of the two halves of 64 normal features."""
+    rng = np.random.RandomState(seed)
+    x = rng.normal(0, 1, (n, QUANT["features"])).astype("float32")
+    a = x[:, :32].mean(1) > 0
+    b = x[:, 32:].mean(1) > 0
+    return x, (2 * a + b).astype("int64")
+
+
+def _quant_forward(p, xb, taps=False):
+    import torch
+    h1 = torch.relu(xb @ p["w1"] + p["b1"])
+    h2 = torch.relu(h1 @ p["w2"] + p["b2"])
+    out = h2 @ p["w3"] + p["b3"]
+    return (out, {"in": xb, "h1": h1, "h2": h2}) if taps else out
+
+
+def _int8_forward(Q, p, ranges, qw, xb):
+    """The example's int8 forward: each dense an int8 product with an int32
+    accumulator (``quantized_dense``), the activations quantized again
+    against the calibrated ranges between layers."""
+    import torch
+    xq, xs = Q.quantize(xb, *ranges["in"])
+    h1 = torch.relu(Q.quantized_dense(xq, qw["w1"][0], xs, qw["w1"][1])
+                    + p["b1"])
+    h1q, h1s = Q.quantize(h1, *ranges["h1"])
+    h2 = torch.relu(Q.quantized_dense(h1q, qw["w2"][0], h1s, qw["w2"][1])
+                    + p["b2"])
+    h2q, h2s = Q.quantize(h2, *ranges["h2"])
+    return Q.quantized_dense(h2q, qw["w3"][0], h2s, qw["w3"][1]) + p["b3"]
+
+
+def _quant_mlp(dev, gpu) -> dict:
+    """Phase 26 (b): ``examples/quantize_model.py`` in the port on the card.
+    Train fp32 (the port's adam), calibrate (naive and entropy), quantize
+    the weights offline, serve int8: top-1 against fp32, 3 ``qconv``
+    launches an int8 forward (counted over both modes' forwards, the main
+    path's run), each forward bit-equal to the same forward on the kernel's
+    plain version.  Returns the accuracies, the launches and the three
+    ``quantized_dense`` calls of one int8 forward for (a)."""
+    import torch
+    from dt_tpu_torch.ops import kernels, losses
+    from dt_tpu_torch.ops import quantization as Q
+    from dt_tpu_torch.optim import optimizers
+    t0 = time.perf_counter()
+    q = QUANT
+    x, y = _quant_task(q["train"], q["seed"])
+    vx, vy = _quant_task(q["val"], q["seed"] + 1)
+    rng = np.random.RandomState(q["seed"])
+    f, h, c = q["features"], q["hidden"], q["classes"]
+    shapes = {"w1": (f, h), "b1": (h,), "w2": (h, h), "b2": (h,),
+              "w3": (h, c), "b3": (c,)}
+    params = {k: torch.from_numpy(
+        (rng.normal(0, 1, s) * 0.1 if k[0] == "w" else np.zeros(s))
+        .astype(np.float32)).to(dev).requires_grad_(True)
+        for k, s in shapes.items()}
+    rule = optimizers.adam(learning_rate=q["lr"])
+    state = rule.init(params)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    first = last = None
+    for _ in range(q["epochs"]):
+        for i in range(0, q["train"], q["batch"]):
+            loss = losses.softmax_cross_entropy(
+                _quant_forward(params, xt[i:i + q["batch"]]),
+                yt[i:i + q["batch"]])
+            grads = torch.autograd.grad(loss, list(params.values()))
+            state = rule.update(dict(zip(params, grads)), state, params)
+            first = float(loss.detach()) if first is None else first
+    last = float(loss.detach())
+    train_s = time.perf_counter() - t0
+    p = {k: v.detach() for k, v in params.items()}
+    vxt = torch.from_numpy(vx).to(dev)
+
+    def acc(logits) -> float:
+        return float((logits.argmax(-1).cpu().numpy() == vy).mean())
+
+    with torch.no_grad():
+        fp32 = acc(_quant_forward(p, vxt))
+        collector = Q.MinMaxCollector()
+        chunks = {"in": [], "h1": [], "h2": []}
+        for i in range(q["calib_batches"]):
+            _, taps = _quant_forward(p, xt[i * q["batch"]:(i + 1) * q["batch"]],
+                                     taps=True)
+            for name, v in taps.items():
+                collector.collect(name, v)
+                chunks[name].append(v.cpu().numpy())
+        qw = {}
+        for name in ("w1", "w2", "w3"):
+            amax = float(p[name].abs().max())
+            qw[name] = Q.quantize(p[name], -amax, amax)
+        out = {"fp32": fp32, "loss": [first, last], "int8": {},
+               "train_s": train_s}
+        calls = []
+        real_dense = Q.quantized_dense
+
+        def recording(*args, **kw):  # the kernel's inputs, for (a)
+            calls.append((args, kw))
+            return real_dense(*args, **kw)
+
+        torch.cuda.synchronize()
+        reset_counts()  # the main path's run starts here
+        logits = {}
+        for mode in ("naive", "entropy"):
+            if mode == "entropy":
+                ranges = {}
+                for name, parts in chunks.items():
+                    t = Q.entropy_calibrate(np.concatenate(parts))
+                    ranges[name] = (-t, t)
+            else:
+                ranges = collector.ranges
+            Q.quantized_dense = recording if mode == "naive" else real_dense
+            try:
+                logits[mode] = (_int8_forward(Q, p, ranges, qw, vxt), ranges)
+            finally:
+                Q.quantized_dense = real_dense
+        torch.cuda.synchronize()
+        counts = read_counts()  # ... and ends here
+        counted = counts.pop("qconv")
+        if counted != 2 * QUANT_PER_FORWARD or any(counts.values()):
+            raise AssertionError(f"phase 26 (b): launches {counted} qconv "
+                                 f"(want {2 * QUANT_PER_FORWARD}) and "
+                                 f"{counts}")
+        real_qconv = kernels.qconv
+        for mode, (got, ranges) in logits.items():
+            kernels.qconv = kernels.qconv_plain  # the same forward, plain
+            try:
+                plain = _int8_forward(Q, p, ranges, qw, vxt)
+            finally:
+                kernels.qconv = real_qconv
+            top1 = acc(got)
+            same = bool(torch.equal(got, plain))
+            out["int8"][mode] = {"top1": top1, "bit_equal_to_plain": same,
+                                 "ranges": {k: [round(a, 4), round(b, 4)]
+                                            for k, (a, b) in ranges.items()}}
+            print(f"quant (b) {mode}: fp32 top-1 {fp32:.4f} int8 top-1 "
+                  f"{top1:.4f} (delta {fp32 - top1:+.4f}, gate "
+                  f"{QUANT_GATE}) bit-equal to the plain forward {same} "
+                  f"ranges {out['int8'][mode]['ranges']}", flush=True)
+            if not same or fp32 - top1 > QUANT_GATE or fp32 < 0.5:
+                raise AssertionError(f"phase 26 (b) {mode}: fp32 {fp32}, "
+                                     f"int8 {top1}, bit-equal {same}")
+    out.update(launches=counted, calls=calls,
+               seconds=time.perf_counter() - t0)
+    print(f"quant (b) examples/quantize_model.py defaults: loss "
+          f"{first:.4f} -> {last:.4f} in {q['epochs']} epochs "
+          f"({train_s:.1f} s), qconv launches {counted} "
+          f"({QUANT_PER_FORWARD} an int8 forward), {out['seconds']:.1f} s "
+          f"gpu={gpu}", flush=True)
+    return out
+
+
+def _resnet_qconv_cases(dev, variables, images) -> list:
+    """Every distinct convolution of ResNet-50 v1 at 224x224, batch 32, and
+    its dense head, on int8 codes of a seeded float forward: each layer's
+    input captured by a pre-hook, quantized over its ``MinMaxCollector``
+    range; the weights from ``quantize_params``.  Returns (tag, calls in a
+    forward, xq NHWC, wq HWIO, x scale, w scale, stride, pads, bias)."""
+    import torch
+    from dt_tpu_torch import models
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.models.common import Conv, Dense
+    from dt_tpu_torch.ops import nn as nn_ops
+    from dt_tpu_torch.ops import quantization as Q
+    model = load_jax_variables(models.create(QUANT_MODEL, device=dev),
+                               variables).eval()
+    seen = {}
+
+    def hook(mod, args):
+        x = args[0]
+        if isinstance(mod, Conv):
+            kh, kw = mod.weight.shape[2:]
+            pads = nn_ops._pads(mod.padding, tuple(x.shape[2:]), (kh, kw),
+                                mod.strides)
+            key = (tuple(x.shape), tuple(mod.weight.shape), mod.strides,
+                   pads)
+        else:
+            key = (tuple(x.shape), tuple(mod.weight.shape))
+        if key in seen:
+            seen[key][1] += 1
+        else:
+            seen[key] = [mod, 1, x.detach().clone()]
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv, Dense))]
+    x = torch.from_numpy(images[:BATCH]).to(dev).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        model(x)
+    for hk in hooks:
+        hk.remove()
+    collector = Q.MinMaxCollector()
+    cases = []
+    with torch.inference_mode():
+        for i, (key, (mod, n, act)) in enumerate(seen.items()):
+            tag = f"l{i}"
+            collector.collect(tag, act)
+            if isinstance(mod, Conv):
+                w = mod.weight.permute(2, 3, 1, 0).contiguous()  # HWIO
+                act = act.permute(0, 2, 3, 1)  # NHWC (channels_last)
+                stride, pads, bias = mod.strides, key[3], None
+            else:
+                w = mod.weight.t().contiguous()
+                act = act.reshape(act.shape[0], 1, 1, act.shape[-1])
+                w = w.reshape(1, 1, *w.shape)
+                stride, pads, bias = (1, 1), ((0, 0), (0, 0)), mod.bias
+            xq, xs = Q.quantize(act.contiguous(), *collector.ranges[tag])
+            qp = Q.quantize_params({"w": w})["w"]
+            cases.append((tag, n, xq, qp["q"], xs, qp["scale"],
+                          tuple(stride), pads, bias))
+    del model, seen
+    return cases
+
+
+def _int_mm_ms(xq, wq, stride, pads):
+    """``torch._int_mm`` (one PyTorch call, cuBLASLt's int8 GEMM; never
+    called by the port) over the same GEMM: the im2col'ed A (not timed)
+    and B padded with zeros to its shape rules (K and N multiples of 8).
+    Returns (ms, error or None)."""
+    import torch
+    import torch.nn.functional as F
+    from dt_tpu_torch.ops import kernels
+    kh, kw, c, n = wq.shape
+    (pt, pb), (pl, pr) = pads
+    xh = F.pad(xq.permute(0, 3, 1, 2).half(), (pl, pr, pt, pb))
+    cols = F.unfold(xh, (kh, kw), stride=tuple(stride))  # (B, C kh kw, L)
+    a = cols.transpose(1, 2).reshape(-1, cols.shape[1])
+    k, m = a.shape[1], a.shape[0]
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    a8 = torch.zeros((max(m, 17), kp), dtype=torch.int8, device=xq.device)
+    a8[:m, :k] = a.to(torch.int8)
+    b8 = torch.zeros((kp, np_), dtype=torch.int8, device=xq.device)
+    b8[:k, :n] = wq.permute(2, 0, 1, 3).reshape(k, n)
+    del cols, a, xh
+    for b in (b8, b8.t().contiguous().t()):
+        try:
+            got = torch._int_mm(a8, b)
+            acc = kernels.qconv_acc_plain(xq, wq, stride, pads)
+            if not torch.equal(got[:m, :n], acc.reshape(m, n)):
+                return None, "its product differs from the accumulator"
+            return cuda_ms(lambda t: torch._int_mm(t, b), [a8]), None
+        except RuntimeError as e:
+            err = str(e).splitlines()[0][:120]
+    return None, err
+
+
+def _qconv_case(case, dev, time_it=True) -> dict:
+    """One shape: the kernel against its plain version in float32 and
+    bfloat16 output (bit-equal, two launches bit-identical), then the
+    kernel's, the plain version's and ``torch._int_mm``'s times and the
+    bound."""
+    import torch
+    from dt_tpu_torch.ops import kernels
+    tag, n_calls, xq, wq, xs, ws, stride, pads, bias = case
+    d = (xs * ws).to(dev)
+    b32 = None if bias is None else bias.detach().float().contiguous()
+    err, equal = 0.0, True
+    for dtype in (torch.float32, torch.bfloat16):
+        y1 = kernels.qconv(xq, wq, stride, pads, d, b32, dtype)
+        y2 = kernels.qconv(xq, wq, stride, pads, d, b32, dtype)
+        ref = kernels.qconv_plain(xq, wq, stride, pads, d, b32, dtype)
+        torch.cuda.synchronize()
+        equal &= bool(torch.equal(y1, ref) and torch.equal(y1, y2))
+        err = max(err, float((y1.float() - ref.float()).abs().max()))
+    kh, kw, c, n = wq.shape
+    m = y1.shape[0] * y1.shape[1] * y1.shape[2]
+    k = kh * kw * c
+    ops = 2.0 * m * n * k
+    moved = xq.numel() + wq.numel() + 4 * m * n \
+        + (0 if b32 is None else 4 * n)
+    bound_ops, bound_bytes = ops / INT8_TOPS * 1e3, moved / HBM_BYTES_S * 1e3
+    out = {"tag": tag, "calls": n_calls, "m": m, "n": n, "k": k,
+           "x": list(xq.shape), "stride": list(stride),
+           "pads": [list(p) for p in pads], "bit_equal": equal,
+           "max_abs_err": err, "bound_ms": max(bound_ops, bound_bytes),
+           "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+    if time_it:
+        # inputs rotated past the 50 MB L2 where one is smaller
+        copies = [xq] + [xq.clone() for _ in range(
+            min(7, (60 << 20) // max(xq.numel(), 1)))]
+        out["ms"] = cuda_ms(lambda a: kernels.qconv(
+            a, wq, stride, pads, d, b32, torch.float32), copies)
+        out["plain_ms"] = _events_ms(lambda: kernels.qconv_plain(
+            xq, wq, stride, pads, d, b32, torch.float32), iters=3)
+        out["library_ms"], out["library_note"] = _int_mm_ms(xq, wq, stride,
+                                                            pads)
+        out["tops"] = ops / out["ms"] / 1e9
+    return out
+
+
+def _quant_kernel(dev, gpu, variables, images, mlp) -> dict:
+    """Phase 26 (a): the kernel at every distinct ResNet-50 v1 shape (batch
+    32) and the quantize example's three dense calls (the main path's
+    shapes), held and timed; sums over one forward."""
+    import torch
+    t0 = time.perf_counter()
+    cases = _resnet_qconv_cases(dev, variables, images)
+    rows = []
+    for case in cases:
+        r = _qconv_case(case, dev)
+        rows.append(r)
+        print(f"quant (a) {QUANT_MODEL} {r['tag']} x{r['calls']} x={r['x']} "
+              f"k={r['k']} n={r['n']} stride={r['stride']} pads={r['pads']}"
+              f": bit_equal={r['bit_equal']} ms={r['ms']:.4f} plain_ms="
+              f"{r['plain_ms']:.3f} int_mm_ms={r['library_ms']} bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) TOP/s={r['tops']:.1f}"
+              + (f" int_mm: {r['library_note']}" if r["library_note"]
+                 else ""), flush=True)
+    mlp_rows = []
+    for i, (args, kw) in enumerate(mlp["calls"]):
+        xq, wq, xs, ws = args[:4]
+        m, k = xq.shape
+        case = (f"mlp{i}", 1, xq.reshape(m, 1, 1, k),
+                wq.reshape(1, 1, *wq.shape), xs, ws, (1, 1),
+                ((0, 0), (0, 0)), None)
+        r = _qconv_case(case, dev)
+        mlp_rows.append(r)
+        print(f"quant (a) mlp dense {m}x{k}x{r['n']}: bit_equal="
+              f"{r['bit_equal']} ms={r['ms']:.4f} plain_ms="
+              f"{r['plain_ms']:.3f} int_mm_ms={r['library_ms']} bound_ms="
+              f"{r['bound_ms']:.5f} ({r['bound_by']})"
+              + (f" int_mm: {r['library_note']}" if r["library_note"]
+                 else ""), flush=True)
+    bad = [r["tag"] for r in rows + mlp_rows if not r["bit_equal"]]
+    if bad:
+        raise AssertionError(f"phase 26 (a): the kernel differs from its "
+                             f"plain version at {bad}")
+
+    def total(rs, key):
+        vals = [r[key] * r["calls"] for r in rs]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    forward = {key: total(rows, key) for key in ("ms", "plain_ms",
+                                                 "bound_ms", "library_ms")}
+    forward.update(shapes=len(rows), calls=sum(r["calls"] for r in rows))
+    main = {key: total(mlp_rows, key) for key in ("ms", "plain_ms",
+                                                  "bound_ms", "library_ms")}
+    secs = time.perf_counter() - t0
+    print(f"quant (a) {QUANT_MODEL} int8 forward (batch {BATCH}, "
+          f"{forward['calls']}"
+          f" calls over {len(rows)} shapes): kernel {forward['ms']:.3f} ms, "
+          f"plain {forward['plain_ms']:.1f} ms, torch._int_mm "
+          f"{forward['library_ms']} ms, bound {forward['bound_ms']:.4f} ms; "
+          f"the int8 MLP forward's 3 calls: kernel {main['ms']:.4f} ms, "
+          f"bound {main['bound_ms']:.5f}; {secs:.1f} s gpu={gpu}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return {"rows": rows, "mlp_rows": mlp_rows, "forward": forward,
+            "main": main, "max_abs_err": max(r["max_abs_err"]
+                                             for r in rows + mlp_rows),
+            "seconds": secs}
+
+
+def _onnx_serve(dev, gpu, variables, images) -> dict:
+    """Phase 26 (c): ResNet-50 v1 exported with ``export_onnx`` from the
+    seeded weights at batch 32, served by ``Predictor.from_onnx`` on the
+    card (bucket 32; requests of 1, 32 and 130 rows) against the native
+    port ``Predictor`` on the same weights (its BN on ``bn_act``)."""
+    import torch
+    from dt_tpu_torch import models
+    from dt_tpu_torch import onnx as tonnx
+    from dt_tpu_torch.interchange import load_jax_variables
+    from dt_tpu_torch.predictor import Predictor
+    t0 = time.perf_counter()
+    blob = tonnx.export_onnx(models.create(QUANT_MODEL, device="cpu"),
+                             images[:ONNX_BUCKET], variables=variables)
+    export_s = time.perf_counter() - t0
+    m = tonnx.parse_model(blob)
+    ops = sorted({nd["op_type"] for nd in m["nodes"]})
+    print(f"onnx (c) export {QUANT_MODEL} batch {ONNX_BUCKET}: {len(blob)} "
+          f"bytes "
+          f"in {export_s:.1f} s, {len(m['nodes'])} nodes, "
+          f"{len(m['initializers'])} initializers, ops {ops}, input "
+          f"{m['inputs'][0][1]}", flush=True)
+    onnx_pred = Predictor.from_onnx(blob, batch_buckets=[ONNX_BUCKET],
+                                    device=dev)
+    model = load_jax_variables(models.create(QUANT_MODEL, device=dev),
+                               variables)
+    native = Predictor.from_fn(lambda mm, _s, x: mm(x), model,
+                               batch_buckets=[ONNX_BUCKET], device=dev)
+    for p in (onnx_pred, native):
+        p.warmup(images.shape[1:])
+    torch.cuda.synchronize()
+    worst = 0.0
+    for n in ONNX_REQUESTS:
+        reset_counts()
+        got = onnx_pred.predict(images[:n])
+        onnx_counts = read_counts()
+        want = native.predict(images[:n])
+        if got.shape != (n, 1000) or not np.isfinite(got).all():
+            raise AssertionError(f"phase 26 (c): request of {n} gave "
+                                 f"{got.shape}")
+        err = float(np.abs(got - want).max())
+        rel = err / float(np.abs(want).max())
+        worst = max(worst, rel)
+        print(f"onnx (c) request rows={n}: max_abs_err={err:.3e} "
+              f"({rel:.3e} of the largest logit, tol {TOL_ONNX}) kernel "
+              f"launches on the ONNX path {onnx_counts}", flush=True)
+        if not rel <= TOL_ONNX:
+            raise AssertionError(f"phase 26 (c): ONNX logits {rel:.3e} of "
+                                 f"the largest from the native Predictor")
+    reset_counts()
+    native.predict(images[:ONNX_BUCKET])
+    native_bn = read_counts()["bn_act"]
+    times = {"onnx": [], "native": []}
+    batch = images[:ONNX_BUCKET]
+    for name in ("onnx", "native", "native", "onnx") * ONNX_REPS:
+        pred = onnx_pred if name == "onnx" else native
+        t = time.perf_counter()
+        pred.predict(batch)
+        times[name].append((time.perf_counter() - t) * 1e3)
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    secs = time.perf_counter() - t0
+    print(f"onnx (c) bucket {ONNX_BUCKET} f32: from_onnx ms_per_request="
+          f"{ms['onnx']:.3f} img_per_s={ONNX_BUCKET / ms['onnx'] * 1e3:.1f}; "
+          f"native Predictor ms_per_request={ms['native']:.3f} img_per_s="
+          f"{ONNX_BUCKET / ms['native'] * 1e3:.1f} ({native_bn} bn_act a "
+          f"request); worst {worst:.3e} of the largest logit; {secs:.1f} s "
+          f"gpu={gpu}", flush=True)
+    del onnx_pred, native, model
+    torch.cuda.empty_cache()
+    return {"bytes": len(blob), "export_s": export_s,
+            "nodes": len(m["nodes"]), "initializers": len(m["initializers"]),
+            "ms": ms, "max_rel_err": worst, "native_bn_act": native_bn,
+            "seconds": secs}
+
+
+def quant_onnx_phase(gpu, dev, variables, images) -> dict:
+    """Phase 26: (b) the quantize example on the card (the kernel's main
+    path), (a) the int8 kernel at ResNet-50 v1's shapes and the example's,
+    (c) ONNX export and serving at full width.  Each part's time."""
+    t0 = time.perf_counter()
+    mlp = _quant_mlp(dev, gpu)
+    kernel = _quant_kernel(dev, gpu, variables, images, mlp)
+    served = _onnx_serve(dev, gpu, variables, images)
+    secs = time.perf_counter() - t0
+    print(f"quant/onnx phase: (b) {mlp['seconds']:.1f} s, (a) "
+          f"{kernel['seconds']:.1f} s, (c) {served['seconds']:.1f} s, total "
+          f"{secs:.1f} s gpu={gpu}", flush=True)
+    return {"mlp": mlp, "kernel": kernel, "onnx": served, "seconds": secs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7472,6 +7960,9 @@ def main() -> int:
     detection = detection_phase(gpu, dev)
     print(f"phase detection done at {time.perf_counter() - t0:.1f} s",
           flush=True)
+    quant = quant_onnx_phase(gpu, dev, variables, images)
+    print(f"phase quantization and onnx done at "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- LM kernels -----------------------------------------------------
     flash = flash_phase(dev)
@@ -7504,6 +7995,9 @@ def main() -> int:
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": "bytes",
             "library_ms": tot["library_ms"]})
+        if dtype == torch.float32:  # phase 26 (c): the native Predictor
+            kernels[-1]["onnx_native_launches_a_request"] = \
+                quant["onnx"]["native_bn_act"]
         if dtype == torch.bfloat16:  # fit's eval forwards (bn_act alone)
             kernels[-1]["fit_launches"] = (fit_counts["bn_act"]
                                            - fit_counts["bn_stats"])
@@ -7806,6 +8300,31 @@ def main() -> int:
                         for part, c in parts.items()}
                    for dt, parts in per.items()}
             for name, per in detection["launches"].items()}})
+    qk = quant["kernel"]
+    kernels.append({  # phase 26: the int8 implicit GEMM
+        "name": "quantized_conv2d", "route": "cuda",
+        "source": "dt_tpu_torch/csrc/qconv.cu",
+        # XLA int8 convolution and product with an int32 accumulator (no
+        # Pallas kernel): quantized_conv2d, and quantized_dense at :52
+        "replaces": "dt_tpu/ops/quantization.py:65",
+        "launches": quant["mlp"]["launches"],
+        "max_abs_err": qk["max_abs_err"],
+        "ms": qk["main"]["ms"], "plain_ms": qk["main"]["plain_ms"],
+        "bound_ms": qk["main"]["bound_ms"],
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                    for r in qk["mlp_rows"])
+                     else "operations"),
+        "library_ms": qk["main"]["library_ms"],
+        "library": "torch._int_mm over the same GEMM (im2col not timed)",
+        "path": "examples/quantize_model.py int8 forward (phase 26 (b)): "
+                "3 quantized_dense calls, naive and entropy",
+        "shapes": [[r["m"], r["k"], r["n"]] for r in qk["mlp_rows"]],
+        "resnet50_int8_forward": qk["forward"],
+        "int8_top1": {k: v["top1"] for k, v in quant["mlp"]["int8"].items()},
+        "fp32_top1": quant["mlp"]["fp32"],
+        "onnx_resnet50": {k: quant["onnx"][k] for k in (
+            "bytes", "export_s", "nodes", "initializers", "ms",
+            "max_rel_err")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Ops of the port, by the JAX package's submodule names (``nn``,
 ``losses``, ``tensor``, ``rnn``, ``sparse``, ``detection``, ``roi``,
-``warp``, ``contrib``, ``linalg``, ``custom_op``), plus ``kernels`` (the CUDA
-kernels with their plain versions, built by ``_build``) and ``attention``.
-``quantization`` is not ported yet and refuses by name."""
+``warp``, ``contrib``, ``linalg``, ``custom_op``, and ``quantization``,
+imported by its module path as the JAX package's is), plus ``kernels`` (the
+CUDA kernels with their plain versions, built by ``_build``) and
+``attention``."""
 
 from dt_tpu_torch.ops import nn as nn
 from dt_tpu_torch.ops import losses as losses

@@ -2,7 +2,7 @@
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain version
 only for a CPU tensor; there is no fallback from one to the other.  Each
-wrapper counts its launches in its ``launches`` attribute.  All of them are
+wrapper counts its launches in its ``launches`` attribute.  Most of them are
 bound by bytes; their least time is the bytes they must move over the H100's
 3.35 TB/s.
 
@@ -49,6 +49,14 @@ bound by bytes; their least time is the bytes they must move over the H100's
   kernel's correctly rounded IoUs take most of a call, then the serial
   chain of the longest run.
 
+- ``qconv`` (``csrc/qconv.cu``) computes the JAX package's
+  ``quantized_conv2d`` and ``quantized_dense`` (``dt_tpu/ops/
+  quantization.py:52,65``), which are XLA int8 convolutions and products
+  with an int32 accumulator, no Pallas kernel: an implicit GEMM on the
+  int8 tensor cores (``mma.sync`` m16n8k32) with the float epilogue fused,
+  bit-equal to its plain version.  Bound by operations for the wide
+  layers, by bytes for the thin ones.
+
 ``flash_attn`` (``csrc/flash_attn.cu``, the flash-attention forward) is
 bound by operations; its wrapper lives in ``ops.attention`` and its
 signature here.
@@ -64,6 +72,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from dt_tpu_torch.obs import device as obs_device
 from dt_tpu_torch.obs import trace as obs_trace
@@ -102,6 +111,9 @@ _SIGNATURES = {
     # boxes, labels, counts, perm, mask scratch, keep; batch, N; threshold;
     # stream
     "nms": {"dt_nms": [_V] * 6 + [_I64] * 2 + [ctypes.c_float, _V]},
+    # x, w, bias, divisor, out; batch, H, W, C; kh, kw, N, OH, OW, sh, sw,
+    # pad top, pad left, dtype; stream
+    "qconv": {"dt_qconv": [_V] * 5 + [_I64] * 4 + [_INT] * 10 + [_V]},
 }
 
 
@@ -1383,3 +1395,123 @@ def nms_keep(boxes: torch.Tensor, labels, counts: torch.Tensor,
 
 
 nms_keep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 convolution (implicit GEMM) with the float epilogue
+# ---------------------------------------------------------------------------
+
+#: the deepest contraction whose int32 sum cannot overflow: 127^2 K < 2^31
+QCONV_MAX_K = (2 ** 31 - 1) // (127 * 127)
+
+
+def qconv_out_hw(hw, kernel, stride, pads):
+    """``(OH, OW)`` of a convolution over ``hw`` with explicit ``pads``
+    ``((top, bottom), (left, right))``."""
+    return tuple((s + lo + hi - k) // st + 1
+                 for s, k, st, (lo, hi) in zip(hw, kernel, stride, pads))
+
+
+def _qconv_check(xq, wq, stride, pads, divisor, bias, dtype):
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError(f"qconv: xq and wq must be int8, got {xq.dtype} and "
+                        f"{wq.dtype}")
+    if xq.dim() != 4 or wq.dim() != 4 or xq.shape[3] != wq.shape[2]:
+        raise ValueError(f"qconv: need NHWC xq and HWIO wq with one C, got "
+                         f"{tuple(xq.shape)} and {tuple(wq.shape)}")
+    if min(stride) < 1 or min(p for pair in pads for p in pair) < 0:
+        raise ValueError(f"qconv: strides must be >= 1 and pads >= 0, got "
+                         f"{stride} and {pads}")
+    k = wq.shape[0] * wq.shape[1] * wq.shape[2]
+    if k > QCONV_MAX_K:
+        raise ValueError(f"qconv: a contraction of {k} > {QCONV_MAX_K} "
+                         "terms can overflow the int32 accumulator (127^2 K "
+                         "must stay below 2^31)")
+    if divisor.dim() != 0 or divisor.dtype != torch.float32:
+        raise TypeError("qconv: divisor must be a 0-d float32 tensor")
+    if bias is not None and (bias.dtype != torch.float32 or bias.dim() != 1
+                             or bias.shape[0] != wq.shape[3]):
+        raise ValueError(f"qconv: bias must be float32 ({wq.shape[3]},), "
+                         f"got {bias.dtype} {tuple(bias.shape)}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"qconv: dtype must be float32 or bfloat16, got "
+                        f"{dtype}")
+    devices = {t.device for t in (xq, wq, divisor, bias) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"qconv: every tensor must be on one device, got "
+                         f"{sorted(map(str, devices))}")
+
+
+def qconv_acc_plain(xq: torch.Tensor, wq: torch.Tensor, stride, pads
+                    ) -> torch.Tensor:
+    """The int32 accumulator of the int8 convolution of NHWC ``xq`` with
+    HWIO ``wq``, as float64 im2col + matmul cast back: every product is at
+    most 128^2 and every sum below 2^31 < 2^53, so it is exact on either
+    device (no FFT or Winograd algorithm can enter)."""
+    kh, kw, c, n = wq.shape
+    (pt, pb), (pl, pr) = pads
+    x = F.pad(xq.permute(0, 3, 1, 2).to(torch.float64), (pl, pr, pt, pb))
+    oh, ow = qconv_out_hw(xq.shape[1:3], (kh, kw), stride, pads)
+    b = xq.shape[0]
+    if min(b, oh, ow, n) <= 0:
+        return torch.zeros((b, max(oh, 0), max(ow, 0), n), dtype=torch.int32,
+                           device=xq.device)
+    cols = F.unfold(x, (kh, kw), stride=tuple(stride))  # (B, C kh kw, L)
+    w = wq.permute(3, 2, 0, 1).reshape(n, c * kh * kw).to(torch.float64)
+    acc = torch.matmul(w, cols)  # (B, N, L)
+    return acc.reshape(b, n, oh, ow).permute(0, 2, 3, 1).to(torch.int32)
+
+
+def qconv_epilogue(acc: torch.Tensor, divisor: torch.Tensor, bias,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``(acc.to(f32) / divisor + bias).to(dtype)``, op by op as the JAX
+    package orders it; ``divisor`` is a tensor on ``acc``'s device (a CPU
+    scalar would turn the card's division into a multiply by its
+    reciprocal)."""
+    out = acc.to(torch.float32) / divisor
+    if bias is not None:
+        out = out + bias
+    return out.to(dtype)
+
+
+def qconv_plain(xq: torch.Tensor, wq: torch.Tensor, stride, pads,
+                divisor: torch.Tensor, bias=None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain version of the int8 convolution kernel: the exact int32
+    accumulator (:func:`qconv_acc_plain`), then :func:`qconv_epilogue`."""
+    _qconv_check(xq, wq, stride, pads, divisor, bias, dtype)
+    return qconv_epilogue(qconv_acc_plain(xq, wq, stride, pads), divisor,
+                          bias, dtype)
+
+
+def qconv(xq: torch.Tensor, wq: torch.Tensor, stride, pads,
+          divisor: torch.Tensor, bias=None,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The int8 convolution kernel's wrapper: contiguous int8 NHWC ``xq``
+    and HWIO ``wq``, ``stride`` ``(sh, sw)``, explicit ``pads`` ``((top,
+    bottom), (left, right))``, a 0-d float32 ``divisor`` (``x_scale *
+    w_scale``) and an optional float32 ``bias`` ``(N,)`` on one device ->
+    ``(acc / divisor + bias)`` as ``dtype`` (float32 or bfloat16), NHWC.  A
+    CUDA tensor launches ``csrc/qconv.cu`` once and counts the launch in
+    ``qconv.launches``; a CPU tensor runs :func:`qconv_plain`."""
+    _qconv_check(xq, wq, stride, pads, divisor, bias, dtype)
+    if not _on_cuda("qconv", xq):
+        return qconv_plain(xq, wq, stride, pads, divisor, bias, dtype)
+    xq, wq = xq.contiguous(), wq.contiguous()
+    kh, kw, c, n = wq.shape
+    b, h, w = xq.shape[:3]
+    oh, ow = qconv_out_hw((h, w), (kh, kw), stride, pads)
+    out = torch.empty((b, max(oh, 0), max(ow, 0), n), dtype=dtype,
+                      device=xq.device)
+    if out.numel() == 0:
+        return out
+    _launch("qconv", "qconv", "dt_qconv", xq.device, xq.data_ptr(),
+            wq.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            divisor.data_ptr(), out.data_ptr(), b, h, w, c, kh, kw, n, oh,
+            ow, stride[0], stride[1], pads[0][0], pads[1][0],
+            _DTYPE_CODES[dtype], sig=(xq, wq))
+    qconv.launches += 1
+    return out
+
+
+qconv.launches = 0

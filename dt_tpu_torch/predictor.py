@@ -116,6 +116,29 @@ class Predictor:
                            batch_buckets, max_batch)
         return self
 
+    @classmethod
+    def from_onnx(cls, model_bytes_or_path, dtype: torch.dtype = torch.float32,
+                  batch_buckets: Optional[Sequence[int]] = None,
+                  max_batch: int = 256,
+                  device: Union[str, torch.device] = "cuda") -> "Predictor":
+        """Serve an ONNX artifact (``onnx.import_onnx``) with the same
+        bucketed pipeline, its initializers moved to ``device`` once.  The
+        graph takes NHWC images, as a file of either package does: the
+        forward takes the NHWC view of the NCHW request back (no copy).  A
+        graph of several outputs serves its first."""
+        from dt_tpu_torch import onnx as onnx_lib
+        fn, params = onnx_lib.import_onnx(model_bytes_or_path)
+        dev = resolve_device(device)
+        params = {k: v.to(dev) for k, v in params.items()}
+
+        def fwd(params, _stats, x):
+            if x.dim() == 4:
+                x = x.permute(0, 2, 3, 1)
+            out = fn(params, x)
+            return out[0] if isinstance(out, tuple) else out
+
+        return cls.from_fn(fwd, params, dtype, batch_buckets, max_batch, dev)
+
     def swap_params(self, params, batch_stats=None) -> None:
         """Replace the served weights between requests.  For a checkpoint
         predictor ``params``/``batch_stats`` are JAX-layout trees (as in a

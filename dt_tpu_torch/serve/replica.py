@@ -16,7 +16,9 @@ in-flight request is touched (inference never crosses the scheduler).
 ``python -m dt_tpu_torch.serve.replica`` is the process entry: a
 deterministic toy linear model (:func:`params_for_step`, weights derived
 from the refresh step, so the rolling-refresh drills can check exact
-answers) on ``--device`` (``cuda`` unless asked for ``cpu``).
+answers), or with ``--onnx`` an ONNX artifact through
+``Predictor.from_onnx``, on ``--device`` (``cuda`` unless asked for
+``cpu``).
 """
 
 from __future__ import annotations
@@ -192,7 +194,8 @@ def toy_predictor(features: int = 8, classes: int = 4,
 
 def main() -> None:
     """``python -m dt_tpu_torch.serve.replica --scheduler h:p --host w0
-    [--device cpu]``: the toy linear model behind a replica."""
+    [--device cpu] [--onnx model.onnx]``: the toy linear model, or the
+    ONNX artifact, behind a replica."""
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--scheduler", required=True,
@@ -205,25 +208,28 @@ def main() -> None:
                     default=int(config.env("DT_SERVE_MAX_BATCH")))
     ap.add_argument("--weights-step", type=int, default=0)
     ap.add_argument("--onnx", default=None,
-                    help="serve an ONNX artifact (not ported: raises)")
+                    help="serve this ONNX artifact instead of the toy "
+                         "linear model (no refresh loader)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a GPU) or cpu")
     ap.add_argument("--port-file", default=None,
                     help="write the bound gateway port here")
     args = ap.parse_args()
-    if args.onnx:
-        raise NotImplementedError(
-            "--onnx is not ported yet; see ROADMAP.md, Queue 1 item 8 "
-            "(onnx.py and Predictor.from_onnx)")
     device = config.resolve_device(args.device)
-    pred = toy_predictor(args.features, args.classes,
-                         max_batch=args.max_batch, step=args.weights_step,
-                         device=device)
+    if args.onnx:
+        from dt_tpu_torch.predictor import Predictor
+        pred = Predictor.from_onnx(args.onnx, max_batch=args.max_batch,
+                                   device=device)
+        loader = None
+    else:
+        pred = toy_predictor(args.features, args.classes,
+                             max_batch=args.max_batch,
+                             step=args.weights_step, device=device)
 
-    def loader(step, _manifest):
-        return params_for_step(args.features, args.classes, step)
+        def loader(step, _manifest):
+            return params_for_step(args.features, args.classes, step)
 
-    pred.warmup(feature_shape=(args.features,))
+        pred.warmup(feature_shape=(args.features,))
     rep = Replica(pred, args.host, args.scheduler, port=args.port,
                   refresh_loader=loader, advertise_host="127.0.0.1")
     if args.weights_step:

@@ -1853,3 +1853,123 @@ def test_detector_eval_on_card_matches_cpu(cuda, name, size, batch, kw,
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=0,
                                    atol=1e-4 * float(want[k].abs().max()))
+
+
+# --- the int8 convolution kernel (csrc/qconv.cu) -----------------------------
+
+#: (batch, H, W, C, kh, kw, N, stride, pads): ResNet-50 v1's stem, a 3x3,
+#: 1x1 and strided 1x1 of its blocks, the head as a 1x1, the quantize
+#: example's MLP, and ragged shapes (C and N off 16, K tails, M tails)
+_QCONV_CASES = [
+    (2, 224, 224, 3, 7, 7, 64, (2, 2), ((2, 3), (2, 3))),
+    (2, 56, 56, 64, 3, 3, 64, (1, 1), ((1, 1), (1, 1))),
+    (2, 56, 56, 256, 1, 1, 128, (2, 2), ((0, 0), (0, 0))),
+    (2, 14, 14, 256, 3, 3, 256, (1, 1), ((1, 1), (1, 1))),
+    (32, 1, 1, 2048, 1, 1, 1000, (1, 1), ((0, 0), (0, 0))),
+    (256, 1, 1, 64, 1, 1, 128, (1, 1), ((0, 0), (0, 0))),
+    (256, 1, 1, 128, 1, 1, 4, (1, 1), ((0, 0), (0, 0))),
+    (3, 9, 11, 5, 3, 2, 7, (2, 1), ((1, 0), (0, 2))),
+    (1, 1, 1, 133, 1, 1, 17, (1, 1), ((0, 0), (0, 0))),
+    (5, 6, 6, 48, 5, 5, 80, (1, 1), ((2, 2), (2, 2))),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _QCONV_CASES)
+def test_qconv_kernel_matches_plain_bitwise(cuda, case, dtype):
+    b, h, w, c, kh, kw, n, stride, pads = case
+    g = torch.Generator(device="cpu").manual_seed(sum(case[:7]))
+    x = torch.randint(-127, 128, (b, h, w, c), generator=g,
+                      dtype=torch.int8).to(cuda)
+    wt = torch.randint(-127, 128, (kh, kw, c, n), generator=g,
+                       dtype=torch.int8).to(cuda)
+    bias = torch.randn(n, generator=g).to(cuda)
+    d = torch.full((), 0.0123, dtype=torch.float32, device=cuda)
+    for bb in (None, bias):
+        before = kernels.qconv.launches
+        got = kernels.qconv(x, wt, stride, pads, d, bb, dtype)
+        again = kernels.qconv(x, wt, stride, pads, d, bb, dtype)
+        assert kernels.qconv.launches == before + 2
+        want = kernels.qconv_plain(x, wt, stride, pads, d, bb, dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(got, want) and torch.equal(got, again)
+    # the accumulator alone: divisor 1, float32 (exact below 2^24 here)
+    acc = kernels.qconv(x, wt, stride, pads, torch.ones((), device=cuda))
+    ref = kernels.qconv_acc_plain(x, wt, stride, pads).float()
+    assert torch.equal(acc, ref)
+
+
+def test_qconv_kernel_misaligned_and_sliced_inputs(cuda):
+    """A batch slice starting off a 16-byte boundary (the gather takes the
+    byte path) and a non-contiguous weight view (the wrapper packs it)."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randint(-127, 128, (3, 5, 5, 48), generator=g,
+                      dtype=torch.int8).to(cuda)
+    big = torch.randint(-127, 128, (1, 1, 48, 64), generator=g,
+                        dtype=torch.int8).to(cuda)
+    xs = x.reshape(-1)[1:1 + 2 * 5 * 5 * 48].reshape(2, 5, 5, 48)
+    assert xs.data_ptr() % 16 != 0
+    ws = big[:, :, :, ::2]
+    d = torch.full((), 0.5, device=cuda)
+    got = kernels.qconv(xs, ws, (1, 1), ((0, 0), (0, 0)), d)
+    want = kernels.qconv_plain(xs.contiguous(), ws.contiguous(), (1, 1),
+                               ((0, 0), (0, 0)), d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_quantized_ops_on_card_match_cpu(cuda):
+    """``quantize`` (weak and float32 scales, bfloat16 input),
+    ``quantized_conv2d`` and ``quantized_dense`` on the card against the
+    same functions on the CPU, bit for bit; one kernel launch a call."""
+    from dt_tpu_torch.ops import quantization as Q
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.normal(0, 1, (4, 15, 13, 32))
+                         .astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.2, (3, 3, 32, 40))
+                         .astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 1, 40).astype(np.float32))
+    for lo, hi in [(-2.5, 2.5), (torch.tensor(-2.5), torch.tensor(2.5))]:
+        for dt in (torch.float32, torch.bfloat16):
+            qc, sc = Q.quantize(x.to(cuda, dt), lo, hi)
+            qh, sh = Q.quantize(x.to(dt), lo, hi)
+            assert torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh)
+    wq, ws = Q.quantize(w, -float(w.abs().max()), float(w.abs().max()))
+    xq, xs = Q.quantize(x, -2.5, 2.5)
+    for dt in (torch.float32, torch.bfloat16):
+        for pad in ("SAME", "VALID", ((0, 1), (2, 1))):
+            before = kernels.qconv.launches
+            got = Q.quantized_conv2d(xq.to(cuda), wq.to(cuda), xs.to(cuda),
+                                     ws.to(cuda), 2, pad, bias.to(cuda), dt)
+            assert kernels.qconv.launches == before + 1
+            want = Q.quantized_conv2d(xq, wq, xs, ws, 2, pad, bias, dt)
+            assert torch.equal(got.cpu(), want)
+        got = Q.quantized_dense(xq.reshape(-1, 32).to(cuda),
+                                wq[0, 0].to(cuda), xs, ws, bias.to(cuda), dt)
+        want = Q.quantized_dense(xq.reshape(-1, 32), wq[0, 0], xs, ws, bias,
+                                 dt)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_onnx_predictor_on_card_matches_cpu(cuda):
+    """A port-exported ResNet-18 (batch 2) served by ``Predictor.from_onnx``
+    on the card and on the CPU, within 1e-4 of the largest logit."""
+    from dt_tpu_torch import onnx as tonnx
+    from dt_tpu_torch.predictor import Predictor
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = models.create("resnet18", device="cpu", num_classes=10)
+    rng = np.random.RandomState(3)
+    for p in cpu.parameters():
+        p.data = torch.from_numpy(rng.normal(0, 0.1, p.shape)
+                                  .astype(np.float32)).to(
+            memory_format=torch.channels_last if p.dim() == 4 else
+            torch.contiguous_format)
+    x = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    blob = tonnx.export_onnx(cpu, x)
+    card = Predictor.from_onnx(blob, batch_buckets=[2], device=cuda)
+    host = Predictor.from_onnx(blob, batch_buckets=[2], device="cpu")
+    req = rng.uniform(-1, 1, (5, 32, 32, 3)).astype(np.float32)
+    got, want = card.predict(req), host.predict(req)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

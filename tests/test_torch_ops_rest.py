@@ -70,10 +70,12 @@ def test_ops_exports_every_submodule_of_the_jax_package_but_quantization():
 
 
 def test_quantization_refuses_by_name():
+    """Every public name of the JAX module (``NAMES``) exists in the port's
+    ``ops.quantization`` and is callable (it refused each before the module
+    was ported; ``tests/test_torch_quantization.py`` holds the values)."""
     from dt_tpu_torch.ops import quantization
     for name in quantization.NAMES:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            getattr(quantization, name)
+        assert callable(getattr(quantization, name)), name
     with pytest.raises(AttributeError):
         quantization.no_such_function
     from dt_tpu.ops import quantization as jq

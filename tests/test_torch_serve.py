@@ -4,8 +4,9 @@ predictor, with the same pinned numbers.
 
 Batcher numbers are pinned against a fake clock; served values are held
 against ``Predictor.predict`` and the numpy oracle ``x @ params_for_step(...)
-["w"]`` (float32 on the CPU, rtol 1e-5).  The ONNX replica of the JAX file
-waits for ROADMAP Queue 1 item 8.
+["w"]`` (float32 on the CPU, rtol 1e-5).  The replica's ``--onnx`` serves a
+file the port exports (``tests/test_torch_onnx.py`` serves the JAX
+package's file in process).
 """
 
 import json
@@ -546,15 +547,49 @@ def test_replica_cli_serves_and_refreshes_on_the_cpu(tmp_path):
         sched.close()
 
 
-def test_replica_cli_refuses_onnx_and_a_missing_card(monkeypatch):
+def test_replica_cli_refuses_onnx_and_a_missing_card(tmp_path):
+    """``--onnx`` (refused until the ONNX slice was ported) now serves: a
+    replica process on the CPU answers ``x @ w`` from a file the port
+    exported, and stops on ``shutdown``.  A replica made for the card
+    still never falls back to the CPU."""
     import torch
 
-    from dt_tpu_torch.serve import replica
-    monkeypatch.setattr(sys, "argv", [
-        "replica", "--scheduler", "127.0.0.1:1", "--host", "c0",
-        "--onnx", "model.onnx", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        replica.main()
+    from dt_tpu_torch import onnx as tonnx
+    from torch_one_thread import ENV
+    w = params_for_step(F, C, 0)["w"]
+    path = str(tmp_path / "linear.onnx")
+    tonnx.export_onnx(lambda x: x @ torch.from_numpy(w),
+                      np.ones((2, F), np.float32), path=path)
+    sched = Scheduler(initial_workers=[],
+                      host_worker_file=str(tmp_path / "hosts"))
+    port_file = str(tmp_path / "port")
+    env = dict(os.environ, PYTHONPATH=ROOT, **ENV)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dt_tpu_torch.serve.replica",
+         "--scheduler", f"127.0.0.1:{sched.port}", "--host", "onnx0",
+         "--onnx", path, "--device", "cpu", "--max-batch", "8",
+         "--port-file", port_file], cwd=ROOT, env=env)
+    try:
+        c = InferClient(scheduler=f"127.0.0.1:{sched.port}")
+        deadline = time.time() + 60
+        while not (os.path.exists(port_file) and c.refresh_endpoints()):
+            assert proc.poll() is None, "the replica exited"
+            assert time.time() < deadline
+            time.sleep(0.1)
+        x = np.random.RandomState(4).randn(5, F).astype(np.float32)
+        np.testing.assert_allclose(c.infer(x)["y"], x @ w, rtol=1e-5)
+        gport = int(open(port_file).read())
+        try:  # the gateway closes as it handles it: the answer may not leave
+            protocol.request("127.0.0.1", gport, {"cmd": "shutdown"},
+                             timeout=30)
+        except ConnectionError:
+            pass
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        sched.close()
     if not torch.cuda.is_available():
         # a replica made for the card never falls back to the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
