@@ -353,9 +353,16 @@ JAX.  Phases, each fatal on failure:
    (224x224, batch 32) and its dense head, on int8 codes of a seeded float
    forward (``MinMaxCollector`` ranges, ``quantize_params`` weights), and
    at the example's three dense calls: bit-equal to ``qconv_plain`` in
-   float32 and bfloat16 output, two launches bit-identical, timed beside
-   the bound, the plain version and ``torch._int_mm`` (a yardstick the
-   port never calls) over the same GEMM, summed over one forward; (c)
+   float32 and bfloat16 output, two launches bit-identical, the packed
+   weight equal to ``qconv_pack_plain``, timed beside the bound, the plain
+   version and ``torch._int_mm`` (a yardstick the port never calls) over
+   the same GEMM, summed over one forward, each shape's route and tile
+   printed, and the earlier ``mma.sync`` kernel's time printed beside it
+   (``QCONV_MMA_SYNC_MS``, from an earlier run of
+   ``tests/torch_qconv_ab.py``; on the print lines only); the weights
+   quantized outside inference mode, so their packed copies are cached,
+   and the example's three calls timed again on inference-mode weights,
+   which are packed anew on every call; (c)
    ResNet-50 v1 exported by ``onnx.export_onnx`` from phase 4's seeded
    weights at batch 32 (bytes, seconds, nodes, initializers) and served by
    ``Predictor.from_onnx`` at bucket 32 (requests of 1, 32 and 130 rows)
@@ -364,7 +371,7 @@ JAX.  Phases, each fatal on failure:
 
 The line before the last holds the card's name and power limit, the one
 before it a JSON summary of the kernels, every number in it measured in
-this run except the bounds, which it computes (the two kernels redesigned
+this run except the bounds, which it computes (the kernels redesigned
 for Hopper carry ``redesigned_in``); the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for every phase, timings
 included.  The kernels line carries, beside each kernel's own launches,
@@ -388,9 +395,15 @@ inference), and every BN row ``detection_launches``, phase 25's by model
 and SSD's requests: BN inference).  ``nms_keep`` (phase 25's scan kernel)
 counts its launches over the phase's main-path runs, by model, dtype and
 part.  ``quantized_conv2d`` (phase 26's int8 kernel) counts the launches of
-(b)'s int8 forwards; its times are those of the example's three calls, and
-``resnet50_int8_forward`` carries (a)'s sums; the f32 BN-inference row
-carries the native Predictor's launches a request in (c).
+(b)'s int8 forwards (6, all on the tma route, ``route_launches``); its
+times are those of the example's three calls, and
+``resnet50_int8_forward`` carries (a)'s sums, ``resnet50_shapes`` each
+shape's and ``inference_weight_ms`` the three calls on inference-mode
+weights; ``qconv_pack`` counts (b)'s weight packs (3, once a weight),
+times the three and, as its library call, the one PyTorch copy that
+gives the same bytes for these weights; the f32
+BN-inference row carries the native Predictor's launches a request in
+(c).
 """
 
 from __future__ import annotations
@@ -904,12 +917,15 @@ def counted():
             "lstm_pointwise": kernels.lstm_point,
             "lstm_layer": kernels.lstm_layer,
             "lstm_layer_bwd": kernels.lstm_layer_bwd,
-            "nms_keep": kernels.nms_keep, "qconv": kernels.qconv}
+            "nms_keep": kernels.nms_keep, "qconv": kernels.qconv,
+            "qconv_pack": kernels.qconv_pack}
 
 
 def reset_counts() -> None:
+    from dt_tpu_torch.ops import kernels
     for wrapper in counted().values():
         wrapper.launches = 0
+    kernels.qconv.routes = dict.fromkeys(kernels.QCONV_ROUTES, 0)
 
 
 def read_counts() -> dict:
@@ -7472,11 +7488,18 @@ def _quant_mlp(dev, gpu) -> dict:
                 Q.quantized_dense = real_dense
         torch.cuda.synchronize()
         counts = read_counts()  # ... and ends here
+        routes = dict(kernels.qconv.routes)
         counted = counts.pop("qconv")
-        if counted != 2 * QUANT_PER_FORWARD or any(counts.values()):
+        packed = counts.pop("qconv_pack")
+        # one pack a weight (the first forward's), served from the cache
+        # after; every dense call on the tma route (1x1, stride 1)
+        if counted != 2 * QUANT_PER_FORWARD or packed != QUANT_PER_FORWARD \
+                or routes != {"tma": counted, "gather": 0, "narrow": 0} \
+                or any(counts.values()):
             raise AssertionError(f"phase 26 (b): launches {counted} qconv "
-                                 f"(want {2 * QUANT_PER_FORWARD}) and "
-                                 f"{counts}")
+                                 f"(want {2 * QUANT_PER_FORWARD}), {packed} "
+                                 f"qconv_pack (want {QUANT_PER_FORWARD}), "
+                                 f"routes {routes} and {counts}")
         real_qconv = kernels.qconv
         for mode, (got, ranges) in logits.items():
             kernels.qconv = kernels.qconv_plain  # the same forward, plain
@@ -7496,12 +7519,13 @@ def _quant_mlp(dev, gpu) -> dict:
             if not same or fp32 - top1 > QUANT_GATE or fp32 < 0.5:
                 raise AssertionError(f"phase 26 (b) {mode}: fp32 {fp32}, "
                                      f"int8 {top1}, bit-equal {same}")
-    out.update(launches=counted, calls=calls,
-               seconds=time.perf_counter() - t0)
+    out.update(launches=counted, pack_launches=packed, routes=routes,
+               calls=calls, seconds=time.perf_counter() - t0)
     print(f"quant (b) examples/quantize_model.py defaults: loss "
           f"{first:.4f} -> {last:.4f} in {q['epochs']} epochs "
           f"({train_s:.1f} s), qconv launches {counted} "
-          f"({QUANT_PER_FORWARD} an int8 forward), {out['seconds']:.1f} s "
+          f"({QUANT_PER_FORWARD} an int8 forward; routes {routes}), "
+          f"qconv_pack launches {packed}, {out['seconds']:.1f} s "
           f"gpu={gpu}", flush=True)
     return out
 
@@ -7546,7 +7570,9 @@ def _resnet_qconv_cases(dev, variables, images) -> list:
         hk.remove()
     collector = Q.MinMaxCollector()
     cases = []
-    with torch.inference_mode():
+    # no_grad, not inference mode: the weights keep a version counter, so
+    # the kernel's packed copy of each is cached as a served model's is
+    with torch.no_grad():
         for i, (key, (mod, n, act)) in enumerate(seen.items()):
             tag = f"l{i}"
             collector.collect(tag, act)
@@ -7624,17 +7650,44 @@ def _qconv_case(case, dev, time_it=True) -> dict:
     moved = xq.numel() + wq.numel() + 4 * m * n \
         + (0 if b32 is None else 4 * n)
     bound_ops, bound_bytes = ops / INT8_TOPS * 1e3, moved / HBM_BYTES_S * 1e3
+    plan = kernels.qconv_plan(tuple(xq.shape), tuple(wq.shape), stride, pads,
+                              torch.float32)
     out = {"tag": tag, "calls": n_calls, "m": m, "n": n, "k": k,
            "x": list(xq.shape), "stride": list(stride),
            "pads": [list(p) for p in pads], "bit_equal": equal,
            "max_abs_err": err, "bound_ms": max(bound_ops, bound_bytes),
-           "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+           "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+           "route": plan.route, "bn": plan.bn, "grid": plan.grid,
+           "mma_sync_ms": QCONV_MMA_SYNC_MS.get(
+               _qconv_shape_key(xq, wq, stride))}
     if time_it:
         # inputs rotated past the 50 MB L2 where one is smaller
         copies = [xq] + [xq.clone() for _ in range(
             min(7, (60 << 20) // max(xq.numel(), 1)))]
         out["ms"] = cuda_ms(lambda a: kernels.qconv(
             a, wq, stride, pads, d, b32, torch.float32), copies)
+        # the weight's pack, once a weight (an inference copy is never
+        # cached, so each call launches it)
+        with torch.inference_mode():
+            frozen = wq.clone()
+        packed = kernels.qconv_pack(frozen, plan.cp, plan.kwp)
+        want = kernels.qconv_pack_plain(wq, plan.cp, plan.kwp)
+        out["pack_err"] = int((packed.int() - want.int()).abs().max())
+        out["bit_equal"] &= bool(torch.equal(packed, want))
+        out["pack_ms"] = cuda_ms(
+            lambda w: kernels.qconv_pack(w, plan.cp, plan.kwp), [frozen])
+        out["pack_plain_ms"] = _events_ms(
+            lambda: kernels.qconv_pack_plain(wq, plan.cp, plan.kwp), iters=3)
+        # one PyTorch copy computes the pack where it pads nothing (every
+        # 1x1 layer with C a multiple of 16, the MLP's weights)
+        out["pack_library_ms"] = cuda_ms(
+            lambda w: w.reshape(-1, n).t().contiguous(), [wq]) \
+            if (plan.cp, plan.kwp) == (c, kw) else None
+        if tag.startswith("mlp"):
+            # a weight quantized under inference mode keeps no version
+            # counter, so it is packed anew on every call: the call's cost
+            out["inference_weight_ms"] = cuda_ms(lambda a: kernels.qconv(
+                a, frozen, stride, pads, d, b32, torch.float32), copies)
         out["plain_ms"] = _events_ms(lambda: kernels.qconv_plain(
             xq, wq, stride, pads, d, b32, torch.float32), iters=3)
         out["library_ms"], out["library_note"] = _int_mm_ms(xq, wq, stride,
@@ -7643,11 +7696,53 @@ def _qconv_case(case, dev, time_it=True) -> dict:
     return out
 
 
+#: the earlier int8 kernel (``mma.sync`` m16n8k32, 128 x 64 tiles, HWIO
+#: read directly; ``csrc/qconv.cu`` at commit 0721b42) at each shape of
+#: (a), float32 output, ms by ``cuda_ms`` as (a) times it:
+#: ``tests/torch_qconv_ab.py`` (that source built beside this tree's, timed
+#: in turns with it, the least of two), one run on an NVIDIA H100 80GB HBM3
+#: at 700.00 W
+QCONV_MMA_SYNC_MS = {
+    "[32, 224, 224, 3]x[7, 7, 3, 64]s[2, 2]": 0.40689,
+    "[32, 56, 56, 64]x[1, 1, 64, 64]s[1, 1]": 0.03289,
+    "[32, 56, 56, 64]x[3, 3, 64, 64]s[1, 1]": 0.06178,
+    "[32, 56, 56, 64]x[1, 1, 64, 256]s[1, 1]": 0.12928,
+    "[32, 56, 56, 256]x[1, 1, 256, 64]s[1, 1]": 0.05168,
+    "[32, 56, 56, 256]x[1, 1, 256, 128]s[1, 1]": 0.09749,
+    "[32, 56, 56, 128]x[3, 3, 128, 128]s[2, 2]": 0.05848,
+    "[32, 28, 28, 128]x[1, 1, 128, 512]s[1, 1]": 0.07875,
+    "[32, 56, 56, 256]x[1, 1, 256, 512]s[2, 2]": 0.09328,
+    "[32, 28, 28, 512]x[1, 1, 512, 128]s[1, 1]": 0.03726,
+    "[32, 28, 28, 128]x[3, 3, 128, 128]s[1, 1]": 0.05502,
+    "[32, 28, 28, 512]x[1, 1, 512, 256]s[1, 1]": 0.07241,
+    "[32, 28, 28, 256]x[3, 3, 256, 256]s[2, 2]": 0.08066,
+    "[32, 14, 14, 256]x[1, 1, 256, 1024]s[1, 1]": 0.04823,
+    "[32, 28, 28, 512]x[1, 1, 512, 1024]s[2, 2]": 0.06886,
+    "[32, 14, 14, 1024]x[1, 1, 1024, 256]s[1, 1]": 0.04559,
+    "[32, 14, 14, 256]x[3, 3, 256, 256]s[1, 1]": 0.07196,
+    "[32, 14, 14, 1024]x[1, 1, 1024, 512]s[1, 1]": 0.05623,
+    "[32, 14, 14, 512]x[3, 3, 512, 512]s[2, 2]": 0.13782,
+    "[32, 7, 7, 512]x[1, 1, 512, 2048]s[1, 1]": 0.04272,
+    "[32, 14, 14, 1024]x[1, 1, 1024, 2048]s[2, 2]": 0.07204,
+    "[32, 7, 7, 2048]x[1, 1, 2048, 512]s[1, 1]": 0.07032,
+    "[32, 7, 7, 512]x[3, 3, 512, 512]s[1, 1]": 0.11285,
+    "[32, 1, 1, 2048]x[1, 1, 2048, 1000]s[1, 1]": 0.05181,
+    "[1024, 1, 1, 64]x[1, 1, 64, 128]s[1, 1]": 0.00632,
+    "[1024, 1, 1, 128]x[1, 1, 128, 128]s[1, 1]": 0.00827,
+    "[1024, 1, 1, 128]x[1, 1, 128, 4]s[1, 1]": 0.00692,
+}
+
+
+def _qconv_shape_key(xq, wq, stride) -> str:
+    return f"{list(xq.shape)}x{list(wq.shape)}s{list(stride)}"
+
+
 def _quant_kernel(dev, gpu, variables, images, mlp) -> dict:
     """Phase 26 (a): the kernel at every distinct ResNet-50 v1 shape (batch
     32) and the quantize example's three dense calls (the main path's
     shapes), held and timed; sums over one forward."""
     import torch
+    from dt_tpu_torch.ops import kernels
     t0 = time.perf_counter()
     cases = _resnet_qconv_cases(dev, variables, images)
     rows = []
@@ -7656,9 +7751,12 @@ def _quant_kernel(dev, gpu, variables, images, mlp) -> dict:
         rows.append(r)
         print(f"quant (a) {QUANT_MODEL} {r['tag']} x{r['calls']} x={r['x']} "
               f"k={r['k']} n={r['n']} stride={r['stride']} pads={r['pads']}"
-              f": bit_equal={r['bit_equal']} ms={r['ms']:.4f} plain_ms="
+              f" route={r['route']} bn={r['bn']} grid={r['grid']}"
+              f": bit_equal={r['bit_equal']} ms={r['ms']:.4f} (mma.sync: "
+              f"{r['mma_sync_ms']}) plain_ms="
               f"{r['plain_ms']:.3f} int_mm_ms={r['library_ms']} bound_ms="
               f"{r['bound_ms']:.4f} ({r['bound_by']}) TOP/s={r['tops']:.1f}"
+              f" pack_ms={r['pack_ms']:.4f}"
               + (f" int_mm: {r['library_note']}" if r["library_note"]
                  else ""), flush=True)
     mlp_rows = []
@@ -7671,7 +7769,9 @@ def _quant_kernel(dev, gpu, variables, images, mlp) -> dict:
         r = _qconv_case(case, dev)
         mlp_rows.append(r)
         print(f"quant (a) mlp dense {m}x{k}x{r['n']}: bit_equal="
-              f"{r['bit_equal']} ms={r['ms']:.4f} plain_ms="
+              f"{r['bit_equal']} ms={r['ms']:.4f} (mma.sync: "
+              f"{r['mma_sync_ms']}) "
+              f"pack_ms={r['pack_ms']:.4f} plain_ms="
               f"{r['plain_ms']:.3f} int_mm_ms={r['library_ms']} bound_ms="
               f"{r['bound_ms']:.5f} ({r['bound_by']})"
               + (f" int_mm: {r['library_note']}" if r["library_note"]
@@ -7682,21 +7782,42 @@ def _quant_kernel(dev, gpu, variables, images, mlp) -> dict:
                              f"plain version at {bad}")
 
     def total(rs, key):
-        vals = [r[key] * r["calls"] for r in rs]
-        return None if any(v is None for v in vals) else sum(vals)
+        if any(r[key] is None for r in rs):
+            return None
+        return sum(r[key] * r["calls"] for r in rs)
 
-    forward = {key: total(rows, key) for key in ("ms", "plain_ms",
-                                                 "bound_ms", "library_ms")}
-    forward.update(shapes=len(rows), calls=sum(r["calls"] for r in rows))
-    main = {key: total(mlp_rows, key) for key in ("ms", "plain_ms",
-                                                  "bound_ms", "library_ms")}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    forward = {key: total(rows, key) for key in keys}
+    forward.update(shapes=len(rows), calls=sum(r["calls"] for r in rows),
+                   pack_ms=sum(r["pack_ms"] for r in rows),
+                   pack_plain_ms=sum(r["pack_plain_ms"] for r in rows),
+                   routes={rt: sum(r["calls"] for r in rows
+                                   if r["route"] == rt)
+                           for rt in kernels.QCONV_ROUTES})
+    main = {key: total(mlp_rows, key) for key in keys}
+    main.update(pack_ms=sum(r["pack_ms"] for r in mlp_rows),
+                pack_plain_ms=sum(r["pack_plain_ms"] for r in mlp_rows),
+                pack_library_ms=total(mlp_rows, "pack_library_ms"),
+                pack_bound_ms=sum(2 * r["k"] * r["n"] / HBM_BYTES_S * 1e3
+                                  for r in mlp_rows),
+                inference_weight_ms=total(mlp_rows, "inference_weight_ms"))
+    # the earlier kernel's figures (a constant from an earlier run) are
+    # printed beside this run's, never put in the kernels line
+    slower = [r["tag"] for r in rows if r["mma_sync_ms"] is not None
+              and r["ms"] > r["mma_sync_ms"]]
     secs = time.perf_counter() - t0
     print(f"quant (a) {QUANT_MODEL} int8 forward (batch {BATCH}, "
           f"{forward['calls']}"
-          f" calls over {len(rows)} shapes): kernel {forward['ms']:.3f} ms, "
+          f" calls over {len(rows)} shapes): kernel {forward['ms']:.3f} ms "
+          f"(the mma.sync kernel: {total(rows, 'mma_sync_ms')} ms; slower "
+          f"than it at {slower}), "
           f"plain {forward['plain_ms']:.1f} ms, torch._int_mm "
           f"{forward['library_ms']} ms, bound {forward['bound_ms']:.4f} ms; "
-          f"the int8 MLP forward's 3 calls: kernel {main['ms']:.4f} ms, "
+          f"the weights' packs (once a weight) {forward['pack_ms']:.4f} ms; "
+          f"the int8 MLP forward's 3 calls: kernel {main['ms']:.4f} ms "
+          f"(the mma.sync kernel: {total(mlp_rows, 'mma_sync_ms')} ms; on "
+          f"inference-mode weights, packed every call: "
+          f"{main['inference_weight_ms']:.4f} ms), "
           f"bound {main['bound_ms']:.5f}; {secs:.1f} s gpu={gpu}",
           flush=True)
     torch.cuda.empty_cache()
@@ -8308,6 +8429,15 @@ def main() -> int:
         # Pallas kernel): quantized_conv2d, and quantized_dense at :52
         "replaces": "dt_tpu/ops/quantization.py:65",
         "launches": quant["mlp"]["launches"],
+        "redesigned_in": 22,
+        "design": "wgmma m64nBNk32 s32.s8.s8 from a 3-4 stage shared-memory "
+                  "ring (mbarriers full/empty, 2-4 producer warps): B packed "
+                  "K-major once (qconv_pack, cached) by TMA, A by TMA (tma "
+                  "route), 16-byte cp.async gather (gather route) or 4-byte "
+                  "cp.async of Cp 4 pixels (narrow route, the stem); "
+                  "epilogue staged in shared memory, 16-byte row stores",
+        # the main path's launches by how A was loaded
+        "route_launches": quant["mlp"]["routes"],
         "max_abs_err": qk["max_abs_err"],
         "ms": qk["main"]["ms"], "plain_ms": qk["main"]["plain_ms"],
         "bound_ms": qk["main"]["bound_ms"],
@@ -8320,11 +8450,36 @@ def main() -> int:
                 "3 quantized_dense calls, naive and entropy",
         "shapes": [[r["m"], r["k"], r["n"]] for r in qk["mlp_rows"]],
         "resnet50_int8_forward": qk["forward"],
+        "resnet50_shapes": [{k: r[k] for k in (
+            "tag", "calls", "x", "n", "k", "stride", "route", "bn", "ms",
+            "library_ms", "bound_ms")} for r in qk["rows"]],
+        # the main path's 3 calls on weights quantized under inference
+        # mode (no version counter, so each call packs its weight anew)
+        "inference_weight_ms": qk["main"]["inference_weight_ms"],
         "int8_top1": {k: v["top1"] for k, v in quant["mlp"]["int8"].items()},
         "fp32_top1": quant["mlp"]["fp32"],
         "onnx_resnet50": {k: quant["onnx"][k] for k in (
             "bytes", "export_s", "nodes", "initializers", "ms",
             "max_rel_err")}})
+    kernels.append({  # phase 26: the int8 kernel's weight pack
+        "name": "qconv_pack", "route": "cuda",
+        "source": "dt_tpu_torch/csrc/qconv.cu",
+        # no TPU kernel: HWIO -> K-major rows for the 8-bit wgmma's B
+        # operand, once a weight; beside the kernel it feeds
+        "replaces": "dt_tpu/ops/quantization.py:65",
+        "launches": quant["mlp"]["pack_launches"],
+        # the packed weights against qconv_pack_plain, every shape of (a)
+        "max_abs_err": max(r["pack_err"] for r in qk["rows"]
+                           + qk["mlp_rows"]),
+        "ms": qk["main"]["pack_ms"],
+        "plain_ms": qk["main"]["pack_plain_ms"],
+        "bound_ms": qk["main"]["pack_bound_ms"], "bound_by": "bytes",
+        "library_ms": qk["main"]["pack_library_ms"],
+        "library": "wq.reshape(K, N).t().contiguous() (the same bytes where "
+                   "the pack pads nothing, as for these 3 weights)",
+        "path": "examples/quantize_model.py int8 forward (phase 26 (b)): "
+                "one pack a weight, the 3 dense weights",
+        "resnet50_packs_ms": qk["forward"]["pack_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,9 +53,11 @@ bound by bytes; their least time is the bytes they must move over the H100's
   ``quantized_conv2d`` and ``quantized_dense`` (``dt_tpu/ops/
   quantization.py:52,65``), which are XLA int8 convolutions and products
   with an int32 accumulator, no Pallas kernel: an implicit GEMM on the
-  int8 tensor cores (``mma.sync`` m16n8k32) with the float epilogue fused,
-  bit-equal to its plain version.  Bound by operations for the wide
-  layers, by bytes for the thin ones.
+  int8 tensor cores (``wgmma`` s8 from a TMA / ``cp.async`` ring, A
+  loaded by one of three routes, the weight packed K-major once by
+  ``qconv_pack`` and cached) with the float epilogue fused and written in
+  16-byte rows, bit-equal to its plain version.  Bound by bytes, mostly
+  its output.
 
 ``flash_attn`` (``csrc/flash_attn.cu``, the flash-attention forward) is
 bound by operations; its wrapper lives in ``ops.attention`` and its
@@ -66,7 +68,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import time
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -111,9 +115,12 @@ _SIGNATURES = {
     # boxes, labels, counts, perm, mask scratch, keep; batch, N; threshold;
     # stream
     "nms": {"dt_nms": [_V] * 6 + [_I64] * 2 + [ctypes.c_float, _V]},
-    # x, w, bias, divisor, out; batch, H, W, C; kh, kw, N, OH, OW, sh, sw,
-    # pad top, pad left, dtype; stream
-    "qconv": {"dt_qconv": [_V] * 5 + [_I64] * 4 + [_INT] * 10 + [_V]},
+    # x, packed w, bias, divisor, out; batch, H, W, Cp; kh, kw, N, OH, OW,
+    # sh, sw, pad top, pad left, dtype, BN, route, 16-byte stores;
+    # shared-memory bytes; stream
+    "qconv": {"dt_qconv": [_V] * 5 + [_I64] * 4 + [_INT] * 13 + [_I64, _V],
+              # w, packed; kh, kw, kw padded, C, Cp, N; stream
+              "dt_qconv_pack": [_V, _V] + [_INT] * 6 + [_V]},
 }
 
 
@@ -1484,6 +1491,143 @@ def qconv_plain(xq: torch.Tensor, wq: torch.Tensor, stride, pads,
                           bias, dtype)
 
 
+#: the kernel's tile: output pixels a block and bytes of K a stage
+QCONV_BM, QCONV_BK = 128, 128
+#: the H100's streaming multiprocessors
+QCONV_SMS = 132
+#: how a launch loads A, in the kernel's numbering: "tma" (1x1, stride 1,
+#: no padding: x as an (M, Cp) matrix), "gather" (16-byte ``cp.async`` of
+#: each tap's channels, Cp a multiple of 16) or "narrow" (C <= 4 and KW <=
+#: 8, the stem: Cp 4, the filter's rows padded to 8 taps, 4-byte
+#: ``cp.async`` of each tap's pixel)
+QCONV_ROUTES = ("tma", "gather", "narrow")
+
+
+class QconvPlan(NamedTuple):
+    """How :func:`qconv` launches ``csrc/qconv.cu`` for one shape."""
+    cp: int          # channels as the kernel reads them: C rounded up to
+    #                  16, or 4 on the narrow route
+    kwp: int         # filter width as the packed weight holds it (KW, or 8
+    #                  on the narrow route)
+    bn: int          # output channels a block (64 or 128)
+    smem: int        # dynamic shared memory a block, bytes
+    grid: int        # blocks: m tiles x n tiles
+    route: str       # one of QCONV_ROUTES
+    vec_out: bool    # the epilogue's 16-byte stores (N * esize % 16 == 0)
+
+
+def qconv_smem(bn: int) -> int:
+    """A block's dynamic shared memory at tile width ``bn``, as
+    ``Cfg<BN>::SMEM`` in ``csrc/qconv.cu`` (the kernel refuses another
+    value): 1 KB of alignment slack, the ring of A and B stages, each row's
+    pixel (16 bytes) and two mbarriers a stage."""
+    stages = 3 if bn == 128 else 4
+    return 1024 + stages * (QCONV_BM + bn) * QCONV_BK + QCONV_BM * 16 \
+        + 2 * stages * 8
+
+
+def qconv_plan(x_shape, w_shape, stride, pads, dtype) -> QconvPlan:
+    """The tile and route of one launch: BN 128 where N > 64 and the grid
+    still fills the card's SMs, else 64; the tma route for 1x1, stride-1,
+    unpadded layers (M < 2^31, TMA's coordinates), the narrow route for
+    C <= 4 and KW <= 8 (the stem), the gather route otherwise; 16-byte
+    output stores where a row of the output is a whole number of 16-byte
+    chunks."""
+    b, h, w, c = x_shape
+    kh, kw, _, n = w_shape
+    oh, ow = qconv_out_hw((h, w), (kh, kw), stride, pads)
+    m = b * oh * ow
+    m_tiles = -(-m // QCONV_BM)
+    bn = 128 if n > 64 and m_tiles * -(-n // 128) >= QCONV_SMS else 64
+    if (kh, kw) == (1, 1) and tuple(stride) == (1, 1) \
+            and all(p == 0 for pair in pads for p in pair) and m < 2 ** 31:
+        route = "tma"
+    else:
+        route = "narrow" if c <= 4 and kw <= 8 else "gather"
+    cp, kwp = (4, 8) if route == "narrow" else (-(-c // 16) * 16, kw)
+    return QconvPlan(cp=cp, kwp=kwp, bn=bn, smem=qconv_smem(bn),
+                     grid=m_tiles * -(-n // bn), route=route,
+                     vec_out=n * dtype.itemsize % 16 == 0)
+
+
+def qconv_pad_channels(xq: torch.Tensor, cp: int) -> torch.Tensor:
+    """``xq`` as the kernel reads it: contiguous, 16-byte aligned, its
+    channels padded with int8 zeros to ``cp`` (exact: the quantization has
+    no zero point, so a zero channel adds nothing to any sum; the pass is
+    part of the call).  ``xq`` itself where it is that already."""
+    if xq.shape[3] == cp and xq.is_contiguous() and xq.data_ptr() % 16 == 0:
+        return xq
+    if xq.shape[3] == cp:
+        return xq.clone(memory_format=torch.contiguous_format)
+    return F.pad(xq, (0, cp - xq.shape[3])).contiguous()
+
+
+def qconv_pack_plain(wq: torch.Tensor, cp: int, kwp: int) -> torch.Tensor:
+    """The plain version of ``dt_qconv_pack``: HWIO ``wq`` as ``(N, KH *
+    kwp * cp)`` int8 rows, K contiguous in the kernel's order ``(ky * kwp +
+    kx) * cp + c``, the taps past KW and the channels past C zero."""
+    kh, kw, c, n = wq.shape
+    w = F.pad(wq, (0, 0, 0, cp - c, 0, kwp - kw))
+    return w.permute(3, 0, 1, 2).reshape(n, kh * kwp * cp).contiguous()
+
+
+#: packed weights: key -> (weak reference to the weight's owner, its
+#: version counter when packed, the packed copy)
+_QCONV_PACKS: dict = {}
+
+
+def _pack_key(wq: torch.Tensor, cp: int, kwp: int):
+    """The cache key of ``wq``'s packed copy and the owner and version it is
+    held against, or ``(None, None, None)`` for a weight whose writes
+    cannot be seen (an inference tensor keeps no version counter).  The key
+    is the storage and the view into it, so the fresh ``reshape`` views a
+    caller makes on every call find one entry; the owner (the view's base,
+    whose version counter every view shares) is held weakly, so a weight
+    freed and another allocated at its address cannot hit its entry."""
+    if wq.is_inference():
+        return None, None, None
+    owner = wq._base if wq._base is not None else wq
+    key = (wq.device, wq.untyped_storage().data_ptr(), wq.storage_offset(),
+           tuple(wq.shape), tuple(wq.stride()), cp, kwp)
+    return key, owner, wq._version
+
+
+def _drop_pack(key, _ref) -> None:
+    _QCONV_PACKS.pop(key, None)
+
+
+def qconv_pack(wq: torch.Tensor, cp: int, kwp: int) -> torch.Tensor:
+    """The packed weight ``csrc/qconv.cu`` reads (:func:`qconv_pack_plain`
+    for a CPU tensor).  On the card it is made once by ``dt_qconv_pack``
+    (counted in ``qconv_pack.launches``) and served from a cache while the
+    weight's owner lives and its version counter has not moved: an
+    in-place write to the weight, or any view of it, packs it anew (a
+    write through ``.data`` or another alias with its own version counter
+    is not seen).  Not cached while a CUDA graph is captured (its copy
+    would be the graph's) or for an inference tensor."""
+    if not _on_cuda("qconv_pack", wq):
+        return qconv_pack_plain(wq, cp, kwp)
+    key, owner, version = _pack_key(wq, cp, kwp)
+    hit = _QCONV_PACKS.get(key) if key is not None else None
+    if hit is not None and hit[0]() is owner and hit[1] == version:
+        return hit[2]
+    kh, kw, c, n = wq.shape
+    w = wq.contiguous()
+    packed = torch.empty((n, kh * kwp * cp), dtype=torch.int8,
+                         device=wq.device)
+    _launch("qconv_pack", "qconv", "dt_qconv_pack", wq.device, w.data_ptr(),
+            packed.data_ptr(), kh, kw, kwp, c, cp, n, sig=(w,))
+    qconv_pack.launches += 1
+    if key is not None and not torch.cuda.is_current_stream_capturing():
+        _QCONV_PACKS[key] = (weakref.ref(owner,
+                                         functools.partial(_drop_pack, key)),
+                             version, packed)
+    return packed
+
+
+qconv_pack.launches = 0
+
+
 def qconv(xq: torch.Tensor, wq: torch.Tensor, stride, pads,
           divisor: torch.Tensor, bias=None,
           dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -1492,12 +1636,15 @@ def qconv(xq: torch.Tensor, wq: torch.Tensor, stride, pads,
     bottom), (left, right))``, a 0-d float32 ``divisor`` (``x_scale *
     w_scale``) and an optional float32 ``bias`` ``(N,)`` on one device ->
     ``(acc / divisor + bias)`` as ``dtype`` (float32 or bfloat16), NHWC.  A
-    CUDA tensor launches ``csrc/qconv.cu`` once and counts the launch in
-    ``qconv.launches``; a CPU tensor runs :func:`qconv_plain`."""
+    CUDA tensor launches ``csrc/qconv.cu`` once, as :func:`qconv_plan`
+    says, on ``xq`` with its channels padded to the plan's Cp where C is
+    not that (:func:`qconv_pad_channels`) and on the cached packed weight
+    (:func:`qconv_pack`), and counts the launch in ``qconv.launches`` and
+    its route's in ``qconv.routes``; a CPU tensor runs
+    :func:`qconv_plain`."""
     _qconv_check(xq, wq, stride, pads, divisor, bias, dtype)
     if not _on_cuda("qconv", xq):
         return qconv_plain(xq, wq, stride, pads, divisor, bias, dtype)
-    xq, wq = xq.contiguous(), wq.contiguous()
     kh, kw, c, n = wq.shape
     b, h, w = xq.shape[:3]
     oh, ow = qconv_out_hw((h, w), (kh, kw), stride, pads)
@@ -1505,13 +1652,19 @@ def qconv(xq: torch.Tensor, wq: torch.Tensor, stride, pads,
                       device=xq.device)
     if out.numel() == 0:
         return out
-    _launch("qconv", "qconv", "dt_qconv", xq.device, xq.data_ptr(),
-            wq.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            divisor.data_ptr(), out.data_ptr(), b, h, w, c, kh, kw, n, oh,
-            ow, stride[0], stride[1], pads[0][0], pads[1][0],
-            _DTYPE_CODES[dtype], sig=(xq, wq))
+    plan = qconv_plan(tuple(xq.shape), tuple(wq.shape), stride, pads, dtype)
+    xk = qconv_pad_channels(xq, plan.cp)
+    wp = qconv_pack(wq, plan.cp, plan.kwp)
+    _launch("qconv", "qconv", "dt_qconv", xq.device, xk.data_ptr(),
+            wp.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            divisor.data_ptr(), out.data_ptr(), b, h, w, plan.cp, kh, kw, n,
+            oh, ow, stride[0], stride[1], pads[0][0], pads[1][0],
+            _DTYPE_CODES[dtype], plan.bn, QCONV_ROUTES.index(plan.route),
+            int(plan.vec_out), plan.smem, sig=(xq, wq))
     qconv.launches += 1
+    qconv.routes[plan.route] += 1
     return out
 
 
 qconv.launches = 0
+qconv.routes = dict.fromkeys(QCONV_ROUTES, 0)

@@ -11,6 +11,20 @@ tensor its plain version; both give the JAX functions' results bit for bit
 (the int32 accumulator is exact, the epilogue is the same correctly rounded
 ops in the same order).
 
+On the card the kernel reads each weight as a packed copy (K-major rows,
+``kernels.qconv_pack``), made once and cached while the weight lives and its
+version counter has not moved, so an in-place write to the weight or to any
+view of it is seen on the next call.  Two cases fall outside the cache:
+
+- a weight that is an inference tensor (quantized under
+  ``torch.inference_mode()``) keeps no version counter, so it is packed anew
+  on every call: one more launch and an allocation a call.  Quantize weights
+  under ``torch.no_grad()`` to have their packs cached.
+- a write that bypasses the weight's version counter (through ``.data``,
+  ``set_``, or memory shared with numpy or DLPack) is not seen, and the
+  stale pack is served.  Write a weight through the tensor itself or a view
+  of it, or pass a new tensor.
+
 JAX's type promotion is kept where it shows: ranges given as Python numbers
 make a *weakly typed* scale, so a bfloat16 ``x * scale`` is computed in
 bfloat16; ranges given as arrays or tensors make a float32 scale and the

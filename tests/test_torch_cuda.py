@@ -1859,7 +1859,11 @@ def test_detector_eval_on_card_matches_cpu(cuda, name, size, batch, kw,
 
 #: (batch, H, W, C, kh, kw, N, stride, pads): ResNet-50 v1's stem, a 3x3,
 #: 1x1 and strided 1x1 of its blocks, the head as a 1x1, the quantize
-#: example's MLP, and ragged shapes (C and N off 16, K tails, M tails)
+#: example's MLP (M 1024: 64 -> 128 and its 4-column head), ragged shapes
+#: (C and N off 16, K tails, M tails), and the edges of the wgmma tiling:
+#: M tails past 128-pixel tiles, N tails at BN 64 and 128, K not a
+#: multiple of 32 or 128 (C 16 x 9 taps, C 48), C 1, 3 and 4 (padded to
+#: 16), a strided 1x1 on the gather route
 _QCONV_CASES = [
     (2, 224, 224, 3, 7, 7, 64, (2, 2), ((2, 3), (2, 3))),
     (2, 56, 56, 64, 3, 3, 64, (1, 1), ((1, 1), (1, 1))),
@@ -1871,6 +1875,14 @@ _QCONV_CASES = [
     (3, 9, 11, 5, 3, 2, 7, (2, 1), ((1, 0), (0, 2))),
     (1, 1, 1, 133, 1, 1, 17, (1, 1), ((0, 0), (0, 0))),
     (5, 6, 6, 48, 5, 5, 80, (1, 1), ((2, 2), (2, 2))),
+    (1024, 1, 1, 64, 1, 1, 128, (1, 1), ((0, 0), (0, 0))),
+    (1024, 1, 1, 128, 1, 1, 4, (1, 1), ((0, 0), (0, 0))),
+    (1, 1, 129, 48, 1, 1, 65, (1, 1), ((0, 0), (0, 0))),
+    (4, 64, 66, 32, 1, 1, 200, (1, 1), ((0, 0), (0, 0))),
+    (2, 9, 15, 16, 3, 3, 136, (1, 1), ((1, 1), (1, 1))),
+    (2, 7, 5, 1, 3, 3, 9, (1, 1), ((1, 1), (1, 1))),
+    (3, 8, 8, 4, 2, 2, 24, (2, 2), ((0, 0), (0, 0))),
+    (4, 10, 10, 64, 1, 1, 136, (2, 2), ((0, 0), (0, 0))),
 ]
 
 
@@ -1885,11 +1897,14 @@ def test_qconv_kernel_matches_plain_bitwise(cuda, case, dtype):
                        dtype=torch.int8).to(cuda)
     bias = torch.randn(n, generator=g).to(cuda)
     d = torch.full((), 0.0123, dtype=torch.float32, device=cuda)
+    route = kernels.qconv_plan(x.shape, wt.shape, stride, pads, dtype).route
     for bb in (None, bias):
         before = kernels.qconv.launches
+        routed = kernels.qconv.routes[route]
         got = kernels.qconv(x, wt, stride, pads, d, bb, dtype)
         again = kernels.qconv(x, wt, stride, pads, d, bb, dtype)
         assert kernels.qconv.launches == before + 2
+        assert kernels.qconv.routes[route] == routed + 2
         want = kernels.qconv_plain(x, wt, stride, pads, d, bb, dtype)
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == want.shape
@@ -1900,9 +1915,86 @@ def test_qconv_kernel_matches_plain_bitwise(cuda, case, dtype):
     assert torch.equal(acc, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qconv_epilogue_division_is_exact(cuda, dtype):
+    """The epilogue's division is the correctly rounded one at every
+    divisor a quantized model meets (x_scale * w_scale from 1e-9 to 1e9,
+    either sign, and reciprocals exact in binary) and at accumulators
+    from 0 to ~1e6: bit-equal to the plain version's ``acc / divisor``."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randint(-127, 128, (8, 32, 32, 256), generator=g,
+                      dtype=torch.int8)
+    x[:, :4] = 0  # whole rows of zero accumulators
+    x[:, 4:8, :, 1:] = 0  # small ones: a single product
+    x = x.to(cuda)
+    wt = torch.randint(-127, 128, (1, 1, 256, 64), generator=g,
+                       dtype=torch.int8).to(cuda)
+    nopad = ((0, 0), (0, 0))
+    rng = np.random.RandomState(12)
+    divisors = [float(v) for v in np.geomspace(1e-9, 1e9, 37)
+                * rng.uniform(1, 2, 37)] + [0.25, 3.0, 1.0, 2.0 ** -20]
+    for dv in divisors + [-v for v in divisors[::6]]:
+        d = torch.full((), dv, dtype=torch.float32, device=cuda)
+        got = kernels.qconv(x, wt, (1, 1), nopad, d, None, dtype)
+        want = kernels.qconv_plain(x, wt, (1, 1), nopad, d, None, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), dv
+
+
+@pytest.mark.parametrize("c", [3, 16, 40])
+def test_qconv_pack_matches_plain(cuda, c):
+    """``dt_qconv_pack`` against ``qconv_pack_plain`` (the narrow route's
+    layout at C 3): one launch a weight, none for a second call on a fresh
+    view of it."""
+    g = torch.Generator(device="cpu").manual_seed(c)
+    wt = torch.randint(-127, 128, (3, 3, c, 72), generator=g,
+                       dtype=torch.int8).to(cuda)
+    cp, kwp = (4, 8) if c <= 4 else (-(-c // 16) * 16, 3)
+    before = kernels.qconv_pack.launches
+    got = kernels.qconv_pack(wt.reshape(3, 3, c, 72), cp, kwp)
+    again = kernels.qconv_pack(wt.reshape(3, 3, c, 72), cp, kwp)
+    assert kernels.qconv_pack.launches == before + 1 and again is got
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.qconv_pack_plain(wt, cp, kwp))
+
+
+def test_qconv_pack_cache_never_serves_a_stale_weight(cuda):
+    """The packed copy is made anew after an in-place write to the weight
+    (through a fresh view, as ``quantized_dense`` makes one every call),
+    and a weight freed and another allocated at its address gets its own
+    copy: each call equals the plain version on the weight it was given."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randint(-127, 128, (2, 4, 4, 40), generator=g,
+                      dtype=torch.int8).to(cuda)
+    d = torch.full((), 0.25, device=cuda)
+    nopad = ((0, 0), (0, 0))
+
+    def call(wt):
+        packs = kernels.qconv_pack.launches
+        got = kernels.qconv(x, wt.reshape(1, 1, 40, 24), (1, 1), nopad, d)
+        want = kernels.qconv_plain(x, wt.reshape(1, 1, 40, 24), (1, 1),
+                                   nopad, d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        return kernels.qconv_pack.launches - packs
+
+    wt = torch.randint(-127, 128, (40, 24), generator=g,
+                       dtype=torch.int8).to(cuda)
+    assert call(wt) == 1 and call(wt) == 0
+    wt.reshape(1, 1, 40, 24)[0, 0, 3, 5] = -wt[3, 5] - 1  # in place
+    assert call(wt) == 1 and call(wt) == 0
+    ptr = wt.data_ptr()
+    del wt
+    wt2 = torch.randint(-127, 128, (40, 24), generator=g,
+                        dtype=torch.int8).to(cuda)
+    assert wt2.data_ptr() == ptr  # the allocator's freed block, reused
+    assert call(wt2) == 1
+
+
 def test_qconv_kernel_misaligned_and_sliced_inputs(cuda):
-    """A batch slice starting off a 16-byte boundary (the gather takes the
-    byte path) and a non-contiguous weight view (the wrapper packs it)."""
+    """A batch slice starting off a 16-byte boundary (the wrapper copies it
+    to an aligned tensor with its channels padded to 64) and a
+    non-contiguous weight view (packed from a contiguous copy)."""
     g = torch.Generator(device="cpu").manual_seed(1)
     x = torch.randint(-127, 128, (3, 5, 5, 48), generator=g,
                       dtype=torch.int8).to(cuda)
